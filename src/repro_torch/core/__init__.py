@@ -1,0 +1,24 @@
+"""PPF core on torch: particle ensembles, local resampling, the SIR step
+and the single-device entry points."""
+from repro_torch.core.draws import (BankDraws, ReplayDraws, TorchDraws,
+                                    as_draws)
+from repro_torch.core.filters import (FilterBank, FilterResult,
+                                      ParallelParticleFilter, make_bank_step,
+                                      member_carry)
+from repro_torch.core.particles import (ParticleEnsemble, advance,
+                                        effective_sample_size,
+                                        init_ensemble, log_sum_weights,
+                                        logical_size, normalized_weights,
+                                        reweight, weighted_mean)
+from repro_torch.core.smc import (SIRCarry, SIRConfig, ess_resample,
+                                  make_sir_step, run_sir)
+
+__all__ = [
+    "BankDraws", "ReplayDraws", "TorchDraws", "as_draws",
+    "FilterBank", "FilterResult", "ParallelParticleFilter",
+    "make_bank_step", "member_carry",
+    "ParticleEnsemble", "advance", "effective_sample_size", "init_ensemble",
+    "log_sum_weights", "logical_size", "normalized_weights", "reweight",
+    "weighted_mean",
+    "SIRCarry", "SIRConfig", "ess_resample", "make_sir_step", "run_sir",
+]

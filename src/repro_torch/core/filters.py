@@ -1,0 +1,137 @@
+"""User-facing filter entry points (port of ``repro.core.filters``).
+
+``ParallelParticleFilter`` runs one SIR filter over a frame sequence;
+``FilterBank`` runs B independent filters of one model as one batched
+program, member ``i`` reproducing ``ParallelParticleFilter.run(keys[i],
+observations[i])``.  Both run on the CUDA device unless built with
+``device="cpu"``; with no CUDA device and no explicit ``device`` they
+raise rather than run elsewhere.  The mesh, DRA and domain options wait
+for ROADMAP A8/A9 and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import particles, smc
+from repro_torch.core.draws import BankDraws, as_draws
+
+
+class FilterResult(NamedTuple):
+    """Stacked per-frame outputs plus the posterior ensemble: ``(K, ...)``
+    for one filter, ``(B, K, ...)`` for a bank."""
+
+    estimates: torch.Tensor
+    ess: torch.Tensor
+    log_marginal: torch.Tensor
+    resampled: torch.Tensor
+    ancestors: torch.Tensor
+    diag: dict
+    final: particles.ParticleEnsemble
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the CUDA device, and raises without one."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port's entry points run "
+                               "on the card unless given device='cpu'")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _unported(mesh, dra, domain) -> None:
+    if mesh is not None or dra is not None:
+        raise NotImplementedError("distributed filtering (mesh=, dra=) "
+                                  "waits for ROADMAP A8")
+    if domain is not None:
+        raise NotImplementedError("domain decomposition (domain=) waits "
+                                  "for ROADMAP A9")
+
+
+def _to_device(observations, device) -> torch.Tensor:
+    return torch.as_tensor(observations, dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass
+class ParallelParticleFilter:
+    """SIR particle filter on one device (the reference's local path)."""
+
+    model: Any
+    sir: smc.SIRConfig
+    device: Any = None
+    mesh: Any = None
+    dra: Any = None
+    domain: Any = None
+
+    def __post_init__(self):
+        _unported(self.mesh, self.dra, self.domain)
+        self.device = resolve_device(self.device)
+
+    def run(self, key, observations) -> FilterResult:
+        """Filter a ``(K, ...)`` observation stack.  ``key`` is an int
+        seed, a ``torch.Generator`` or a draws provider."""
+        obs = _to_device(observations, self.device)
+        carry, outs = smc.run_sir(as_draws(key, self.device), self.model,
+                                  self.sir, obs)
+        return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
+                            outs.resampled, outs.ancestors, outs.diag,
+                            carry.ensemble)
+
+
+@dataclasses.dataclass
+class FilterBank:
+    """B independent SIR filters (shared model and config) batched along
+    an explicit leading slot dim; the fused weight phase and the patch
+    likelihood are one kernel launch each for the whole bank."""
+
+    model: Any
+    sir: smc.SIRConfig
+    device: Any = None
+    mesh: Any = None
+    dra: Any = None
+    bank_axis: Any = None
+
+    def __post_init__(self):
+        _unported(self.mesh, self.dra, None)
+        if self.bank_axis is not None:
+            raise NotImplementedError("bank_axis waits for ROADMAP A8")
+        self.device = resolve_device(self.device)
+
+    def run(self, keys, observations) -> FilterResult:
+        """Run every member over its stream.  ``keys`` holds one seed,
+        generator or provider per member; ``observations`` is
+        ``(B, K, ...)``.  Every result field has a leading bank dim."""
+        obs = _to_device(observations, self.device)
+        carry = member_carry([as_draws(k, self.device) for k in keys],
+                             self.model, self.sir)
+        step = make_bank_step(self.model, self.sir)
+        active = torch.ones(obs.shape[0], dtype=torch.bool,
+                            device=self.device)
+        outs = []
+        for k in range(obs.shape[1]):
+            carry, out = step(carry, (obs[:, k], active))
+            outs.append(out)
+        outs = smc.stack_outputs(outs, axis=1)
+        return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
+                            outs.resampled, outs.ancestors, outs.diag,
+                            carry.ensemble)
+
+
+def make_bank_step(model, sir: smc.SIRConfig):
+    """The single-frame bank step ``step(carry, (observations (B, ...),
+    active (B,))) -> (carry, StepOutput)``: the batched SIR step under
+    the per-slot mask (``smc.make_masked_step``)."""
+    return smc.make_masked_step(smc.make_sir_step(model, sir))
+
+
+def member_carry(members, model, sir: smc.SIRConfig) -> smc.SIRCarry:
+    """A fresh ``(B, ...)`` bank carry from one draws provider per
+    member: each member draws its own ensemble exactly as
+    ``smc.run_sir`` would, so member ``i`` continues the trajectory of a
+    standalone filter with the same provider."""
+    draws = BankDraws(members)
+    ens = particles.init_ensemble(draws, model.init, sir.n_particles)
+    return smc.SIRCarry(draws, ens)

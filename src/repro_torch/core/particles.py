@@ -1,0 +1,149 @@
+"""Particle ensembles and weight algebra (port of ``repro.core.particles``).
+
+A ``ParticleEnsemble`` holds ``state`` ``(..., N, *S)``, ``log_weights``
+``(..., N)`` and ``counts`` ``(..., N)``.  The leading dims ``...`` are
+empty for one filter and ``(B,)`` for a ``FilterBank`` — the bank dim is
+written out where the reference ``vmap``s.  Every function here reduces
+over the particle axis (the last axis of ``log_weights``) and broadcasts
+over the leading dims.  The state is one tensor (the reference allows a
+pytree; every model of this slice has a single state matrix).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParticleEnsemble:
+    """A weighted particle ensemble with static capacity.
+
+    Attributes:
+      state: ``(..., N, *S)`` particle states.
+      log_weights: ``(..., N)`` unnormalized log-weights; empty slots
+        carry ``-inf``.
+      counts: ``(..., N)`` int32 multiplicities (``1`` on every live slot
+        of a materialized ensemble).
+    """
+
+    state: torch.Tensor
+    log_weights: torch.Tensor
+    counts: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        """Static slot count ``N``."""
+        return self.log_weights.shape[-1]
+
+    def replace(self, **kw) -> "ParticleEnsemble":
+        """Functional field update (``dataclasses.replace`` shorthand)."""
+        return dataclasses.replace(self, **kw)
+
+
+def init_ensemble(draws, sampler: Callable, n: int, *,
+                  log_weight: float | None = None) -> ParticleEnsemble:
+    """Draw ``n`` particles from ``sampler(draws, n)``, uniformly weighted
+    (``-log n`` by default, rounded once to float32)."""
+    state = sampler(draws, n)
+    if log_weight is None:
+        log_weight = -math.log(n)
+    lead = tuple(draws.batch_shape) + (n,)
+    return ParticleEnsemble(
+        state=state,
+        log_weights=torch.full(lead, log_weight, dtype=torch.float32,
+                               device=state.device),
+        counts=torch.ones(lead, dtype=torch.int32, device=state.device))
+
+
+def _per_particle(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """View ``(..., N)`` weights against ``(..., N, *S)`` state."""
+    return w.reshape(w.shape + (1,) * (x.dim() - w.dim()))
+
+
+# ---------------------------------------------------------------------------
+# Weight algebra (counts-aware)
+# ---------------------------------------------------------------------------
+
+def effective_log_weights(log_weights: torch.Tensor,
+                          counts: torch.Tensor | None) -> torch.Tensor:
+    """Per-slot log-weight with multiplicity folded in (count 0 → -inf)."""
+    if counts is None:
+        return log_weights
+    logc = torch.log(counts.clamp(min=1).to(log_weights.dtype))
+    return log_weights + torch.where(counts > 0, logc,
+                                     torch.full_like(logc, -math.inf))
+
+
+def normalized_weights(log_weights: torch.Tensor,
+                       counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Linear normalized weights; the all ``-inf`` corner gives uniform."""
+    lw = effective_log_weights(log_weights, counts)
+    m = lw.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lw - m)
+    s = w.sum(-1, keepdim=True)
+    return torch.where(s > 0, w / s, torch.ones_like(w) / w.shape[-1])
+
+
+def log_sum_weights(log_weights: torch.Tensor,
+                    counts: torch.Tensor | None = None) -> torch.Tensor:
+    """``log Σ w`` over the particle axis."""
+    return torch.logsumexp(effective_log_weights(log_weights, counts), -1)
+
+
+def effective_sample_size(log_weights: torch.Tensor,
+                          counts: torch.Tensor | None = None) -> torch.Tensor:
+    """``N_eff = 1 / Σ w²`` (Alg. 1 line 15), weight-normalized."""
+    w = normalized_weights(log_weights, counts)
+    return 1.0 / torch.square(w).sum(-1)
+
+
+def weighted_mean(ensemble: ParticleEnsemble) -> torch.Tensor:
+    """MMSE estimate ``Σ w·x`` over the particle axis, as an explicit
+    multiply and sum (the reference's form)."""
+    w = normalized_weights(ensemble.log_weights, ensemble.counts)
+    x = ensemble.state
+    axis = ensemble.log_weights.dim() - 1
+    return (_per_particle(w.to(x.dtype), x) * x).sum(axis)
+
+
+def logical_size(ensemble: ParticleEnsemble) -> torch.Tensor:
+    """Number of logical (multiplicity-expanded) particles."""
+    valid = torch.isfinite(ensemble.log_weights)
+    return torch.where(valid, ensemble.counts,
+                       torch.zeros_like(ensemble.counts)).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# The SIR verbs
+# ---------------------------------------------------------------------------
+
+def gather_particles(x: torch.Tensor, ancestors: torch.Tensor) -> torch.Tensor:
+    """``x[..., ancestors[...], :]``: gather ``(..., N, *S)`` slots by
+    ``(..., M)`` ancestor indices, batched over the leading dims."""
+    lead = ancestors.shape[:-1]
+    b = math.prod(lead)
+    n = x.shape[len(lead)]
+    feat = x.shape[len(lead) + 1:]
+    xf = x.reshape((b, n) + feat)
+    af = ancestors.reshape(b, -1).long()
+    rows = torch.arange(b, device=x.device)[:, None]
+    return xf[rows, af].reshape(lead + (ancestors.shape[-1],) + feat)
+
+
+def advance(ensemble: ParticleEnsemble, draws,
+            dynamics_sample: Callable) -> ParticleEnsemble:
+    """Propagate every particle through the dynamics (proposal) kernel."""
+    return ensemble.replace(state=dynamics_sample(draws, ensemble.state))
+
+
+def reweight(ensemble: ParticleEnsemble,
+             log_lik: torch.Tensor) -> ParticleEnsemble:
+    """Multiply the likelihood into the weights (Alg. 1 line 9); a dead
+    (``-inf``) slot stays dead."""
+    lw = ensemble.log_weights
+    return ensemble.replace(log_weights=torch.where(
+        torch.isfinite(lw), lw + log_lik, torch.full_like(lw, -math.inf)))

@@ -1,0 +1,257 @@
+"""Sequential importance resampling, paper Alg. 1 (port of
+``repro.core.smc``, single-device part).
+
+A step is ``step(carry, observation) -> (carry, StepOutput)`` over a
+``SIRCarry(draws, ensemble)``: the draws provider takes the place of the
+reference's PRNG key and hands out the step's draws in the reference's
+order (the dynamics normals, then the comb uniform).  Every step is
+batched over the ensemble's leading dims, so a ``FilterBank`` runs the
+same step on a ``(B, N, ...)`` ensemble with a ``BankDraws`` provider.
+``run_sir`` replaces ``lax.scan`` with a Python loop over frames.
+
+The distributed (per-shard) step waits for ROADMAP A8.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import particles, resampling
+from repro_torch.core.particles import ParticleEnsemble, effective_sample_size
+from repro_torch.kernels import sir_fused
+
+
+@dataclasses.dataclass(frozen=True)
+class SIRConfig:
+    """SIR filter knobs (paper Alg. 1), as in the reference.
+
+    ``step_backend="fused"`` runs the weight phase through
+    ``repro_torch.kernels.sir_fused`` (the Hopper kernel on the card);
+    configs the fused step cannot honor (a comb-only resampler such as
+    ``stratified``, ancestry recording, an ``estimate_state`` or
+    ``gather_state`` model hook) fall back to the composed step, as in
+    the reference.  The fused step with ``metropolis``/``rejection``
+    raises until their kernels are ported.  The reference's
+    ``fused_backend`` has no counterpart: the port chooses the kernel or
+    its plain version by the tensors' device.
+    """
+
+    n_particles: int = 4096
+    resampler: str = "systematic"
+    ess_frac: float = 0.5
+    always_resample: bool = False
+    step_backend: str = "composed"
+    record_ancestry: bool = False
+
+
+class SIRCarry(NamedTuple):
+    """Carry of every SIR step: the draws provider + the ensemble."""
+
+    draws: Any
+    ensemble: ParticleEnsemble
+
+
+class StepOutput(NamedTuple):
+    """Per-frame outputs of one SIR step (leading dims follow the
+    ensemble's)."""
+
+    estimate: torch.Tensor
+    ess: torch.Tensor
+    log_marginal: torch.Tensor
+    resampled: torch.Tensor
+    ancestors: torch.Tensor      # (..., N) when recording, else (..., 0)
+    diag: dict
+
+
+class ResampleDecision(NamedTuple):
+    """Outcome of ``ess_resample`` — Alg. 1 lines 15–18."""
+
+    ancestors: torch.Tensor
+    ess: torch.Tensor
+    log_z: torch.Tensor
+    resampled: torch.Tensor
+
+
+def no_ancestors(lead: tuple = (), device=None) -> torch.Tensor:
+    """The width-0 int32 ancestors placeholder when recording is off."""
+    return torch.zeros(tuple(lead) + (0,), dtype=torch.int32, device=device)
+
+
+def ess_resample(draws, log_weights: torch.Tensor, *, ess_frac: float,
+                 resampler: str = "systematic",
+                 always: bool = False) -> ResampleDecision:
+    """ESS check + conditional resample; the ancestors are the identity
+    where the threshold is not hit (the resample still runs)."""
+    n = log_weights.shape[-1]
+    ess = effective_sample_size(log_weights)
+    log_z = torch.logsumexp(log_weights, -1)
+    resampled = torch.logical_or(ess < ess_frac * n, torch.tensor(
+        bool(always), device=ess.device))
+    counts = resampling.RESAMPLERS[resampler](draws, log_weights, n,
+                                              capacity=n)
+    ancestors = resampling.counts_to_ancestors(counts, n)
+    lane = torch.arange(n, dtype=ancestors.dtype, device=ancestors.device)
+    ancestors = torch.where(resampled[..., None], ancestors,
+                            lane.expand(ancestors.shape))
+    return ResampleDecision(ancestors, ess, log_z, resampled)
+
+
+def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """View per-member ``v`` ``(...)`` against ``like`` ``(..., *rest)``."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
+def make_sir_step(model, cfg: SIRConfig):
+    """Build the single-device SIR step (Alg. 1 lines 5–18) for any
+    ``StateSpaceModel``.  ``step_backend="fused"`` delegates the weight
+    phase to ``repro_torch.kernels.sir_fused`` with the reference's
+    fallbacks; see ``SIRConfig``."""
+    est_fn = getattr(model, "estimate_state", None)
+    emit_fn = getattr(model, "emission", None)
+    gather_fn = getattr(model, "gather_state", None)
+    if cfg.step_backend == "fused" and cfg.resampler in \
+            sir_fused.UNPORTED_RESAMPLERS:
+        raise NotImplementedError(
+            f"step_backend='fused' with resampler={cfg.resampler!r} waits "
+            f"for its Hopper kernel (ROADMAP B4/B5)")
+    if (cfg.step_backend == "fused"
+            and sir_fused.fused_applicable(cfg.resampler)
+            and not cfg.record_ancestry and est_fn is None
+            and gather_fn is None):
+        return _make_fused_sir_step(model, cfg)
+    if cfg.resampler in resampling.COLLECTIVE_FREE:
+        raise NotImplementedError(
+            f"resampler={cfg.resampler!r} waits for its Hopper kernel "
+            f"(ROADMAP B4/B5)")
+    n = cfg.n_particles
+
+    def gather(state, ancestors):
+        if gather_fn is not None:
+            return gather_fn(state, ancestors)
+        return particles.gather_particles(state, ancestors)
+
+    def step(carry: SIRCarry, observation):
+        draws, ens = carry
+        ens = particles.advance(ens, draws, model.transition_sample)
+        ens = particles.reweight(ens, model.observation_log_prob(
+            ens.state, observation))
+        est_ens = ens if est_fn is None else ens.replace(
+            state=est_fn(ens.state))
+        estimate = particles.weighted_mean(est_ens)
+        dec = ess_resample(draws, ens.log_weights, ess_frac=cfg.ess_frac,
+                           resampler=cfg.resampler,
+                           always=cfg.always_resample)
+        state = gather(ens.state, dec.ancestors)
+        skew = n * torch.exp(ens.log_weights.amax(-1) - dec.log_z)
+        diag = {"weight_skew": skew}
+        lead = ens.log_weights.shape[:-1]
+        if cfg.record_ancestry:
+            diag["emission"] = (ens.state if emit_fn is None
+                                else emit_fn(ens.state))
+            diag["log_weights"] = ens.log_weights - dec.log_z[..., None]
+            ancestors = dec.ancestors
+        else:
+            ancestors = no_ancestors(lead, ens.log_weights.device)
+        # logsumexp(lw) == 0 entering every step, so log_z IS the
+        # marginal-likelihood increment log p(z_k | Z^{k-1})
+        lw = torch.where(dec.resampled[..., None],
+                         torch.full_like(ens.log_weights, -math.log(n)),
+                         ens.log_weights - dec.log_z[..., None])
+        ens = ens.replace(state=state, log_weights=lw)
+        out = StepOutput(estimate, dec.ess, dec.log_z, dec.resampled,
+                         ancestors, diag)
+        return SIRCarry(draws, ens), out
+
+    return step
+
+
+def _make_fused_sir_step(model, cfg: SIRConfig):
+    """The fused-backend step: advance, one likelihood call, then the
+    whole weight phase in ``sir_fused.fused_weight_step`` and the
+    resampling gather of the decision it returns."""
+
+    def step(carry: SIRCarry, observation):
+        draws, ens = carry
+        ens = particles.advance(ens, draws, model.transition_sample)
+        ll = model.observation_log_prob(ens.state, observation)
+        u = draws.uniform(())
+        dec = sir_fused.fused_weight_step(
+            ens.log_weights, ll, ens.state, u, resampler=cfg.resampler,
+            ess_frac=cfg.ess_frac, always=cfg.always_resample)
+        state = particles.gather_particles(ens.state, dec.ancestors)
+        ens = ens.replace(state=state, log_weights=dec.new_log_weights)
+        lead = ens.log_weights.shape[:-1]
+        out = StepOutput(dec.estimate, dec.ess, dec.log_z, dec.resampled,
+                         no_ancestors(lead, ens.log_weights.device),
+                         {"weight_skew": dec.weight_skew})
+        return SIRCarry(draws, ens), out
+
+    return step
+
+
+def stack_outputs(outs: list[StepOutput], axis: int = 0) -> StepOutput:
+    """Stack per-frame outputs along a new time axis (what ``lax.scan``
+    does to the reference's outputs)."""
+    diag = {k: torch.stack([o.diag[k] for o in outs], axis)
+            for k in outs[0].diag}
+    return StepOutput(*(torch.stack([getattr(o, f) for o in outs], axis)
+                        for f in ("estimate", "ess", "log_marginal",
+                                  "resampled", "ancestors")), diag)
+
+
+def run_sir(draws, model, cfg: SIRConfig,
+            observations) -> tuple[SIRCarry, StepOutput]:
+    """Run the filter over a stacked observation sequence ``(K, ...)``:
+    init draws first, then each frame's draws — the reference's key
+    order (``split(key)`` into init and run streams)."""
+    ens = particles.init_ensemble(draws, model.init, cfg.n_particles)
+    step = make_sir_step(model, cfg)
+    carry = SIRCarry(draws, ens)
+    outs = []
+    for k in range(len(observations)):
+        carry, out = step(carry, observations[k])
+        outs.append(out)
+    return carry, stack_outputs(outs)
+
+
+# ---------------------------------------------------------------------------
+# Per-slot masking (resident banks)
+# ---------------------------------------------------------------------------
+
+def neutral_output(out: StepOutput, active: torch.Tensor) -> StepOutput:
+    """Zero a step's outputs wherever ``active`` (``(B,)`` bool) is False;
+    ``resampled`` becomes False."""
+    def zero(x):
+        return torch.where(_bcast(active, x), x, torch.zeros_like(x))
+
+    return StepOutput(*(zero(getattr(out, f)) for f in (
+        "estimate", "ess", "log_marginal", "resampled", "ancestors")),
+        {k: zero(v) for k, v in out.diag.items()})
+
+
+def make_masked_step(step):
+    """Wrap a batched SIR step with a per-slot activity gate.
+
+    ``masked(carry, (observation, active))`` runs ``step`` on every slot,
+    then selects: an active slot takes the new ensemble and real outputs,
+    an inactive slot keeps its ensemble bit for bit and emits zeros.  The
+    carry's draws must be a ``BankDraws`` over the slots; an inactive
+    member is not asked for draws, so its stream stays frozen too.
+    """
+
+    def masked(carry: SIRCarry, xs):
+        observation, active = xs
+        draws = carry.draws
+        draws.active = [bool(a) for a in active.tolist()]
+        new_carry, out = step(carry, observation)
+        old, new = carry.ensemble, new_carry.ensemble
+        ens = ParticleEnsemble(*(
+            torch.where(_bcast(active, getattr(new, f)), getattr(new, f),
+                        getattr(old, f))
+            for f in ("state", "log_weights", "counts")))
+        return SIRCarry(draws, ens), neutral_output(out, active)
+
+    return masked

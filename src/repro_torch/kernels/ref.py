@@ -1,0 +1,81 @@
+"""Plain torch versions of the kernels (port of ``repro.kernels.ref``).
+
+The ground truth the CUDA kernels are held against on the card, and what
+the kernel ops run for tensors that lie on the CPU.  Written the most
+obvious way, batched over any leading dims.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def default_geometry(radius: int, h: int, w: int, center_bounds=None,
+                     frame_origin=None) -> tuple[int, ...]:
+    """The ``(lo_y, hi_y, lo_x, hi_x, oy, ox)`` patch geometry: the
+    centre clamp defaults to the frame interior ``[R, dim-1-R]`` and the
+    frame origin of ``image[0, 0]`` to ``(0, 0)``."""
+    if center_bounds is None:
+        center_bounds = (radius, h - 1 - radius, radius, w - 1 - radius)
+    if frame_origin is None:
+        frame_origin = (0, 0)
+    geom = tuple(int(v) for v in center_bounds) + tuple(
+        int(v) for v in frame_origin)
+    if len(geom) != 6:
+        raise ValueError(f"center_bounds/frame_origin must give 4 + 2 "
+                         f"integers, got {geom}")
+    return geom
+
+
+def patch_log_likelihood_ref(y: torch.Tensor, x: torch.Tensor,
+                             i0: torch.Tensor, image: torch.Tensor, *,
+                             radius: int = 4, sigma_psf: float = 1.16,
+                             sigma_like: float = 2.0, i_bg: float = 0.0,
+                             matched: bool = True, center_bounds=None,
+                             frame_origin=None) -> torch.Tensor:
+    """``(..., N)`` Gaussian-PSF patch log-likelihoods.
+
+    ``y``, ``x``, ``i0`` are ``(..., N)`` and ``image`` is ``(..., H, W)``
+    with the same leading dims.  Each particle's centre is rounded half
+    to even (``torch.round``, as ``jnp.round``), clamped to the centre
+    bounds, and its ``(2R+1)²`` window is gathered at an offset of
+    ``frame_origin``; positions, centres and the PSF stay in frame
+    coordinates.
+    """
+    h, w = image.shape[-2:]
+    lo_y, hi_y, lo_x, hi_x, oy, ox = default_geometry(
+        radius, h, w, center_bounds, frame_origin)
+    r = torch.arange(-radius, radius + 1, device=y.device)
+    dy, dx = torch.meshgrid(r, r, indexing="ij")
+    dy, dx = dy.reshape(-1), dx.reshape(-1)                    # (K,)
+    cy = torch.round(y).to(torch.int64).clamp(lo_y, hi_y)
+    cx = torch.round(x).to(torch.int64).clamp(lo_x, hi_x)
+    py = cy[..., None] + dy                                     # (..., N, K)
+    px = cx[..., None] + dx
+    flat = image.reshape(image.shape[:-2] + (h * w,))
+    idx = ((py - oy) * w + (px - ox)).reshape(py.shape[:-2] + (-1,))
+    patch = torch.gather(flat, -1, idx).reshape(py.shape)
+    d2 = (py.to(y.dtype) - y[..., None]) ** 2 + (
+        px.to(x.dtype) - x[..., None]) ** 2
+    model = i0[..., None] * torch.exp(-d2 / (2.0 * sigma_psf ** 2)) + i_bg
+    if matched:
+        val = (patch * model).sum(-1) - 0.5 * (model * model).sum(-1)
+    else:
+        val = -0.5 * ((patch - model) ** 2).sum(-1)
+    return val / (sigma_like ** 2)
+
+
+def systematic_ancestors_ref(log_weights: torch.Tensor, u: torch.Tensor,
+                             n_out: int) -> torch.Tensor:
+    """``(..., n_out)`` systematic-resampling ancestors for offsets
+    ``u`` in [0, 1) (one per leading index)."""
+    lw = log_weights - log_weights.amax(-1, keepdim=True)
+    w = torch.exp(lw)
+    w = w / w.sum(-1, keepdim=True)
+    cdf = torch.cumsum(w, -1)
+    u = torch.as_tensor(u, dtype=log_weights.dtype, device=lw.device)
+    pts = (torch.arange(n_out, dtype=log_weights.dtype, device=lw.device)
+           + u[..., None]) / n_out
+    anc = torch.searchsorted(cdf.contiguous(),
+                             pts.expand(cdf.shape[:-1] + (n_out,))
+                             .contiguous(), right=True)
+    return anc.clamp(0, log_weights.shape[-1] - 1).to(torch.int32)

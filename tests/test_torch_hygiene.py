@@ -1,0 +1,121 @@
+"""Import hygiene and device rules of the torch port.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or anything of ``repro`` (an AST scan of every import).
+* Importing the port builds nothing and loads no CUDA library.
+* Entry points run on the CUDA device by default and raise without one;
+  the options of later slices raise ``NotImplementedError``.
+* The config converters carry the reference's fields across, and refuse
+  a forced ``fused_backend``, which the port does not honor.
+"""
+import ast
+import dataclasses
+import importlib
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+from repro.core import SIRConfig as RefSIR
+from repro.models import tracking as jtracking
+from repro_torch import convert
+from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
+from repro_torch.kernels import build
+from repro_torch.models.tracking import TrackingConfig, TrackingSSM
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_the_port_builds_nothing():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
+    assert not build._LIBS
+    assert sorted(p.name for p in build.sources()) == [
+        "patch_likelihood.cu", "sir_fused.cu"]
+    assert len(build.source_hash()) == 16
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParallelParticleFilter(model, SIRConfig(n_particles=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FilterBank(model, SIRConfig(n_particles=8))
+    pf = ParallelParticleFilter(model, SIRConfig(n_particles=8),
+                                device="cpu")
+    assert pf.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("option", ["mesh", "dra", "domain"])
+def test_later_slices_raise(option):
+    model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        ParallelParticleFilter(model, SIRConfig(n_particles=8),
+                               device="cpu", **{option: object()})
+
+
+@pytest.mark.parametrize("backend", ["composed", "fused"])
+@pytest.mark.parametrize("scheme", ["metropolis", "rejection"])
+def test_chain_resamplers_raise_instead_of_falling_back(backend, scheme):
+    model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
+    pf = ParallelParticleFilter(model, SIRConfig(
+        n_particles=8, resampler=scheme, step_backend=backend), device="cpu")
+    with pytest.raises(NotImplementedError, match="B4/B5"):
+        pf.run(0, torch.zeros(2, 16, 16))
+
+
+def test_fused_falls_back_to_composed_for_comb_schemes():
+    """A comb-only resampler under ``step_backend="fused"`` takes the
+    composed step, as the reference's config fallback does."""
+    model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
+    frames = torch.randn(3, 16, 16, generator=torch.Generator().manual_seed(0))
+    runs = [ParallelParticleFilter(model, SIRConfig(
+        n_particles=64, resampler="stratified", step_backend=b),
+        device="cpu").run(5, frames) for b in ("fused", "composed")]
+    assert torch.equal(runs[0].estimates, runs[1].estimates)
+
+
+def test_converters_carry_reference_fields():
+    jcfg = jtracking.TrackingConfig(img_size=(48, 40), sigma_like=1.5,
+                                    likelihood_form="eq4")
+    assert dataclasses.asdict(convert.tracking_config(
+        dataclasses.asdict(jcfg))) == dataclasses.asdict(jcfg)
+    jsir = RefSIR(n_particles=128, resampler="residual", ess_frac=0.3,
+                  step_backend="fused")
+    want = dataclasses.asdict(jsir)
+    assert want.pop("fused_backend") is None
+    assert dataclasses.asdict(convert.sir_config(
+        dataclasses.asdict(jsir))) == want
+    with pytest.raises(ValueError, match="fused_backend"):
+        convert.sir_config(dataclasses.asdict(
+            dataclasses.replace(jsir, fused_backend="jnp")))
+    ens = convert.ensemble_from_numpy(np.ones((4, 5)), np.zeros(4),
+                                      np.ones(4))
+    assert ens.state.dtype == torch.float32
+    assert ens.counts.dtype == torch.int32 and ens.capacity == 4
