@@ -21,6 +21,13 @@
    to find the spot at SNR 2 (each run's lock-on frame is printed);
 5. runs the composed default config for 8 frames through the patch
    kernel;
+5b. runs the single filter at N = 2^22 on the same 512×512 movie with the
+   collective-free resamplers (fused step, ``metropolis`` and
+   ``rejection``), through the patch, fused and chain kernels;
+5c. runs the paper's distributed filter on an emulated 8-shard mesh,
+   8 × 2^22 = 2^25 particles over the same movie, for MPF, RNA and RPA,
+   and checks tracking, repeatability, the comm accounting against the
+   analytic formulas and the kernels it launched;
 6. times each kernel and its plain version (median of 20 CUDA-event
    timed launches) beside the kernel's bound, and the end-to-end frames/s.
 
@@ -194,18 +201,19 @@ def fused_inputs(b, n, seed, dev, d=5):
     return lw, ll, state, u
 
 
-def comb_ties_ok(anc_k, anc_p, w, u) -> int:
+def comb_ties_ok(anc_k, anc_p, w, u) -> tuple[int, float]:
     """Ancestors must agree except where the comb point lies within
     TIE_DELTA of the float64 CDF at both disagreeing boundaries: two f32
     scans summed in different orders differ by a few ulp of 1, and at
     N = 2^22 one ulp (6e-8) is a quarter of the comb spacing, so many
-    lanes may fall on either side.  Returns the number of tie lanes."""
+    lanes may fall on either side.  Returns the number of tie lanes and
+    the largest such distance (CDF units)."""
     import torch
     b, i = (anc_k != anc_p).nonzero(as_tuple=True)
     if b.numel() == 0:
-        return 0
+        return 0, 0.0
     cdf64 = torch.cumsum(w.double(), -1)
-    n = w.shape[-1]
+    n = anc_k.shape[-1]                  # comb points (n_out)
     lo = torch.minimum(anc_k[b, i], anc_p[b, i]).long()
     hi = torch.maximum(anc_k[b, i], anc_p[b, i]).long()
     pos = ((i.float() + u.float()[b]) / n).double()
@@ -214,7 +222,7 @@ def comb_ties_ok(anc_k, anc_p, w, u) -> int:
     worst = float(off.max())
     check(worst <= TIE_DELTA, f"ancestor mismatch off a CDF tie: "
                               f"{worst:.3g} from the float64 CDF")
-    return int(b.numel())
+    return int(b.numel()), worst
 
 
 def comb_offset(anc, w, u, resampled) -> float:
@@ -227,12 +235,12 @@ def comb_offset(anc, w, u, resampled) -> float:
     if not bool(resampled.any()):
         return 0.0
     anc, w, u = anc[resampled].long(), w[resampled], u[resampled]
-    n = w.shape[-1]
+    n, n_out = w.shape[-1], anc.shape[-1]
     cdf64 = torch.cumsum(w.double(), -1)
     # the comb point in f32 exactly as the reference computes it, so the
     # offset measures the CDF's error, not the comb's f32 rounding
-    pos = ((torch.arange(n, device=w.device, dtype=torch.float32)
-            + u.float()[:, None]) / n).double()
+    pos = ((torch.arange(n_out, device=w.device, dtype=torch.float32)
+            + u.float()[:, None]) / n_out).double()
     below = torch.where(anc > 0, cdf64.gather(-1, (anc - 1).clamp(min=0)),
                         torch.zeros_like(pos))
     above = torch.where(anc < n - 1, cdf64.gather(-1, anc),
@@ -267,7 +275,7 @@ def check_fused(dev) -> dict:
         lwp = torch.where(torch.isfinite(lw), lw + ll,
                           torch.full_like(lw, -math.inf))
         w = torch.softmax(lwp.double(), -1).nan_to_num(1.0 / lw.shape[1])
-        t = comb_ties_ok(anc, ref.ancestors, w, u)
+        t, _ = comb_ties_ok(anc, ref.ancestors, w, u)
         ties += t
         worst = max(worst, *errs)
         comb_members = ref.resampled & comb
@@ -311,6 +319,102 @@ def check_fused(dev) -> dict:
             "comb_offset": offsets}
 
 
+def check_systematic(dev) -> dict:
+    """B1 against its plain version: ancestors within the comb rules of
+    the fused check (TIE_DELTA against the plain version, COMB_TOL
+    against the float64 CDF's comb), bit for bit on a second run, a
+    member independent of B; at the DRA shape 8 x 2^22 and at n_out != n_in
+    with a ragged tail.  The reported error is in CDF units: the largest
+    distance of a comb point where kernel and plain version disagree
+    from the float64 CDF (limit TIE_DELTA)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.resample import systematic_ancestors_kernel
+
+    ties, worst, offsets = 0, 0.0, {"kernel": 0.0, "plain": 0.0}
+    cases = [(8, 2 ** 22, 2 ** 22, 31), (2, 2 ** 20 + 333, 2 ** 19, 32),
+             (2, 2 ** 19, 2 ** 20 + 77, 33)]
+    for b, n_in, n_out, seed in cases:
+        lw, ll, _, u = fused_inputs(b, n_in, seed, dev, d=1)
+        lw = lw + ll                      # a filter's post-likelihood weights
+        anc = systematic_ancestors_kernel(lw, u, n_out)
+        again = systematic_ancestors_kernel(lw, u, n_out)
+        check(same_bits(anc, again), f"B1 not repeatable {b}x{n_in}")
+        plain = ref.systematic_ancestors_ref(lw, u, n_out)
+        w = torch.softmax(lw.double(), -1)
+        t, dist = comb_ties_ok(anc, plain, w, u)
+        ties, worst = ties + t, max(worst, dist)
+        every = torch.ones(b, dtype=torch.bool, device=dev)
+        off = {"kernel": comb_offset(anc, w, u, every),
+               "plain": comb_offset(plain, w, u, every)}
+        check(off["kernel"] <= COMB_TOL,
+              f"B1 {b}x{n_in}->{n_out}: kernel ancestors {off['kernel']:.3g}"
+              f" from the float64 CDF's comb (limit {COMB_TOL})")
+        check(bool((anc >= 0).all() and (anc < n_in).all()),
+              "B1 ancestors out of range")
+        for k in offsets:
+            offsets[k] = max(offsets[k], off[k])
+        solo = systematic_ancestors_kernel(lw[1:2].contiguous(),
+                                           u[1:2].contiguous(), n_out)
+        check(same_bits(solo[0], anc[1]), "B1 member depends on the batch")
+        log(f"B1 B={b} n_in={n_in} n_out={n_out}: tie lanes={t} "
+            f"({t / anc.numel():.4%}); comb offset from the float64 CDF: "
+            f"kernel {off['kernel']:.3g}, plain {off['plain']:.3g}")
+    return {"max_abs_err": worst, "tie_lanes": ties, "comb_offset": offsets}
+
+
+def chain_inputs(b, n, seed, dev, iters=32):
+    """Post-likelihood log-weights and the chains' draws; member 0 of a
+    bank is all -inf, member 1 has all its mass on one slot, member 2
+    half its slots dead, and a lone member some dead slots."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lw = 3.0 * torch.randn((b, n), generator=g, device=dev)
+    dead = torch.rand((b, n), generator=g, device=dev)
+    if b == 1:
+        lw[dead < 0.1] = -math.inf
+    else:
+        lw[0] = -math.inf
+        lw[1] = -math.inf
+        lw[1, n // 3] = 0.0
+        lw[2][dead[2] < 0.5] = -math.inf
+    prop = torch.randint(n, (b, n, iters), generator=g, device=dev,
+                         dtype=torch.int32)
+    log_us = torch.log(torch.rand((b, n, iters), generator=g, device=dev))
+    return lw, prop, log_us
+
+
+def check_chains(dev) -> dict:
+    """B4 and B5 against their plain versions, bit for bit, at 1 x 2^22 and
+    8 x 2^20 (dead slots, an all -inf member, a one-hot member), twice."""
+    import torch
+    from repro_torch.kernels import resample
+
+    for b, n, seed in [(1, 2 ** 22, 41), (8, 2 ** 20, 42)]:
+        lw, prop, log_us = chain_inputs(b, n, seed, dev)
+        for name in ("metropolis", "rejection"):
+            kern = getattr(resample, f"{name}_ancestors_kernel")
+            plain = getattr(resample, f"{name}_ancestors_ref")
+            anc = kern(lw, prop, log_us)
+            check(same_bits(anc, kern(lw, prop, log_us)),
+                  f"{name} kernel not repeatable {b}x{n}")
+            want = plain(lw, prop, log_us)
+            bad = int((anc != want).sum())
+            check(bad == 0, f"{name} kernel differs from its plain version "
+                            f"on {bad} lanes ({b}x{n})")
+            if b > 1:
+                check(bool((anc[0] == 0).all()),
+                      f"{name}: all -inf member must take slot 0")
+                check(bool((anc[1] == n // 3).all()),
+                      f"{name}: one-hot member must take its hot slot")
+            alive = torch.isfinite(lw.gather(-1, anc.long()))
+            check(bool(alive[b > 1:].all()), f"{name}: lane on a dead slot")
+            log(f"{name} B={b} N={n}: bitwise equal to the plain version, "
+                f"repeatable")
+    return {"max_abs_err": 0.0}
+
+
 # ---------------------------------------------------------------------------
 # Bounds and timings
 # ---------------------------------------------------------------------------
@@ -335,6 +439,42 @@ def fused_bound(b, n, d, resampled: int) -> tuple[float, str]:
     ops = b * n * (10 + 2 * d) + resampled * n * math.ceil(math.log2(n)) * 3
     t_b, t_o = bytes_ / PEAK_BYTES, ops / PEAK_FP32
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def systematic_bound(b, n_in, n_out) -> tuple[float, str]:
+    """Least time: read lw (4 B) per input and write anc (4 B) per output
+    once; per input ~4 FP32 operations (shift, exp, divide, scan add),
+    per output the comb point (2) and a ceil(log2(n_in+1))-step bisection
+    of 3 operations a step.  The CDF scratch is not counted: it is the
+    kernel's choice, not the function's."""
+    bytes_ = b * (n_in + n_out) * 4
+    ops = b * (4 * n_in + n_out * (2 + 3 * math.ceil(math.log2(n_in + 1))))
+    t_b, t_o = bytes_ / PEAK_BYTES, ops / PEAK_FP32
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def chain_bound(b, n_in, n_out, iters) -> tuple[float, str]:
+    """Least time: read lw once and each lane's (iters) int32 proposals
+    and f32 log-us, write one int32 per lane — (8 iters + 4) B per lane;
+    3 operations per draw (subtract, compare, select)."""
+    bytes_ = b * (n_in * 4 + n_out * (8 * iters + 4))
+    ops = b * n_out * iters * 3
+    t_b, t_o = bytes_ / PEAK_BYTES, ops / PEAK_FP32
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def comm_formulas(kind, p, c, cfg, state_bytes, estimate_bytes):
+    """The reference's analytic comm accounting (repro/core/distributed.py,
+    DESIGN.md §14.3) per frame and shard, plus the SIR step's weight-phase
+    collectives (12 B + the estimate, 4 rounds; repro/core/smc.py)."""
+    if kind == "mpf":
+        dra = (4, 1)
+    elif kind == "rna":
+        m = max(int(round(cfg.exchange_ratio * c)), 1)
+        dra = (4 + m * (state_bytes + 4), 2)
+    else:
+        dra = (4 + p * cfg.k_cap * (state_bytes + 8), 2)
+    return dra[0] + 12 + estimate_bytes, dra[1] + 4
 
 
 def make_movie(seed, cfg, dev):
@@ -386,8 +526,15 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.patch_likelihood import \
         patch_log_likelihood_kernel as patch_k
+    from repro_torch.kernels import resample
+    from repro_torch.kernels.resample import \
+        systematic_ancestors_kernel as sys_k, \
+        metropolis_ancestors_kernel as metro_k, \
+        rejection_ancestors_kernel as rej_k
     from repro_torch.kernels.sir_fused import \
         fused_weight_step_kernel as fused_k, fused_weight_step_ref
+    from repro_torch.core.distributed import DRAConfig
+    from repro_torch.core.runtime import EmulatedMesh
     from repro_torch.models.tracking import TrackingConfig, TrackingSSM
 
     t_start = time.perf_counter()
@@ -409,15 +556,19 @@ def main() -> int:
     # -- phase 2 -------------------------------------------------------------
     patch_check = check_patch(dev)
     fused_check = check_fused(dev)
+    sys_check = check_systematic(dev)
+    chain_check = check_chains(dev)
+    all_k = {"patch_log_likelihood": patch_k, "fused_weight_step": fused_k,
+             "systematic_ancestors": sys_k, "metropolis_ancestors": metro_k,
+             "rejection_ancestors": rej_k}
 
     def reset():
-        patch_k.launches = 0
-        fused_k.launches = 0
+        for k in all_k.values():
+            k.launches = 0
 
-    def counts():
+    def counts(names=("patch_log_likelihood", "fused_weight_step")):
         torch.cuda.synchronize()
-        return {"patch_log_likelihood": patch_k.launches,
-                "fused_weight_step": fused_k.launches}
+        return {n: all_k[n].launches for n in names}
 
     # -- phase 3: single filter at the paper's §VII.C frame ------------------
     cfg = TrackingConfig()
@@ -506,6 +657,109 @@ def main() -> int:
           f"composed launches {launches_comp}")
     check(bool(torch.isfinite(cres.estimates).all()), "composed non-finite")
     log(f"composed N=2^20 8 frames: launches {launches_comp}")
+    check(not any(counts(list(all_k)[2:]).values()),
+          "composed systematic run launched a resample kernel")
+
+    # -- phase 5b: collective-free resamplers at full width -------------------
+    chain_runs = {}
+    for scheme, kname in (("metropolis", "metropolis_ancestors"),
+                          ("rejection", "rejection_ancestors")):
+        cpf = ParallelParticleFilter(model=model, sir=SIRConfig(
+            n_particles=n_single, ess_frac=0.5, step_backend="fused",
+            resampler=scheme))
+        reset()
+        t0 = time.perf_counter()
+        cres = cpf.run(1, movie.frames)
+        got = counts(all_k)
+        t_first = time.perf_counter() - t0
+        want = {k: 0 for k in all_k}
+        want.update({"patch_log_likelihood": FRAMES,
+                     "fused_weight_step": FRAMES, kname: FRAMES})
+        check(got == want, f"{scheme} filter launches {got}")
+        t0 = time.perf_counter()
+        cres2 = cpf.run(1, movie.frames)
+        torch.cuda.synchronize()
+        fps = FRAMES / (time.perf_counter() - t0)
+        check(same_bits(cres.estimates, cres2.estimates)
+              and same_bits(cres.final.state, cres2.final.state),
+              f"{scheme} filter not repeatable")
+        check(bool(torch.isfinite(cres.ess).all()
+                   and torch.isfinite(cres.log_marginal).all()),
+              f"{scheme}: non-finite ESS / log-marginal")
+        tr = track(cres, movie)
+        gate_tracks([tr], f"{scheme} filter")
+        chain_runs[scheme] = {"launches": got[kname], "track": tr,
+                              "frames_per_s": fps,
+                              "first_run_frames_per_s": FRAMES / t_first,
+                              "resampled": int(cres.resampled.sum())}
+        log(f"{scheme} filter N=2^22 512x512 fused, seed 0: RMSE "
+            f"{tr['rmse']:.4f} px after {WARMUP} (after 10: "
+            f"{tr['rmse_after_10']:.4f}, lock-on frame {tr['lock_frame']}),"
+            f" resampled {int(cres.resampled.sum())}/{FRAMES}, launches "
+            f"{got}, {fps:.2f} frames/s steady ({FRAMES / t_first:.2f} "
+            f"first run) [{name}]")
+        del cres, cres2
+
+    # -- phase 5c: the distributed filter on an emulated 8-shard mesh --------
+    p_mesh, c_mesh = 8, 2 ** 22
+    dras = {"mpf": DRAConfig(kind="mpf"),
+            "rna": DRAConfig(kind="rna", exchange_ratio=0.1),
+            "rpa": DRAConfig(kind="rpa", scheduler="lgs", k_cap=64,
+                             slack=2.0)}
+    dist_runs = {}
+    for kind, dra in dras.items():
+        dpf = ParallelParticleFilter(model=model, sir=SIRConfig(
+            n_particles=p_mesh * c_mesh, ess_frac=0.5), mesh=EmulatedMesh(
+            p_mesh), dra=dra)
+        reset()
+        t0 = time.perf_counter()
+        dres = dpf.run(1, movie.frames)
+        got = counts(all_k)
+        t_first = time.perf_counter() - t0
+        want = {k: 0 for k in all_k}
+        want.update({"patch_log_likelihood": FRAMES,
+                     "systematic_ancestors": 0 if kind == "rpa" else FRAMES})
+        check(got == want, f"{kind} launches {got}")
+        t0 = time.perf_counter()
+        dres2 = dpf.run(1, movie.frames)
+        torch.cuda.synchronize()
+        fps = FRAMES / (time.perf_counter() - t0)
+        check(same_bits(dres.estimates, dres2.estimates)
+              and same_bits(dres.final.state, dres2.final.state)
+              and same_bits(dres.final.log_weights, dres2.final.log_weights),
+              f"{kind} distributed filter not repeatable")
+        check(bool(torch.isfinite(dres.ess).all()
+                   and torch.isfinite(dres.log_marginal).all()),
+              f"{kind}: non-finite ESS / log-marginal")
+        check(dres.final.state.shape == (p_mesh, c_mesh, 5),
+              f"{kind}: final ensemble {tuple(dres.final.state.shape)}")
+        cb, cs = comm_formulas(kind, p_mesh, c_mesh, dra, 5 * 4, 5 * 4)
+        check(bool((dres.diag["comm_bytes"] == cb).all()
+                   and (dres.diag["comm_stages"] == cs).all()),
+              f"{kind}: comm accounting {dres.diag['comm_bytes'][0]} B / "
+              f"{dres.diag['comm_stages'][0]} stages, formulas {cb} / {cs}")
+        tr = track(dres, movie)
+        gate_tracks([tr], f"{kind} distributed filter")
+        extra = ""
+        if kind == "rpa":
+            extra = (f", overflow units/frame max "
+                     f"{int(dres.diag['overflow'].max())}, links max "
+                     f"{int(dres.diag['links'].max())}")
+        dist_runs[kind] = {
+            "launches": got, "track": tr, "frames_per_s": fps,
+            "first_run_frames_per_s": FRAMES / t_first,
+            "comm_bytes": cb, "comm_stages": cs,
+            "resampled": int(dres.resampled.sum()),
+            "mean_ess": float(dres.ess.mean())}
+        log(f"{kind} 8 x 2^22 = 2^25 particles, 512x512: RMSE "
+            f"{tr['rmse']:.4f} px after {WARMUP} (after 10: "
+            f"{tr['rmse_after_10']:.4f}, lock-on frame {tr['lock_frame']}),"
+            f" mean ESS {float(dres.ess.mean()):.0f}, resampled "
+            f"{int(dres.resampled.sum())}/{FRAMES}, comm {cb} B / {cs} "
+            f"stages per frame and shard (= formulas){extra}, launches "
+            f"{got}, {fps:.2f} frames/s steady ({FRAMES / t_first:.2f} "
+            f"first run) [{name}]")
+        del dres, dres2
 
     # -- phase 6: timings --------------------------------------------------------
     state, frames1 = patch_inputs(1, n_single, 512, 512, 3, dev)
@@ -524,6 +778,27 @@ def main() -> int:
     patch_bank_ms = cuda_ms(lambda: patch_k(bstate, bframes))
     blw, bll, bst, bu = fused_inputs(b_bank, n_bank, 6, dev)
     fused_bank_ms = cuda_ms(lambda: fused_k(blw, bll, bst, bu))
+    slw, sll, _, su = fused_inputs(p_mesh, c_mesh, 7, dev, d=1)
+    slw = slw + sll
+    sys_ms = cuda_ms(lambda: sys_k(slw, su, c_mesh))
+    sys_plain_ms = cuda_ms(lambda: ref.systematic_ancestors_ref(
+        slw, su, c_mesh))
+    s_bound, s_by = systematic_bound(p_mesh, c_mesh, c_mesh)
+    del slw, sll, su
+    clw, cprop, clogu = chain_inputs(1, n_single, 8, dev)
+    metro_ms = cuda_ms(lambda: metro_k(clw, cprop, clogu))
+    metro_plain_ms = cuda_ms(lambda: resample.metropolis_ancestors_ref(
+        clw, cprop, clogu))
+    rej_ms = cuda_ms(lambda: rej_k(clw, cprop, clogu))
+    rej_plain_ms = cuda_ms(lambda: resample.rejection_ancestors_ref(
+        clw, cprop, clogu))
+    c_bound, c_by = chain_bound(1, n_single, n_single, 32)
+    del clw, cprop, clogu
+    log(f"times [{name}]: B1 {sys_ms:.4f} ms at 8x2^22 (plain "
+        f"{sys_plain_ms:.4f}, bound {s_bound:.4f} {s_by}); B4 "
+        f"{metro_ms:.4f} ms (plain {metro_plain_ms:.4f}), B5 {rej_ms:.4f} "
+        f"ms (plain {rej_plain_ms:.4f}) at 2^22 x 32, bound {c_bound:.4f} "
+        f"{c_by}")
     log(f"times [{name}]: patch {patch_ms:.4f} ms (plain {patch_plain_ms:.4f},"
         f" bound {p_bound:.4f} {p_by}), fused {fused_ms:.4f} ms (plain "
         f"{fused_plain_ms:.4f}, bound {f_bound:.4f} {f_by}) at N=2^22; "
@@ -546,11 +821,35 @@ def main() -> int:
          "max_abs_err": fused_check["max_abs_err"], "ms": fused_ms,
          "plain_ms": fused_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": None},
+        {"name": "systematic_ancestors", "route": "cuda",
+         "source": "src/repro_torch/csrc/resample.cu",
+         "replaces": "src/repro/kernels/resample.py:68",
+         "launches": dist_runs["mpf"]["launches"]["systematic_ancestors"],
+         "max_abs_err": sys_check["max_abs_err"], "ms": sys_ms,
+         "plain_ms": sys_plain_ms, "bound_ms": s_bound, "bound_by": s_by,
+         "library_ms": None},
+        {"name": "metropolis_ancestors", "route": "cuda",
+         "source": "src/repro_torch/csrc/resample.cu",
+         "replaces": "src/repro/kernels/resample.py:154",
+         "launches": chain_runs["metropolis"]["launches"],
+         "max_abs_err": chain_check["max_abs_err"], "ms": metro_ms,
+         "plain_ms": metro_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
+         "library_ms": None},
+        {"name": "rejection_ancestors", "route": "cuda",
+         "source": "src/repro_torch/csrc/resample.cu",
+         "replaces": "src/repro/kernels/resample.py:207",
+         "launches": chain_runs["rejection"]["launches"],
+         "max_abs_err": chain_check["max_abs_err"], "ms": rej_ms,
+         "plain_ms": rej_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
+         "library_ms": None},
     ]
     record = {
         "card": name, "kernels": kernels,
         "tie_lanes": fused_check["tie_lanes"],
         "comb_offset": fused_check["comb_offset"],
+        "systematic_tie_lanes": sys_check["tie_lanes"],
+        "systematic_comb_offset": sys_check["comb_offset"],
+        "chains": chain_runs, "distributed": dist_runs,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,
                     "fused_weight_step": fused_bank_ms},
         "single": {"n": n_single, "frames": FRAMES, "warmup": WARMUP,

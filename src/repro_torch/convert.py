@@ -4,12 +4,17 @@ The system has no weights; what crosses between the packages is the
 particle state and the configs.  Every function takes numpy arrays and
 plain field dicts (``dataclasses.asdict`` of the reference's configs),
 never JAX objects, so this module needs neither package's runtime.
+
+A distributed ensemble is laid out differently on the two sides: the
+reference's sharded leaves are ``(P·C, ...)``, shard-major (what its
+``shard_map`` returns), the port's ``(P, C, ...)``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import DRAConfig
 from repro_torch.core.particles import ParticleEnsemble
 from repro_torch.core.smc import SIRConfig
 from repro_torch.models.ssm.lgssm import LinearGaussianSSM
@@ -26,6 +31,29 @@ def ensemble_from_numpy(state, log_weights, counts,
     return ParticleEnsemble(state=t(state, torch.float32),
                             log_weights=t(log_weights, torch.float32),
                             counts=t(counts, torch.int32))
+
+
+def shard_ensemble_from_numpy(state, log_weights, counts, shards: int,
+                              device="cpu") -> ParticleEnsemble:
+    """The reference's sharded ``(P·C, ...)`` leaves as the port's
+    ``(P, C, ...)`` distributed ensemble."""
+    n = np.shape(log_weights)[0]
+    if n % shards:
+        raise ValueError(f"{n} slots do not split over {shards} shards")
+    ens = ensemble_from_numpy(state, log_weights, counts, device)
+    return ParticleEnsemble(*(
+        x.reshape((shards, n // shards) + x.shape[1:])
+        for x in (ens.state, ens.log_weights, ens.counts)))
+
+
+def ensemble_to_numpy(ensemble: ParticleEnsemble) -> tuple:
+    """``(state, log_weights, counts)`` numpy arrays in the reference's
+    layout: a ``(P, C, ...)`` distributed ensemble flattens to
+    ``(P·C, ...)``."""
+    lead = ensemble.log_weights.dim() - 1
+    return tuple(x.detach().cpu().reshape((-1,) + x.shape[lead + 1:]).numpy()
+                 for x in (ensemble.state, ensemble.log_weights,
+                           ensemble.counts))
 
 
 def tracking_config(fields: dict) -> TrackingConfig:
@@ -53,3 +81,16 @@ def lgssm(fields: dict) -> LinearGaussianSSM:
     return LinearGaussianSSM(**{
         k: torch.as_tensor(np.array(v, np.float32)) for k, v in
         fields.items()})
+
+
+def dra_config(fields: dict) -> DRAConfig:
+    """``DRAConfig`` from the reference config's fields.  Its
+    ``resample_backend`` must be the default ``"auto"``: the port takes
+    the B1 kernel or its plain version by device.  ARNA and butterfly
+    raise ``NotImplementedError`` until their slice."""
+    fields = dict(fields)
+    backend = fields.pop("resample_backend", "auto")
+    if backend != "auto":
+        raise ValueError(f"resample_backend={backend!r}: the port chooses "
+                         f"the local-resample kernel by the tensors' device")
+    return DRAConfig(**fields)

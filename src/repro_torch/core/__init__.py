@@ -1,5 +1,7 @@
-"""PPF core on torch: particle ensembles, local resampling, the SIR step
-and the single-device entry points."""
+"""PPF core on torch: particle ensembles, local resampling, the SIR step,
+the distributed resampling algorithms on an emulated mesh, and the
+entry points."""
+from repro_torch.core.distributed import DRAConfig
 from repro_torch.core.draws import (BankDraws, ReplayDraws, TorchDraws,
                                     as_draws)
 from repro_torch.core.filters import (FilterBank, FilterResult,
@@ -8,17 +10,21 @@ from repro_torch.core.filters import (FilterBank, FilterResult,
 from repro_torch.core.particles import (ParticleEnsemble, advance,
                                         effective_sample_size,
                                         init_ensemble, log_sum_weights,
-                                        logical_size, normalized_weights,
-                                        reweight, weighted_mean)
+                                        logical_size, materialize,
+                                        normalized_weights, permute,
+                                        resample_compressed, reweight,
+                                        weighted_mean)
+from repro_torch.core.runtime import EmulatedMesh
 from repro_torch.core.smc import (SIRCarry, SIRConfig, ess_resample,
                                   make_sir_step, run_sir)
 
 __all__ = [
+    "DRAConfig", "EmulatedMesh",
     "BankDraws", "ReplayDraws", "TorchDraws", "as_draws",
     "FilterBank", "FilterResult", "ParallelParticleFilter",
     "make_bank_step", "member_carry",
     "ParticleEnsemble", "advance", "effective_sample_size", "init_ensemble",
-    "log_sum_weights", "logical_size", "normalized_weights", "reweight",
-    "weighted_mean",
+    "log_sum_weights", "logical_size", "materialize", "normalized_weights",
+    "permute", "resample_compressed", "reweight", "weighted_mean",
     "SIRCarry", "SIRConfig", "ess_resample", "make_sir_step", "run_sir",
 ]

@@ -1,0 +1,262 @@
+"""Distributed resampling algorithms, paper §III (port of
+``repro.core.distributed``).
+
+Each DRA takes the whole ``(P, C, ...)`` ensemble of an emulated P-shard
+mesh (``repro_torch.core.runtime``) and returns the resampled one; every
+collective goes through the runtime facade, so each shard's row sees
+exactly what the reference's per-shard program sees:
+
+* **MPF** — independent local resampling; each shard keeps its aggregate
+  weight (one scalar all-gather of the shard log-normalizers);
+* **RNA** — local resample to C, a random slot shuffle, then a static
+  ring exchange of a fixed fraction of the particles;
+* **RPA** — proportional allocation of the N offspring over shards,
+  local resampling in compressed (counts) form, DLB routing of the
+  compressed particles (``repro_torch.core.dlb``) and a local
+  materialize.
+
+ARNA and the butterfly DRA wait for the next slice.  The local resample
+of MPF/RNA with the systematic scheme takes its ancestors from the B1
+kernel on the card (``kernels.ops.systematic_ancestors``).  Every DRA
+reports the reference's analytic comm-volume accounting
+(``comm_bytes``, ``comm_stages``: the reference's DESIGN.md §14.3).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import dlb, particles, resampling, runtime
+from repro_torch.core.particles import ParticleEnsemble, log_sum_weights
+from repro_torch.kernels import ops
+
+KINDS = ("mpf", "rna", "arna", "rpa", "butterfly")
+NEXT_SLICE = ("arna", "butterfly")
+
+
+@dataclasses.dataclass(frozen=True)
+class DRAConfig:
+    """Distributed-resampling knobs (paper §III–§V), field for field the
+    reference's config except ``resample_backend``: the device chooses
+    between the B1 kernel and its plain version."""
+
+    kind: str = "rna"                # mpf | rna | rpa (arna, butterfly next)
+    resampler: str = "systematic"
+    ess_frac: float = 0.5
+    exchange_ratio: float = 0.10     # RNA: the paper's 10%-50%
+    q_min: float = 0.05              # ARNA adaptive range
+    q_max: float = 0.50
+    lost_log_lik: float = -1e4       # ARNA "target lost" floor
+    scheduler: str = "lgs"           # RPA: gs | sgs | lgs
+    k_cap: int = 64                  # RPA routing window per destination
+    slack: float = 2.0               # RPA per-shard allocation cap = slack·C
+    butterfly_cap: int = 32
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown DRA kind {self.kind!r} ({KINDS})")
+        if self.kind in NEXT_SLICE:
+            raise NotImplementedError(
+                f"DRA kind {self.kind!r} waits for the next port slice "
+                f"(ROADMAP A8: ARNA and butterfly)")
+        if self.scheduler not in dlb.SCHEDULERS:
+            raise ValueError(f"unknown scheduler {self.scheduler!r}")
+        if self.resampler not in resampling.RESAMPLERS:
+            raise ValueError(f"unknown resampler {self.resampler!r}")
+        if self.butterfly_cap < 1:
+            raise ValueError(f"butterfly_cap {self.butterfly_cap} < 1")
+
+
+def log_f32(x: float) -> float:
+    """``log x`` computed in float32, as the reference's ``jnp.log`` of a
+    Python number."""
+    return float(torch.log(torch.tensor(float(x), dtype=torch.float32)))
+
+
+def _per_particle_bytes(state: torch.Tensor) -> int:
+    """Payload bytes of one particle's state (one shard's slot)."""
+    return runtime.tree_bytes(state[0, :1])
+
+
+def _comm_diag(bytes_per_frame: int, stages: int, device) -> dict:
+    """The reference's comm-volume entries: payload bytes one shard
+    injects into collectives per frame, and sequential collective
+    rounds on the critical path."""
+    return {"comm_bytes": torch.tensor(bytes_per_frame, dtype=torch.int32,
+                                       device=device),
+            "comm_stages": torch.tensor(stages, dtype=torch.int32,
+                                        device=device)}
+
+
+def _shard_log_z(log_weights: torch.Tensor, mesh: runtime.EmulatedMesh
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(P,)`` local log-normalizers and their ``(P, P)`` all-gather."""
+    local = log_sum_weights(log_weights)
+    return local, runtime.all_gather(local, mesh)
+
+
+def global_log_z(log_weights: torch.Tensor,
+                 mesh: runtime.EmulatedMesh) -> torch.Tensor:
+    """``(P,)``: logsumexp of all shards' weights on every shard."""
+    _, gathered = _shard_log_z(log_weights, mesh)
+    return torch.logsumexp(gathered, -1)
+
+
+def global_ess(log_weights: torch.Tensor,
+               mesh: runtime.EmulatedMesh) -> torch.Tensor:
+    """``(P,)``: the global N_eff (Alg. 1 line 15) with one psum."""
+    glz = global_log_z(log_weights, mesh)
+    sq = torch.exp(2.0 * (log_weights - glz[:, None]))
+    sq = torch.where(torch.isfinite(log_weights), sq,
+                     torch.zeros_like(sq)).sum(-1)
+    return 1.0 / runtime.psum(sq, mesh).clamp(min=1e-38)
+
+
+def effective_processes(log_weights: torch.Tensor,
+                        mesh: runtime.EmulatedMesh) -> torch.Tensor:
+    """``(P,)``: P_eff = (Σ W_i)² / Σ W_i² over the shard weights."""
+    _, gathered = _shard_log_z(log_weights, mesh)
+    w = torch.exp(gathered - torch.logsumexp(gathered, -1, keepdim=True))
+    return 1.0 / torch.square(w).sum(-1).clamp(min=1e-38)
+
+
+# ---------------------------------------------------------------------------
+# Local resample (shared by the DRAs)
+# ---------------------------------------------------------------------------
+
+def _local_resample_materialize(draws, state: torch.Tensor,
+                                log_weights: torch.Tensor, n_out: int,
+                                cfg: DRAConfig) -> torch.Tensor:
+    """Resample ``n_out`` offspring per shard and materialize ``C`` slots
+    of state.  The systematic scheme with ``n_out == C`` takes its
+    ancestors from B1 (the kernel on the card, its plain version on the
+    CPU) on the same one-uniform comb; the other schemes take the counts
+    path.  (The reference also returns the counts, which no caller
+    reads.)"""
+    c = log_weights.shape[-1]
+    if n_out == c and cfg.resampler == "systematic":
+        ancestors = ops.systematic_ancestors(log_weights, draws.uniform(()),
+                                             n_out)
+    else:
+        counts = resampling.RESAMPLERS[cfg.resampler](
+            draws, log_weights, n_out, capacity=c)
+        ancestors = resampling.counts_to_ancestors(counts, c)
+    return particles.gather_particles(state, ancestors)
+
+
+def _local_resample_ensemble(draws, ensemble: ParticleEnsemble,
+                             log_weight: torch.Tensor,
+                             cfg: DRAConfig) -> ParticleEnsemble:
+    """Full-capacity local resample to a materialized ensemble whose
+    every slot of shard ``i`` carries ``log_weight[i]``; counts are
+    folded into the sampling weights."""
+    c = ensemble.capacity
+    eff = particles.effective_log_weights(ensemble.log_weights,
+                                          ensemble.counts)
+    state = _local_resample_materialize(draws, ensemble.state, eff, c, cfg)
+    lw = log_weight.to(torch.float32)[:, None].expand(eff.shape)
+    return ParticleEnsemble(state=state, log_weights=lw.contiguous(),
+                            counts=torch.ones_like(ensemble.counts))
+
+
+# ---------------------------------------------------------------------------
+# The DRAs
+# ---------------------------------------------------------------------------
+
+def mpf_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
+                 mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+    """Independent local resampling; each offspring carries ``Ŵ_i / C`` of
+    the global posterior mass."""
+    c = ensemble.capacity
+    local_lz, gathered = _shard_log_z(particles.effective_log_weights(
+        ensemble.log_weights, ensemble.counts), mesh)
+    glz = torch.logsumexp(gathered, -1)
+    out = _local_resample_ensemble(draws, ensemble,
+                                   local_lz - glz - log_f32(c), cfg)
+    dev = ensemble.log_weights.device
+    return out, {"exchanged": torch.zeros((), dtype=torch.int32, device=dev),
+                 # one scalar all_gather of the shard logZ
+                 **_comm_diag(4, 1, dev)}
+
+
+def _ring_exchange(state: torch.Tensor, log_weights: torch.Tensor,
+                   m_buf: int, m_valid: int, mesh: runtime.EmulatedMesh):
+    """Send the first ``m_buf`` slots of every shard to its ring
+    neighbour; the first ``m_valid`` received slots replace the head.
+    (ARNA's all_to_all shuffle waits with ARNA.)"""
+    perm = runtime.ring(mesh)
+    recv_state = runtime.ppermute(state[:, :m_buf], mesh, perm)
+    recv_lw = runtime.ppermute(log_weights[:, :m_buf], mesh, perm)
+    keep = torch.arange(m_buf, device=state.device) < m_valid
+
+    def splice(orig, recv):
+        k = keep.reshape((1, -1) + (1,) * (recv.dim() - 2))
+        return torch.cat([torch.where(k, recv, orig[:, :m_buf]),
+                          orig[:, m_buf:]], 1)
+
+    return splice(state, recv_state), splice(log_weights, recv_lw)
+
+
+def _permute_ensemble(draws, ensemble: ParticleEnsemble) -> ParticleEnsemble:
+    """Randomize every shard's slot order (systematic ancestors are
+    sorted, so the ring head would always ship the lowest ancestors)."""
+    return particles.permute(ensemble,
+                             draws.permutation(ensemble.capacity))
+
+
+def rna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
+                 mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+    """RNA: local resample to C, then a static ring exchange of a fixed
+    fraction (paper §III / §VII.D).  Draws: the local resample's, then
+    the shuffle's permutation."""
+    c = ensemble.capacity
+    local_lz, gathered = _shard_log_z(particles.effective_log_weights(
+        ensemble.log_weights, ensemble.counts), mesh)
+    glz = torch.logsumexp(gathered, -1)
+    ens = _local_resample_ensemble(draws, ensemble,
+                                   local_lz - glz - log_f32(c), cfg)
+    ens = _permute_ensemble(draws, ens)
+    m = max(int(round(cfg.exchange_ratio * c)), 1)
+    state, lw = _ring_exchange(ens.state, ens.log_weights, m, m, mesh)
+    ens = ens.replace(state=state, log_weights=lw)
+    dev = lw.device
+    return ens, {"exchanged": torch.tensor(m, dtype=torch.int32, device=dev),
+                 # logZ gather + ring ppermute of m (state, log-weight) rows
+                 **_comm_diag(4 + m * (_per_particle_bytes(ens.state) + 4),
+                              2, dev)}
+
+
+def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
+                 mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+    """RPA: proportional allocation of the N offspring over shards, local
+    resampling in compressed form, DLB routing of the compressed
+    particles, then a local materialize (paper §III–§V)."""
+    c = ensemble.capacity
+    p = runtime.axis_size(mesh)
+    n_total = c * p
+    cap_units = int(round(cfg.slack * c))
+    _, gathered = _shard_log_z(particles.effective_log_weights(
+        ensemble.log_weights, ensemble.counts), mesh)
+    # every shard holds the same gathered vector: compute the allocation
+    # and the schedule once
+    alloc = dlb.proportional_allocation(gathered[0], n_total, cap_units)
+    comp = particles.resample_compressed(
+        draws, ensemble, alloc, scheme=cfg.resampler, capacity=cap_units,
+        fill_log_weight=-log_f32(n_total))
+    targets = dlb.balanced_targets(n_total, p).to(alloc.device)
+    schedule = dlb.SCHEDULERS[cfg.scheduler](alloc, targets)     # (P, P)
+    route = dlb.route_compressed(comp, schedule, k_cap=cfg.k_cap, mesh=mesh)
+    out = particles.materialize(dlb.merge_routed(comp, route), c)
+    stats = dlb.schedule_stats(schedule)
+    dev = ensemble.log_weights.device
+    return out, {
+        "overflow": runtime.psum(route.overflow_units, mesh)[0],
+        **stats,
+        # logZ gather + all_to_all of P×K (state, count, log-weight) triples
+        **_comm_diag(4 + p * cfg.k_cap
+                     * (_per_particle_bytes(ensemble.state) + 8), 2, dev),
+    }
+
+
+DRAS = {"mpf": mpf_resample, "rna": rna_resample, "rpa": rpa_resample}

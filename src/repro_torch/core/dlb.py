@@ -1,0 +1,235 @@
+"""Dynamic load balancing for RPA (paper §IV) and the routing of
+compressed particles (port of ``repro.core.dlb``).
+
+The schedulers (GS, SGS, LGS) decide, from the ``(P,)`` vector of
+per-shard particle counts that every shard knows, how many units each
+sender ships to each receiver: greedy matching of ordered senders to
+ordered receivers is the interval intersection of their cumulative
+surplus and deficit ranges.  They are plain functions of that vector;
+the emulated mesh computes them once for all shards.
+
+The routing executor packs, per destination, a window of ``k_cap``
+(state, count, per-replica log-weight) triples and moves all windows with
+one ``all_to_all``; units that do not fit stay local.  Here it acts on the
+whole ``(P, C, ...)`` ensemble: shard ``i``'s windows are row ``i``.
+``pack_slab`` (the butterfly's one-destination window) waits with the
+butterfly DRA.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import runtime
+from repro_torch.core.particles import ParticleEnsemble, gather_particles
+from repro_torch.core.resampling import row_cumsum
+
+
+# ---------------------------------------------------------------------------
+# Targets and surplus/deficit labeling (paper §IV)
+# ---------------------------------------------------------------------------
+
+def balanced_targets(total, p: int) -> torch.Tensor:
+    """Integer target counts per shard: ``total`` split as evenly as
+    possible (the first ``total mod p`` shards take one more)."""
+    total = torch.as_tensor(total)
+    base = total // p
+    rem = total - base * p
+    return base + (torch.arange(p, device=total.device) < rem).to(base.dtype)
+
+
+def surplus_deficit(counts: torch.Tensor, targets: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard (surplus, deficit) against the balanced targets."""
+    return (torch.clamp(counts - targets, min=0),
+            torch.clamp(targets - counts, min=0))
+
+
+def _interval_overlap_matrix(s: torch.Tensor, d: torch.Tensor
+                             ) -> torch.Tensor:
+    """``M[i, j]``: overlap of sender ``i``'s surplus interval with
+    receiver ``j``'s deficit interval on the shared unit line."""
+    s_hi = torch.cumsum(s, 0)
+    s_lo = s_hi - s
+    d_hi = torch.cumsum(d, 0)
+    d_lo = d_hi - d
+    lo = torch.maximum(s_lo[:, None], d_lo[None, :])
+    hi = torch.minimum(s_hi[:, None], d_hi[None, :])
+    return torch.clamp(hi - lo, min=0).to(torch.int32)
+
+
+def _descending(v: torch.Tensor) -> torch.Tensor:
+    """``argsort(-v)``, stable as ``jnp.argsort``: ties in index order."""
+    return torch.argsort(-v, stable=True)
+
+
+def schedule_gs(counts: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Greedy Scheduler (paper Alg. 2): index-order interval
+    intersection."""
+    return _interval_overlap_matrix(*surplus_deficit(counts, targets))
+
+
+def schedule_sgs(counts: torch.Tensor, targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """Sorted Greedy Scheduler (paper Alg. 3): senders and receivers in
+    descending order of magnitude first."""
+    s, d = surplus_deficit(counts, targets)
+    order_s, order_d = _descending(s), _descending(d)
+    m_sorted = _interval_overlap_matrix(s[order_s], d[order_d])
+    p = counts.shape[0]
+    m = torch.zeros((p, p), dtype=torch.int32, device=counts.device)
+    m[order_s[:, None], order_d[None, :]] = m_sorted
+    return m
+
+
+def schedule_lgs(counts: torch.Tensor, targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """Largest Gradient Scheduler (paper Alg. 4): the rank-k sender ships
+    ``min(surplus, deficit)`` to the rank-k receiver."""
+    s, d = surplus_deficit(counts, targets)
+    order_s, order_d = _descending(s), _descending(d)
+    p = counts.shape[0]
+    m = torch.zeros((p, p), dtype=torch.int32, device=counts.device)
+    m[order_s, order_d] = torch.minimum(s[order_s], d[order_d]).to(
+        torch.int32)
+    return m
+
+
+SCHEDULERS = {"gs": schedule_gs, "sgs": schedule_sgs, "lgs": schedule_lgs}
+
+
+def schedule_stats(m: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The paper's latency and bandwidth criteria of a schedule."""
+    return {"links": (m > 0).sum(), "units_moved": m.sum(),
+            "max_message_units": m.max()}
+
+
+# ---------------------------------------------------------------------------
+# Proportional allocation (RPA, paper §III) with capacity clamping
+# ---------------------------------------------------------------------------
+
+def proportional_allocation(shard_log_weights: torch.Tensor, total: int,
+                            cap: int) -> torch.Tensor:
+    """Integer allocation ``n_i ∝ exp(shard_log_weights)`` with
+    ``Σ n_i == total``: largest-remainder apportionment, then the units
+    clipped by the per-shard ``cap`` refill the remaining room in shard
+    order."""
+    lw = shard_log_weights - torch.logsumexp(shard_log_weights, 0)
+    quota = torch.exp(lw) * total
+    n = torch.floor(quota).to(torch.int32)
+    rem = total - n.sum()
+    order = _descending(quota - torch.floor(quota))
+    p = n.shape[0]
+    bump = torch.zeros_like(n)
+    bump[order] = (torch.arange(p, device=n.device) < rem).to(torch.int32)
+    n = n + bump
+    lost = torch.clamp(n - cap, min=0).sum()
+    n = torch.clamp(n, max=cap)
+    room = torch.clamp(cap - n, min=0)
+    room_before = torch.cumsum(room, 0) - room
+    add = torch.minimum(torch.clamp(lost - room_before, min=0), room)
+    return (n + add).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Routing executor: compressed particles over one all_to_all
+# ---------------------------------------------------------------------------
+
+class PackResult(NamedTuple):
+    """Every shard's outbound windows, before any collective."""
+
+    kept_counts: torch.Tensor        # (P, C) multiplicities staying local
+    send_state: torch.Tensor         # (P, P, K, ...) outbound particles
+    send_counts: torch.Tensor        # (P, P, K) outbound multiplicities
+    send_log_weights: torch.Tensor   # (P, P, K) per-replica log-weights
+    send_slots: torch.Tensor         # (P, P, K) local slot of each entry
+    overflow_units: torch.Tensor     # (P,) units that could not be packed
+
+
+class RouteResult(NamedTuple):
+    """What ``route_compressed`` leaves on each shard."""
+
+    kept_counts: torch.Tensor        # (P, C)
+    recv_state: torch.Tensor         # (P, P, K, ...) received particles
+    recv_counts: torch.Tensor        # (P, P, K)
+    recv_log_weights: torch.Tensor   # (P, P, K)
+    overflow_units: torch.Tensor     # (P,)
+    send_slots: torch.Tensor         # (P, P, K)
+    send_units: torch.Tensor         # (P, P, K)
+
+
+def _window_overlap(u_lo, u_hi, a, b):
+    return torch.clamp(torch.minimum(u_hi, b) - torch.maximum(u_lo, a),
+                       min=0)
+
+
+def pack_windows(ensemble: ParticleEnsemble, row_send: torch.Tensor, *,
+                 k_cap: int) -> PackResult:
+    """Pack every shard's outbound destination windows (no collective).
+
+    ``ensemble`` is the compressed ``(P, C, ...)`` ensemble and
+    ``row_send`` ``(P, P)`` the units shard ``i`` sends to shard ``j``.
+    Particle ``k`` owns ``[u_lo_k, u_hi_k)`` on its shard's unit line;
+    the kept units come first, then one interval per destination, and
+    each window takes up to ``k_cap`` consecutive slots from the first
+    particle overlapping its interval.
+    """
+    counts = ensemble.counts.to(torch.int64)
+    p, c = counts.shape
+    u_hi = row_cumsum(counts)
+    u_lo = u_hi - counts
+    keep_n = u_hi[:, -1] - row_send.sum(-1)
+    d_hi = keep_n[:, None] + torch.cumsum(row_send.to(torch.int64), -1)
+    d_lo = d_hi - row_send                                     # (P, P)
+    k0 = torch.searchsorted(u_hi.contiguous(), d_lo.contiguous(),
+                            right=True)
+    raw = k0[..., None] + torch.arange(k_cap, device=counts.device)
+    idx = raw.clamp(max=c - 1)                                 # (P, P, K)
+    flat = idx.reshape(p, -1)
+    sent = _window_overlap(u_lo.gather(-1, flat).reshape(idx.shape),
+                           u_hi.gather(-1, flat).reshape(idx.shape),
+                           d_lo[..., None], d_hi[..., None])
+    # entries clipped to C-1 are padding, not repeats of the last slot
+    sent = torch.where(raw < c, sent, torch.zeros_like(sent))
+    overflow = torch.clamp(row_send - sent.sum(-1), min=0).sum(-1)
+    send_state = gather_particles(ensemble.state, flat).reshape(
+        idx.shape + ensemble.state.shape[2:])
+    send_lw = ensemble.log_weights.gather(-1, flat).reshape(idx.shape)
+    shipped = torch.zeros_like(counts).scatter_add_(-1, flat,
+                                                    sent.reshape(p, -1))
+    return PackResult((counts - shipped).to(torch.int32), send_state,
+                      sent.to(torch.int32), send_lw, idx.to(torch.int32),
+                      overflow.to(torch.int32))
+
+
+def route_compressed(ensemble: ParticleEnsemble, row_send: torch.Tensor, *,
+                     k_cap: int, mesh: runtime.EmulatedMesh) -> RouteResult:
+    """Pack every shard's windows and deliver them with one
+    ``all_to_all``; the per-replica log-weights travel with the
+    particles."""
+    pack = pack_windows(ensemble, row_send, k_cap=k_cap)
+    return RouteResult(pack.kept_counts,
+                       runtime.all_to_all(pack.send_state, mesh),
+                       runtime.all_to_all(pack.send_counts, mesh),
+                       runtime.all_to_all(pack.send_log_weights, mesh),
+                       overflow_units=pack.overflow_units,
+                       send_slots=pack.send_slots,
+                       send_units=pack.send_counts)
+
+
+def merge_routed(ensemble: ParticleEnsemble,
+                 route: RouteResult) -> ParticleEnsemble:
+    """Kept plus received compressed particles, still compressed:
+    capacity ``C + P·K`` (``particles.materialize`` expands them)."""
+    p = route.recv_counts.shape[0]
+
+    def flat(x):
+        return x.reshape((p, -1) + x.shape[3:])
+
+    return ParticleEnsemble(
+        state=torch.cat([ensemble.state, flat(route.recv_state)], 1),
+        log_weights=torch.cat([ensemble.log_weights,
+                               flat(route.recv_log_weights)], 1),
+        counts=torch.cat([route.kept_counts.to(torch.int32),
+                          flat(route.recv_counts)], 1))

@@ -3,8 +3,10 @@
 Torch's Philox cannot reproduce JAX's threefry, so the port never splits
 keys.  Every random number goes through a provider that hands out draws
 in the order the reference consumes its keys (``run_sir``: the init draws,
-then per frame the dynamics normals and the comb uniform).  Three
-providers:
+then per frame the dynamics normals and the resampler's draws).  Five
+kinds: ``uniform``, ``normal``, ``exponential``, ``randint`` (int32, the
+proposals of the collective-free resamplers) and ``permutation`` (RNA's
+slot shuffle).  Three providers:
 
 * ``TorchDraws`` wraps one ``torch.Generator`` (the default: one per
   filter, one per bank member);
@@ -13,7 +15,10 @@ providers:
   draws;
 * ``BankDraws`` stacks the draws of B member providers along a leading
   slot dim.  An inactive member is not asked for draws (it receives
-  zeros), so its stream stays frozen exactly like its carry.
+  zeros of the kind's dtype), so its stream stays frozen exactly like
+  its carry.  The distributed filter stacks one provider per shard the
+  same way (``shard_draws``), where the reference folds the shard index
+  into its key.
 """
 from __future__ import annotations
 
@@ -21,6 +26,13 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+
+# dtype of each draw kind (what a replay is cast to, and the zeros an
+# inactive bank member receives)
+KIND_DTYPES = {"uniform": torch.float32, "normal": torch.float32,
+               "exponential": torch.float32, "randint": torch.int32,
+               "permutation": torch.int64}
 
 
 class TorchDraws:
@@ -55,6 +67,16 @@ class TorchDraws:
                           dtype=torch.float32)
         return out.exponential_(generator=self.generator)
 
+    def randint(self, shape, high: int) -> torch.Tensor:
+        """Uniform int32 draws in ``[0, high)`` of ``shape``."""
+        return torch.randint(int(high), tuple(shape), generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        """A uniformly random permutation of ``arange(n)``."""
+        return torch.randperm(int(n), generator=self.generator,
+                              device=self.device)
+
 
 class ReplayDraws:
     """Replays ``(kind, array)`` pairs in order; raises on any mismatch
@@ -77,12 +99,12 @@ class ReplayDraws:
             raise IndexError(f"replay exhausted at draw {self._pos} "
                              f"({kind} {tuple(shape)})")
         want_kind, arr = self._draws[self._pos]
-        arr = np.asarray(arr, np.float32)
+        arr = np.asarray(arr)
         if want_kind != kind or arr.shape != tuple(shape):
             raise ValueError(f"draw {self._pos}: asked {kind} {tuple(shape)},"
                              f" replay holds {want_kind} {arr.shape}")
         self._pos += 1
-        return torch.from_numpy(arr.copy()).to(self.device)
+        return torch.from_numpy(arr.copy()).to(self.device, KIND_DTYPES[kind])
 
     def uniform(self, shape) -> torch.Tensor:
         """The next replayed uniform draw of ``shape``."""
@@ -95,6 +117,15 @@ class ReplayDraws:
     def exponential(self, shape) -> torch.Tensor:
         """The next replayed exponential draw of ``shape``."""
         return self._next("exponential", shape)
+
+    def randint(self, shape, high: int) -> torch.Tensor:
+        """The next replayed int32 draw of ``shape`` (``high`` is the
+        caller's bound; the replay holds the reference's numbers)."""
+        return self._next("randint", shape)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        """The next replayed permutation of ``arange(n)``."""
+        return self._next("permutation", (int(n),))
 
 
 class BankDraws:
@@ -111,9 +142,10 @@ class BankDraws:
         self.device = self.members[0].device
         self.batch_shape = (len(self.members),)
 
-    def _stack(self, kind: str, shape) -> torch.Tensor:
-        outs = [getattr(m, kind)(shape) if a else
-                torch.zeros(tuple(shape), device=self.device)
+    def _stack(self, kind: str, shape, *args) -> torch.Tensor:
+        outs = [getattr(m, kind)(shape, *args) if a else
+                torch.zeros(tuple(shape), dtype=KIND_DTYPES[kind],
+                            device=self.device)
                 for m, a in zip(self.members, self.active)]
         return torch.stack(outs)
 
@@ -128,6 +160,38 @@ class BankDraws:
     def exponential(self, shape) -> torch.Tensor:
         """``(B,) + shape`` exponential draws."""
         return self._stack("exponential", shape)
+
+    def randint(self, shape, high: int) -> torch.Tensor:
+        """``(B,) + shape`` int32 draws in ``[0, high)``."""
+        return self._stack("randint", shape, high)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        """``(B, n)``: one permutation per member."""
+        outs = [m.permutation(n) if a else
+                torch.arange(int(n), device=self.device)
+                for m, a in zip(self.members, self.active)]
+        return torch.stack(outs)
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """The seed of shard ``shard``'s stream in a run seeded ``seed`` (the
+    counterpart of the reference's ``fold_in(key, shard)``)."""
+    return int(np.random.SeedSequence([int(seed), int(shard)])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
+def shard_draws(key, shards: int, device):
+    """Per-shard draws stacked on a leading ``P`` dim for the distributed
+    filter.  An int seed gives each shard a ``torch.Generator`` seeded
+    from ``shard_seed``; a provider whose ``batch_shape`` is ``(P,)``
+    passes through (the tests hand in one replay per shard)."""
+    if isinstance(key, (int, np.integer)):
+        return BankDraws([TorchDraws.from_seed(shard_seed(key, i), device)
+                          for i in range(shards)])
+    if tuple(getattr(key, "batch_shape", ())) == (shards,):
+        return key
+    raise TypeError(f"distributed draws need an int seed or a provider "
+                    f"with batch_shape ({shards},), got {type(key).__name__}")
 
 
 def as_draws(key, device):

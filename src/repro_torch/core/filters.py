@@ -1,12 +1,16 @@
 """User-facing filter entry points (port of ``repro.core.filters``).
 
-``ParallelParticleFilter`` runs one SIR filter over a frame sequence;
+``ParallelParticleFilter`` runs one SIR filter over a frame sequence,
+on one device or — with ``mesh=EmulatedMesh(P)`` and a ``DRAConfig`` —
+as the paper's distributed filter: P shards of ``C = N / P`` slots held
+as one ``(P, C, ...)`` ensemble on the card, resampled by MPF, RNA or
+RPA through the emulated collectives of ``repro_torch.core.runtime``.
 ``FilterBank`` runs B independent filters of one model as one batched
 program, member ``i`` reproducing ``ParallelParticleFilter.run(keys[i],
 observations[i])``.  Both run on the CUDA device unless built with
 ``device="cpu"``; with no CUDA device and no explicit ``device`` they
-raise rather than run elsewhere.  The mesh, DRA and domain options wait
-for ROADMAP A8/A9 and raise ``NotImplementedError``.
+raise rather than run elsewhere.  Domain decomposition (ROADMAP A9), a
+bank over a mesh and ``bank_axis`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core import particles, smc
-from repro_torch.core.draws import BankDraws, as_draws
+from repro_torch.core import distributed as dist
+from repro_torch.core import particles, runtime, smc
+from repro_torch.core.draws import BankDraws, as_draws, shard_draws
 
 
 class FilterResult(NamedTuple):
@@ -42,43 +47,68 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def _unported(mesh, dra, domain) -> None:
-    if mesh is not None or dra is not None:
-        raise NotImplementedError("distributed filtering (mesh=, dra=) "
-                                  "waits for ROADMAP A8")
-    if domain is not None:
-        raise NotImplementedError("domain decomposition (domain=) waits "
-                                  "for ROADMAP A9")
-
-
 def _to_device(observations, device) -> torch.Tensor:
     return torch.as_tensor(observations, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
 class ParallelParticleFilter:
-    """SIR particle filter on one device (the reference's local path)."""
+    """SIR particle filter, on one device or distributed over an emulated
+    mesh.
+
+    With ``mesh=None`` (or a 1-shard mesh) it runs the single-device
+    path; otherwise the configured DRA (``dra``, default RNA) over the
+    mesh's ``P`` shards, each of ``C = n_particles / P`` slots.
+    """
 
     model: Any
     sir: smc.SIRConfig
     device: Any = None
-    mesh: Any = None
-    dra: Any = None
+    mesh: runtime.EmulatedMesh | None = None
+    dra: dist.DRAConfig = dataclasses.field(default_factory=dist.DRAConfig)
     domain: Any = None
 
     def __post_init__(self):
-        _unported(self.mesh, self.dra, self.domain)
+        if self.domain is not None:
+            raise NotImplementedError("domain decomposition (domain=) waits "
+                                      "for ROADMAP A9")
+        if self.mesh is not None and not isinstance(self.mesh,
+                                                    runtime.EmulatedMesh):
+            raise TypeError(f"mesh must be an EmulatedMesh, got "
+                            f"{type(self.mesh).__name__} (the torch."
+                            f"distributed backend waits for ROADMAP A8)")
+        if not isinstance(self.dra, dist.DRAConfig):
+            raise TypeError(f"dra must be a DRAConfig, got "
+                            f"{type(self.dra).__name__}")
         self.device = resolve_device(self.device)
 
     def run(self, key, observations) -> FilterResult:
         """Filter a ``(K, ...)`` observation stack.  ``key`` is an int
-        seed, a ``torch.Generator`` or a draws provider."""
+        seed, a ``torch.Generator`` or a draws provider; on a mesh, an
+        int seed or a provider with ``batch_shape (P,)`` (one stream per
+        shard)."""
         obs = _to_device(observations, self.device)
-        carry, outs = smc.run_sir(as_draws(key, self.device), self.model,
-                                  self.sir, obs)
+        if self.mesh is None or self.mesh.shards == 1:
+            carry, outs = smc.run_sir(as_draws(key, self.device),
+                                      self.model, self.sir, obs)
+        else:
+            carry, outs = self._run_sharded(key, obs)
         return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
                             outs.resampled, outs.ancestors, outs.diag,
                             carry.ensemble)
+
+    def _run_sharded(self, key, obs):
+        p = self.mesh.shards
+        n = self.sir.n_particles
+        carry = shard_carry(shard_draws(key, p, self.device), self.model,
+                            _shard_capacity(n, p), n)
+        step = smc.make_distributed_sir_step(self.model, self.sir, self.dra,
+                                             self.mesh)
+        outs = []
+        for k in range(obs.shape[0]):
+            carry, out = step(carry, obs[k])
+            outs.append(out)
+        return carry, smc.stack_outputs(outs)
 
 
 @dataclasses.dataclass
@@ -95,7 +125,9 @@ class FilterBank:
     bank_axis: Any = None
 
     def __post_init__(self):
-        _unported(self.mesh, self.dra, None)
+        if self.mesh is not None or self.dra is not None:
+            raise NotImplementedError("a FilterBank over a mesh (mesh=, "
+                                      "dra=) waits for ROADMAP A8")
         if self.bank_axis is not None:
             raise NotImplementedError("bank_axis waits for ROADMAP A8")
         self.device = resolve_device(self.device)
@@ -134,4 +166,19 @@ def member_carry(members, model, sir: smc.SIRConfig) -> smc.SIRCarry:
     standalone filter with the same provider."""
     draws = BankDraws(members)
     ens = particles.init_ensemble(draws, model.init, sir.n_particles)
+    return smc.SIRCarry(draws, ens)
+
+
+def _shard_capacity(n: int, p: int) -> int:
+    if n % p:
+        raise ValueError(f"n_particles={n} not divisible by {p} shards")
+    return n // p
+
+
+def shard_carry(draws, model, c: int, n: int) -> smc.SIRCarry:
+    """A fresh ``(P, C, ...)`` carry of the distributed filter: each
+    shard draws its ``C``-slot piece of the ``n``-particle ensemble from
+    its own stream, every slot weighted ``-log n`` (float32)."""
+    ens = particles.init_ensemble(draws, model.init, c,
+                                  log_weight=-dist.log_f32(n))
     return smc.SIRCarry(draws, ens)

@@ -140,6 +140,66 @@ def advance(ensemble: ParticleEnsemble, draws,
     return ensemble.replace(state=dynamics_sample(draws, ensemble.state))
 
 
+def permute(ensemble: ParticleEnsemble,
+            order: torch.Tensor) -> ParticleEnsemble:
+    """Reorder slots by ``order`` ``(..., C)``, a permutation of
+    ``arange(C)`` per member: a pure relabeling (RNA's travel shuffle)."""
+    idx = order.long()
+    return ParticleEnsemble(
+        state=gather_particles(ensemble.state, idx),
+        log_weights=ensemble.log_weights.gather(-1, idx),
+        counts=ensemble.counts.gather(-1, idx))
+
+
+def resample_compressed(draws, ensemble: ParticleEnsemble, n_out, *,
+                        scheme: str = "systematic",
+                        capacity: int | None = None,
+                        fill_log_weight=None) -> ParticleEnsemble:
+    """Resample ``n_out`` offspring (an int or a per-member tensor) in
+    compressed (counts) form (paper §V): the state is untouched, the
+    counts are the offspring numbers, and every slot with offspring
+    carries ``fill_log_weight`` (default ``-log n_out`` in float32),
+    ``-inf`` elsewhere.  ``capacity`` sizes the comb (default ``C``)."""
+    # function-level: resampling imports this module
+    from repro_torch.core import resampling
+
+    cap = capacity if capacity is not None else ensemble.capacity
+    lw = ensemble.log_weights
+    eff = effective_log_weights(lw, ensemble.counts)
+    counts = resampling.RESAMPLERS[scheme](draws, eff, n_out, capacity=cap)
+    if fill_log_weight is None:
+        n = torch.as_tensor(n_out, dtype=torch.float32, device=lw.device)
+        fill_log_weight = -torch.log(n.clamp(min=1.0))
+    fill = torch.as_tensor(fill_log_weight, dtype=torch.float32,
+                           device=lw.device)
+    fill = fill.reshape(fill.shape + (1,) * (lw.dim() - fill.dim()))
+    return ensemble.replace(log_weights=torch.where(
+        counts > 0, fill, torch.full_like(lw, -math.inf)), counts=counts)
+
+
+def materialize(ensemble: ParticleEnsemble,
+                capacity: int | None = None) -> ParticleEnsemble:
+    """Expand multiplicities into replicas (the deferred replica creation
+    of paper §V.B): ``capacity`` slots (default ``C``), the slots past
+    the logical size empty (``-inf``, count 0); a logical size above
+    ``capacity`` is truncated."""
+    from repro_torch.core import resampling
+
+    cap = capacity if capacity is not None else ensemble.capacity
+    lw = ensemble.log_weights
+    counts = torch.where(torch.isfinite(lw), ensemble.counts,
+                         torch.zeros_like(ensemble.counts)).to(torch.int32)
+    total = counts.sum(-1, keepdim=True)
+    anc = resampling.counts_to_ancestors(counts, cap).long()
+    valid = torch.arange(cap, device=lw.device) < total
+    return ParticleEnsemble(
+        state=gather_particles(ensemble.state, anc),
+        log_weights=torch.where(valid, lw.gather(-1, anc),
+                                torch.full(valid.shape, -math.inf,
+                                           device=lw.device)),
+        counts=valid.to(torch.int32))
+
+
 def reweight(ensemble: ParticleEnsemble,
              log_lik: torch.Tensor) -> ParticleEnsemble:
     """Multiply the likelihood into the weights (Alg. 1 line 9); a dead

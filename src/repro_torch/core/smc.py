@@ -4,12 +4,17 @@
 A step is ``step(carry, observation) -> (carry, StepOutput)`` over a
 ``SIRCarry(draws, ensemble)``: the draws provider takes the place of the
 reference's PRNG key and hands out the step's draws in the reference's
-order (the dynamics normals, then the comb uniform).  Every step is
+order (the dynamics normals, then the resampler's draws).  Every step is
 batched over the ensemble's leading dims, so a ``FilterBank`` runs the
 same step on a ``(B, N, ...)`` ensemble with a ``BankDraws`` provider.
 ``run_sir`` replaces ``lax.scan`` with a Python loop over frames.
 
-The distributed (per-shard) step waits for ROADMAP A8.
+``make_distributed_sir_step`` is the step of the distributed filter: the
+same Alg. 1 over a ``(P, C, ...)`` ensemble of an emulated P-shard mesh,
+with the global normalizer, ESS and estimate taken through the
+collective facade and the resample done by a DRA
+(``repro_torch.core.distributed``).  Domain decomposition waits for
+ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core import particles, resampling
+from repro_torch.core import distributed as dist
+from repro_torch.core import particles, resampling, runtime
 from repro_torch.core.particles import ParticleEnsemble, effective_sample_size
 from repro_torch.kernels import sir_fused
 
@@ -34,7 +40,8 @@ class SIRConfig:
     ``stratified``, ancestry recording, an ``estimate_state`` or
     ``gather_state`` model hook) fall back to the composed step, as in
     the reference.  The fused step with ``metropolis``/``rejection``
-    raises until their kernels are ported.  The reference's
+    runs the weight phase without its comb and takes the ancestors from
+    the chain kernel.  The reference's
     ``fused_backend`` has no counterpart: the port chooses the kernel or
     its plain version by the tensors' device.
     """
@@ -104,6 +111,15 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
+def _select(cond: torch.Tensor, new: ParticleEnsemble,
+            old: ParticleEnsemble) -> ParticleEnsemble:
+    """Per member (``cond`` over the leading dim): ``new`` where true."""
+    return ParticleEnsemble(*(
+        torch.where(_bcast(cond, getattr(new, f)), getattr(new, f),
+                    getattr(old, f))
+        for f in ("state", "log_weights", "counts")))
+
+
 def make_sir_step(model, cfg: SIRConfig):
     """Build the single-device SIR step (Alg. 1 lines 5–18) for any
     ``StateSpaceModel``.  ``step_backend="fused"`` delegates the weight
@@ -112,20 +128,11 @@ def make_sir_step(model, cfg: SIRConfig):
     est_fn = getattr(model, "estimate_state", None)
     emit_fn = getattr(model, "emission", None)
     gather_fn = getattr(model, "gather_state", None)
-    if cfg.step_backend == "fused" and cfg.resampler in \
-            sir_fused.UNPORTED_RESAMPLERS:
-        raise NotImplementedError(
-            f"step_backend='fused' with resampler={cfg.resampler!r} waits "
-            f"for its Hopper kernel (ROADMAP B4/B5)")
     if (cfg.step_backend == "fused"
             and sir_fused.fused_applicable(cfg.resampler)
             and not cfg.record_ancestry and est_fn is None
             and gather_fn is None):
         return _make_fused_sir_step(model, cfg)
-    if cfg.resampler in resampling.COLLECTIVE_FREE:
-        raise NotImplementedError(
-            f"resampler={cfg.resampler!r} waits for its Hopper kernel "
-            f"(ROADMAP B4/B5)")
     n = cfg.n_particles
 
     def gather(state, ancestors):
@@ -177,9 +184,8 @@ def _make_fused_sir_step(model, cfg: SIRConfig):
         draws, ens = carry
         ens = particles.advance(ens, draws, model.transition_sample)
         ll = model.observation_log_prob(ens.state, observation)
-        u = draws.uniform(())
         dec = sir_fused.fused_weight_step(
-            ens.log_weights, ll, ens.state, u, resampler=cfg.resampler,
+            ens.log_weights, ll, ens.state, draws, resampler=cfg.resampler,
             ess_frac=cfg.ess_frac, always=cfg.always_resample)
         state = particles.gather_particles(ens.state, dec.ancestors)
         ens = ens.replace(state=state, log_weights=dec.new_log_weights)
@@ -218,6 +224,56 @@ def run_sir(draws, model, cfg: SIRConfig,
 
 
 # ---------------------------------------------------------------------------
+# Distributed (per-shard) SIR step
+# ---------------------------------------------------------------------------
+
+def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
+                              mesh: runtime.EmulatedMesh):
+    """The SIR step of the distributed filter over an emulated ``P``-shard
+    mesh.  ``cfg.n_particles`` is the GLOBAL count; the carry's ensemble
+    is ``(P, C, ...)`` with ``C = n_particles / P``, and its draws
+    provider has ``batch_shape (P,)`` (one stream per shard).  Every
+    shard advances, reweights against the one shared frame, and the
+    global log-normalizer, ESS and estimate come from collectives; the
+    DRA always runs (its draws are always taken), and the global ESS
+    decides whether its result is kept.  Outputs are the replicated
+    values (one copy); ``diag`` holds the DRA's diagnostics and the
+    step's comm-volume accounting."""
+    resample = dist.DRAS[dra.kind]
+
+    def step(carry: SIRCarry, observation):
+        draws, ens = carry
+        p, c = ens.log_weights.shape
+        ens = particles.advance(ens, draws, model.transition_sample)
+        ens = particles.reweight(ens, model.observation_log_prob(
+            ens.state, observation))
+        lw = ens.log_weights
+        glz = dist.global_log_z(lw, mesh)
+        ess = dist.global_ess(lw, mesh)
+        # MMSE estimate with globally normalized weights (one psum)
+        w = torch.exp(torch.where(torch.isfinite(lw), lw - glz[:, None],
+                                  torch.full_like(lw, -math.inf)))
+        x = ens.state
+        estimate = runtime.psum((_bcast(w.to(x.dtype), x) * x).sum(1), mesh)
+        do_resample = torch.logical_or(
+            ess < cfg.ess_frac * (p * c),
+            torch.tensor(bool(cfg.always_resample), device=ess.device))
+        r_ens, diag = resample(draws, ens, dra, mesh)
+        # fold the weight phase's collectives into the comm accounting:
+        # logZ gather + ESS gather/psum + estimate psum
+        step_bytes = 12 + runtime.tree_bytes(estimate[0])
+        diag = {**diag, "comm_bytes": diag["comm_bytes"] + step_bytes,
+                "comm_stages": diag["comm_stages"] + 4}
+        ens = _select(do_resample, r_ens,
+                      ens.replace(log_weights=lw - glz[:, None]))
+        out = StepOutput(estimate[0], ess[0], glz[0], do_resample[0],
+                         no_ancestors((), lw.device), diag)
+        return SIRCarry(draws, ens), out
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # Per-slot masking (resident banks)
 # ---------------------------------------------------------------------------
 
@@ -247,11 +303,7 @@ def make_masked_step(step):
         draws = carry.draws
         draws.active = [bool(a) for a in active.tolist()]
         new_carry, out = step(carry, observation)
-        old, new = carry.ensemble, new_carry.ensemble
-        ens = ParticleEnsemble(*(
-            torch.where(_bcast(active, getattr(new, f)), getattr(new, f),
-                        getattr(old, f))
-            for f in ("state", "log_weights", "counts")))
+        ens = _select(active, new_carry.ensemble, carry.ensemble)
         return SIRCarry(draws, ens), neutral_output(out, active)
 
     return masked

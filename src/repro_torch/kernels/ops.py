@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import patch_likelihood, ref
+from repro_torch.kernels import patch_likelihood, ref, resample
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -29,12 +29,57 @@ def patch_log_likelihood(state: torch.Tensor, frames: torch.Tensor, *,
                          frame_origin=None) -> torch.Tensor:
     """``(..., N)`` patch log-likelihoods of ``(..., N, S)`` particle
     states (columns y, x and i0 = 0, 1, 4) against ``(..., H, W)`` frames.
+    Frames with fewer leading dims are broadcast (a stride-0 view, no
+    copy): the shards of a distributed filter share one frame.
     """
     kw = dict(radius=radius, sigma_psf=sigma_psf, sigma_like=sigma_like,
               i_bg=i_bg, matched=matched, center_bounds=center_bounds,
               frame_origin=frame_origin)
+    frames = frames.expand(state.shape[:-2] + frames.shape[-2:])
     if on_cuda(state):
         return patch_likelihood.patch_log_likelihood_kernel(state, frames,
                                                             **kw)
     return ref.patch_log_likelihood_ref(state[..., 0], state[..., 1],
                                         state[..., 4], frames, **kw)
+
+
+def _batched(fn, *tensors):
+    """Run a ``(B, ...)`` kernel on ``(..., ...)`` inputs whose leading
+    dims are those of the first tensor minus its last axis."""
+    lead = tensors[0].shape[:-1]
+    flat = [t.reshape((-1,) + t.shape[len(lead):]).contiguous()
+            for t in tensors]
+    out = fn(*flat)
+    return out.reshape(lead + out.shape[1:])
+
+
+def systematic_ancestors(log_weights: torch.Tensor, u: torch.Tensor,
+                         n_out: int) -> torch.Tensor:
+    """``(..., n_out)`` systematic ancestors of ``(..., n_in)`` log-weights
+    with one comb offset per member ``u`` ``(...)`` (B1)."""
+    if not on_cuda(log_weights):
+        return ref.systematic_ancestors_ref(log_weights, u, n_out)
+    u = torch.as_tensor(u, dtype=torch.float32, device=log_weights.device)
+    u = u.expand(log_weights.shape[:-1])[..., None]
+    return _batched(lambda lw, uu: resample.systematic_ancestors_kernel(
+        lw, uu[:, 0], n_out), log_weights, u)
+
+
+def metropolis_ancestors(log_weights: torch.Tensor, proposals: torch.Tensor,
+                         log_us: torch.Tensor) -> torch.Tensor:
+    """``(..., lanes)`` Metropolis-chain ancestors (B4)."""
+    if not on_cuda(log_weights):
+        return resample.metropolis_ancestors_ref(log_weights, proposals,
+                                                 log_us)
+    return _batched(resample.metropolis_ancestors_kernel, log_weights,
+                    proposals, log_us)
+
+
+def rejection_ancestors(log_weights: torch.Tensor, proposals: torch.Tensor,
+                        log_us: torch.Tensor) -> torch.Tensor:
+    """``(..., lanes)`` rejection-sampling ancestors (B5)."""
+    if not on_cuda(log_weights):
+        return resample.rejection_ancestors_ref(log_weights, proposals,
+                                                log_us)
+    return _batched(resample.rejection_ancestors_kernel, log_weights,
+                    proposals, log_us)

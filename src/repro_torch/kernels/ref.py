@@ -67,11 +67,14 @@ def patch_log_likelihood_ref(y: torch.Tensor, x: torch.Tensor,
 def systematic_ancestors_ref(log_weights: torch.Tensor, u: torch.Tensor,
                              n_out: int) -> torch.Tensor:
     """``(..., n_out)`` systematic-resampling ancestors for offsets
-    ``u`` in [0, 1) (one per leading index)."""
+    ``u`` in [0, 1) (one per leading index).  The scan accumulates in
+    float64 and rounds each prefix to float32 — what torch's CPU cumsum
+    of float32 does — so the CUDA plain version computes the CPU's CDF
+    (torch's CUDA float32 cumsum drifts by ~2e-5 at 2^22 weights)."""
     lw = log_weights - log_weights.amax(-1, keepdim=True)
     w = torch.exp(lw)
     w = w / w.sum(-1, keepdim=True)
-    cdf = torch.cumsum(w, -1)
+    cdf = torch.cumsum(w.double(), -1).to(w.dtype)
     u = torch.as_tensor(u, dtype=log_weights.dtype, device=lw.device)
     pts = (torch.arange(n_out, dtype=log_weights.dtype, device=lw.device)
            + u[..., None]) / n_out

@@ -7,18 +7,19 @@ normalizes once and shares the result:
     w   = softmax(lw')            (one max / exp / sum)
     estimate = Σ w·x              (f32 accumulation)
     ESS, log Z, the resample decision, N·max w
-    ancestors — the systematic comb by a direct search of the CDF
+    ancestors — the systematic comb by a direct search of the CDF, or
+                the collective-free Metropolis/rejection chains
 
 ``fused_weight_step_ref`` is the plain torch version (what CPU tensors
 run, and what the kernel is held against on the card);
 ``fused_weight_step_kernel`` wraps ``csrc/sir_fused.cu``, which builds the
 same result in a few fixed-order passes over tiles of each member.
-``fused_weight_step`` dispatches on the tensors' device.  Every function
-takes an explicit leading bank dim ``B``.
-
-The collective-free Metropolis and rejection resamplers of the fused
-step wait for their kernels (ROADMAP B4/B5): asking for them raises
-rather than silently taking another path.
+``fused_weight_step`` dispatches on the tensors' device and takes the
+step's draws in the scheme's order: the comb's one uniform, or the
+chains' ``resampling_draws`` (then the weight phase runs with
+``comb=False`` and the ancestors come from the chain kernel of
+``csrc/resample.cu``).  Every function takes an explicit leading bank
+dim ``B``.
 """
 from __future__ import annotations
 
@@ -32,10 +33,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import on_cuda
 
-# Resampling schemes the reference's fused step commits on-chip; the
-# port runs the comb and raises for the two chains until B4/B5 land.
+# Resampling schemes the fused step commits on the card: the systematic
+# comb and the two collective-free chains.
 FUSED_RESAMPLERS = ("systematic", "metropolis", "rejection")
-UNPORTED_RESAMPLERS = ("metropolis", "rejection")
 
 
 class FusedDecision(NamedTuple):
@@ -203,23 +203,12 @@ def state_matrix(state: torch.Tensor, lead_dims: int
     return mat, unflatten_moments
 
 
-def fused_weight_step(log_weights: torch.Tensor, log_lik: torch.Tensor,
-                      state: torch.Tensor, u: torch.Tensor, *,
-                      resampler: str = "systematic", ess_frac: float = 0.5,
-                      always: bool = False) -> FusedDecision:
-    """Run the fused weight phase: the Hopper kernel for CUDA tensors,
-    the plain version for CPU tensors.  ``u`` is the comb offset per
-    member (the systematic scheme's one uniform)."""
-    if resampler in UNPORTED_RESAMPLERS:
-        raise NotImplementedError(
-            f"fused step with resampler={resampler!r} waits for its Hopper "
-            f"kernel (ROADMAP B4/B5)")
-    if resampler != "systematic":
-        raise ValueError(f"fused step does not support resampler="
-                         f"{resampler!r} (supported: {FUSED_RESAMPLERS})")
+def _weight_phase(log_weights, log_lik, state, u, ess_frac, always, comb):
+    """The weight phase: the kernel for CUDA tensors, else plain."""
     if not on_cuda(log_weights):
         return fused_weight_step_ref(log_weights, log_lik, state, u,
-                                     ess_frac=ess_frac, always=always)
+                                     ess_frac=ess_frac, always=always,
+                                     comb=comb)
     lead = log_weights.shape[:-1]
     n = log_weights.shape[-1]
     mat, unflatten = state_matrix(state, len(lead))
@@ -228,11 +217,46 @@ def fused_weight_step(log_weights: torch.Tensor, log_lik: torch.Tensor,
         log_weights.reshape(-1, n).contiguous(),
         log_lik.reshape(-1, n).contiguous(),
         mat.reshape(-1, n, d).float().contiguous(),
-        torch.as_tensor(u, dtype=torch.float32,
-                        device=log_weights.device).reshape(-1).contiguous(),
-        ess_frac=ess_frac, always=always)
+        torch.as_tensor(u, dtype=torch.float32, device=log_weights.device)
+        .expand(lead).reshape(-1).contiguous(),
+        ess_frac=ess_frac, always=always, comb=comb)
     stats = stats.reshape(lead + (6,))
     return FusedDecision(anc.reshape(lead + (n,)),
                          unflatten(est.reshape(lead + (d,))),
                          stats[..., 0], stats[..., 1], stats[..., 2] > 0.0,
                          new_lw.reshape(lead + (n,)), stats[..., 5])
+
+
+def fused_weight_step(log_weights: torch.Tensor, log_lik: torch.Tensor,
+                      state: torch.Tensor, draws, *,
+                      resampler: str = "systematic", ess_frac: float = 0.5,
+                      always: bool = False) -> FusedDecision:
+    """Run the fused weight phase: the Hopper kernels for CUDA tensors,
+    the plain versions for CPU tensors.  ``draws`` hands out the step's
+    resampling draws in the scheme's order: ``uniform(())`` for the
+    comb, ``randint`` then ``uniform`` ``(N, iters)`` for a chain, which
+    runs on ``lw' = lw + ll`` (dead slots ``-inf``) and replaces the
+    ancestors of the members that resample."""
+    if resampler not in FUSED_RESAMPLERS:
+        raise ValueError(f"fused step does not support resampler="
+                         f"{resampler!r} (supported: {FUSED_RESAMPLERS})")
+    if resampler == "systematic":
+        return _weight_phase(log_weights, log_lik, state, draws.uniform(()),
+                             ess_frac, always, comb=True)
+    # function-level: repro_torch.core (its smc) imports this module
+    from repro_torch.core import resampling
+    n = log_weights.shape[-1]
+    if resampler == "metropolis":
+        iters = resampling.METROPOLIS_ITERS
+        chain_fn = resampling.metropolis_ancestors_from_draws
+    else:
+        iters = resampling.REJECTION_TRIES
+        chain_fn = resampling.rejection_ancestors_from_draws
+    proposals, log_us = resampling.resampling_draws(draws, n, n, iters)
+    dec = _weight_phase(log_weights, log_lik, state, 0.0, ess_frac, always,
+                        comb=False)
+    lw_post = torch.where(torch.isfinite(log_weights), log_weights + log_lik,
+                          torch.full_like(log_weights, -math.inf))
+    chain = chain_fn(lw_post, proposals, log_us)
+    return dec._replace(ancestors=torch.where(
+        dec.resampled[..., None], chain, dec.ancestors))

@@ -140,9 +140,32 @@ class _BatchedReplay(ReplayDraws):
 
 
 @pytest.mark.parametrize("scheme", ["metropolis", "rejection"])
-def test_chain_resamplers_wait_for_their_kernels(scheme):
-    with pytest.raises(NotImplementedError):
-        tresampling.RESAMPLERS[scheme](ReplayDraws([]), torch.zeros(8), 8)
+def test_chain_resamplers_wait_for_their_kernels(scheme, monkeypatch):
+    """On a CUDA tensor the chain schemes take their kernel through
+    ``kernels.ops`` and never the plain version (the kernel is stood in
+    for here, so the routing is checked on the CPU)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import resample as tkernels
+    plain = getattr(tkernels, f"{scheme}_ancestors_ref")
+    calls = []
+
+    def kernel(lw, prop, log_us):
+        calls.append(tuple(lw.shape))
+        return plain(lw, prop, log_us)
+
+    def refuse(*args):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    monkeypatch.setattr(ops, "on_cuda", lambda t: True)
+    monkeypatch.setattr(tkernels, f"{scheme}_ancestors_kernel", kernel)
+    monkeypatch.setattr(tkernels, f"{scheme}_ancestors_ref", refuse)
+    lw = torch.randn(3, 8, generator=torch.Generator().manual_seed(2))
+    draws = [("randint", np.random.default_rng(0).integers(
+                  0, 8, (3, 8, 32)).astype(np.int32)),
+             ("uniform", np.random.default_rng(1).random((3, 8, 32)))]
+    counts = tresampling.RESAMPLERS[scheme](_BatchedReplay(draws), lw, 8)
+    assert calls == [(3, 8)]
+    assert counts.shape == (3, 8) and bool((counts.sum(-1) == 8).all())
 
 
 def test_gather_particles_batched():

@@ -132,6 +132,30 @@ def test_bank_draws_stack_members_and_freeze_inactive():
     assert torch.equal(members[1].normal((4, 2)), solo[1].normal((4, 2)))
 
 
+def test_int_kinds_repeat_and_stack():
+    """``randint`` is int32 in ``[0, high)``, ``permutation`` a permutation;
+    both repeat from a seed, and an inactive bank member gets int zeros
+    (and the identity permutation) without moving its stream."""
+    from repro_torch.core.draws import shard_draws, shard_seed
+    a, b = TorchDraws.from_seed(5, "cpu"), TorchDraws.from_seed(5, "cpu")
+    r = a.randint((40, 8), 13)
+    assert r.dtype == torch.int32 and torch.equal(r, b.randint((40, 8), 13))
+    assert int(r.min()) >= 0 and int(r.max()) < 13
+    p = a.permutation(50)
+    assert torch.equal(p, b.permutation(50))
+    assert torch.equal(p.sort().values, torch.arange(50))
+    bank = BankDraws([TorchDraws.from_seed(s, "cpu") for s in (1, 2)],
+                     active=[True, False])
+    out = bank.randint((3, 4), 9)
+    assert out.dtype == torch.int32 and not out[1].any()
+    assert torch.equal(bank.permutation(6)[1], torch.arange(6))
+    shards = shard_draws(7, 3, "cpu")
+    assert shards.batch_shape == (3,)
+    assert len({shard_seed(7, i) for i in range(3)}) == 3
+    with pytest.raises(TypeError):
+        shard_draws(ReplayDraws([]), 3, "cpu")
+
+
 # ---------------------------------------------------------------------------
 # The streams reproduce the reference's own draws
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Importing the port builds nothing and loads no CUDA library.
 * Entry points run on the CUDA device by default and raise without one;
-  the options of later slices raise ``NotImplementedError``.
+  the options of later slices (domain decomposition, ARNA, butterfly, a
+  bank over a mesh, ``bank_axis``) raise ``NotImplementedError``.
+* The chain resamplers run on the CPU through their plain versions, and
+  their CUDA wrappers refuse a CPU tensor instead of falling back.
 * The config converters carry the reference's fields across, and refuse
   a forced ``fused_backend``, which the port does not honor.
 """
@@ -22,7 +25,10 @@ from repro.core import SIRConfig as RefSIR
 from repro.models import tracking as jtracking
 from repro_torch import convert
 from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
+from repro_torch.core.distributed import DRAConfig
+from repro_torch.core.runtime import EmulatedMesh
 from repro_torch.kernels import build
+from repro_torch.kernels import resample as resample_kernels
 from repro_torch.models.tracking import TrackingConfig, TrackingSSM
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -56,7 +62,7 @@ def test_importing_the_port_builds_nothing():
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
     assert not build._LIBS
     assert sorted(p.name for p in build.sources()) == [
-        "patch_likelihood.cu", "sir_fused.cu"]
+        "patch_likelihood.cu", "resample.cu", "sir_fused.cu"]
     assert len(build.source_hash()) == 16
 
 
@@ -72,22 +78,44 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert pf.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("option", ["mesh", "dra", "domain"])
-def test_later_slices_raise(option):
+def _later_slice(option):
     model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
+    sir = SIRConfig(n_particles=8)
+    if option == "mesh":        # a bank over a mesh
+        return FilterBank(model, sir, device="cpu", mesh=EmulatedMesh(2))
+    if option == "dra":         # the DRAs of the next slice
+        return [DRAConfig(kind=k) for k in ("arna", "butterfly")]
+    if option == "domain":
+        return ParallelParticleFilter(model, sir, device="cpu",
+                                      mesh=EmulatedMesh(2),
+                                      domain=object())
+    return FilterBank(model, sir, device="cpu", bank_axis="bank")
+
+
+@pytest.mark.parametrize("option", ["mesh", "dra", "domain", "bank_axis"])
+def test_later_slices_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        ParallelParticleFilter(model, SIRConfig(n_particles=8),
-                               device="cpu", **{option: object()})
+        _later_slice(option)
 
 
 @pytest.mark.parametrize("backend", ["composed", "fused"])
 @pytest.mark.parametrize("scheme", ["metropolis", "rejection"])
 def test_chain_resamplers_raise_instead_of_falling_back(backend, scheme):
+    """The chain schemes run on the CPU through their plain versions;
+    their CUDA wrapper refuses the CPU tensor instead of falling back."""
     model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
     pf = ParallelParticleFilter(model, SIRConfig(
-        n_particles=8, resampler=scheme, step_backend=backend), device="cpu")
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        pf.run(0, torch.zeros(2, 16, 16))
+        n_particles=8, resampler=scheme, step_backend=backend,
+        always_resample=True), device="cpu")
+    res = pf.run(0, torch.randn(2, 16, 16,
+                                generator=torch.Generator().manual_seed(0)))
+    assert bool(res.resampled.all())
+    assert bool(torch.isfinite(res.estimates).all())
+    kernel = getattr(resample_kernels, f"{scheme}_ancestors_kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(res.final.log_weights[None],
+               torch.zeros(1, 8, 32, dtype=torch.int32),
+               torch.zeros(1, 8, 32))
 
 
 def test_fused_falls_back_to_composed_for_comb_schemes():

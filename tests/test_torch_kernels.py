@@ -324,12 +324,25 @@ def test_fused_comb_false_is_identity():
 
 
 def test_fused_dispatch_raises_for_unported_chains():
+    """The fused dispatch refuses every scheme it does not commit on the
+    card (the SIR step falls back to the composed path for those), and
+    takes each chain's draws in the chain's order — proposals, then
+    uniforms — with no comb uniform."""
+    from repro_torch.core.draws import ReplayDraws
     n = 64
     lw, ll, state = _fused_case(3, n, 5, "normal")
-    for scheme in ("metropolis", "rejection"):
-        with pytest.raises(NotImplementedError):
+    for scheme in ("stratified", "residual", "gibbs"):
+        with pytest.raises(ValueError, match="does not support"):
             tfused.fused_weight_step(_t(lw), _t(ll), _t(state),
-                                     torch.tensor(0.5), resampler=scheme)
+                                     ReplayDraws([]), resampler=scheme)
+    rng = np.random.default_rng(4)
+    for scheme in ("metropolis", "rejection"):
+        draws = ReplayDraws([
+            ("randint", rng.integers(0, n, (n, 32)).astype(np.int32)),
+            ("uniform", rng.random((n, 32)))])
+        dec = tfused.fused_weight_step(_t(lw), _t(ll), _t(state), draws,
+                                       resampler=scheme, always=True)
+        assert draws.remaining == 0 and bool(dec.resampled)
 
 
 def test_fused_state_matrix_round_trip():
