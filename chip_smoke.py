@@ -28,8 +28,19 @@
    8 × 2^22 = 2^25 particles over the same movie, for MPF, RNA and RPA,
    and checks tracking, repeatability, the comm accounting against the
    analytic formulas and the kernels it launched;
+5d. serves the qwen3-32b architecture at full width (d_model 5120, 64/8
+   heads, d_ff 25600, vocab 151936) with 16 of its 64 layers and random
+   bf16 weights drawn on the card: ``generate`` (4 prompts × 1024
+   tokens, 32 greedy steps) and ``smc_decode`` (the same prompts, K = 8
+   particles, 32 steps, τ = 1.5, systematic resampling), each through
+   the flash-attention kernel (B6) once per layer and forward call.  It
+   checks decode against prefill logits, repeatability, that SMC
+   sequences are the recorded genealogy's paths, log Z and ESS, and a
+   τ = 1 run's uniform weights;
 6. times each kernel and its plain version (median of 20 CUDA-event
-   timed launches) beside the kernel's bound, and the end-to-end frames/s.
+   timed launches) beside the kernel's bound and, for B6, PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (a yardstick the
+   port never calls), and the end-to-end frames/s and tokens/s.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -68,6 +79,18 @@ REPS = 20
 # (lock-on frames are printed; PERF.md and ROADMAP C4 give the readings)
 FRAMES, WARMUP, RMSE_PX, LOCK_PX = 40, 20, 1.5, 2.0
 N_SEEDS = 8
+PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+ATTN_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
+# the LM phase: qwen3-32b at full width, 16 of its 64 layers (64 layers
+# of bf16 weights are 65.5 GB: too little of 80 GB would be left for the
+# K-particle caches and their resampling gather)
+LM_ARCH, LM_LAYERS, LM_SEED = "qwen3-32b", 16, 0
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_K, LM_TAU = 4, 1024, 32, 8, 1.5
+LM_CHECK_STEPS = (1, 8, 31)
+# decode vs prefill logits in bf16: a bf16 step is 2^-8 relative, the
+# residual stream takes ~64 roundings over 16 layers (a random walk of
+# ~0.03 relative), and the logits reach |4.5| over 151936 entries
+LM_LOGIT_TOL = 0.15
 
 
 def card() -> str:
@@ -477,6 +500,318 @@ def comm_formulas(kind, p, c, cfg, state_bytes, estimate_bytes):
     return dra[0] + 12 + estimate_bytes, dra[1] + 4
 
 
+def attn_inputs(qshape, kvshape, dtype, seed, dev, lk=None):
+    """Random q, k, v; with ``lk`` the k/v are the ``[..., :lk, :]`` views
+    of a longer cache (strides of the whole buffer, no copy)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in (qshape, kvshape, kvshape))
+    if lk is not None:
+        k, v = k[:, :, :lk], v[:, :, :lk]
+    return q, k, v
+
+
+# label: q shape, k/v shape, dtype, soft-cap, view length (decode), causal
+ATTN_CASES = {
+    "prefill": ((4, 64, 1024, 128), (4, 8, 1024, 128), "bfloat16", 0.0,
+                None, True),
+    "decode": ((32, 64, 1, 128), (32, 8, 1057, 128), "bfloat16", 0.0, 1025,
+               True),
+    "ragged": ((2, 8, 37, 64), (2, 2, 1000, 64), "float32", 50.0, None,
+               True),
+    "mha": ((2, 32, 512, 80), (2, 32, 512, 80), "bfloat16", 0.0, None, True),
+    "mqa": ((2, 48, 300, 128), (2, 1, 300, 128), "bfloat16", 0.0, None,
+            True),
+    "mqa-decode": ((8, 48, 1, 128), (8, 1, 800, 128), "bfloat16", 0.0, 700,
+                   True),
+    "full": ((2, 8, 50, 128), (2, 2, 77, 128), "bfloat16", 0.0, None, False),
+    "full-f32": ((2, 8, 50, 96), (2, 2, 77, 96), "float32", 0.0, None,
+                 False),
+}
+# every bf16 head dim the kernel is built for, ragged and soft-capped
+ATTN_CASES.update({
+    f"d{d}": ((2, 8, 37, d), (2, 2, 100, d), "bfloat16", 30.0, None, True)
+    for d in (16, 32, 48, 64, 80, 96, 112, 128)})
+
+
+def check_attention(dev) -> dict:
+    """B6 against its plain version (``ref.mha_ref``) at the LM path's
+    prefill and decode shapes (the decode on a strided cache view), a
+    ragged soft-capped float32 case, the MHA (group 1) and MQA (group 48)
+    groupings, non-causal calls and every bf16 head dim the kernel is
+    built for: within ATTN_TOL, and bit for bit on a second launch.  The
+    float32 plain version of the same bf16 inputs is reported too."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    worst = {}
+    for i, (label, (qs, ks, dt, cap, lk, causal)) in enumerate(
+            ATTN_CASES.items()):
+        dtype = getattr(torch, dt)
+        q, k, v = attn_inputs(qs, ks, dtype, 50 + i, dev, lk)
+        kw = dict(causal=causal, scale=qs[-1] ** -0.5, logit_softcap=cap)
+        out = flash_attention_kernel(q, k, v, **kw)
+        again = flash_attention_kernel(q, k, v, **kw)
+        check(torch.equal(out, again), f"B6 {label} not repeatable")
+        want = ref.mha_ref(q, k, v, **kw)
+        err = max_err(out.float(), want.float(), ATTN_TOL[str(dtype)])
+        err32 = float((out.float() - ref.mha_ref(
+            q.float(), k.float(), v.float(), **kw)).abs().max())
+        worst[label] = err
+        log(f"B6 {label} q{tuple(q.shape)} kv{tuple(k.shape)} {dt}"
+            f"{' cap ' + str(cap) if cap else ''}"
+            f"{'' if causal else ' non-causal'}: max_abs_err={err:.3g} "
+            f"(rtol=atol={ATTN_TOL[str(dtype)]}; vs the float32 plain "
+            f"version {err32:.3g}), repeatable")
+        del q, k, v, out, again, want
+    return {"max_abs_err": max(worst.values()), "cases": worst}
+
+
+def attention_bound(q, k) -> tuple[float, str]:
+    """Least time for causal GQA attention: read q, k, v and write o once
+    (the bytes), against 4·D FLOP per visible (query, key) pair on the
+    bf16 tensor cores (QK^T and PV; causal pairs of query i are
+    i + Lk - Lq + 1)."""
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    pairs = lq * (lk - lq) + lq * (lq + 1) // 2
+    flops = 4 * b * hq * d * pairs
+    bytes_ = (2 * q.numel() + 2 * b * k.shape[1] * lk * d) * q.element_size()
+    t_b, t_o = bytes_ / PEAK_BYTES, flops / PEAK_BF16
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def lm_config():
+    """The LM phase's config: LM_ARCH at full width, LM_LAYERS deep."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+
+
+def time_attention(dev) -> dict:
+    """B6, its plain version and PyTorch's scaled_dot_product_attention
+    (the library yardstick, never on the port's path) at the LM phase's
+    four attention shapes; a decode reads the cache view at the middle of
+    the run (its first 1040 of 1057 slots)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    cfg = lm_config()
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    t_max = LM_PROMPT + LM_STEPS + 1
+    shapes = {}
+    for run, rows in (("smc", LM_BATCH * LM_K), ("generate", LM_BATCH)):
+        shapes[f"{run}_prefill"] = ((rows, hq, LM_PROMPT, d),
+                                    (rows, hkv, LM_PROMPT, d), None)
+        shapes[f"{run}_decode"] = ((rows, hq, 1, d), (rows, hkv, t_max, d),
+                                   LM_PROMPT + LM_STEPS // 2)
+    out = {}
+    for i, (label, (qs, ks, lk)) in enumerate(shapes.items()):
+        q, k, v = attn_inputs(qs, ks, torch.bfloat16, 70 + i, dev, lk)
+        scale = qs[-1] ** -0.5
+        causal = q.shape[2] == k.shape[2]
+        ms = cuda_ms(lambda: flash_attention_kernel(q, k, v))
+        plain = cuda_ms(lambda: ref.mha_ref(q, k, v, scale=scale), reps=5)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=True))
+        bound, by = attention_bound(q, k)
+        out[label] = {"q": list(q.shape), "k": list(k.shape), "ms": ms,
+                      "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                      "bound_by": by}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_prompts(cfg, dev):
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(LM_SEED + 1)
+    return torch.randint(cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=g,
+                         device=dev)
+
+
+def decode_vs_prefill(model, prompt, tokens) -> dict:
+    """Greedy decode step by step through the model's public functions,
+    keeping the logits of the steps in LM_CHECK_STEPS; the tokens must be
+    ``generate``'s, and prefilling prompt ⧺ tokens[:j] must give step j's
+    logits at its last position within LM_LOGIT_TOL, with the same argmax
+    wherever the top-2 gap exceeds the tolerance."""
+    import torch
+    from repro_torch.models.lm import model as M
+
+    t0 = prompt.shape[1]
+    with torch.inference_mode():
+        h, caches = M.forward_prefill(model, prompt, t0 + LM_STEPS + 1)
+        tok = M.unembed(model, h)[:, 0].float().argmax(-1).to(torch.int32)
+        seen, kept = [tok], {}
+        for j in range(1, LM_STEPS):
+            logits, caches = M.forward_decode(model, tok[:, None],
+                                              t0 + j - 1, caches)
+            logits = logits[:, 0].float()
+            if j in LM_CHECK_STEPS:
+                kept[j] = logits
+            tok = logits.argmax(-1).to(torch.int32)
+            seen.append(tok)
+        del caches
+        check(torch.equal(torch.stack(seen, 1), tokens),
+              "step-by-step greedy decode differs from generate")
+        worst, compared, agreed = 0.0, 0, 0
+        for j, want in kept.items():
+            seq = torch.cat([prompt, tokens[:, :j].long()], 1)
+            h, caches = M.forward_prefill(model, seq, seq.shape[1] + 1)
+            got = M.unembed(model, h)[:, 0].float()
+            del caches
+            worst = max(worst, float((got - want).abs().max()))
+            top2 = got.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL
+            compared += int(clear.sum())
+            agreed += int((got.argmax(-1) == tokens[:, j])[clear].sum())
+    check(worst <= LM_LOGIT_TOL, f"decode vs prefill logits differ by "
+                                 f"{worst:.4g} (limit {LM_LOGIT_TOL})")
+    check(agreed == compared, f"greedy tokens differ on {compared - agreed} "
+                              f"of {compared} clear steps")
+    return {"max_abs_logit_err": worst, "clear_steps": compared,
+            "steps_checked": list(LM_CHECK_STEPS)}
+
+
+def run_lm(dev, all_k, reset, counts, name) -> dict:
+    """Phase 5d: generate and smc_decode at qwen3-32b width, 16 layers."""
+    import dataclasses
+    import torch
+    from repro_torch.core import genealogy
+    from repro_torch.kernels import ref
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve import SMCDecodeConfig, generate, smc_decode
+
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{LM_ARCH} x {LM_LAYERS} layers: {n_params / 1e9:.3f} B parameters "
+        f"bf16 ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = lm_prompts(cfg, dev)
+    want_launches = LM_LAYERS * LM_STEPS       # one prefill + steps-1 decodes
+
+    def plain_never_ran(what):
+        check(ref.mha_ref.calls == 0, f"{what} ran the plain attention "
+                                      f"{ref.mha_ref.calls} times")
+
+    def launches_ok(what):
+        got = counts(all_k)
+        want = {k: 0 for k in all_k}
+        want["flash_attention"] = want_launches
+        check(got == want, f"{what} launches {got}, want {want}")
+        plain_never_ran(what)
+        return got["flash_attention"]
+
+    def prefill_s(rows):
+        """Seconds of one prefill of ``rows`` (the prompts repeated)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            M.forward_prefill(model, rows, LM_PROMPT + LM_STEPS + 1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # -- generate ----------------------------------------------------------
+    reset()
+    t0 = time.perf_counter()
+    tokens = generate(model, prompt, steps=LM_STEPS)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    gen_launches = launches_ok("generate")
+    check(tokens.shape == (LM_BATCH, LM_STEPS) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "generate tokens")
+    t0 = time.perf_counter()
+    again = generate(model, prompt, steps=LM_STEPS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    check(torch.equal(tokens, again), "generate not repeatable")
+    t_pre = prefill_s(prompt)
+    gen = {"launches": gen_launches, "seconds": t_gen,
+           "first_run_seconds": t_first, "prefill_seconds": t_pre,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_pre,
+           "decode_tokens_per_s": LM_BATCH * (LM_STEPS - 1) / (t_gen - t_pre)}
+    gen["consistency"] = decode_vs_prefill(model, prompt, tokens)
+    log(f"generate {LM_BATCH} x {LM_PROMPT} + {LM_STEPS} greedy: launches "
+        f"B6 {gen_launches}; {t_gen:.3f} s steady ({t_first:.3f} s first); "
+        f"prefill {gen['prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{gen['decode_tokens_per_s']:.2f} tokens/s; decode vs prefill "
+        f"logits {gen['consistency']['max_abs_logit_err']:.4g} (limit "
+        f"{LM_LOGIT_TOL}), greedy agrees on all "
+        f"{gen['consistency']['clear_steps']} clear steps [{name}]")
+    del again
+
+    # -- smc_decode --------------------------------------------------------
+    smc = SMCDecodeConfig(n_particles=LM_K, steps=LM_STEPS,
+                          proposal_temperature=LM_TAU)
+    reset()
+    t0 = time.perf_counter()
+    res = smc_decode(model, prompt, smc, key=LM_SEED + 2)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    smc_launches = launches_ok("smc_decode")
+    t0 = time.perf_counter()
+    res2 = smc_decode(model, prompt, smc, key=LM_SEED + 2)
+    torch.cuda.synchronize()
+    t_smc = time.perf_counter() - t0
+    for field in res._fields:
+        check(torch.equal(getattr(res, field), getattr(res2, field)),
+              f"smc_decode {field} not repeatable")
+    del res2
+    for b in range(LM_BATCH):
+        paths = genealogy.reconstruct_trajectories(res.ancestors[:, b],
+                                                   res.emissions[:, b])
+        check(torch.equal(paths, res.sequences[b]),
+              f"prompt {b}: sequences are not the genealogy's paths")
+    check(bool(torch.isfinite(res.log_z).all()), "non-finite log Z")
+    check(bool(((res.ess >= 1 - 1e-3) & (res.ess <= LM_K * (1 + 1e-5)))
+               .all()), f"ESS outside [1, {LM_K}]")
+    t_pre = prefill_s(prompt.repeat_interleave(LM_K, 0))
+    smc_rec = {
+        "launches": smc_launches, "seconds": t_smc,
+        "first_run_seconds": t_first, "prefill_seconds": t_pre,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_pre,
+        "prefill_row_tokens_per_s": LM_BATCH * LM_K * LM_PROMPT / t_pre,
+        "decode_tokens_per_s":
+            LM_BATCH * LM_K * (LM_STEPS - 1) / (t_smc - t_pre),
+        "resample_events": int(res.resampled.sum()),
+        "log_z": res.log_z.tolist(), "mean_ess": float(res.ess.mean()),
+        "min_ess": float(res.ess.min())}
+    log(f"smc_decode {LM_BATCH} x {LM_PROMPT}, K={LM_K}, {LM_STEPS} steps, "
+        f"tau={LM_TAU}: launches B6 {smc_launches}; {t_smc:.3f} s steady "
+        f"({t_first:.3f} s first); prefill {smc_rec['prefill_tokens_per_s']:.1f}"
+        f" prompt tokens/s ({smc_rec['prefill_row_tokens_per_s']:.1f} row "
+        f"tokens/s), decode {smc_rec['decode_tokens_per_s']:.2f} hypothesis "
+        f"tokens/s; log Z {[round(x, 4) for x in smc_rec['log_z']]}, ESS mean "
+        f"{smc_rec['mean_ess']:.3f} min {smc_rec['min_ess']:.3f}, "
+        f"{smc_rec['resample_events']} resample events; sequences == "
+        f"genealogy paths, repeatable [{name}]")
+    del res
+
+    # -- tau = 1: proposal == target ---------------------------------------
+    flat = smc_decode(model, prompt, dataclasses.replace(
+        smc, proposal_temperature=1.0), key=LM_SEED + 3)
+    err = float(flat.log_z.abs().max())
+    check(err <= 1e-4 and not bool(flat.resampled.any()),
+          f"tau=1: |log Z| {err:.3g}, {int(flat.resampled.sum())} resamples")
+    smc_rec["tau1_max_abs_log_z"] = err
+    plain_never_ran("the LM phase")
+    log(f"smc_decode tau=1: max |log Z| {err:.3g} (limit 1e-4), no resample")
+    del flat, model
+    torch.cuda.empty_cache()
+    return {"arch": LM_ARCH, "layers": LM_LAYERS, "params": n_params,
+            "generate": gen, "smc_decode": smc_rec}
+
+
 def make_movie(seed, cfg, dev):
     from repro_torch.core.draws import TorchDraws
     from repro_torch.data.synthetic_movie import generate_movie
@@ -533,6 +868,8 @@ def main() -> int:
         rejection_ancestors_kernel as rej_k
     from repro_torch.kernels.sir_fused import \
         fused_weight_step_kernel as fused_k, fused_weight_step_ref
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_kernel as attn_k
     from repro_torch.core.distributed import DRAConfig
     from repro_torch.core.runtime import EmulatedMesh
     from repro_torch.models.tracking import TrackingConfig, TrackingSSM
@@ -558,9 +895,11 @@ def main() -> int:
     fused_check = check_fused(dev)
     sys_check = check_systematic(dev)
     chain_check = check_chains(dev)
+    attn_check = check_attention(dev)
+    ref.mha_ref.calls = 0        # from here on no path may run it
     all_k = {"patch_log_likelihood": patch_k, "fused_weight_step": fused_k,
              "systematic_ancestors": sys_k, "metropolis_ancestors": metro_k,
-             "rejection_ancestors": rej_k}
+             "rejection_ancestors": rej_k, "flash_attention": attn_k}
 
     def reset():
         for k in all_k.values():
@@ -761,6 +1100,9 @@ def main() -> int:
             f"first run) [{name}]")
         del dres, dres2
 
+    # -- phase 5d: LM serving at qwen3-32b width ------------------------------
+    lm = run_lm(dev, all_k, reset, counts, name)
+
     # -- phase 6: timings --------------------------------------------------------
     state, frames1 = patch_inputs(1, n_single, 512, 512, 3, dev)
     state[0] = res.final.state                       # the filter's particles
@@ -799,6 +1141,12 @@ def main() -> int:
         f"{metro_ms:.4f} ms (plain {metro_plain_ms:.4f}), B5 {rej_ms:.4f} "
         f"ms (plain {rej_plain_ms:.4f}) at 2^22 x 32, bound {c_bound:.4f} "
         f"{c_by}")
+    attn_times = time_attention(dev)
+    for label, t in attn_times.items():
+        log(f"times [{name}]: B6 {label} q{tuple(t['q'])} kv{tuple(t['k'])}: "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, sdpa "
+            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"{t['bound_by']})")
     log(f"times [{name}]: patch {patch_ms:.4f} ms (plain {patch_plain_ms:.4f},"
         f" bound {p_bound:.4f} {p_by}), fused {fused_ms:.4f} ms (plain "
         f"{fused_plain_ms:.4f}, bound {f_bound:.4f} {f_by}) at N=2^22; "
@@ -842,6 +1190,18 @@ def main() -> int:
          "max_abs_err": chain_check["max_abs_err"], "ms": rej_ms,
          "plain_ms": rej_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
          "library_ms": None},
+        # the decode shape, 31 of every 32 launches on the LM path; the
+        # prefill shapes are in the record's "attention" entry
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:84",
+         "launches": lm["smc_decode"]["launches"],
+         "max_abs_err": attn_check["max_abs_err"],
+         "ms": attn_times["smc_decode"]["ms"],
+         "plain_ms": attn_times["smc_decode"]["plain_ms"],
+         "bound_ms": attn_times["smc_decode"]["bound_ms"],
+         "bound_by": attn_times["smc_decode"]["bound_by"],
+         "library_ms": attn_times["smc_decode"]["library_ms"]},
     ]
     record = {
         "card": name, "kernels": kernels,
@@ -849,7 +1209,8 @@ def main() -> int:
         "comb_offset": fused_check["comb_offset"],
         "systematic_tie_lanes": sys_check["tie_lanes"],
         "systematic_comb_offset": sys_check["comb_offset"],
-        "chains": chain_runs, "distributed": dist_runs,
+        "chains": chain_runs, "distributed": dist_runs, "lm": lm,
+        "attention": attn_times, "attention_check": attn_check,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,
                     "fused_weight_step": fused_bank_ms},
         "single": {"n": n_single, "frames": FRAMES, "warmup": WARMUP,

@@ -1,9 +1,11 @@
-"""Carry state and configs across from the reference, as plain data.
+"""Carry state, configs and weights across from the reference, as plain
+data.
 
-The system has no weights; what crosses between the packages is the
-particle state and the configs.  Every function takes numpy arrays and
-plain field dicts (``dataclasses.asdict`` of the reference's configs),
-never JAX objects, so this module needs neither package's runtime.
+What crosses between the packages is the particle state, the configs
+and, for the language models, the weights of the reference's
+``init_params``.  Every function takes numpy arrays and plain field
+dicts (``dataclasses.asdict`` of the reference's configs), never JAX
+objects, so this module needs neither package's runtime.
 
 A distributed ensemble is laid out differently on the two sides: the
 reference's sharded leaves are ``(P·C, ...)``, shard-major (what its
@@ -14,9 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs import base as configs
 from repro_torch.core.distributed import DRAConfig
 from repro_torch.core.particles import ParticleEnsemble
 from repro_torch.core.smc import SIRConfig
+from repro_torch.models.lm import model as lm
 from repro_torch.models.ssm.lgssm import LinearGaussianSSM
 from repro_torch.models.tracking import TrackingConfig
 
@@ -94,3 +98,71 @@ def dra_config(fields: dict) -> DRAConfig:
         raise ValueError(f"resample_backend={backend!r}: the port chooses "
                          f"the local-resample kernel by the tensors' device")
     return DRAConfig(**fields)
+
+
+_SUB_CONFIGS = {"moe": configs.MoEConfig, "mla": configs.MLAConfig,
+                "ssm": configs.SSMConfig, "rglru": configs.RGLRUConfig}
+
+
+def arch_config(fields: dict) -> configs.ArchConfig:
+    """``ArchConfig`` from the reference config's fields (nested dicts for
+    the MoE/MLA/SSM/RG-LRU sub-configs, as ``dataclasses.asdict`` gives
+    them)."""
+    fields = dict(fields)
+    for name, cls in _SUB_CONFIGS.items():
+        if fields.get(name) is not None:
+            sub = dict(fields[name])
+            if "block_pattern" in sub:
+                sub["block_pattern"] = tuple(sub["block_pattern"])
+            fields[name] = cls(**sub)
+    fields["layer_pattern"] = tuple(fields.get("layer_pattern", ()))
+    return configs.ArchConfig(**fields)
+
+
+def _layer_leaves(params: dict):
+    """The reference's per-layer parameter dicts in depth order: the
+    unrolled head, then each scanned group's unit layers (the stacked
+    ``blocks`` leaves, indexed on their leading group axis), then the
+    tail."""
+    yield from params.get("head_blocks", [])
+    blocks = params.get("blocks", {})
+    names = sorted(blocks, key=lambda k: int(k[1:k.index("_")]))
+    n_groups = (np.shape(blocks[names[0]]["pre_norm"])[0] if names else 0)
+    for g in range(n_groups):
+        for name in names:
+            yield _index(blocks[name], g)
+    yield from params.get("tail_blocks", [])
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def lm_params(params_np: dict, cfg: configs.ArchConfig, device="cpu",
+              dtype: torch.dtype | None = None) -> lm.Decoder:
+    """The port's ``Decoder`` holding the reference's ``init_params``
+    weights (a pytree of numpy arrays), cast once to ``dtype`` (default
+    ``cfg.compute_dtype``) — what the reference's ``cast_params`` does on
+    every call."""
+    dtype = dtype or lm.L.dtype_of(cfg.compute_dtype)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device=device,
+                                                             dtype=dtype)
+
+    blocks = []
+    for layer in _layer_leaves(params_np):
+        if "attn" not in layer or "mlp" not in layer:
+            raise NotImplementedError(
+                f"layer with {sorted(layer)}: the port runs G layers with "
+                f"dense FFNs only (ROADMAP A12)")
+        blocks.append(lm.Block(
+            {k: t(v) for k, v in layer["attn"].items()},
+            {k: t(v) for k, v in layer["mlp"].items()},
+            t(layer["pre_norm"]), t(layer["ffn_norm"])))
+    head = params_np.get("lm_head")
+    return lm.Decoder(cfg, t(params_np["embed"]), blocks,
+                      t(params_np["final_norm"]),
+                      None if head is None else t(head))

@@ -3,10 +3,13 @@
 Torch's Philox cannot reproduce JAX's threefry, so the port never splits
 keys.  Every random number goes through a provider that hands out draws
 in the order the reference consumes its keys (``run_sir``: the init draws,
-then per frame the dynamics normals and the resampler's draws).  Five
+then per frame the dynamics normals and the resampler's draws).  Six
 kinds: ``uniform``, ``normal``, ``exponential``, ``randint`` (int32, the
-proposals of the collective-free resamplers) and ``permutation`` (RNA's
-slot shuffle).  Three providers:
+proposals of the collective-free resamplers), ``permutation`` (RNA's
+slot shuffle) and ``gumbel`` (the noise of a categorical draw:
+``jax.random.categorical`` is ``argmax(gumbel + logits)``, with JAX's
+default "low" Gumbel ``-log(-log(u))``, ``u`` uniform on
+``[tiny, 1)``).  Three providers:
 
 * ``TorchDraws`` wraps one ``torch.Generator`` (the default: one per
   filter, one per bank member);
@@ -32,7 +35,7 @@ import torch
 # inactive bank member receives)
 KIND_DTYPES = {"uniform": torch.float32, "normal": torch.float32,
                "exponential": torch.float32, "randint": torch.int32,
-               "permutation": torch.int64}
+               "permutation": torch.int64, "gumbel": torch.float32}
 
 
 class TorchDraws:
@@ -76,6 +79,12 @@ class TorchDraws:
         """A uniformly random permutation of ``arange(n)``."""
         return torch.randperm(int(n), generator=self.generator,
                               device=self.device)
+
+    def gumbel(self, shape) -> torch.Tensor:
+        """Standard Gumbel float32 draws ``-log(-log(u))`` of ``shape``,
+        ``u`` uniform on ``[tiny, 1)`` (JAX's default "low" mode)."""
+        u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
 
 
 class ReplayDraws:
@@ -127,6 +136,10 @@ class ReplayDraws:
         """The next replayed permutation of ``arange(n)``."""
         return self._next("permutation", (int(n),))
 
+    def gumbel(self, shape) -> torch.Tensor:
+        """The next replayed Gumbel draw of ``shape``."""
+        return self._next("gumbel", shape)
+
 
 class BankDraws:
     """Per-member draws stacked along a leading slot dim ``B``.
@@ -164,6 +177,10 @@ class BankDraws:
     def randint(self, shape, high: int) -> torch.Tensor:
         """``(B,) + shape`` int32 draws in ``[0, high)``."""
         return self._stack("randint", shape, high)
+
+    def gumbel(self, shape) -> torch.Tensor:
+        """``(B,) + shape`` Gumbel draws."""
+        return self._stack("gumbel", shape)
 
     def permutation(self, n: int) -> torch.Tensor:
         """``(B, n)``: one permutation per member."""

@@ -5,16 +5,29 @@ A ``ParticleEnsemble`` holds ``state`` ``(..., N, *S)``, ``log_weights``
 empty for one filter and ``(B,)`` for a ``FilterBank`` — the bank dim is
 written out where the reference ``vmap``s.  Every function here reduces
 over the particle axis (the last axis of ``log_weights``) and broadcasts
-over the leading dims.  The state is one tensor (the reference allows a
-pytree; every model of this slice has a single state matrix).
+over the leading dims.  The state is one tensor or, as in the reference,
+a pytree of tensors (nested dicts, lists and tuples; ``tree_map``) whose
+leaves all lead with the ensemble's dims — the LM decode state holds its
+KV caches, tokens and positions that way.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over matching pytrees (dicts, lists and plain
+    tuples; any other object is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
+    return fn(tree, *rest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,13 +114,14 @@ def effective_sample_size(log_weights: torch.Tensor,
     return 1.0 / torch.square(w).sum(-1)
 
 
-def weighted_mean(ensemble: ParticleEnsemble) -> torch.Tensor:
+def weighted_mean(ensemble: ParticleEnsemble) -> Any:
     """MMSE estimate ``Σ w·x`` over the particle axis, as an explicit
-    multiply and sum (the reference's form)."""
+    multiply and sum (the reference's form), leafwise over a pytree
+    state."""
     w = normalized_weights(ensemble.log_weights, ensemble.counts)
-    x = ensemble.state
     axis = ensemble.log_weights.dim() - 1
-    return (_per_particle(w.to(x.dtype), x) * x).sum(axis)
+    return tree_map(lambda x: (_per_particle(w.to(x.dtype), x) * x).sum(axis),
+                    ensemble.state)
 
 
 def logical_size(ensemble: ParticleEnsemble) -> torch.Tensor:

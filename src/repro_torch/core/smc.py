@@ -113,10 +113,13 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _select(cond: torch.Tensor, new: ParticleEnsemble,
             old: ParticleEnsemble) -> ParticleEnsemble:
-    """Per member (``cond`` over the leading dim): ``new`` where true."""
+    """Per member (``cond`` over the leading dim): ``new`` where true,
+    leafwise over a pytree state."""
+    def pick(a, b):
+        return torch.where(_bcast(cond, a), a, b)
+
     return ParticleEnsemble(*(
-        torch.where(_bcast(cond, getattr(new, f)), getattr(new, f),
-                    getattr(old, f))
+        particles.tree_map(pick, getattr(new, f), getattr(old, f))
         for f in ("state", "log_weights", "counts")))
 
 
@@ -201,11 +204,13 @@ def _make_fused_sir_step(model, cfg: SIRConfig):
 def stack_outputs(outs: list[StepOutput], axis: int = 0) -> StepOutput:
     """Stack per-frame outputs along a new time axis (what ``lax.scan``
     does to the reference's outputs)."""
-    diag = {k: torch.stack([o.diag[k] for o in outs], axis)
-            for k in outs[0].diag}
-    return StepOutput(*(torch.stack([getattr(o, f) for o in outs], axis)
+    def stack(*xs):
+        return torch.stack(xs, axis)
+
+    return StepOutput(*(particles.tree_map(stack, *[getattr(o, f)
+                                                    for o in outs])
                         for f in ("estimate", "ess", "log_marginal",
-                                  "resampled", "ancestors")), diag)
+                                  "resampled", "ancestors", "diag")))
 
 
 def run_sir(draws, model, cfg: SIRConfig,
@@ -283,9 +288,9 @@ def neutral_output(out: StepOutput, active: torch.Tensor) -> StepOutput:
     def zero(x):
         return torch.where(_bcast(active, x), x, torch.zeros_like(x))
 
-    return StepOutput(*(zero(getattr(out, f)) for f in (
-        "estimate", "ess", "log_marginal", "resampled", "ancestors")),
-        {k: zero(v) for k, v in out.diag.items()})
+    return StepOutput(*(particles.tree_map(zero, getattr(out, f)) for f in (
+        "estimate", "ess", "log_marginal", "resampled", "ancestors",
+        "diag")))
 
 
 def make_masked_step(step):
@@ -295,7 +300,10 @@ def make_masked_step(step):
     then selects: an active slot takes the new ensemble and real outputs,
     an inactive slot keeps its ensemble bit for bit and emits zeros.  The
     carry's draws must be a ``BankDraws`` over the slots; an inactive
-    member is not asked for draws, so its stream stays frozen too.
+    member is not asked for draws, so its stream stays frozen too.  When
+    every slot is active the select would copy the new ensemble onto
+    itself, so it is skipped (same bits; for an LM decode state that is
+    a copy of every KV cache per step saved).
     """
 
     def masked(carry: SIRCarry, xs):
@@ -303,6 +311,8 @@ def make_masked_step(step):
         draws = carry.draws
         draws.active = [bool(a) for a in active.tolist()]
         new_carry, out = step(carry, observation)
+        if all(draws.active):
+            return SIRCarry(draws, new_carry.ensemble), out
         ens = _select(active, new_carry.ensemble, carry.ensemble)
         return SIRCarry(draws, ens), neutral_output(out, active)
 

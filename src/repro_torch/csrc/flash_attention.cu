@@ -1,0 +1,452 @@
+// B6 on Hopper: causal GQA flash attention.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
+// (_kernel l.33, pallas_call l.110).  Computes, for q (B, Hq, Lq, D) and
+// k, v (B, Hkv, Lk, D), o = softmax(scale * q k^T [soft-capped, causal]) v
+// with query head h reading KV head h / (Hq / Hkv), a causal query i seeing
+// keys j <= i + Lk - Lq (the decode offset), an online softmax (m, l, acc)
+// in float32, and the output in q's dtype.  q, k and v are strided views
+// (a decode call passes the KV cache's [..., :pos+1, :] view as it lies in
+// memory); o is a contiguous (B, Hq, Lq, D) tensor.
+//
+// bf16 (the serving path): one block of four warps per (batch row, KV head,
+// tile of 64 query rows).  The rows of a KV head are its G query heads at
+// each query position, position-major (row r = position r / G, head
+// r % G), so a K/V tile staged in shared memory serves every head of the
+// group, and a decode step (Lq = 1) puts the G heads of a KV head in one
+// tile.  Each warp owns 16 rows and keeps its Q fragments, scores and
+// output accumulator in registers; QK^T and PV are mma.sync m16n8k16 bf16
+// products with float32 accumulation, their K and V fragments read with
+// ldmatrix (V transposed), and the unnormalized probabilities are
+// rounded to bf16 for PV, as the TPU kernel rounds p to v's dtype.
+// K/V tiles of 64 keys are double-buffered with cp.async, zero-filled past
+// Lk.  Keys are walked in order from 0 and a causal block stops at the
+// last key its rows can see, so every tile it walks holds a visible key
+// for each row it owns; masked scores are -inf and add exactly 0.  No
+// split over keys and no float atomics: results repeat bit for bit.
+//
+// What bounds it: at prefill (Lq = Lk = 1024) the products, 4·Lq·Lk·D
+// FLOP per head halved by the causal mask, against 989 TFLOP/s of dense
+// bf16; at decode (Lq = 1) the bytes of the KV cache view, read once,
+// against 3.35 TB/s.  mma.sync reaches a fraction of the wgmma rate and
+// the loads are not warp-specialized; wgmma, TMA and a split over keys
+// for long decode caches are later work.
+//
+// float32 (the tests' and the f32 models' path): one warp per query row,
+// one key per lane, plain FMA; same online softmax and key order.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  int b, hq, hkv, lq, lk, group, causal;
+  float scale, softcap;
+};
+
+constexpr int BM = 64;        // query rows per block (4 warps x 16)
+constexpr int BN = 64;        // keys per tile
+constexpr int THREADS = 128;
+constexpr int F32_WARPS = 4;
+constexpr int F32_MAX_D = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills when !valid (no bytes read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D (16x8, f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; lane L gives the address of
+// row L % 8 of matrix L / 8 and receives, of matrix i, register r[i] =
+// (row L / 4, cols 2 (L % 4), +1) — with .trans, (rows 2 (L % 4), +1;
+// col L / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// two floats -> bf16x2, the first in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float logit(float s, const Args& a) {
+  float x = s * a.scale;
+  if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+  return x;
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * gr + tq.
+//   A: a0 (gr, 2tq..+1), a1 (gr+8, 2tq..), a2 (gr, 2tq+8..), a3 (gr+8, 2tq+8..)
+//   B: b0 (k 2tq..+1, n gr), b1 (k 2tq+8..+9, n gr)
+//   C: c0, c1 (gr, 2tq..+1), c2, c3 (gr+8, 2tq..+1)
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
+  constexpr int LD = D + 8;     // padded smem row (elements): no bank conflicts
+  constexpr int KC = D / 16;    // k-steps of QK^T
+  constexpr int DN = D / 8;     // n-tiles of the output
+  constexpr int SN = BN / 8;    // n-tiles of the scores
+  constexpr int VEC = D / 8;    // 16-byte vectors per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sk = sq + BM * LD;       // 2 stages of BN x LD
+  __nv_bfloat16* sv = sk + 2 * BN * LD;   // 2 stages of BN x LD
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int n_rows = a.group * a.lq;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;   // longest rows first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int off = a.lk - a.lq;
+  const __nv_bfloat16* qg =
+      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb;
+  const __nv_bfloat16* kg =
+      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const __nv_bfloat16* vg =
+      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  for (int idx = tid; idx < BM * VEC; idx += THREADS) {
+    const int r = idx / VEC, c = idx % VEC, row = row0 + r;
+    const bool ok = row < n_rows;
+    const __nv_bfloat16* src = qg;
+    if (ok) {
+      const int head = hk * a.group + row % a.group;
+      src = qg + head * a.q_sh + (long long)(row / a.group) * a.q_sl + c * 8;
+    }
+    cp_async16(sq + r * LD + c * 8, src, ok);
+  }
+
+  int kend = a.lk;
+  if (a.causal) {
+    const int last = min(row0 + BM, n_rows) - 1;
+    kend = min(a.lk, last / a.group + off + 1);
+  }
+  const int n_kt = (kend + BN - 1) / BN;
+
+  auto load_kv = [&](int stage, int kt) {
+    __nv_bfloat16* dk = sk + stage * BN * LD;
+    __nv_bfloat16* dv = sv + stage * BN * LD;
+    for (int idx = tid; idx < BN * VEC; idx += THREADS) {
+      const int r = idx / VEC, c = idx % VEC, key = kt * BN + r;
+      const bool ok = key < a.lk;
+      const long long ko = ok ? key * a.k_sl + c * 8 : 0;
+      const long long vo = ok ? key * a.v_sl + c * 8 : 0;
+      cp_async16(dk + r * LD + c * 8, kg + ko, ok);
+      cp_async16(dv + r * LD + c * 8, vg + vo, ok);
+    }
+  };
+  if (n_kt > 0) load_kv(0, 0);
+  cp_async_commit();                        // group 0: Q and key tile 0
+
+  const int r0 = row0 + warp * 16 + gr, r1 = r0 + 8;
+  const int pos0 = r0 / a.group + off, pos1 = r1 / a.group + off;
+  const bool live = row0 + warp * 16 < n_rows;   // warp-uniform
+  float o[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+    o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  uint32_t qa[KC][4];
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) load_kv((kt + 1) & 1, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                     // tile kt (and Q) have landed
+    __syncthreads();
+    if (live) {
+      if (kt == 0) {
+        const __nv_bfloat16* qw = sq + warp * 16 * LD;
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          const __nv_bfloat16* p0 = qw + gr * LD + kc * 16 + tq * 2;
+          const __nv_bfloat16* p1 = p0 + 8 * LD;
+          qa[kc][0] = *reinterpret_cast<const uint32_t*>(p0);
+          qa[kc][1] = *reinterpret_cast<const uint32_t*>(p1);
+          qa[kc][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
+          qa[kc][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+        }
+      }
+      const __nv_bfloat16* ks = sk + (kt & 1) * BN * LD;
+      const __nv_bfloat16* vs = sv + (kt & 1) * BN * LD;
+      float s[SN][4];
+#pragma unroll
+      for (int n = 0; n < SN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      // K's B fragments, two key n-tiles per ldmatrix: matrices (keys
+      // 8n.., d 16kc..), (8n.., 16kc+8..), (8n+8.., 16kc..), (8n+8..,
+      // 16kc+8..) give b0, b1 of n-tile n, then of n + 1
+      const __nv_bfloat16* krow =
+          ks + ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+        for (int n = 0; n < SN; n += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, krow + n * 8 * LD + kc * 16);
+          mma_bf16(s[n], qa[kc], kb[0], kb[1]);
+          mma_bf16(s[n + 1], qa[kc], kb[2], kb[3]);
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kt * BN + n * 8 + tq * 2 + (e & 1);
+          const int pos = e < 2 ? pos0 : pos1;
+          const bool ok = key < a.lk && (!a.causal || key <= pos);
+          const float x = ok ? logit(s[n][e], a) : -INFINITY;
+          s[n][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      // a row with nothing visible yet keeps m = -inf; shift by 0 there
+      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float al0 = expf(m0 - mu0), al1 = expf(m1 - mu1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+        s[n][0] = expf(s[n][0] - mu0);
+        s[n][1] = expf(s[n][1] - mu0);
+        s[n][2] = expf(s[n][2] - mu1);
+        s[n][3] = expf(s[n][3] - mu1);
+        ps0 += s[n][0] + s[n][1];
+        ps1 += s[n][2] + s[n][3];
+      }
+      // per-lane partial row sums; the quad adds them up at the end
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        o[dn][0] *= al0;
+        o[dn][1] *= al0;
+        o[dn][2] *= al1;
+        o[dn][3] *= al1;
+      }
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        // the score C fragments of keys 16kc..16kc+15 are P's A fragment
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+            pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+            pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+            pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+        // V's B fragments, transposed, two d n-tiles per ldmatrix:
+        // matrices (keys 16kc.., d 8dn..), (16kc+8.., 8dn..), (16kc..,
+        // 8dn+8..), (16kc+8.., 8dn+8..)
+        const __nv_bfloat16* vrow =
+            vs + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+            (lane >> 4) * 8;
+#pragma unroll
+        for (int dn = 0; dn < DN; dn += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vrow + dn * 8);
+          mma_bf16(o[dn], pa, vb[0], vb[1]);
+          mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();                        // stage kt & 1 is free again
+  }
+
+  if (!live) return;
+  const float d0 = fmaxf(quad_sum(l0), 1e-30f);
+  const float d1 = fmaxf(quad_sum(l1), 1e-30f);
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o);
+  if (r0 < n_rows) {
+    const int head = hk * a.group + r0 % a.group;
+    __nv_bfloat16* orow =
+        og + (((long long)b * a.hq + head) * a.lq + r0 / a.group) * D;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + tq * 2) =
+          __floats2bfloat162_rn(o[dn][0] / d0, o[dn][1] / d0);
+  }
+  if (r1 < n_rows) {
+    const int head = hk * a.group + r1 % a.group;
+    __nv_bfloat16* orow =
+        og + (((long long)b * a.hq + head) * a.lq + r1 / a.group) * D;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + tq * 2) =
+          __floats2bfloat162_rn(o[dn][2] / d1, o[dn][3] / d1);
+  }
+}
+
+// float32: one warp per query row (b, head, i), one key per lane
+__global__ void __launch_bounds__(F32_WARPS * 32) flash_f32(Args a, int d) {
+  constexpr int C = F32_MAX_D / 32;
+  __shared__ float sq[F32_WARPS][F32_MAX_D];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * F32_WARPS + warp;
+  if (row >= (long long)a.b * a.hq * a.lq) return;     // warp-uniform
+  const int i = row % a.lq;
+  const int head = (row / a.lq) % a.hq;
+  const int b = row / ((long long)a.lq * a.hq);
+  const int hk = head / a.group;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb +
+                    head * a.q_sh + i * a.q_sl;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  for (int t = lane; t < d; t += 32) sq[warp][t] = qp[t];
+  __syncwarp();
+  const int kend = a.causal ? min(a.lk, i + a.lk - a.lq + 1) : a.lk;
+  float m = -INFINITY, l = 0.f, acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int j0 = 0; j0 < kend; j0 += 32) {
+    const int key = j0 + lane;
+    float x = -INFINITY;
+    if (key < kend) {
+      const float* kr = kb + key * a.k_sl;
+      float dot = 0.f;
+      for (int t = 0; t < d; ++t) dot = fmaf(sq[warp][t], kr[t], dot);
+      x = logit(dot, a);
+    }
+    float mx = x;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+    const float mn = fmaxf(m, mx);
+    const float mu = mn == -INFINITY ? 0.f : mn;
+    const float al = expf(m - mu);
+    const float p = expf(x - mu);
+    float ps = p;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, w);
+    l = l * al + ps;
+    m = mn;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] *= al;
+    const int nk = min(32, kend - j0);
+    for (int jj = 0; jj < nk; ++jj) {
+      const float pj = __shfl_sync(0xffffffffu, p, jj);
+      const float* vr = vb + (long long)(j0 + jj) * a.v_sl;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int t = lane + 32 * c;
+        if (t < d) acc[c] = fmaf(pj, vr[t], acc[c]);
+      }
+    }
+  }
+  const float den = fmaxf(l, 1e-30f);
+  float* orow = static_cast<float*>(a.o) +
+                (((long long)b * a.hq + head) * a.lq + i) * d;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = lane + 32 * c;
+    if (t < d) orow[t] = acc[c] / den;
+  }
+}
+
+template <int D>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  const int smem = (BM + 4 * BN) * (D + 8) * (int)sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.group * a.lq + BM - 1) / BM, a.hkv, a.b);
+  flash_bf16<D><<<grid, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// o (B, Hq, Lq, D) contiguous; q, k, v strided (element strides, last
+// dim contiguous).  bf16 takes D = 16, 32, ..., 128 and 16-byte aligned
+// rows; float32 takes D <= 256.  Returns the CUDA
+// error of the launch, or -1 for a head dim the kernel does not take.
+int ppf_flash_attention(const void* q, const void* k, const void* v, void* o,
+                        long long q_sb, long long q_sh, long long q_sl,
+                        long long k_sb, long long k_sh, long long k_sl,
+                        long long v_sb, long long v_sh, long long v_sl,
+                        int b, int hq, int hkv, int lq, int lk, int d,
+                        int is_bf16, int causal, float scale, float softcap,
+                        void* stream) {
+  Args a{q,    k,    v,    o,    q_sb, q_sh,   q_sl,  k_sb,  k_sh,
+         k_sl, v_sb, v_sh, v_sl, b,    hq,     hkv,   lq,    lk,
+         hq / hkv, causal, scale, softcap};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    if (d < 1 || d > F32_MAX_D) return -1;
+    const long long rows = (long long)b * hq * lq;
+    const unsigned blocks = (unsigned)((rows + F32_WARPS - 1) / F32_WARPS);
+    flash_f32<<<blocks, F32_WARPS * 32, 0, st>>>(a, d);
+    return cudaGetLastError();
+  }
+  switch (d) {
+    case 16: return launch_bf16<16>(a, st);
+    case 32: return launch_bf16<32>(a, st);
+    case 48: return launch_bf16<48>(a, st);
+    case 64: return launch_bf16<64>(a, st);
+    case 80: return launch_bf16<80>(a, st);
+    case 96: return launch_bf16<96>(a, st);
+    case 112: return launch_bf16<112>(a, st);
+    case 128: return launch_bf16<128>(a, st);
+    default: return -1;
+  }
+}
+
+}  // extern "C"

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import patch_likelihood, ref, resample
+from repro_torch.kernels import (flash_attention, patch_likelihood, ref,
+                                 resample)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -83,3 +84,21 @@ def rejection_ancestors(log_weights: torch.Tensor, proposals: torch.Tensor,
                                                 log_us)
     return _batched(resample.rejection_ancestors_kernel, log_weights,
                     proposals, log_us)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: float | None = None,
+              logit_softcap: float = 0.0) -> torch.Tensor:
+    """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` causal GQA attention (B6).
+
+    ``k``/``v`` may be strided views (a KV cache's ``[..., :pos+1, :]``).
+    ``scale`` defaults to ``1/sqrt(D)`` as a Python float on both paths,
+    the kernel's default (the plain version alone would round it to the
+    inputs' dtype)."""
+    if scale is None:
+        scale = float(q.shape[-1] ** -0.5)
+    if on_cuda(q):
+        return flash_attention.flash_attention_kernel(
+            q, k, v, causal=causal, scale=scale, logit_softcap=logit_softcap)
+    return ref.mha_ref(q, k, v, causal=causal, scale=scale,
+                       logit_softcap=logit_softcap)

@@ -82,3 +82,40 @@ def systematic_ancestors_ref(log_weights: torch.Tensor, u: torch.Tensor,
                              pts.expand(cdf.shape[:-1] + (n_out,))
                              .contiguous(), right=True)
     return anc.clamp(0, log_weights.shape[-1] - 1).to(torch.int32)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, scale: float | None = None,
+            logit_softcap: float = 0.0) -> torch.Tensor:
+    """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` GQA attention with a float32
+    softmax — the plain version of the flash-attention kernel (B6).
+
+    Query head ``h`` reads KV head ``h // (Hq // Hkv)``; a causal query
+    ``i`` sees keys ``j <= i + Lk - Lq`` (the decode offset).  The
+    arithmetic is the reference's: the logits are the product in the
+    inputs' dtype, then float32 times ``scale`` (default ``1/sqrt(D)``
+    rounded to the inputs' dtype), masked to ``-inf``; the normalized
+    probabilities are cast to ``v``'s dtype before the second product.
+    Every call adds one to ``mha_ref.calls``, so a run can show that its
+    attention never took the plain version.
+    """
+    mha_ref.calls += 1
+    d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(d))).to(q.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * scale
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    if causal:
+        lq, lk = q.shape[2], k.shape[2]
+        qi = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        ki = torch.arange(lk, device=q.device)[None, :]
+        logits = logits.masked_fill(ki > qi, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), vv)
+
+
+mha_ref.calls = 0

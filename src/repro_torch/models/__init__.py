@@ -1,1 +1,2 @@
-"""Models on torch: the SSM protocol layer and the tracking application."""
+"""Models on torch: the SSM protocol layer, the tracking application
+and the language-model stack (``models.lm``)."""

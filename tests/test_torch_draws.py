@@ -82,6 +82,38 @@ def movie_draws(key, cfg, n_frames: int, n_spots: int = 1) -> list:
             ("normal", _np(jax.random.normal(k_noise, (n_frames, h, w))))]
 
 
+def generate_draws(key, b: int, vocab: int, steps: int) -> list:
+    """``serve.engine.generate`` at a temperature: the first token's
+    ``gumbel (B, V)`` from ``fold_in(key, 7)``, then one from each
+    ``split(key)`` of the decode scan (its last sample is dropped, so
+    ``steps - 1`` of them)."""
+    draws = [("gumbel", _np(jax.random.gumbel(jax.random.fold_in(key, 7),
+                                              (b, vocab))))]
+    for _ in range(steps - 1):
+        key, k_s = jax.random.split(key)
+        draws.append(("gumbel", _np(jax.random.gumbel(k_s, (b, vocab)))))
+    return draws
+
+
+def smc_decode_draws(key, b: int, k: int, vocab: int, steps: int) -> list:
+    """``serve.smc_decode`` with the systematic resampler: prompt ``i``
+    takes ``split(key, B)[i]``, split into init and run streams; the
+    init stream draws the prefill token (``gumbel (K, V)``), each of the
+    ``steps - 1`` decode steps splits the run stream into three (carry,
+    the proposal's ``gumbel (K, V)``, the comb's ``uniform ()``).
+    Returns one draw list per prompt."""
+    out = []
+    for key_i in jax.random.split(key, b):
+        k_init, k_run = jax.random.split(key_i)
+        draws = [("gumbel", _np(jax.random.gumbel(k_init, (k, vocab))))]
+        for _ in range(steps - 1):
+            k_run, k_dyn, k_res = jax.random.split(k_run, 3)
+            draws += [("gumbel", _np(jax.random.gumbel(k_dyn, (k, vocab)))),
+                      ("uniform", _np(jax.random.uniform(k_res, ())))]
+        out.append(draws)
+    return out
+
+
 def port_config(cfg):
     """The port's ``TrackingConfig`` with the reference config's fields."""
     return port_tracking.TrackingConfig(**dataclasses.asdict(cfg))
@@ -156,9 +188,35 @@ def test_int_kinds_repeat_and_stack():
         shard_draws(ReplayDraws([]), 3, "cpu")
 
 
+def test_gumbel_kind_repeats_stacks_and_has_the_gumbel_mean():
+    a, b = TorchDraws.from_seed(6, "cpu"), TorchDraws.from_seed(6, "cpu")
+    g = a.gumbel((4000, 50))
+    assert g.dtype == torch.float32 and torch.equal(g, b.gumbel((4000, 50)))
+    assert bool(torch.isfinite(g).all())
+    # E[G] = Euler's gamma, sd pi/sqrt(6) over 200k draws: 5 sigma ~ 0.014
+    assert abs(float(g.double().mean()) - 0.5772156649) < 0.015
+    bank = BankDraws([TorchDraws.from_seed(s, "cpu") for s in (1, 2)],
+                     active=[False, True])
+    out = bank.gumbel((3, 5))
+    assert out.shape == (2, 3, 5) and not out[0].any()
+    assert torch.equal(out[1], TorchDraws.from_seed(2, "cpu").gumbel((3, 5)))
+
+
 # ---------------------------------------------------------------------------
 # The streams reproduce the reference's own draws
 # ---------------------------------------------------------------------------
+
+def test_replayed_gumbel_is_jax_categorical():
+    """``jax.random.categorical(key, logits)`` is
+    ``argmax(jax.random.gumbel(key, logits.shape) + logits)``: the port's
+    argmax over the replayed noise draws the reference's tokens."""
+    key = jax.random.key(12)
+    logits = jax.random.normal(jax.random.key(13), (64, 300)) * 3.0
+    want = jax.random.categorical(key, logits, axis=-1)
+    noise = ReplayDraws([("gumbel", _np(jax.random.gumbel(key, (64, 300))))])
+    got = (noise.gumbel((64, 300)) + torch.tensor(_np(logits))).argmax(-1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
 
 def test_stream_reproduces_tracking_init():
     cfg = ref_tracking.TrackingConfig(img_size=(40, 56))

@@ -3,11 +3,15 @@
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Importing the port builds nothing and loads no CUDA library.
-* Entry points run on the CUDA device by default and raise without one;
-  the options of later slices (domain decomposition, ARNA, butterfly, a
-  bank over a mesh, ``bank_axis``) raise ``NotImplementedError``.
-* The chain resamplers run on the CPU through their plain versions, and
-  their CUDA wrappers refuse a CPU tensor instead of falling back.
+* Entry points run on the CUDA device by default and raise without one
+  (the filters, ``generate`` and ``smc_decode``); the options of later
+  slices (domain decomposition, ARNA, butterfly, a bank over a mesh,
+  ``bank_axis``, the LM layer kinds L/M/X/R/D, MoE FFNs, multi-codebook
+  heads, sliding windows, session-hosted decoding) raise
+  ``NotImplementedError``.
+* The chain resamplers and attention run on the CPU through their plain
+  versions, and their CUDA wrappers refuse a CPU tensor instead of
+  falling back.
 * The config converters carry the reference's fields across, and refuse
   a forced ``fused_backend``, which the port does not honor.
 """
@@ -62,7 +66,8 @@ def test_importing_the_port_builds_nothing():
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
     assert not build._LIBS
     assert sorted(p.name for p in build.sources()) == [
-        "patch_likelihood.cu", "resample.cu", "sir_fused.cu"]
+        "flash_attention.cu", "patch_likelihood.cu", "resample.cu",
+        "sir_fused.cu"]
     assert len(build.source_hash()) == 16
 
 
@@ -147,3 +152,115 @@ def test_converters_carry_reference_fields():
                                       np.ones(4))
     assert ens.state.dtype == torch.float32
     assert ens.counts.dtype == torch.int32 and ens.capacity == 4
+
+
+def _smoke_lm(arch="qwen3-32b"):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as lm
+    return lm.init_params(get_config(arch, smoke=True), 0, device="cpu")
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.serve import SMCDecodeConfig, generate, smc_decode
+    model = _smoke_lm()
+    prompt = torch.zeros((1, 4), dtype=torch.int64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(model, prompt, steps=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smc_decode(model, prompt, SMCDecodeConfig(n_particles=2, steps=2))
+    assert generate(model, prompt, steps=2, device="cpu").shape == (1, 2)
+
+
+@pytest.mark.parametrize("arch", [
+    "gemma3-27b", "deepseek-v2-236b", "llama-3.2-vision-11b",
+    "recurrentgemma-2b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
+    "musicgen-medium"])
+def test_unported_layer_kinds_raise(arch):
+    """Every arch with an L/M/X/R/D layer, a MoE FFN or a multi-codebook
+    head raises, naming the ROADMAP item, from both ways of building a
+    decoder."""
+    from repro.configs import get_config as ref_config
+    from repro_torch.models.lm import model as lm
+    cfg = convert.arch_config(dataclasses.asdict(ref_config(arch, smoke=True)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        lm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        convert.lm_params({"embed": np.zeros((2, 2)), "blocks": {
+            "l0_X_moe": {"pre_norm": np.zeros((1, 2))}},
+            "final_norm": np.zeros(2)}, cfg)
+
+
+def test_sliding_window_training_and_sessions_raise():
+    from repro_torch.models.lm import decode_ssm, layers
+    from repro_torch.serve.smc_decode import suspended_decode_session
+    q = torch.zeros((1, 2, 3, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        layers.causal_attention(q, q, q, window=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        layers.decode_attention(q[:, :, :1], q, q, 2, window=2)
+    from repro_torch.models.lm import model as lm
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        lm.forward_train(_smoke_lm(), torch.zeros((1, 4), dtype=torch.int64))
+    ssm = decode_ssm.LMDecodeSSM(_smoke_lm(), decode_ssm.SMCDecodeConfig(),
+                                 prompt_len=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        suspended_decode_session(ssm, 0, torch.zeros(4))
+
+
+def test_attention_kernel_refuses_cpu_tensors():
+    """On the CPU ``ops.attention`` runs the plain version; the kernel
+    wrapper refuses the same CPU tensors instead of falling back."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    q = torch.randn(1, 4, 3, 16, generator=torch.Generator().manual_seed(0))
+    k = q[:, :2]
+    assert ops.attention(q, k, k).shape == q.shape
+    launches = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_kernel(q, k, k)
+    assert flash_attention_kernel.launches == launches
+    assert not build._LIBS
+
+
+def _qkv(b=1, hq=4, hkv=2, lq=3, lk=5, d=16, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(1)
+    return [torch.randn(s, generator=g).to(dtype) for s in
+            ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d))]
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("mixed", TypeError, "q is"),
+    ("rank", ValueError, r"\(B, H, L, D\)"),
+    ("heads", ValueError, "do not group"),
+    ("causal", ValueError, "Lq <= Lk"),
+    ("head_dim", ValueError, "head dim"),
+    ("misaligned", ValueError, "16-byte aligned"),
+    ("strided_last", ValueError, "last dim"),
+    ("cpu", ValueError, "CUDA"),
+])
+def test_attention_kernel_refuses_what_it_does_not_take(case, error, match):
+    """The flash-attention wrapper checks its arguments before it loads
+    anything, and the device last: every refusal shows on CPU tensors."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    q, k, v = _qkv()
+    if case == "dtype":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif case == "mixed":
+        k = k.float()
+    elif case == "rank":
+        q = q[0]
+    elif case == "heads":
+        q = torch.cat([q, q[:, :1]], 1)
+    elif case == "causal":
+        q, k, v = _qkv(lq=6, lk=5)
+    elif case == "head_dim":
+        q, k, v = _qkv(d=24)
+    elif case == "misaligned":
+        k = torch.zeros(1, 2, 5, 17, dtype=torch.bfloat16)[..., 1:]
+    elif case == "strided_last":
+        q = q.transpose(2, 3)
+    with pytest.raises(error, match=match):
+        flash_attention_kernel(q, k, v)
+    assert not build._LIBS

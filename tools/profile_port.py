@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where a frame of the torch port goes on the card, path by path.
+"""Where a frame (or a decode run) of the torch port goes on the card,
+path by path.
 
-    python3 tools/profile_port.py [--frames 12] [--out FILE]
+    python3 tools/profile_port.py [--frames 12] [--only PREFIX] [--out FILE]
 
 For each path of ``chip_smoke.py`` — the single tracking filter at
-N = 2^22 (systematic, Metropolis and rejection resampling, fused step)
-and the distributed filter on an emulated 8-shard mesh at 8 × 2^22 (MPF,
-RNA, RPA), all on 512×512 frames — it runs the filter once to warm up,
-then ``--frames`` frames under ``torch.profiler`` and prints the wall
-time per frame, the device busy share (the sum of kernel times over the
-wall time: one stream, so kernels do not overlap) and the kernels that
-take the most device time.  Needs one CUDA card; exits non-zero without.
+N = 2^22 (systematic, Metropolis and rejection resampling, fused step),
+the distributed filter on an emulated 8-shard mesh at 8 × 2^22 (MPF,
+RNA, RPA), all on 512×512 frames, and the LM serving cells at
+qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
+chip_smoke.py's sizes) — it runs the path once to warm up, then once
+under ``torch.profiler`` (``--frames`` frames of a filter; one whole
+call of an LM cell) and prints the wall time per frame or call, the
+device busy share (the sum of kernel times over the wall time: one
+stream, so kernels do not overlap) and the kernels that take the most
+device time.  ``--only`` keeps the paths whose name starts with it.
+Needs one CUDA card; exits non-zero without.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
 
 
 def _device_us(evt) -> float:
@@ -33,9 +39,39 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def lm_runs(dev) -> dict:
+    """The LM cells at chip_smoke.py's sizes, sharing one decoder that is
+    drawn when the first of them runs."""
+    import chip_smoke as cs
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve import SMCDecodeConfig, generate, smc_decode
+    held = {}
+
+    def setup():
+        if "model" not in held:
+            cfg = cs.lm_config()
+            held["model"] = M.init_params(cfg, cs.LM_SEED, device=dev)
+            held["prompt"] = cs.lm_prompts(cfg, dev)
+        return held["model"], held["prompt"]
+
+    def gen():
+        model, prompt = setup()
+        return lambda: generate(model, prompt, steps=cs.LM_STEPS)
+
+    def smc():
+        model, prompt = setup()
+        knobs = SMCDecodeConfig(n_particles=cs.LM_K, steps=cs.LM_STEPS,
+                                proposal_temperature=cs.LM_TAU)
+        return lambda: smc_decode(model, prompt, knobs, key=cs.LM_SEED + 2)
+
+    return {"lm-generate": (gen, 1, "call"),
+            "lm-smc-decode": (smc, 1, "call")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=12)
+    ap.add_argument("--only", default="", help="path name prefix")
     ap.add_argument("--out", help="also write the record here (JSON)")
     args = ap.parse_args()
 
@@ -72,15 +108,24 @@ def main() -> int:
         paths[f"dist8-{kind}"] = dict(
             sir=SIRConfig(n_particles=8 * 2 ** 22, ess_frac=0.5),
             mesh=EmulatedMesh(8), dra=DRAConfig(kind=kind))
-    record = {"card": name, "frames": args.frames, "paths": {}}
+    runs = {}
     for label, kw in paths.items():
-        pf = ParallelParticleFilter(model=model, **kw)
-        pf.run(1, frames)                              # warm-up (and build)
+        def run(kw=kw):
+            pf = ParallelParticleFilter(model=model, **kw)
+            return lambda: pf.run(1, frames)
+        runs[label] = (run, args.frames, "frame")
+    runs.update(lm_runs(dev))
+    record = {"card": name, "frames": args.frames, "paths": {}}
+    for label, (make, per, unit) in runs.items():
+        if not label.startswith(args.only):
+            continue
+        fn = make()
+        fn()                                           # warm-up (and build)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pf.run(1, frames)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.key_averages()
@@ -88,21 +133,21 @@ def main() -> int:
                    and "CUDA" in str(e.device_type) and _device_us(e) > 0]
         busy_us = sum(_device_us(e) for e in kernels)
         top = sorted(kernels, key=_device_us, reverse=True)[:12]
-        ms_frame = wall * 1e3 / args.frames
-        rec = {"ms_per_frame": ms_frame,
-               "device_busy_ms_per_frame": busy_us / 1e3 / args.frames,
+        ms_frame = wall * 1e3 / per
+        rec = {"unit": unit, "ms_per_unit": ms_frame,
+               "device_busy_ms_per_unit": busy_us / 1e3 / per,
                "device_busy_share": busy_us / 1e6 / wall,
                "top": [{"kernel": e.key[:90], "calls": e.count,
-                        "ms_per_frame": _device_us(e) / 1e3 / args.frames}
+                        "ms_per_unit": _device_us(e) / 1e3 / per}
                        for e in top]}
         record["paths"][label] = rec
-        print(f"{label}: {ms_frame:.3f} ms/frame wall, device busy "
-              f"{rec['device_busy_ms_per_frame']:.3f} ms/frame "
+        print(f"{label}: {ms_frame:.3f} ms/{unit} wall, device busy "
+              f"{rec['device_busy_ms_per_unit']:.3f} ms/{unit} "
               f"({rec['device_busy_share']:.1%}) [{name}]", flush=True)
         for t in rec["top"]:
-            print(f"    {t['ms_per_frame']:8.4f} ms/frame  {t['calls']:5d}x "
+            print(f"    {t['ms_per_unit']:8.4f} ms/{unit}  {t['calls']:5d}x "
                   f" {t['kernel']}")
-        del pf
+        del fn
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
