@@ -8,7 +8,7 @@
    per source, in parallel) into ``src/repro_torch/_build/``;
 2. holds each kernel against its plain torch version on the card, at the
    slice's shapes, and requires two runs of each kernel to give the same
-   bits;
+   bits; reads B6's prefill variant's SASS for unserialized wgmma;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -33,14 +33,18 @@
    bf16 weights drawn on the card: ``generate`` (4 prompts × 1024
    tokens, 32 greedy steps) and ``smc_decode`` (the same prompts, K = 8
    particles, 32 steps, τ = 1.5, systematic resampling), each through
-   the flash-attention kernel (B6) once per layer and forward call.  It
-   checks decode against prefill logits, repeatability, that SMC
+   the flash-attention kernel (B6) once per layer and forward call: the
+   prefill on its wgmma variant, every decode step on its split-key
+   variant (the per-variant launch counts are checked).  It checks
+   decode against prefill logits, repeatability, that SMC
    sequences are the recorded genealogy's paths, log Z and ESS, and a
    τ = 1 run's uniform weights;
 6. times each kernel and its plain version (median of 20 CUDA-event
    timed launches) beside the kernel's bound and, for B6, PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs (a yardstick the
-   port never calls), and the end-to-end frames/s and tokens/s.
+   ``scaled_dot_product_attention`` on the same inputs and B6's
+   mma.sync kernel launched directly (yardsticks: the port never calls
+   SDPA, and takes the mma.sync kernel only at other shapes), and the
+   end-to-end frames/s and tokens/s.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -534,6 +538,34 @@ ATTN_CASES = {
 ATTN_CASES.update({
     f"d{d}": ((2, 8, 37, d), (2, 2, 100, d), "bfloat16", 30.0, None, True)
     for d in (16, 32, 48, 64, 80, 96, 112, 128)})
+# the edges of the split (decode) and wgmma (prefill) variants
+ATTN_CASES.update({
+    "generate-decode": ((4, 64, 1, 128), (4, 8, 1057, 128), "bfloat16", 0.0,
+                        1040, True),
+    "decode-one-split": ((4, 64, 1, 128), (4, 8, 120, 128), "bfloat16", 0.0,
+                         100, True),
+    "decode-16k": ((1, 64, 1, 128), (1, 8, 16384, 128), "bfloat16", 0.0,
+                   None, True),
+    # 16 rows; the last of 9 splits holds key 1152 alone, which the rows
+    # of position 0 do not see
+    "decode-lq2": ((2, 64, 2, 128), (2, 8, 1200, 128), "bfloat16", 0.0,
+                   1153, True),
+    # 64 rows, the most the split variant takes: four row tiles
+    "decode-lq8": ((2, 64, 8, 128), (2, 8, 1057, 128), "bfloat16", 0.0,
+                   1040, True),
+    "granite-decode": ((4, 48, 1, 128), (4, 1, 1057, 128), "bfloat16", 0.0,
+                       1040, True),
+    "prefill-1000": ((2, 64, 1000, 128), (2, 8, 1000, 128), "bfloat16", 0.0,
+                     None, True),
+    "prefill-chunk": ((2, 64, 256, 128), (2, 8, 1024, 128), "bfloat16", 0.0,
+                      None, True),
+    "prefill-d64": ((2, 32, 512, 64), (2, 8, 512, 64), "bfloat16", 0.0, None,
+                    True),
+    "wgmma-cap": ((2, 64, 300, 128), (2, 8, 300, 128), "bfloat16", 30.0,
+                  None, True),
+    "wgmma-full": ((2, 64, 200, 128), (2, 8, 333, 128), "bfloat16", 0.0,
+                   None, False),
+})
 
 
 def check_attention(dev) -> dict:
@@ -541,11 +573,14 @@ def check_attention(dev) -> dict:
     prefill and decode shapes (the decode on a strided cache view), a
     ragged soft-capped float32 case, the MHA (group 1) and MQA (group 48)
     groupings, non-causal calls and every bf16 head dim the kernel is
-    built for: within ATTN_TOL, and bit for bit on a second launch.  The
-    float32 plain version of the same bf16 inputs is reported too."""
+    built for, and the edges of the split and wgmma variants: within
+    ATTN_TOL, and bit for bit on a second launch.  The float32 plain
+    version of the same bf16 inputs is reported too, and the variant
+    that served each case."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     plan)
 
     worst = {}
     for i, (label, (qs, ks, dt, cap, lk, causal)) in enumerate(
@@ -561,13 +596,43 @@ def check_attention(dev) -> dict:
         err32 = float((out.float() - ref.mha_ref(
             q.float(), k.float(), v.float(), **kw)).abs().max())
         worst[label] = err
-        log(f"B6 {label} q{tuple(q.shape)} kv{tuple(k.shape)} {dt}"
+        p = plan(tuple(q.shape), tuple(k.shape), dtype)
+        log(f"B6 {label} [{p.variant}"
+            f"{f' x{p.splits}' if p.variant == 'split' else ''}] "
+            f"q{tuple(q.shape)} kv{tuple(k.shape)} {dt}"
             f"{' cap ' + str(cap) if cap else ''}"
             f"{'' if causal else ' non-causal'}: max_abs_err={err:.3g} "
             f"(rtol=atol={ATTN_TOL[str(dtype)]}; vs the float32 plain "
             f"version {err32:.3g}), repeatable")
         del q, k, v, out, again, want
     return {"max_abs_err": max(worst.values()), "cases": worst}
+
+
+def check_wgmma() -> dict:
+    """B6's prefill variant issues warpgroup products: each flash_wgmma<D>
+    in the built library's SASS holds HGMMA instructions, and fewer of
+    them wait on their own group (``gsb0``) than there are, so they go
+    out back to back and not one at a time, as ptxas issues them when it
+    serializes a kernel's wgmma."""
+    from repro_torch.kernels import build
+    lib = build.build_all() / "libflash_attention_sm90.so"
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "flash_wgmma" in name:
+            d = name.split("flash_wgmmaILi", 1)[1].split("E", 1)[0]
+            ops = [ln for ln in part.splitlines() if "HGMMA" in ln]
+            counts[f"flash_wgmma<{d}>"] = {
+                "hgmma": len(ops), "waiting": sum("gsb0" in ln for ln in ops)}
+    check(sorted(counts) == ["flash_wgmma<128>", "flash_wgmma<64>"]
+          and all(0 < c["waiting"] < c["hgmma"] for c in counts.values()),
+          f"wgmma in the prefill variant's SASS: {counts}")
+    log(f"B6 wgmma variant SASS: {counts} (HGMMA, and those that wait on "
+        f"their own group)")
+    return counts
 
 
 def attention_bound(q, k) -> tuple[float, str]:
@@ -595,10 +660,13 @@ def time_attention(dev) -> dict:
     """B6, its plain version and PyTorch's scaled_dot_product_attention
     (the library yardstick, never on the port's path) at the LM phase's
     four attention shapes; a decode reads the cache view at the middle of
-    the run (its first 1040 of 1057 slots)."""
+    the run (its first 1040 of 1057 slots).  The mma.sync kernel, which
+    served every bf16 shape before the split and wgmma variants, is timed
+    beside them as a yardstick, by a direct launch off the path."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     cfg = lm_config()
@@ -615,14 +683,18 @@ def time_attention(dev) -> dict:
         q, k, v = attn_inputs(qs, ks, torch.bfloat16, 70 + i, dev, lk)
         scale = qs[-1] ** -0.5
         causal = q.shape[2] == k.shape[2]
+        variant = fa.plan(tuple(q.shape), tuple(k.shape), q.dtype)
         ms = cuda_ms(lambda: flash_attention_kernel(q, k, v))
+        mma_ms = cuda_ms(lambda: fa._launch(fa.Plan("mma"), q, k, v, causal,
+                                            scale, 0.0))
         plain = cuda_ms(lambda: ref.mha_ref(q, k, v, scale=scale), reps=5)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale, enable_gqa=True))
         bound, by = attention_bound(q, k)
-        out[label] = {"q": list(q.shape), "k": list(k.shape), "ms": ms,
-                      "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                      "bound_by": by}
+        out[label] = {"q": list(q.shape), "k": list(k.shape),
+                      "variant": variant.variant, "splits": variant.splits,
+                      "ms": ms, "mma_ms": mma_ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound, "bound_by": by}
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -699,6 +771,10 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     prompt = lm_prompts(cfg, dev)
     want_launches = LM_LAYERS * LM_STEPS       # one prefill + steps-1 decodes
+    # the prefill on the wgmma variant, every decode step on the split one
+    want_variants = {"wgmma": LM_LAYERS, "split": LM_LAYERS * (LM_STEPS - 1),
+                     "mma": 0, "f32": 0}
+    attn = all_k["flash_attention"]
 
     def plain_never_ran(what):
         check(ref.mha_ref.calls == 0, f"{what} ran the plain attention "
@@ -709,6 +785,8 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
         want = {k: 0 for k in all_k}
         want["flash_attention"] = want_launches
         check(got == want, f"{what} launches {got}, want {want}")
+        check(attn.variants == want_variants, f"{what} B6 variants "
+              f"{attn.variants}, want {want_variants}")
         plain_never_ran(what)
         return got["flash_attention"]
 
@@ -728,6 +806,7 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     gen_launches = launches_ok("generate")
+    gen_variants = dict(attn.variants)
     check(tokens.shape == (LM_BATCH, LM_STEPS) and bool(
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "generate tokens")
     t0 = time.perf_counter()
@@ -736,13 +815,15 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     t_gen = time.perf_counter() - t0
     check(torch.equal(tokens, again), "generate not repeatable")
     t_pre = prefill_s(prompt)
-    gen = {"launches": gen_launches, "seconds": t_gen,
+    gen = {"launches": gen_launches, "variants": gen_variants,
+           "seconds": t_gen,
            "first_run_seconds": t_first, "prefill_seconds": t_pre,
            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_pre,
            "decode_tokens_per_s": LM_BATCH * (LM_STEPS - 1) / (t_gen - t_pre)}
     gen["consistency"] = decode_vs_prefill(model, prompt, tokens)
     log(f"generate {LM_BATCH} x {LM_PROMPT} + {LM_STEPS} greedy: launches "
-        f"B6 {gen_launches}; {t_gen:.3f} s steady ({t_first:.3f} s first); "
+        f"B6 {gen_launches} {gen['variants']}; {t_gen:.3f} s steady "
+        f"({t_first:.3f} s first); "
         f"prefill {gen['prefill_tokens_per_s']:.1f} tokens/s, decode "
         f"{gen['decode_tokens_per_s']:.2f} tokens/s; decode vs prefill "
         f"logits {gen['consistency']['max_abs_logit_err']:.4g} (limit "
@@ -759,6 +840,7 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     smc_launches = launches_ok("smc_decode")
+    smc_variants = dict(attn.variants)
     t0 = time.perf_counter()
     res2 = smc_decode(model, prompt, smc, key=LM_SEED + 2)
     torch.cuda.synchronize()
@@ -777,7 +859,8 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
                .all()), f"ESS outside [1, {LM_K}]")
     t_pre = prefill_s(prompt.repeat_interleave(LM_K, 0))
     smc_rec = {
-        "launches": smc_launches, "seconds": t_smc,
+        "launches": smc_launches, "variants": smc_variants,
+        "seconds": t_smc,
         "first_run_seconds": t_first, "prefill_seconds": t_pre,
         "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_pre,
         "prefill_row_tokens_per_s": LM_BATCH * LM_K * LM_PROMPT / t_pre,
@@ -787,7 +870,8 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
         "log_z": res.log_z.tolist(), "mean_ess": float(res.ess.mean()),
         "min_ess": float(res.ess.min())}
     log(f"smc_decode {LM_BATCH} x {LM_PROMPT}, K={LM_K}, {LM_STEPS} steps, "
-        f"tau={LM_TAU}: launches B6 {smc_launches}; {t_smc:.3f} s steady "
+        f"tau={LM_TAU}: launches B6 {smc_launches} {smc_variants}; "
+        f"{t_smc:.3f} s steady "
         f"({t_first:.3f} s first); prefill {smc_rec['prefill_tokens_per_s']:.1f}"
         f" prompt tokens/s ({smc_rec['prefill_row_tokens_per_s']:.1f} row "
         f"tokens/s), decode {smc_rec['decode_tokens_per_s']:.2f} hypothesis "
@@ -896,6 +980,7 @@ def main() -> int:
     sys_check = check_systematic(dev)
     chain_check = check_chains(dev)
     attn_check = check_attention(dev)
+    attn_check["wgmma_sass"] = check_wgmma()
     ref.mha_ref.calls = 0        # from here on no path may run it
     all_k = {"patch_log_likelihood": patch_k, "fused_weight_step": fused_k,
              "systematic_ancestors": sys_k, "metropolis_ancestors": metro_k,
@@ -904,6 +989,7 @@ def main() -> int:
     def reset():
         for k in all_k.values():
             k.launches = 0
+        attn_k.variants.update(dict.fromkeys(attn_k.variants, 0))
 
     def counts(names=("patch_log_likelihood", "fused_weight_step")):
         torch.cuda.synchronize()
@@ -1143,8 +1229,9 @@ def main() -> int:
         f"{c_by}")
     attn_times = time_attention(dev)
     for label, t in attn_times.items():
-        log(f"times [{name}]: B6 {label} q{tuple(t['q'])} kv{tuple(t['k'])}: "
-            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, sdpa "
+        log(f"times [{name}]: B6 {label} [{t['variant']}] q{tuple(t['q'])} "
+            f"kv{tuple(t['k'])}: {t['ms']:.4f} ms (mma.sync kernel "
+            f"{t['mma_ms']:.4f}, plain {t['plain_ms']:.4f}, sdpa "
             f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
             f"{t['bound_by']})")
     log(f"times [{name}]: patch {patch_ms:.4f} ms (plain {patch_plain_ms:.4f},"
@@ -1190,10 +1277,11 @@ def main() -> int:
          "max_abs_err": chain_check["max_abs_err"], "ms": rej_ms,
          "plain_ms": rej_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
          "library_ms": None},
-        # the decode shape, 31 of every 32 launches on the LM path; the
-        # prefill shapes are in the record's "attention" entry
+        # the decode shape (the split variant), 31 of every 32 launches on
+        # the LM path; the prefill shapes (the wgmma variant, the same
+        # source) are in the record's "attention" entry
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
          "launches": lm["smc_decode"]["launches"],
          "max_abs_err": attn_check["max_abs_err"],

@@ -9,7 +9,7 @@
 // (a decode call passes the KV cache's [..., :pos+1, :] view as it lies in
 // memory); o is a contiguous (B, Hq, Lq, D) tensor.
 //
-// bf16 (the serving path): one block of four warps per (batch row, KV head,
+// bf16 (the general path): one block of four warps per (batch row, KV head,
 // tile of 64 query rows).  The rows of a KV head are its G query heads at
 // each query position, position-major (row r = position r / G, head
 // r % G), so a K/V tile staged in shared memory serves every head of the
@@ -28,109 +28,29 @@
 // What bounds it: at prefill (Lq = Lk = 1024) the products, 4·Lq·Lk·D
 // FLOP per head halved by the causal mask, against 989 TFLOP/s of dense
 // bf16; at decode (Lq = 1) the bytes of the KV cache view, read once,
-// against 3.35 TB/s.  mma.sync reaches a fraction of the wgmma rate and
-// the loads are not warp-specialized; wgmma, TMA and a split over keys
-// for long decode caches are later work.
+// against 3.35 TB/s.  mma.sync reaches a fraction of the wgmma rate, the
+// loads are not warp-specialized, and a decode walks all keys in one block
+// per KV head.  So the LM path's shapes go to flash_attention_sm90.cu
+// instead (kernels/flash_attention.py's plan()): bf16 prefill at D = 64 and
+// 128 to its wgmma/TMA kernel, every call of at most 64 query rows per KV
+// head to its split-key kernel.  This kernel serves the rest of bf16: more
+// than 64 rows per KV head at D = 16, 32, 48, 80, 96 or 112, and K/V views
+// that step a dim by 0, which TMA cannot load.
 //
 // float32 (the tests' and the f32 models' path): one warp per query row,
 // one key per lane, plain FMA; same online softmax and key order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  long long q_sb, q_sh, q_sl;
-  long long k_sb, k_sh, k_sl;
-  long long v_sb, v_sh, v_sl;
-  int b, hq, hkv, lq, lk, group, causal;
-  float scale, softcap;
-};
+using namespace flash;
 
 constexpr int BM = 64;        // query rows per block (4 warps x 16)
 constexpr int BN = 64;        // keys per tile
 constexpr int THREADS = 128;
 constexpr int F32_WARPS = 4;
 constexpr int F32_MAX_D = 256;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; zero-fills when !valid (no bytes read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D (16x8, f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory; lane L gives the address of
-// row L % 8 of matrix L / 8 and receives, of matrix i, register r[i] =
-// (row L / 4, cols 2 (L % 4), +1) — with .trans, (rows 2 (L % 4), +1;
-// col L / 4)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)));
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float logit(float s, const Args& a) {
-  float x = s * a.scale;
-  if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-  return x;
-}
 
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * gr + tq.
 //   A: a0 (gr, 2tq..+1), a1 (gr+8, 2tq..), a2 (gr, 2tq+8..), a3 (gr+8, 2tq+8..)

@@ -2,14 +2,24 @@
 
 B6: causal GQA attention ``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` with an
 online float32 softmax, the decode offset ``Lk - Lq`` and an optional
-tanh soft-cap, in ``csrc/flash_attention.cu``: mma.sync bf16 products
-with float32 accumulation for bfloat16 inputs (head dims 16, 32, ...,
-128), plain FMA for float32 inputs (head dims up to 256).  The wrapper
-takes strided views: a decode step hands it the KV cache's
+tanh soft-cap.  ``plan`` chooses one of four kernels from the shapes:
+
+* ``"split"`` (``csrc/flash_attention_sm90.cu``): bfloat16 with at most
+  ``SPLIT_ROWS`` query rows (``G·Lq``) per KV head, every decode step.
+  The keys are cut into splits, one block each, and a combine pass
+  reduces them in split order;
+* ``"wgmma"`` (the same source): bfloat16 prefill at head dims 64 and
+  128, wgmma products on TMA-loaded K/V tiles;
+* ``"mma"`` (``csrc/flash_attention.cu``): every other bfloat16 call,
+  mma.sync products, head dims 16, 32, ..., 128;
+* ``"f32"`` (the same source): float32 inputs, plain FMA, head dims up
+  to 256.
+
+The wrapper takes strided views: a decode step hands it the KV cache's
 ``[..., :pos+1, :]`` view as it lies in memory, never a copy.  The
 plain version is ``ref.mha_ref``.  The reference's block sizes and its
 ``lq % block_q == 0``/``lk % block_k == 0`` rule have no counterpart:
-the kernel masks ragged tails at any length.
+the kernels mask ragged tails at any length.
 
 The kernel wrapper takes CUDA tensors only and raises on anything else;
 ``repro_torch.kernels.ops.attention`` dispatches on the device.
@@ -17,6 +27,9 @@ The kernel wrapper takes CUDA tensors only and raises on anything else;
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
+from typing import NamedTuple
 
 import torch
 
@@ -29,8 +42,16 @@ _c_f = ctypes.c_float
 
 BF16_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 F32_MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128)
+SPLIT_ROWS = 64          # query rows per KV head up to which "split" serves
+SPLIT_TILE = 16          # keys of a warp's tile in the split kernel
+MIN_SPLIT_KEYS = 128     # the shortest split worth a block
+# about two split blocks on each of the H100's 132 SMs: on the card, twice
+# as many splits lost more to the combine pass than they gained
+SPLIT_BLOCKS = 2 * 132
 
 
+@functools.cache
 def _lib():
     lib = build.library("flash_attention")
     lib.ppf_flash_attention.argtypes = ([_c_p] * 4 + [_c_ll] * 9
@@ -39,11 +60,65 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _lib_sm90():
+    lib = build.library("flash_attention_sm90")
+    for fn in (lib.ppf_flash_wgmma, lib.ppf_flash_split):
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = _c_i
+    return lib
+
+
+# csrc/flash_attention_sm90.cu's `FlashCall`: q, k, v, o, scratch and stream
+# pointers; q, k, v strides; b, hq, hkv, lq, lk, d, causal, split_keys,
+# n_split; scale, softcap.  One packed pointer costs a fraction of the
+# host time of 26 ctypes arguments, and a decode step is host-bound.
+_CALL = struct.Struct("@6Q9q9i2f")
+
+
+class Plan(NamedTuple):
+    """The kernel a call takes, and for ``"split"`` how its keys are cut:
+    ``splits`` ranges of ``split_keys`` keys (the last may be shorter),
+    each holding at least one key."""
+    variant: str
+    splits: int = 1
+    split_keys: int = 0
+
+
+def _split(b: int, hkv: int, lk: int) -> Plan:
+    """As many splits per (batch row, KV head) pair as fill one wave of
+    SPLIT_BLOCKS blocks, at least one, none under MIN_SPLIT_KEYS keys;
+    split lengths a multiple of SPLIT_TILE."""
+    want = max(1, min(SPLIT_BLOCKS // (b * hkv), lk // MIN_SPLIT_KEYS))
+    keys = -(-(-(-lk // want)) // SPLIT_TILE) * SPLIT_TILE
+    return Plan("split", -(-lk // keys), keys)
+
+
+def plan(q_shape, k_shape, dtype, tma_strides: bool = True) -> Plan:
+    """The variant for q ``(B, Hq, Lq, D)`` against k/v ``(B, Hkv, Lk,
+    D)``, from the shapes alone: float32 takes ``"f32"``; bfloat16 with
+    ``G·Lq <= SPLIT_ROWS`` rows per KV head ``"split"``; a longer
+    bfloat16 call at a head dim in WGMMA_HEAD_DIMS ``"wgmma"``, unless
+    k or v steps a dim by 0 (``tma_strides=False``), which TMA cannot;
+    anything else ``"mma"``.  The 16-byte row alignment that every
+    bfloat16 kernel needs is ``_check``'s."""
+    b, hq, lq, d = q_shape
+    hkv, lk = k_shape[1], k_shape[2]
+    if dtype == torch.float32:
+        return Plan("f32")
+    if hq // hkv * lq <= SPLIT_ROWS:
+        return _split(b, hkv, lk)
+    if d in WGMMA_HEAD_DIMS and tma_strides:
+        return Plan("wgmma")
+    return Plan("mma")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool) -> None:
     """Raise on anything the kernel does not take.  The device comes last,
     so the shape rules can be exercised on CPU tensors."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    qkv = (("q", q), ("k", k), ("v", v))
+    for name, t in qkv:
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, H, L, D), got "
                              f"{tuple(t.shape)}")
@@ -55,7 +130,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
-    if tuple(k.shape) != (b, hkv, lk, d) or v.shape != k.shape:
+    if k.shape != (b, hkv, lk, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
     if hkv < 1 or hq % hkv:
@@ -68,15 +143,56 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         if d not in BF16_HEAD_DIMS:
             raise ValueError(f"bf16 head dim {d} not in {BF16_HEAD_DIMS}")
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        for name, t in qkv:
+            st = t.stride()
+            if t.data_ptr() % 16 or (st[0] | st[1] | st[2]) % 8:
                 raise ValueError(f"{name}'s rows must be 16-byte aligned")
     elif d > F32_MAX_HEAD_DIM:
         raise ValueError(f"float32 head dim {d} > {F32_MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+    dev = q.get_device()
+    for name, t in qkv:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name} must be on {q.device} (a CUDA "
                              f"device), got {t.device}")
+
+
+def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, scale: float, softcap: float) -> torch.Tensor:
+    """Run plan ``p``'s kernel on checked inputs; count nothing."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    out = q.new_empty((b, hq, lq, d))
+    # the raw handle of torch's current stream (what torch's own Triton
+    # launcher reads: a fraction of current_stream()'s host time)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if p.variant in ("split", "wgmma"):
+        part = None
+        if p.splits > 1:
+            part = q.new_empty(b * hkv * p.splits * (hq // hkv) * lq
+                               * (d + 2), dtype=torch.float32)
+        call = _CALL.pack(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if part is None else part.data_ptr(), stream,
+            qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+            b, hq, hkv, lq, lk, d, int(causal), p.split_keys, p.splits,
+            scale, softcap)
+        lib = _lib_sm90()
+        fn = lib.ppf_flash_split if p.variant == "split" \
+            else lib.ppf_flash_wgmma
+        err = fn(call)
+    else:
+        err = _lib().ppf_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *qs[:3], *ks[:3], *vs[:3], b, hq, hkv, lq, lk, d,
+            int(p.variant == "mma"), int(causal), scale, softcap, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention {p.variant} kernel launch "
+                           f"failed: error {err}")
+    return out
+
+
+_CHECKED: dict = {}      # call signatures that passed _check -> their plan
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -85,24 +201,29 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            logit_softcap: float = 0.0) -> torch.Tensor:
     """B6 on the card: ``(B, Hq, Lq, D)`` attention output, contiguous, in
     q's dtype, of CUDA ``q`` and ``k``/``v`` ``(B, Hkv, Lk, D)`` (strided
-    views with a contiguous last dim).  ``scale`` defaults to
-    ``1/sqrt(D)``."""
-    _check(q, k, v, causal)
-    b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
-    scale = float(scale) if scale is not None else float(d ** -0.5)
-    out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
-    err = _lib().ppf_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, hq, hkv, lq, lk, d, int(q.dtype == torch.bfloat16), int(causal),
-        scale, float(logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+    views with a contiguous last dim), through the kernel ``plan``
+    chooses.  ``scale`` defaults to ``1/sqrt(D)``.
+
+    A decode step is host-bound, so a signature (shapes, strides, dtypes,
+    devices, causal) that passed the checks keeps its plan; only the
+    pointers' alignment is checked again."""
+    sig = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, causal)
+    p = _CHECKED.get(sig)
+    if p is None or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        _check(q, k, v, causal)
+        p = plan(q.shape, k.shape, q.dtype,
+                 0 not in k.stride() and 0 not in v.stride())
+        if len(_CHECKED) >= 4096:
+            _CHECKED.clear()
+        _CHECKED[sig] = p
+    scale = float(scale) if scale is not None else float(q.shape[-1] ** -0.5)
+    out = _launch(p, q, k, v, causal, scale, float(logit_softcap))
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.variants[p.variant] += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.variants = dict.fromkeys(
+    ("wgmma", "split", "mma", "f32"), 0)

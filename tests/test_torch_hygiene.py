@@ -66,8 +66,8 @@ def test_importing_the_port_builds_nothing():
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
     assert not build._LIBS
     assert sorted(p.name for p in build.sources()) == [
-        "flash_attention.cu", "patch_likelihood.cu", "resample.cu",
-        "sir_fused.cu"]
+        "flash_attention.cu", "flash_attention_sm90.cu",
+        "patch_likelihood.cu", "resample.cu", "sir_fused.cu"]
     assert len(build.source_hash()) == 16
 
 
@@ -220,6 +220,26 @@ def test_attention_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_kernel(q, k, k)
     assert flash_attention_kernel.launches == launches
+    assert not build._LIBS
+
+
+@pytest.mark.parametrize("shape", [
+    ((1, 64, 1, 128), (1, 8, 40, 128)),        # a decode step: "split"
+    ((1, 16, 80, 128), (1, 2, 80, 128)),       # a prefill: "wgmma"
+    ((1, 4, 3, 16), (1, 2, 5, 16)),            # "mma"
+])
+def test_attention_kernel_refuses_cpu_tensors_before_planning(shape):
+    """Whatever variant a shape would take, the wrapper refuses CPU
+    tensors before it plans, allocates, builds or counts anything."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(2)
+    q, k = (torch.randn(s, generator=g).to(torch.bfloat16) for s in shape)
+    checked = dict(fa._CHECKED)
+    variants = dict(fa.flash_attention_kernel.variants)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_kernel(q, k, k)
+    assert fa._CHECKED == checked
+    assert fa.flash_attention_kernel.variants == variants
     assert not build._LIBS
 
 
