@@ -8,7 +8,11 @@
    per source, in parallel) into ``src/repro_torch/_build/``;
 2. holds each kernel against its plain torch version on the card, at the
    slice's shapes, and requires two runs of each kernel to give the same
-   bits; reads B6's prefill variant's SASS for unserialized wgmma;
+   bits; reads B6's prefill variant's SASS for unserialized wgmma.  The
+   comb scan is held against the float64 scan at the composed step's,
+   RPA's and SMC decoding's shapes, with the systematic, stratified and
+   multinomial combs built on it; B4/B5 both on the tma kernel that
+   ``plan`` picks at the reference's budget and on the lane kernel;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -19,8 +23,10 @@
    the reference's 1.5 px, after a warm-up of 20 frames: from a prior
    uniform over a 512×512 frame the filter can take more than 10 frames
    to find the spot at SNR 2 (each run's lock-on frame is printed);
-5. runs the composed default config for 8 frames through the patch
-   kernel;
+5. runs the composed default config (systematic comb) at N = 2^22 over
+   the same 40-frame movie three times, through the patch kernel and the
+   comb scan once a frame each: the runs must agree bit for bit and pass
+   the tracking gate;
 5b. runs the single filter at N = 2^22 on the same 512×512 movie with the
    collective-free resamplers (fused step, ``metropolis`` and
    ``rejection``), through the patch, fused and chain kernels;
@@ -42,9 +48,11 @@
 6. times each kernel and its plain version (median of 20 CUDA-event
    timed launches) beside the kernel's bound and, for B6, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs and B6's
-   mma.sync kernel launched directly (yardsticks: the port never calls
-   SDPA, and takes the mma.sync kernel only at other shapes), and the
-   end-to-end frames/s and tokens/s.
+   mma.sync kernel launched directly, for the comb scan ``torch.cumsum``,
+   for B4/B5 their lane kernel launched directly (yardsticks: the port
+   never calls SDPA or a float ``torch.cumsum`` on the card, and takes the
+   mma.sync and lane kernels only at other shapes), and the end-to-end
+   frames/s and tokens/s.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -236,16 +244,24 @@ def comb_ties_ok(anc_k, anc_p, w, u) -> tuple[int, float]:
     lanes may fall on either side.  Returns the number of tie lanes and
     the largest such distance (CDF units)."""
     import torch
+    n = anc_k.shape[-1]                  # comb points (n_out)
+    lanes = torch.arange(n, device=anc_k.device, dtype=torch.float32)
+    pos = ((lanes + u.float()[:, None]) / n).double()
+    return comb_ties_at(anc_k, anc_p, torch.cumsum(w.double(), -1), pos)
+
+
+def comb_ties_at(anc_k, anc_p, cdf64, pos) -> tuple[int, float]:
+    """``comb_ties_ok`` for any sorted comb: ``pos`` (float64, one point
+    per lane) and the float64 CDF ``cdf64`` given."""
+    import torch
     b, i = (anc_k != anc_p).nonzero(as_tuple=True)
     if b.numel() == 0:
         return 0, 0.0
-    cdf64 = torch.cumsum(w.double(), -1)
-    n = anc_k.shape[-1]                  # comb points (n_out)
     lo = torch.minimum(anc_k[b, i], anc_p[b, i]).long()
     hi = torch.maximum(anc_k[b, i], anc_p[b, i]).long()
-    pos = ((i.float() + u.float()[b]) / n).double()
-    off = torch.maximum((cdf64[b, lo] - pos).abs(),
-                        (cdf64[b, hi - 1] - pos).abs())
+    p = pos[b, i]
+    off = torch.maximum((cdf64[b, lo] - p).abs(),
+                        (cdf64[b, hi - 1] - p).abs())
     worst = float(off.max())
     check(worst <= TIE_DELTA, f"ancestor mismatch off a CDF tie: "
                               f"{worst:.3g} from the float64 CDF")
@@ -390,13 +406,124 @@ def check_systematic(dev) -> dict:
     return {"max_abs_err": worst, "tie_lanes": ties, "comb_offset": offsets}
 
 
-def chain_inputs(b, n, seed, dev, iters=32):
-    """Post-likelihood log-weights and the chains' draws; member 0 of a
-    bank is all -inf, member 1 has all its mass on one slot, member 2
-    half its slots dead, and a lone member some dead slots."""
+# the comb scan's shapes: the composed step's one row, RPA's 8 shards, SMC
+# decoding's short rows (B prompts x K = 8 hypotheses, one launch), a
+# ragged tail across tiles, and a row of exactly one tile
+SCAN_CASES = [(1, 2 ** 22, 61), (8, 2 ** 22, 62), (32, 8, 63),
+              (3, 2 ** 20 + 333, 64), (2, 4096, 65)]
+SCAN_TOL = 2.0 ** -23      # rtol = atol against the float64 scan: 1 ulp of 1
+
+
+def comb_weights(lw):
+    """The weights the comb schemes scan: normalized, then divided by their
+    sum again, as ``core.resampling`` does."""
+    from repro_torch.core.particles import normalized_weights
+    w = normalized_weights(lw)
+    return w / w.sum(-1, keepdim=True).clamp(min=1e-38)
+
+
+def scheme_draws(seed, b, dev):
+    """One draws provider per member, stacked as a bank's are."""
+    from repro_torch.core.draws import BankDraws, TorchDraws
+    return BankDraws([TorchDraws.from_seed(seed + i, dev) for i in range(b)])
+
+
+def scheme_points(scheme, draws, n):
+    """The sorted comb points (float32, ``(B, n)``) that ``scheme`` takes
+    from ``draws`` for ``n_out = capacity = n``, as ``core.resampling``
+    makes them (the multinomial spacings through the scan, as there)."""
+    import torch
+    from repro_torch.kernels import ops
+    lanes = torch.arange(n, device=draws.device, dtype=torch.float32)
+    if scheme == "systematic":
+        return (lanes + draws.uniform(())[:, None]) / n
+    if scheme == "stratified":
+        return (lanes + draws.uniform((n,))) / n
+    cs = ops.prefix_sum(draws.exponential((n + 1,)))
+    return cs[:, :-1] / cs[:, n:]
+
+
+def check_scan(dev) -> dict:
+    """The comb scan against its plain version (the float64 scan rounded
+    once) within SCAN_TOL, and against the float64 CDF within COMB_TOL; bit
+    for bit on three launches; a row independent of the batch; the
+    systematic, stratified and multinomial combs built on it against the
+    float64 CDF's comb (comb_offset within COMB_TOL for systematic, the
+    TIE_DELTA rule for all three).  Prints, without gating, whether
+    torch's own CUDA cumsum repeats on the same input: the fault the
+    kernel repairs."""
+    import torch
+    from repro_torch.core import resampling
+    from repro_torch.kernels.scan import prefix_sum_kernel, prefix_sum_ref
+
+    worst, cdf_worst, ties, rec = 0.0, 0.0, 0, {}
+    for b, n, seed in SCAN_CASES:
+        lw, ll, _, _ = fused_inputs(b, n, seed, dev, d=1)
+        lw = lw + ll
+        w = comb_weights(lw)
+        runs = [prefix_sum_kernel(w) for _ in range(3)]
+        check(all(same_bits(runs[0], r) for r in runs[1:]),
+              f"scan not repeatable {b}x{n}")
+        y = runs[0]
+        err = max_err(y, prefix_sum_ref(w), SCAN_TOL)
+        exact = float((y == prefix_sum_ref(w)).float().mean())
+        cdf64 = torch.cumsum(w.double(), -1)
+        cdf_err = float((y.double() - cdf64).abs().max())
+        check(cdf_err <= COMB_TOL, f"scan {b}x{n}: {cdf_err:.3g} from the "
+                                   f"float64 CDF (limit {COMB_TOL})")
+        if b > 1:
+            solo = prefix_sum_kernel(w[b - 1:].contiguous())
+            check(same_bits(solo[0], y[b - 1]), "scan row depends on batch")
+        lib = [torch.cumsum(w, -1) for _ in range(3)]
+        lib_repeats = all(same_bits(lib[0], c) for c in lib[1:])
+        lib_err = float((lib[0].double() - cdf64).abs().max())
+        # the combs built on the scan, against the float64 CDF's comb
+        comb = {}
+        for k, scheme in enumerate(("systematic", "stratified",
+                                    "multinomial")):
+            dseed = 1000 * seed + 100 * k
+            counts = resampling.RESAMPLERS[scheme](
+                scheme_draws(dseed, b, dev), lw, n)
+            anc = resampling.counts_to_ancestors(counts, n)
+            pos = scheme_points(scheme, scheme_draws(dseed, b, dev),
+                                n).double()
+            anc64 = torch.searchsorted(cdf64, pos.contiguous(), right=True)
+            anc64 = anc64.clamp(max=n - 1).to(torch.int32)
+            t, dist = comb_ties_at(anc, anc64, cdf64, pos)
+            ties += t
+            comb[scheme] = {"tie_lanes": t, "tie_dist": dist}
+            if scheme == "systematic":
+                u = scheme_draws(dseed, b, dev).uniform(())
+                every = torch.ones(b, dtype=torch.bool, device=dev)
+                off = comb_offset(anc, w, u, every)
+                check(off <= COMB_TOL, f"systematic comb on the scan "
+                                       f"{b}x{n}: {off:.3g} from the float64"
+                                       f" CDF's comb (limit {COMB_TOL})")
+                comb[scheme]["comb_offset"] = off
+        worst, cdf_worst = max(worst, err), max(cdf_worst, cdf_err)
+        rec[f"{b}x{n}"] = {"max_abs_err": err, "bitwise_equal_share": exact,
+                           "cdf64_err": cdf_err, "combs": comb,
+                           "torch_cumsum_repeats": lib_repeats,
+                           "torch_cumsum_cdf64_err": lib_err}
+        log(f"scan {b}x{n}: max_abs_err {err:.3g} vs the plain version "
+            f"(rtol=atol={SCAN_TOL:.3g}; {exact:.4%} bitwise equal), "
+            f"{cdf_err:.3g} from the float64 CDF (limit {COMB_TOL}), "
+            f"repeatable; combs {comb}; torch.cumsum on the card: repeats "
+            f"{lib_repeats}, {lib_err:.3g} from the float64 CDF (not gated)")
+        del lw, ll, w, runs, y, cdf64, lib
+    return {"max_abs_err": worst, "cdf64_err": cdf_worst, "tie_lanes": ties,
+            "cases": rec}
+
+
+def chain_inputs(b, n, seed, dev, iters=32, lanes=None):
+    """Post-likelihood log-weights and the chains' draws for ``lanes``
+    (default ``n``) lanes; member 0 of a bank is all -inf, member 1 has all
+    its mass on one slot, member 2 half its slots dead, and a lone member
+    some dead slots."""
     import torch
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    lanes = n if lanes is None else lanes
     lw = 3.0 * torch.randn((b, n), generator=g, device=dev)
     dead = torch.rand((b, n), generator=g, device=dev)
     if b == 1:
@@ -406,30 +533,69 @@ def chain_inputs(b, n, seed, dev, iters=32):
         lw[1] = -math.inf
         lw[1, n // 3] = 0.0
         lw[2][dead[2] < 0.5] = -math.inf
-    prop = torch.randint(n, (b, n, iters), generator=g, device=dev,
+    prop = torch.randint(n, (b, lanes, iters), generator=g, device=dev,
                          dtype=torch.int32)
-    log_us = torch.log(torch.rand((b, n, iters), generator=g, device=dev))
+    log_us = torch.log(torch.rand((b, lanes, iters), generator=g,
+                                  device=dev))
     return lw, prop, log_us
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (members, n_in, lanes, budget, seed, misaligned draws): the main path's
+# shape, the bank's with its edge members, more lanes than slots with a
+# tile that straddles members, a budget the tma kernel does not take, and
+# misaligned draws (both on the lane kernel), and fewer rows than a tile
+CHAIN_CASES = [(1, 2 ** 22, 2 ** 22, 32, 41, False),
+               (8, 2 ** 20, 2 ** 20, 32, 42, False),
+               (3, 5000, 10077, 32, 43, False),
+               (3, 40, 25, 32, 46, False),
+               (3, 5000, 4099, 20, 44, False),
+               (3, 5000, 4099, 32, 45, True)]
+
+
 def check_chains(dev) -> dict:
-    """B4 and B5 against their plain versions, bit for bit, at 1 x 2^22 and
-    8 x 2^20 (dead slots, an all -inf member, a one-hot member), twice."""
+    """B4 and B5 against their plain versions, bit for bit, on every case
+    of CHAIN_CASES (dead slots, an all -inf member, a one-hot member),
+    twice; the variant ``plan`` chose, and at budget 32 the lane kernel too,
+    launched directly."""
     import torch
     from repro_torch.kernels import resample
 
-    for b, n, seed in [(1, 2 ** 22, 41), (8, 2 ** 20, 42)]:
-        lw, prop, log_us = chain_inputs(b, n, seed, dev)
+    variants = {}
+    for b, n, lanes, iters, seed, mis in CHAIN_CASES:
+        lw, prop, log_us = chain_inputs(b, n, seed, dev, iters, lanes)
+        if mis:
+            prop, log_us = misaligned(prop), misaligned(log_us)
         for name in ("metropolis", "rejection"):
             kern = getattr(resample, f"{name}_ancestors_kernel")
             plain = getattr(resample, f"{name}_ancestors_ref")
+            before = dict(kern.variants)
             anc = kern(lw, prop, log_us)
+            ran = [v for v in kern.variants if kern.variants[v] != before[v]]
             check(same_bits(anc, kern(lw, prop, log_us)),
                   f"{name} kernel not repeatable {b}x{n}")
             want = plain(lw, prop, log_us)
             bad = int((anc != want).sum())
-            check(bad == 0, f"{name} kernel differs from its plain version "
-                            f"on {bad} lanes ({b}x{n})")
+            check(bad == 0, f"{name} {ran} kernel differs from its plain "
+                            f"version on {bad} lanes ({b}x{n}, {lanes} lanes,"
+                            f" budget {iters})")
+            expect = "tma" if iters == 32 and not mis else "lane"
+            check(ran == [expect], f"{name} {b}x{n} budget {iters}: ran "
+                                   f"{ran}, want {expect}")
+            if expect == "tma":
+                lane, _ = resample._chain_kernel(lw, prop, log_us,
+                                                 name == "rejection", "lane")
+                check(same_bits(lane, anc), f"{name}: the lane kernel differs"
+                                            f" from the tma kernel")
             if b > 1:
                 check(bool((anc[0] == 0).all()),
                       f"{name}: all -inf member must take slot 0")
@@ -437,9 +603,14 @@ def check_chains(dev) -> dict:
                       f"{name}: one-hot member must take its hot slot")
             alive = torch.isfinite(lw.gather(-1, anc.long()))
             check(bool(alive[b > 1:].all()), f"{name}: lane on a dead slot")
-            log(f"{name} B={b} N={n}: bitwise equal to the plain version, "
-                f"repeatable")
-    return {"max_abs_err": 0.0}
+            variants[f"{name} {b}x{n} lanes={lanes} iters={iters}"
+                     f"{' misaligned' if mis else ''}"] = ran[0]
+            also = " and to the lane kernel" if expect == "tma" else ""
+            log(f"{name} B={b} N={n} lanes={lanes} budget={iters}"
+                f"{' misaligned' if mis else ''} [{ran[0]}]: bitwise equal "
+                f"to the plain version{also}, repeatable")
+        del lw, prop, log_us
+    return {"max_abs_err": 0.0, "variants": variants}
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +659,34 @@ def chain_bound(b, n_in, n_out, iters) -> tuple[float, str]:
     ops = b * n_out * iters * 3
     t_b, t_o = bytes_ / PEAK_BYTES, ops / PEAK_FP32
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def scan_bound(rows, n) -> tuple[float, str]:
+    """Least time: read x and write y once (8 B an element); one FP32 add
+    an element."""
+    t_b, t_o = rows * n * 8 / PEAK_BYTES, rows * n / PEAK_FP32
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def time_scan(dev) -> dict:
+    """The comb scan, its plain version and torch.cumsum (the library call
+    for the same function, which the port never makes on the card) on a
+    comb's weights at the composed step's shape (1 x 2^22) and RPA's
+    (8 x 2^22)."""
+    import torch
+    from repro_torch.kernels.scan import prefix_sum_kernel, prefix_sum_ref
+    out = {}
+    for rows in (1, 8):
+        lw, ll, _, _ = fused_inputs(rows, 2 ** 22, 9, dev, d=1)
+        w = comb_weights(lw + ll)
+        bound, by = scan_bound(rows, 2 ** 22)
+        out[f"{rows}x2^22"] = {
+            "ms": cuda_ms(lambda: prefix_sum_kernel(w)),
+            "plain_ms": cuda_ms(lambda: prefix_sum_ref(w)),
+            "library_ms": cuda_ms(lambda: torch.cumsum(w, -1)),
+            "bound_ms": bound, "bound_by": by}
+        del lw, ll, w
+    return out
 
 
 def comm_formulas(kind, p, c, cfg, state_bytes, estimate_bytes):
@@ -780,10 +979,13 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
         check(ref.mha_ref.calls == 0, f"{what} ran the plain attention "
                                       f"{ref.mha_ref.calls} times")
 
-    def launches_ok(what):
+    def launches_ok(what, scans):
+        """B6 once per layer and forward call; ``scans`` comb scans (one
+        per bank step of smc_decode, none for generate)."""
         got = counts(all_k)
         want = {k: 0 for k in all_k}
         want["flash_attention"] = want_launches
+        want["prefix_sum"] = scans
         check(got == want, f"{what} launches {got}, want {want}")
         check(attn.variants == want_variants, f"{what} B6 variants "
               f"{attn.variants}, want {want_variants}")
@@ -805,7 +1007,7 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     tokens = generate(model, prompt, steps=LM_STEPS)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    gen_launches = launches_ok("generate")
+    gen_launches = launches_ok("generate", 0)
     gen_variants = dict(attn.variants)
     check(tokens.shape == (LM_BATCH, LM_STEPS) and bool(
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "generate tokens")
@@ -839,7 +1041,8 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     res = smc_decode(model, prompt, smc, key=LM_SEED + 2)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    smc_launches = launches_ok("smc_decode")
+    smc_launches = launches_ok("smc_decode", LM_STEPS - 1)
+    smc_scans = all_k["prefix_sum"].launches
     smc_variants = dict(attn.variants)
     t0 = time.perf_counter()
     res2 = smc_decode(model, prompt, smc, key=LM_SEED + 2)
@@ -860,7 +1063,7 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     t_pre = prefill_s(prompt.repeat_interleave(LM_K, 0))
     smc_rec = {
         "launches": smc_launches, "variants": smc_variants,
-        "seconds": t_smc,
+        "scan_launches": smc_scans, "seconds": t_smc,
         "first_run_seconds": t_first, "prefill_seconds": t_pre,
         "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_pre,
         "prefill_row_tokens_per_s": LM_BATCH * LM_K * LM_PROMPT / t_pre,
@@ -870,7 +1073,8 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
         "log_z": res.log_z.tolist(), "mean_ess": float(res.ess.mean()),
         "min_ess": float(res.ess.min())}
     log(f"smc_decode {LM_BATCH} x {LM_PROMPT}, K={LM_K}, {LM_STEPS} steps, "
-        f"tau={LM_TAU}: launches B6 {smc_launches} {smc_variants}; "
+        f"tau={LM_TAU}: launches B6 {smc_launches} {smc_variants}, comb "
+        f"scan {smc_scans}; "
         f"{t_smc:.3f} s steady "
         f"({t_first:.3f} s first); prefill {smc_rec['prefill_tokens_per_s']:.1f}"
         f" prompt tokens/s ({smc_rec['prefill_row_tokens_per_s']:.1f} row "
@@ -954,6 +1158,7 @@ def main() -> int:
         fused_weight_step_kernel as fused_k, fused_weight_step_ref
     from repro_torch.kernels.flash_attention import \
         flash_attention_kernel as attn_k
+    from repro_torch.kernels.scan import prefix_sum_kernel as scan_k
     from repro_torch.core.distributed import DRAConfig
     from repro_torch.core.runtime import EmulatedMesh
     from repro_torch.models.tracking import TrackingConfig, TrackingSSM
@@ -978,18 +1183,21 @@ def main() -> int:
     patch_check = check_patch(dev)
     fused_check = check_fused(dev)
     sys_check = check_systematic(dev)
+    scan_check = check_scan(dev)
     chain_check = check_chains(dev)
     attn_check = check_attention(dev)
     attn_check["wgmma_sass"] = check_wgmma()
     ref.mha_ref.calls = 0        # from here on no path may run it
     all_k = {"patch_log_likelihood": patch_k, "fused_weight_step": fused_k,
              "systematic_ancestors": sys_k, "metropolis_ancestors": metro_k,
-             "rejection_ancestors": rej_k, "flash_attention": attn_k}
+             "rejection_ancestors": rej_k, "flash_attention": attn_k,
+             "prefix_sum": scan_k}
 
     def reset():
         for k in all_k.values():
             k.launches = 0
-        attn_k.variants.update(dict.fromkeys(attn_k.variants, 0))
+        for k in (attn_k, metro_k, rej_k):
+            k.variants.update(dict.fromkeys(k.variants, 0))
 
     def counts(names=("patch_log_likelihood", "fused_weight_step")):
         torch.cuda.synchronize()
@@ -1071,19 +1279,45 @@ def main() -> int:
         f"first run) [{name}]")
     log(f"bank members: {fmt_tracks(members)}")
 
-    # -- phase 5: composed default config --------------------------------------
+    # -- phase 5: composed default config at the main path's size -------------
+    # the default SIRConfig (systematic comb, composed step): its CDF is the
+    # scan kernel's, once a frame, and three runs must repeat bit for bit
     comp = ParallelParticleFilter(model=model, sir=SIRConfig(
-        n_particles=2 ** 20, ess_frac=0.5))
-    reset()
-    cres = comp.run(2, movie.frames[:8])
-    launches_comp = counts()
-    check(launches_comp == {"patch_log_likelihood": 8,
-                            "fused_weight_step": 0},
-          f"composed launches {launches_comp}")
-    check(bool(torch.isfinite(cres.estimates).all()), "composed non-finite")
-    log(f"composed N=2^20 8 frames: launches {launches_comp}")
-    check(not any(counts(list(all_k)[2:]).values()),
-          "composed systematic run launched a resample kernel")
+        n_particles=n_single, ess_frac=0.5))
+    comp_runs = []
+    for _ in range(3):
+        reset()
+        t0 = time.perf_counter()
+        cres = comp.run(1, movie.frames)
+        launches_comp = counts(all_k)
+        comp_runs.append((cres, time.perf_counter() - t0))
+        want = {k: 0 for k in all_k}
+        want.update({"patch_log_likelihood": FRAMES, "prefix_sum": FRAMES})
+        check(launches_comp == want, f"composed launches {launches_comp}")
+    first = comp_runs[0][0]
+    for cres, _ in comp_runs[1:]:
+        check(same_bits(cres.estimates, first.estimates)
+              and same_bits(cres.final.state, first.final.state)
+              and same_bits(cres.final.log_weights, first.final.log_weights),
+              "composed filter not repeatable")
+    check(bool(torch.isfinite(first.ess).all()
+               and torch.isfinite(first.log_marginal).all()),
+          "composed: non-finite ESS / log-marginal")
+    comp_track = track(first, movie)
+    gate_tracks([comp_track], "composed filter")
+    fps_comp = FRAMES / comp_runs[-1][1]
+    composed = {"n": n_single, "frames": FRAMES, "launches": launches_comp,
+                "track": comp_track, "frames_per_s": fps_comp,
+                "first_run_frames_per_s": FRAMES / comp_runs[0][1],
+                "resampled": int(first.resampled.sum())}
+    log(f"composed (default config) N=2^22 512x512, seed 0: RMSE "
+        f"{comp_track['rmse']:.4f} px after {WARMUP} (after 10: "
+        f"{comp_track['rmse_after_10']:.4f}, lock-on frame "
+        f"{comp_track['lock_frame']}), resampled {composed['resampled']}/"
+        f"{FRAMES}, three runs bitwise equal, launches {launches_comp}, "
+        f"{fps_comp:.2f} frames/s steady ({composed['first_run_frames_per_s']:.2f}"
+        f" first run) [{name}]")
+    del comp_runs, first, cres
 
     # -- phase 5b: collective-free resamplers at full width -------------------
     chain_runs = {}
@@ -1101,6 +1335,8 @@ def main() -> int:
         want.update({"patch_log_likelihood": FRAMES,
                      "fused_weight_step": FRAMES, kname: FRAMES})
         check(got == want, f"{scheme} filter launches {got}")
+        check(all_k[kname].variants == {"tma": FRAMES, "lane": 0},
+              f"{scheme} filter chain variants {all_k[kname].variants}")
         t0 = time.perf_counter()
         cres2 = cpf.run(1, movie.frames)
         torch.cuda.synchronize()
@@ -1113,7 +1349,9 @@ def main() -> int:
               f"{scheme}: non-finite ESS / log-marginal")
         tr = track(cres, movie)
         gate_tracks([tr], f"{scheme} filter")
-        chain_runs[scheme] = {"launches": got[kname], "track": tr,
+        chain_runs[scheme] = {"launches": got[kname],
+                              "variants": dict(all_k[kname].variants),
+                              "track": tr,
                               "frames_per_s": fps,
                               "first_run_frames_per_s": FRAMES / t_first,
                               "resampled": int(cres.resampled.sum())}
@@ -1142,8 +1380,10 @@ def main() -> int:
         got = counts(all_k)
         t_first = time.perf_counter() - t0
         want = {k: 0 for k in all_k}
+        # MPF and RNA comb on B1; RPA's per-shard comb scans its CDF
         want.update({"patch_log_likelihood": FRAMES,
-                     "systematic_ancestors": 0 if kind == "rpa" else FRAMES})
+                     "systematic_ancestors": 0 if kind == "rpa" else FRAMES,
+                     "prefix_sum": FRAMES if kind == "rpa" else 0})
         check(got == want, f"{kind} launches {got}")
         t0 = time.perf_counter()
         dres2 = dpf.run(1, movie.frames)
@@ -1220,13 +1460,24 @@ def main() -> int:
     rej_ms = cuda_ms(lambda: rej_k(clw, cprop, clogu))
     rej_plain_ms = cuda_ms(lambda: resample.rejection_ancestors_ref(
         clw, cprop, clogu))
+    # the first design (the lane kernel), on the same inputs: the yardstick
+    lane_ms = {r: cuda_ms(lambda: resample._chain_kernel(
+        clw, cprop, clogu, r, "lane")) for r in (False, True)}
     c_bound, c_by = chain_bound(1, n_single, n_single, 32)
     del clw, cprop, clogu
     log(f"times [{name}]: B1 {sys_ms:.4f} ms at 8x2^22 (plain "
         f"{sys_plain_ms:.4f}, bound {s_bound:.4f} {s_by}); B4 "
-        f"{metro_ms:.4f} ms (plain {metro_plain_ms:.4f}), B5 {rej_ms:.4f} "
-        f"ms (plain {rej_plain_ms:.4f}) at 2^22 x 32, bound {c_bound:.4f} "
-        f"{c_by}")
+        f"{metro_ms:.4f} ms (lane kernel {lane_ms[False]:.4f}, plain "
+        f"{metro_plain_ms:.4f}), B5 {rej_ms:.4f} ms (lane kernel "
+        f"{lane_ms[True]:.4f}, plain {rej_plain_ms:.4f}) at 2^22 x 32, "
+        f"bound {c_bound:.4f} {c_by}")
+    check(metro_ms < lane_ms[False] and rej_ms < lane_ms[True],
+          "the tma chain kernel is not faster than the lane kernel")
+    scan_times = time_scan(dev)
+    for label, t in scan_times.items():
+        log(f"times [{name}]: comb scan {label}: {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f}, torch.cumsum {t['library_ms']:.4f}, "
+            f"bound {t['bound_ms']:.4f} {t['bound_by']})")
     attn_times = time_attention(dev)
     for label, t in attn_times.items():
         log(f"times [{name}]: B6 {label} [{t['variant']}] q{tuple(t['q'])} "
@@ -1277,6 +1528,18 @@ def main() -> int:
          "max_abs_err": chain_check["max_abs_err"], "ms": rej_ms,
          "plain_ms": rej_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
          "library_ms": None},
+        # the composed step's shape; RPA's 8 x 2^22 is in the record's
+        # "scan" entry
+        {"name": "prefix_sum", "route": "cuda",
+         "source": "src/repro_torch/csrc/comb_scan.cu",
+         "replaces": "src/repro/core/resampling.py:64",
+         "launches": composed["launches"]["prefix_sum"],
+         "max_abs_err": scan_check["max_abs_err"],
+         "ms": scan_times["1x2^22"]["ms"],
+         "plain_ms": scan_times["1x2^22"]["plain_ms"],
+         "bound_ms": scan_times["1x2^22"]["bound_ms"],
+         "bound_by": scan_times["1x2^22"]["bound_by"],
+         "library_ms": scan_times["1x2^22"]["library_ms"]},
         # the decode shape (the split variant), 31 of every 32 launches on
         # the LM path; the prefill shapes (the wgmma variant, the same
         # source) are in the record's "attention" entry
@@ -1297,7 +1560,11 @@ def main() -> int:
         "comb_offset": fused_check["comb_offset"],
         "systematic_tie_lanes": sys_check["tie_lanes"],
         "systematic_comb_offset": sys_check["comb_offset"],
-        "chains": chain_runs, "distributed": dist_runs, "lm": lm,
+        "chains": chain_runs, "chain_check": chain_check,
+        "chain_lane_ms": {"metropolis": lane_ms[False],
+                          "rejection": lane_ms[True]},
+        "composed": composed, "scan": scan_times, "scan_check": scan_check,
+        "distributed": dist_runs, "lm": lm,
         "attention": attn_times, "attention_check": attn_check,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,
                     "fused_weight_step": fused_bank_ms},

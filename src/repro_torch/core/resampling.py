@@ -10,10 +10,11 @@ order: systematic takes one ``uniform(())``, stratified
 and the chains ``resampling_draws``: ``randint((lanes, iters))`` then
 ``uniform((lanes, iters))``.
 
-The chains' ``*_from_draws`` functions go through
-``repro_torch.kernels.ops``: a CUDA tensor launches the Hopper kernel
-(``csrc/resample.cu``), a CPU tensor runs the plain version beside it in
-``repro_torch.kernels.resample``.
+The float scans of the comb schemes (their CDFs and the multinomial
+comb's exponential spacings) and the chains' ``*_from_draws`` functions
+go through ``repro_torch.kernels.ops``: a CUDA tensor launches the Hopper
+kernel (``csrc/comb_scan.cu``, ``csrc/resample.cu``), a CPU tensor runs
+the plain version (``torch.cumsum``; ``repro_torch.kernels.resample``).
 """
 from __future__ import annotations
 
@@ -106,7 +107,7 @@ def _comb_counts(weights: torch.Tensor, u: torch.Tensor, n_out,
     ``n_out`` may be a per-member tensor ``≤ capacity``."""
     lead = weights.dim() - 1
     w = weights / weights.sum(-1, keepdim=True).clamp(min=1e-38)
-    cdf = torch.cumsum(w, -1)
+    cdf = ops.prefix_sum(w)
     if u.dim() == lead:
         u = u[..., None]
     n_out_t = _lead_vector(n_out, lead, weights.device)
@@ -145,7 +146,7 @@ def multinomial_counts(draws, log_weights: torch.Tensor, n_out,
     lead = log_weights.dim() - 1
     w = normalized_weights(log_weights)
     e = draws.exponential((capacity + 1,))
-    cs = torch.cumsum(e, -1)
+    cs = ops.prefix_sum(e)
     n_out_t = _lead_vector(n_out, lead, log_weights.device)
     pick = n_out_t.to(torch.int64).clamp(1, capacity)
     denom = torch.gather(cs, -1, pick.expand(cs.shape[:-1] + (1,)))
@@ -156,7 +157,7 @@ def multinomial_counts(draws, log_weights: torch.Tensor, n_out,
 def _multinomial_from_sorted(w: torch.Tensor, sorted_u: torch.Tensor,
                              n_out_t: torch.Tensor,
                              capacity: int) -> torch.Tensor:
-    cdf = torch.cumsum(w / w.sum(-1, keepdim=True).clamp(min=1e-38), -1)
+    cdf = ops.prefix_sum(w / w.sum(-1, keepdim=True).clamp(min=1e-38))
     lanes = torch.arange(capacity, device=w.device)
     valid = (lanes < n_out_t).expand(sorted_u.shape)
     return _searchsorted_counts(cdf, sorted_u, valid)

@@ -51,10 +51,8 @@
 // second call repeats bit for bit.  Softmax exponents are base 2 with
 // log2(e) folded into the logits.
 
-#include <cuda.h>   // CUtensorMap and its enums only: the encoder comes
-                    // from the runtime's driver entry point, no -lcuda
-
 #include "flash_common.cuh"
+#include "tma.cuh"
 
 // One call of the C entry points below, as the wrapper packs it
 // (struct.Struct("@6Q9q9i2f")): one pointer crosses ctypes instead of 26
@@ -75,47 +73,12 @@ struct FlashCall {
 namespace {
 
 using namespace flash;
+using namespace tma;
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
 // -- mbarrier, TMA and wgmma ------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA transfer to wait for
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`.  The
-// loop lives inside the PTX: a C++ loop on the per-thread result would be
-// a divergent path to ptxas, and a wgmma after one is serialized.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
 
 // one box of a 4-d tensor map (coordinates innermost first) into shared
 // memory, completing on `bar`
@@ -860,31 +823,6 @@ __global__ void __launch_bounds__(128)
 }
 
 // -- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    return err == cudaSuccess && got == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // The tensor map of a (B, H, L, D) bf16 view with element strides sb, sh,
 // sl (last dim contiguous): dims innermost first, boxes of 64 columns x

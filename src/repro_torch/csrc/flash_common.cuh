@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace flash {
 
 struct Args {
@@ -21,9 +23,7 @@ struct Args {
   float scale, softcap;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using tma::smem_u32;
 
 // 16-byte global -> shared copy; zero-fills when !valid (no bytes read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,

@@ -24,7 +24,7 @@
 // particle, plus the scan's CDF scratch written once and searched from L2;
 // passes 1, 3 and 5 re-read lw.
 //
-// B4 / B5, per member b and output lane l (one thread per lane):
+// B4 / B5, per member b and output lane l:
 //   B4: a = l % n_in; for r < iters: j = prop[l][r];
 //       a = (logu[l][r] < lw[j] - lw[a]) ? j : a
 //   B5: the first iters/2 draws are rejection against m = max lw, keeping
@@ -36,14 +36,35 @@
 // the result is bitwise equal to the plain version.  The argmax (and B5's
 // max) comes from a per-member reduction of two launches (tile, member)
 // before the chain launch.  Bound on the H100: bytes — each lane reads its
-// (iters) int32 proposals and f32 log-u row once, (8·iters + 4) B per lane;
-// the lw[j] gathers are random but lw (16 MB per member at 2^22) stays in
-// L2: the draws are read once with streaming loads (evict-first), so their
-// 1 GB at 2^22 does not push lw out of L2, and every proposal's weight is
-// gathered before the chain's compares run.  A lane reads its own
-// contiguous 128 B row with 16 B vector loads; coalescing that read across
-// a warp, or drawing in-kernel, would change the draws contract and is
-// later work.
+// (iters) int32 proposals and f32 log-u row once, (8·iters + 4) B per lane.
+// A second floor the bytes do not count: iters random 4-B gathers of lw a
+// lane, one 32-B L2 sector each (134 M at 2^22 x 32); lw (16 MB a member at
+// 2^22) stays in L2 while the draws stream past it with an evict-first
+// policy.  Two chain kernels:
+//   k_chain_tma — the reference's budget (32) on 16-B aligned draws.  The
+//       draw tables are read as (B·lanes, 32) rows: a persistent grid of
+//       TMA_BLOCKS_PER_SM blocks an SM walks tiles of TMA_LANES consecutive
+//       rows, one thread a row; thread 0 keeps TMA_STAGES tiles of both
+//       tables in flight (cp.async.bulk.tensor with an evict-first L2 hint,
+//       completion on an mbarrier), so the draws move as whole 16 KB tiles,
+//       coalesced, and a tile's gathers and compares run while the next
+//       tile lands.  The tensor map's 128-byte swizzle puts 16-B chunk c of
+//       row t at chunk c ^ (t % 8), so the 8 threads of each quarter-warp
+//       read 8 distinct bank groups when they read chunk c of their own
+//       rows, in order.  A thread reads its 32 proposals, starts all 32
+//       gathers, then runs the compares in order r.  The shared-memory
+//       carveout is set to what the blocks' rings need and no more: the
+//       rest of the SM stays L1, which holds the gathers' outstanding
+//       misses (the default carveout, at three blocks an SM, leaves too
+//       little L1 for them, and the kernel runs slower).  Staging the draws
+//       changes nothing of the draws contract: the layout is
+//       resampling_draws' own.
+//   k_chain (the first design) — one thread a lane reading its own 128-B rows with
+//       16-B streaming loads (any budget; 16-B vector loads for 32 aligned).
+//       A warp's load then touches 32 lines, 16 B in each.  It serves every
+//       other budget and misaligned draws.
+// The wrapper's plan() chooses between them by the same rule as
+// ppf_chain_tma_ancestors, which refuses what it does not take.
 //
 // The wrappers (repro_torch/kernels/resample.py) check their inputs,
 // allocate outputs and scratch (the *_scratch_floats functions) and raise
@@ -52,8 +73,11 @@
 #include <stdint.h>
 
 #include "tile_reduce.cuh"
+#include "tma.cuh"
 
 namespace {
+
+using namespace tma;
 
 // ---------------------------------------------------------------------------
 // B1: systematic ancestors
@@ -355,6 +379,213 @@ void launch_chain(bool vec, dim3 grid, cudaStream_t st, const float* lw,
         lw, prop, logu, N, n_out, iters, L, anc);
 }
 
+// -- k_chain_tma: draws staged through shared memory by TMA -----------------
+
+constexpr int TMA_ITERS = 32;                  // the budget it is built for
+constexpr int TMA_LANES = 128;                 // rows a tile, threads a block
+constexpr int TMA_STAGES = 2;
+constexpr int TMA_BLOCKS_PER_SM = 2;
+constexpr int TMA_TABLE = TMA_LANES * TMA_ITERS * 4;   // 16 KB: one table
+constexpr int TMA_SMEM = TMA_STAGES * 2 * TMA_TABLE + 1024;   // + alignment
+
+// one box of a 2-d tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`, under the L2 policy `policy`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// thread 0: both tables of tile `tile` into stage s
+__device__ __forceinline__ void load_tile(uint8_t* ring, uint64_t* full,
+                                          int s, long long tile,
+                                          const CUtensorMap* tm_prop,
+                                          const CUtensorMap* tm_logu,
+                                          uint64_t policy) {
+  uint8_t* dst = ring + s * 2 * TMA_TABLE;
+  mbar_expect_tx(&full[s], 2 * TMA_TABLE);
+  tma_load_2d(dst, tm_prop, &full[s], 0, (int)(tile * TMA_LANES), policy);
+  tma_load_2d(dst + TMA_TABLE, tm_logu, &full[s], 0,
+              (int)(tile * TMA_LANES), policy);
+}
+
+template <bool REJECT>
+__global__ void __launch_bounds__(TMA_LANES)
+    k_chain_tma(const __grid_constant__ CUtensorMap tm_prop,
+                const __grid_constant__ CUtensorMap tm_logu,
+                const float* __restrict__ lw, int N, int n_out,
+                long long rows, ChainLayout L, int* __restrict__ anc) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  uint8_t* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ __align__(8) uint64_t full[TMA_STAGES];
+  const int tid = threadIdx.x;
+  const long long n_tile = (rows + TMA_LANES - 1) / TMA_LANES;
+  uint64_t policy = 0;
+  if (tid == 0) {
+    for (int s = 0; s < TMA_STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(policy));
+    for (int s = 0; s < TMA_STAGES; ++s) {
+      const long long tile = blockIdx.x + (long long)s * gridDim.x;
+      if (tile < n_tile)
+        load_tile(ring, full, s, tile, &tm_prop, &tm_logu, policy);
+    }
+  }
+  __syncthreads();
+  // chunk c (4 draws, 16 B) of this thread's row: at c ^ (row % 8)
+  const int sw = tid & 7;
+  int k = 0;
+  for (long long tile = blockIdx.x; tile < n_tile;
+       tile += gridDim.x, ++k) {
+    const int s = k % TMA_STAGES;
+    mbar_wait(&full[s], (uint32_t)((k / TMA_STAGES) & 1));
+    const long long row = tile * TMA_LANES + tid;
+    if (row < rows) {
+      const uint8_t* stage = ring + s * 2 * TMA_TABLE + tid * 128;
+      const int4* pr = reinterpret_cast<const int4*>(stage);
+      const float4* qr = reinterpret_cast<const float4*>(stage + TMA_TABLE);
+      const int b = (int)(row / n_out);
+      const int l = (int)(row - (long long)b * n_out);
+      const float* w = lw + (long long)b * N;
+      // every proposal's weight is known before the chain starts: read
+      // the proposals, start all the gathers, then run the compares
+      int pj[TMA_ITERS];
+      float wj[TMA_ITERS];
+#pragma unroll
+      for (int c = 0; c < TMA_ITERS / 4; ++c) {
+        const int4 v = pr[c ^ sw];
+        pj[4 * c] = v.x; pj[4 * c + 1] = v.y;
+        pj[4 * c + 2] = v.z; pj[4 * c + 3] = v.w;
+      }
+#pragma unroll
+      for (int r = 0; r < TMA_ITERS; ++r) wj[r] = __ldg(w + pj[r]);
+      int a = l % N;
+      float wa = __ldg(w + a);
+      if constexpr (REJECT) {
+        const float m = L.mval[b];
+        int ar = 0;
+        float wr = 0.f;
+        bool any = false;
+#pragma unroll
+        for (int c = 0; c < TMA_ITERS / 8; ++c) {
+          const float4 q = qr[c ^ sw];
+          const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 4 * c + i;
+            const bool acc = qv[i] < wj[r] - m;
+            if (acc && !any) { ar = pj[r]; wr = wj[r]; }
+            any = any || acc;
+          }
+        }
+#pragma unroll
+        for (int c = TMA_ITERS / 8; c < TMA_ITERS / 4; ++c) {
+          const float4 q = qr[c ^ sw];
+          const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 4 * c + i;
+            if (qv[i] < wj[r] - wa) { a = pj[r]; wa = wj[r]; }
+          }
+        }
+        if (any) { a = ar; wa = wr; }
+      } else {
+#pragma unroll
+        for (int c = 0; c < TMA_ITERS / 4; ++c) {
+          const float4 q = qr[c ^ sw];
+          const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 4 * c + i;
+            if (qv[i] < wj[r] - wa) { a = pj[r]; wa = wj[r]; }
+          }
+        }
+      }
+      anc[row] = isfinite(wa) ? a : L.midx[b];
+    }
+    __syncthreads();                 // every thread is done with stage s
+    if (tid == 0) {
+      const long long next = tile + (long long)TMA_STAGES * gridDim.x;
+      if (next < n_tile)
+        load_tile(ring, full, s, next, &tm_prop, &tm_logu, policy);
+    }
+  }
+}
+
+// the tensor map of a (rows, 32) table of 4-byte draws: boxes of 32 x
+// TMA_LANES, 128-byte swizzle, zeros past the last row.  Returns 0, or an
+// error code for the wrapper to report.
+int draws_map(CUtensorMap* map, const void* base, long long rows,
+              CUtensorMapDataType type) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return -2;
+  const cuuint64_t dims[2] = {(cuuint64_t)TMA_ITERS, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)TMA_ITERS * 4};
+  const cuuint32_t box[2] = {TMA_ITERS, TMA_LANES};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 10000 + (int)res;
+}
+
+template <bool REJECT>
+int launch_chain_tma(const float* lw, const int* prop, const float* logu,
+                     int N, int n_out, long long rows, ChainLayout L,
+                     int* anc, cudaStream_t st) {
+  CUtensorMap tp, tq;
+  int err = draws_map(&tp, prop, rows, CU_TENSOR_MAP_DATA_TYPE_INT32);
+  if (err == 0)
+    err = draws_map(&tq, logu, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err != 0) return err;
+  // the blocks need no more shared memory than their ring: the rest of the
+  // SM's 256 KB stays L1, which holds the gathers' outstanding misses
+  static int sms[64];
+  int dev = 0;
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr == cudaSuccess && dev >= 64) cerr = cudaErrorInvalidDevice;
+  if (cerr == cudaSuccess && sms[dev] == 0) {
+    int sm_smem = 0, n = 0;
+    cerr = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (cerr == cudaSuccess)
+      cerr = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    // percent of the SM's shared memory the blocks' rings need (1 KB of
+    // each block is the system's)
+    const int carveout =
+        sm_smem > 0 ? (100 * TMA_BLOCKS_PER_SM * (TMA_SMEM + 1024) +
+                       sm_smem - 1) / sm_smem
+                    : 100;
+    if (cerr == cudaSuccess)
+      cerr = cudaFuncSetAttribute(
+          k_chain_tma<REJECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          TMA_SMEM);
+    if (cerr == cudaSuccess)
+      cerr = cudaFuncSetAttribute(
+          k_chain_tma<REJECT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+          carveout < 100 ? carveout : 100);
+    if (cerr == cudaSuccess) sms[dev] = n;
+  }
+  if (cerr != cudaSuccess) return (int)cerr;
+  // persistent: TMA_BLOCKS_PER_SM blocks an SM, or one per tile
+  const long long tiles = (rows + TMA_LANES - 1) / TMA_LANES;
+  const long long most = (long long)TMA_BLOCKS_PER_SM * sms[dev];
+  const int grid = (int)(tiles < most ? tiles : most);
+  k_chain_tma<REJECT><<<grid, TMA_LANES, TMA_SMEM, st>>>(
+      tp, tq, lw, N, n_out, rows, L, anc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" long long ppf_systematic_scratch_floats(int B, int n_in) {
@@ -408,4 +639,30 @@ extern "C" int ppf_chain_ancestors(const float* lw, const int* prop,
     launch_chain<false>(vec, grid, st, lw, prop, logu, n_in, n_out, iters, L,
                         anc);
   return (int)cudaGetLastError();
+}
+
+// k_chain_tma's rule, which the wrapper's plan() repeats: the budget 32,
+// both tables 16-B aligned, fewer than 2^31 rows in all
+extern "C" int ppf_chain_tma_ancestors(const float* lw, const int* prop,
+                                       const float* logu, int* anc,
+                                       float* scratch, int B, int n_in,
+                                       int n_out, int iters, int reject,
+                                       void* stream) {
+  if (B == 0 || n_out == 0) return 0;
+  if (n_in == 0) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * n_out;
+  if (iters != TMA_ITERS || ((uintptr_t)prop % 16) != 0 ||
+      ((uintptr_t)logu % 16) != 0 || rows >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  ChainLayout L = chain_layout(scratch, B, n_in);
+  int nt = n_tiles(n_in);
+  k_tile_argmax<<<dim3(nt, B), TILE, 0, st>>>(lw, n_in, L);
+  k_member_argmax<<<B, TILE, 0, st>>>(nt, L);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return reject ? launch_chain_tma<true>(lw, prop, logu, n_in, n_out, rows,
+                                         L, anc, st)
+                : launch_chain_tma<false>(lw, prop, logu, n_in, n_out, rows,
+                                          L, anc, st);
 }

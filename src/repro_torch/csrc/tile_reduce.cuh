@@ -1,5 +1,5 @@
 // Fixed-order tile reductions shared by the port's Hopper kernels
-// (csrc/sir_fused.cu, csrc/resample.cu).
+// (csrc/sir_fused.cu, csrc/resample.cu, csrc/comb_scan.cu).
 //
 // One block of TILE threads covers one tile of TILE elements.  Every
 // reduction is a fixed tree — warp shuffles, then the warp results in warp
@@ -53,20 +53,22 @@ __device__ float block_max(float v, float* sh) {
 }
 
 // Inclusive scan over TILE threads; every thread gets its prefix and the
-// block total (bitwise equal to the last thread's prefix).
-__device__ float block_scan(float v, float* sh, float* total) {
+// block total (bitwise equal to the last thread's prefix).  T is float (the
+// fused weight phase, B1) or double (the comb scan, comb_scan.cu).
+template <typename T>
+__device__ T block_scan(T v, T* sh, T* total) {
   int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   for (int o = 1; o < 32; o <<= 1) {
-    float n = __shfl_up_sync(FULL, v, o);
+    T n = __shfl_up_sync(FULL, v, o);
     if (lane >= o) v += n;
   }
   __syncthreads();
   if (lane == 31) sh[wid] = v;
   __syncthreads();
   if (wid == 0) {
-    float t = sh[lane];
+    T t = sh[lane];
     for (int o = 1; o < 32; o <<= 1) {
-      float n = __shfl_up_sync(FULL, t, o);
+      T n = __shfl_up_sync(FULL, t, o);
       if (lane >= o) t += n;
     }
     sh[lane] = t;

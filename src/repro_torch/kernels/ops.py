@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (flash_attention, patch_likelihood, ref,
-                                 resample)
+                                 resample, scan)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -52,6 +52,14 @@ def _batched(fn, *tensors):
             for t in tensors]
     out = fn(*flat)
     return out.reshape(lead + out.shape[1:])
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 scan along the last dim, batched over any leading
+    dims: the comb schemes' CDF (``csrc/comb_scan.cu`` on the card)."""
+    if not on_cuda(x):
+        return scan.prefix_sum_ref(x)
+    return _batched(scan.prefix_sum_kernel, x)
 
 
 def systematic_ancestors(log_weights: torch.Tensor, u: torch.Tensor,

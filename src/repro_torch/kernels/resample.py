@@ -12,6 +12,13 @@ DRA shards) and any length:
   max, then a Metropolis fallback chain; plain version
   ``rejection_ancestors_ref``.
 
+B4 and B5 have two chain kernels, which ``plan`` chooses between from the
+shapes and the draws' alignment alone: ``"tma"`` (``k_chain_tma``, the
+draws streamed through shared memory in coalesced tiles) for the
+reference's budget of 32 on 16-byte aligned draws, ``"lane"``
+(``k_chain``, the first design, one thread reading its own rows) for any
+other.  Each wrapper counts its launches per variant in ``.variants``.
+
 The kernel wrappers take CUDA tensors only and raise on anything else;
 ``repro_torch.kernels.ops`` dispatches on the device.  The reference's
 ``pick_block``/``kernel_applicable`` have no counterpart: every shape
@@ -20,6 +27,8 @@ takes the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -99,7 +108,9 @@ def rejection_ancestors_ref(log_weights: torch.Tensor,
 # The Hopper kernels
 # ---------------------------------------------------------------------------
 
+@functools.cache
 def _lib():
+    """The library, bound once: a launch pays no ctypes set-up."""
     lib = build.library("resample")
     lib.ppf_systematic_ancestors.argtypes = [_c_p, _c_p, _c_p, _c_p, _c_i,
                                              _c_i, _c_i, _c_p]
@@ -109,6 +120,8 @@ def _lib():
     lib.ppf_chain_ancestors.argtypes = [_c_p, _c_p, _c_p, _c_p, _c_p, _c_i,
                                         _c_i, _c_i, _c_i, _c_i, _c_p]
     lib.ppf_chain_ancestors.restype = _c_i
+    lib.ppf_chain_tma_ancestors.argtypes = lib.ppf_chain_ancestors.argtypes
+    lib.ppf_chain_tma_ancestors.restype = _c_i
     lib.ppf_chain_scratch_floats.argtypes = [_c_i, _c_i]
     lib.ppf_chain_scratch_floats.restype = ctypes.c_longlong
     return lib
@@ -160,8 +173,33 @@ def systematic_ancestors_kernel(log_weights: torch.Tensor, u: torch.Tensor,
     return anc
 
 
+# k_chain_tma's draw budget (the reference's METROPOLIS_ITERS and
+# REJECTION_TRIES) and the alignment its tensor maps need
+TMA_ITERS = 32
+TMA_ALIGN = 16
+
+
+class ChainPlan(NamedTuple):
+    variant: str        # "tma" or "lane"
+
+
+def plan(b: int, n_out: int, iters: int, aligned: bool) -> ChainPlan:
+    """The chain kernel for ``b`` members of ``n_out`` lanes with an
+    ``iters`` draw budget: ``"tma"`` at the reference's budget on 16-byte
+    aligned draws (``aligned``) of fewer than 2^31 rows in all, else
+    ``"lane"``.  Pure Python: the rule ``ppf_chain_tma_ancestors`` checks
+    again."""
+    if iters == TMA_ITERS and aligned and b * n_out < 2 ** 31:
+        return ChainPlan("tma")
+    return ChainPlan("lane")
+
+
 def _chain_kernel(log_weights: torch.Tensor, proposals: torch.Tensor,
-                  log_us: torch.Tensor, reject: bool) -> torch.Tensor:
+                  log_us: torch.Tensor, reject: bool,
+                  variant: str | None = None) -> tuple[torch.Tensor, str]:
+    """Launch a chain kernel; ``variant`` overrides ``plan`` (a timing
+    yardstick launches the lane kernel at budget 32 so).  Returns the
+    ancestors and the variant that ran."""
     if log_weights.dim() != 2 or proposals.dim() != 3:
         raise ValueError(f"log_weights (B, n_in) and proposals (B, lanes, "
                          f"iters) expected, got {tuple(log_weights.shape)}, "
@@ -175,18 +213,28 @@ def _chain_kernel(log_weights: torch.Tensor, proposals: torch.Tensor,
     _check_sizes(b, n_in, n_out)
     if iters < 1:
         raise ValueError(f"draw budget {iters} must be positive")
+    aligned = (proposals.data_ptr() % TMA_ALIGN == 0
+               and log_us.data_ptr() % TMA_ALIGN == 0)
+    chosen = plan(b, n_out, iters, aligned).variant
+    variant = variant or chosen
+    if variant == "tma" and chosen != "tma":
+        raise ValueError(f"the tma chain kernel takes budget {TMA_ITERS} on "
+                         f"{TMA_ALIGN}-byte aligned draws, got {iters}")
     lib = _lib()
+    launch = (lib.ppf_chain_tma_ancestors if variant == "tma"
+              else lib.ppf_chain_ancestors)
     anc = torch.empty((b, n_out), dtype=torch.int32, device=dev)
     scratch = torch.empty((lib.ppf_chain_scratch_floats(b, n_in),),
                           dtype=torch.float32, device=dev)
-    err = lib.ppf_chain_ancestors(
+    err = launch(
         log_weights.data_ptr(), proposals.data_ptr(), log_us.data_ptr(),
         anc.data_ptr(), scratch.data_ptr(), b, n_in, n_out, iters,
         int(reject), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{'rejection' if reject else 'metropolis'}"
-                           f"_ancestors kernel launch failed: cudaError {err}")
-    return anc
+                           f"_ancestors {variant} kernel launch failed: "
+                           f"error {err}")
+    return anc, variant
 
 
 def metropolis_ancestors_kernel(log_weights: torch.Tensor,
@@ -195,8 +243,9 @@ def metropolis_ancestors_kernel(log_weights: torch.Tensor,
     """B4 on the card: ``(B, lanes)`` int32 ancestors of contiguous CUDA
     float32 ``log_weights`` ``(B, n_in)``, int32 ``proposals`` and
     float32 ``log_us`` ``(B, lanes, iters)``."""
-    anc = _chain_kernel(log_weights, proposals, log_us, reject=False)
+    anc, variant = _chain_kernel(log_weights, proposals, log_us, reject=False)
     metropolis_ancestors_kernel.launches += 1
+    metropolis_ancestors_kernel.variants[variant] += 1
     return anc
 
 
@@ -204,11 +253,14 @@ def rejection_ancestors_kernel(log_weights: torch.Tensor,
                                proposals: torch.Tensor,
                                log_us: torch.Tensor) -> torch.Tensor:
     """B5 on the card; arguments as ``metropolis_ancestors_kernel``."""
-    anc = _chain_kernel(log_weights, proposals, log_us, reject=True)
+    anc, variant = _chain_kernel(log_weights, proposals, log_us, reject=True)
     rejection_ancestors_kernel.launches += 1
+    rejection_ancestors_kernel.variants[variant] += 1
     return anc
 
 
 systematic_ancestors_kernel.launches = 0
 metropolis_ancestors_kernel.launches = 0
+metropolis_ancestors_kernel.variants = {"tma": 0, "lane": 0}
 rejection_ancestors_kernel.launches = 0
+rejection_ancestors_kernel.variants = {"tma": 0, "lane": 0}

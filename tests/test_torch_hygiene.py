@@ -66,7 +66,7 @@ def test_importing_the_port_builds_nothing():
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
     assert not build._LIBS
     assert sorted(p.name for p in build.sources()) == [
-        "flash_attention.cu", "flash_attention_sm90.cu",
+        "comb_scan.cu", "flash_attention.cu", "flash_attention_sm90.cu",
         "patch_likelihood.cu", "resample.cu", "sir_fused.cu"]
     assert len(build.source_hash()) == 16
 

@@ -16,8 +16,10 @@ against the reference.
   against the reference step with its draws replayed: estimates and
   log-marginals at atol 1e-5 (tests/test_parity.py), ``resampled``
   exactly, the final ensemble within 1e-4 (tests/test_torch_smc.py).
-* The CUDA wrappers refuse CPU tensors; the dispatcher picks the plain
-  version for them.
+* The CUDA wrappers refuse CPU tensors, before they plan, build or count;
+  the dispatcher picks the plain version for them.  ``plan`` picks the
+  tma chain kernel for the reference's budget of 32 on 16-byte aligned
+  draws and the lane kernel otherwise.
 """
 import jax
 import jax.numpy as jnp
@@ -353,3 +355,34 @@ def test_resample_kernel_wrappers_take_cuda_tensors_only():
                        tkernels.metropolis_ancestors_ref(lw, prop, log_us))
     assert torch.equal(ops.rejection_ancestors(lw, prop, log_us),
                        tkernels.rejection_ancestors_ref(lw, prop, log_us))
+
+
+@pytest.mark.parametrize("b,n_out,iters,aligned,variant", [
+    (1, 2 ** 22, 32, True, "tma"),          # the filter's chain
+    (8, 2 ** 20, 32, True, "tma"),          # a bank's
+    (3, 5000, 20, True, "lane"),            # another budget
+    (3, 5000, 32, False, "lane"),           # misaligned draws
+    (2 ** 10, 2 ** 21, 32, True, "lane"),   # 2^31 rows in all
+])
+def test_chain_plan(b, n_out, iters, aligned, variant):
+    assert tkernels.plan(b, n_out, iters, aligned).variant == variant
+
+
+@pytest.mark.parametrize("scheme", CHAINS)
+def test_chain_kernel_refuses_cpu_tensors_before_planning(scheme):
+    """At the budget and alignment that plan the tma kernel, the wrapper
+    refuses CPU tensors before it plans, builds or counts anything."""
+    from repro_torch.kernels import build
+    kernel = getattr(tkernels, f"{scheme}_ancestors_kernel")
+    prop = torch.zeros(2, 16, 32, dtype=torch.int32)
+    assert tkernels.plan(2, 16, 32, prop.data_ptr() % 16 == 0).variant \
+        == "tma"
+    launches, variants = kernel.launches, dict(kernel.variants)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(torch.zeros(2, 16), prop, torch.zeros(2, 16, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernels._chain_kernel(torch.zeros(2, 16), prop,
+                               torch.zeros(2, 16, 32), scheme == "rejection",
+                               "lane")
+    assert kernel.launches == launches and kernel.variants == variants
+    assert not build._LIBS

@@ -5,7 +5,8 @@ path by path.
     python3 tools/profile_port.py [--frames 12] [--only PREFIX] [--out FILE]
 
 For each path of ``chip_smoke.py`` — the single tracking filter at
-N = 2^22 (systematic, Metropolis and rejection resampling, fused step),
+N = 2^22 (systematic, Metropolis and rejection resampling, fused step;
+the default composed step with its systematic comb),
 the distributed filter on an emulated 8-shard mesh at 8 × 2^22 (MPF,
 RNA, RPA), all on 512×512 frames, and the LM serving cells at
 qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
@@ -13,8 +14,10 @@ chip_smoke.py's sizes) — it runs the path once to warm up, then once
 under ``torch.profiler`` (``--frames`` frames of a filter; one whole
 call of an LM cell) and prints the wall time per frame or call, the
 device busy share (the sum of kernel times over the wall time: one
-stream, so kernels do not overlap) and the kernels that take the most
-device time.  ``--only`` keeps the paths whose name starts with it.
+stream, so kernels do not overlap), the kernels that take the most
+device time, and the time of each of the port's own kernels, grouped by
+source (``PORT_GROUPS``), wherever they rank.  ``--only`` keeps the paths
+whose name starts with it.
 Needs one CUDA card; exits non-zero without.
 """
 from __future__ import annotations
@@ -29,6 +32,32 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
+
+
+# the port's kernels by source: name prefixes inside csrc/'s anonymous
+# namespaces
+PORT_GROUPS = {
+    "comb scan (comb_scan.cu)": ("k_scan_",),
+    "B4/B5 chains (resample.cu)": ("k_chain", "k_tile_argmax",
+                                   "k_member_argmax"),
+    "B1 (resample.cu)": ("k_sys_",),
+    "B2 (sir_fused.cu)": ("k_tile_max", "k_member_max", "k_tile_expsum",
+                          "k_member_sum", "k_tile_weights",
+                          "k_member_finish", "k_commit"),
+    "B3 (patch_likelihood.cu)": ("patch_ll_kernel",),
+    "B6 (flash_attention*.cu)": ("flash_",),
+}
+
+
+def port_group(key: str) -> str | None:
+    """The PORT_GROUPS entry of a kernel name, or None for torch's own."""
+    if "(anonymous namespace)::" not in key:
+        return None
+    local = key.split("(anonymous namespace)::", 1)[1]
+    for group, prefixes in PORT_GROUPS.items():
+        if local.startswith(prefixes):
+            return group
+    return None
 
 
 def _device_us(evt) -> float:
@@ -103,6 +132,8 @@ def main() -> int:
                                                 resampler="metropolis")),
         "single-rejection": dict(sir=SIRConfig(**single,
                                                resampler="rejection")),
+        "single-composed": dict(sir=SIRConfig(n_particles=2 ** 22,
+                                              ess_frac=0.5)),
     }
     for kind in ("mpf", "rna", "rpa"):
         paths[f"dist8-{kind}"] = dict(
@@ -133,13 +164,19 @@ def main() -> int:
                    and "CUDA" in str(e.device_type) and _device_us(e) > 0]
         busy_us = sum(_device_us(e) for e in kernels)
         top = sorted(kernels, key=_device_us, reverse=True)[:12]
+        groups = {}
+        for e in kernels:
+            g = port_group(e.key)
+            if g is not None:
+                groups[g] = groups.get(g, 0.0) + _device_us(e) / 1e3 / per
         ms_frame = wall * 1e3 / per
         rec = {"unit": unit, "ms_per_unit": ms_frame,
                "device_busy_ms_per_unit": busy_us / 1e3 / per,
                "device_busy_share": busy_us / 1e6 / wall,
                "top": [{"kernel": e.key[:90], "calls": e.count,
                         "ms_per_unit": _device_us(e) / 1e3 / per}
-                       for e in top]}
+                       for e in top],
+               "port_kernels_ms_per_unit": groups}
         record["paths"][label] = rec
         print(f"{label}: {ms_frame:.3f} ms/{unit} wall, device busy "
               f"{rec['device_busy_ms_per_unit']:.3f} ms/{unit} "
@@ -147,6 +184,8 @@ def main() -> int:
         for t in rec["top"]:
             print(f"    {t['ms_per_unit']:8.4f} ms/{unit}  {t['calls']:5d}x "
                   f" {t['kernel']}")
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"    port kernel {g}: {ms:.4f} ms/{unit}")
         del fn
         torch.cuda.empty_cache()
     if args.out:
