@@ -8,11 +8,17 @@
    per source, in parallel) into ``src/repro_torch/_build/``;
 2. holds each kernel against its plain torch version on the card, at the
    slice's shapes, and requires two runs of each kernel to give the same
-   bits; reads B6's prefill variant's SASS for unserialized wgmma.  The
-   comb scan is held against the float64 scan at the composed step's,
-   RPA's and SMC decoding's shapes, with the systematic, stratified and
-   multinomial combs built on it; B4/B5 both on the tma kernel that
-   ``plan`` picks at the reference's budget and on the lane kernel;
+   bits; reads B6's prefill variant's SASS for unserialized wgmma.  B3
+   (the separable kernel) also at R = 2, 6 and 9, in the Eq. 4 form and
+   an Eq. 4 close fit, on converged clouds in no slot order (the staged
+   window box, with outliers, too wide for the box), and on halo slabs
+   and a frame view at an odd column, bit for bit equal to the full
+   frame.  The comb scan (one launch) is held against the float64 scan at
+   the composed step's, RPA's and SMC decoding's shapes, ragged rows
+   about the tile span, 1024 rows of 4097 and a row whose mass is all in
+   its last element, with the systematic, stratified and multinomial
+   combs built on it; B4/B5 both on the tma kernel that ``plan`` picks at
+   the reference's budget and on the lane kernel;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -45,7 +51,14 @@
    decode against prefill logits, repeatability, that SMC
    sequences are the recorded genealogy's paths, log Z and ESS, and a
    τ = 1 run's uniform weights;
-6. times each kernel and its plain version (median of 20 CUDA-event
+6. holds B3 against its plain version on its timing inputs — (i) the
+   single filter's final particles in ancestor order, (ii) the same under
+   a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
+   shape on uniformly spread particles — and times B3 and the comb scan
+   beside their first designs on the same inputs, in turns (new, first,
+   first, new), failing unless the new B3 is faster at every input and
+   the new scan at 8 x 2^22; then
+   times each kernel and its plain version (median of 20 CUDA-event
    timed launches) beside the kernel's bound and, for B6, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs and B6's
    mma.sync kernel launched directly, for the comb scan ``torch.cumsum``,
@@ -152,6 +165,30 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = REPS) -> float:
+    """CUDA-event time of ``reps`` back-to-back calls of ``fn()`` over
+    ``reps``, after two warm-ups: the device's time per call wherever the
+    host enqueues faster than the card runs."""
+    import torch
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(new, first) -> tuple[float, float]:
+    """``cuda_ms`` of two versions of a kernel on the same inputs, in
+    turns (new, first, first, new): the mean of each one's two medians."""
+    a, b, c, d = cuda_ms(new), cuda_ms(first), cuda_ms(first), cuda_ms(new)
+    return (a + d) / 2, (b + c) / 2
+
+
 def max_err(got, want, tol: float) -> float:
     """Max |got - want| after checking ``|got-want| ≤ tol + tol·|want|``."""
     import torch
@@ -186,7 +223,55 @@ def patch_inputs(b, n, h, w, seed, dev):
     return state, frames
 
 
+def converged(state, center, spread, seed, dev):
+    """Put ``state``'s particles in a cloud of ``spread`` px around
+    ``center``, in no slot order (a converged posterior after a resampler
+    that does not keep ancestor order)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = state.shape[:-1] + (2,)
+    state[..., 0:2] = (torch.tensor(center, device=dev)
+                       + spread * torch.randn(shape, generator=g, device=dev))
+    return state
+
+
+def close_fit_inputs(n, dev, h=512, w=512, spacing=24, i0=2.0):
+    """Eq. 4 near a perfect fit: a frame of far-apart spots (``spacing``
+    px) and ``n`` particles each sitting on one of them with its
+    intensity, so every window's residuals are a few ulp."""
+    import torch
+    from repro_torch.models.tracking import TrackingConfig
+    sig = TrackingConfig().sigma_psf
+    ys = torch.arange(spacing, h - spacing, spacing, device=dev,
+                      dtype=torch.float64) + 0.3
+    xs = torch.arange(spacing, w - spacing, spacing, device=dev,
+                      dtype=torch.float64) + 0.6
+    cy, cx = torch.meshgrid(ys, xs, indexing="ij")
+    cy, cx = cy.reshape(-1), cx.reshape(-1)
+    yy = torch.arange(h, device=dev, dtype=torch.float64)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float64)[None, :]
+    frame = torch.zeros((h, w), device=dev, dtype=torch.float64)
+    for k in range(cy.numel()):
+        frame += i0 * torch.exp(-((yy - cy[k]) ** 2 + (xx - cx[k]) ** 2)
+                                / (2 * sig * sig))
+    pick = torch.arange(n, device=dev) % cy.numel()
+    state = torch.zeros((1, n, 5), device=dev)
+    state[0, :, 0] = cy[pick].float()
+    state[0, :, 1] = cx[pick].float()
+    state[0, :, 4] = i0
+    return state, frame.float()[None]
+
+
 def check_patch(dev) -> dict:
+    """B3 (``k_patch_sep``) against its plain version within PATCH_TOL and
+    bit for bit on a second launch: the main path's shapes, R = 2, 6 and
+    9 (the looped kernel; R = 4 is unrolled), the Eq. 4 form and an Eq. 4
+    close fit, converged clouds in no slot order (the block-staged box,
+    with outliers and too wide for the box), the halo-slab geometry at an
+    aligned and an odd origin and a frame view at an odd column (the
+    4-byte loads), each bit for bit equal to the full frame's.  Every
+    launch takes the separable variant."""
     import torch
     from repro_torch.kernels import patch_likelihood, ref
 
@@ -195,33 +280,91 @@ def check_patch(dev) -> dict:
                                             state[..., 4], frames, **kw)
 
     kern = patch_likelihood.patch_log_likelihood_kernel
+    kern.variants.update(dict.fromkeys(kern.variants, 0))
+    launched = 0
+
+    def held(label, state, frames, **kw):
+        nonlocal launched
+        got = kern(state, frames, **kw)
+        again = kern(state, frames, **kw)
+        launched += 2
+        check(same_bits(got, again), f"patch kernel not repeatable: {label}")
+        err = max_err(got, plain(state, frames, **kw), PATCH_TOL)
+        log(f"patch {label}: max_abs_err={err:.3g}, repeatable")
+        return got, err
+
     worst = 0.0
-    cases = [(1, 2 ** 22, True), (8, 2 ** 20, True), (2, 2 ** 16, False)]
-    for b, n, matched in cases:
+    cases = [(1, 2 ** 22, True, 4), (8, 2 ** 20, True, 4),
+             (2, 2 ** 16, False, 4), (1, 2 ** 20, True, 2),
+             (1, 2 ** 20, False, 6), (1, 2 ** 18, True, 9)]
+    for b, n, matched, radius in cases:
         state, frames = patch_inputs(b, n, 512, 512, 7 + b, dev)
         # exact .5 positions pin round-half-to-even
         state[:, :64, 0] = torch.arange(64, device=dev) + 100.5
         state[:, :64, 1] = torch.arange(64, device=dev) + 7.5
-        got = kern(state, frames, matched=matched)
-        again = kern(state, frames, matched=matched)
-        check(same_bits(got, again), f"patch kernel not repeatable {b}x{n}")
-        err = max_err(got, plain(state, frames, matched=matched), PATCH_TOL)
+        _, err = held(f"B={b} N={n} matched={matched} R={radius}", state,
+                      frames, matched=matched, radius=radius)
         worst = max(worst, err)
-        log(f"patch B={b} N={n} matched={matched}: max_abs_err={err:.3g}")
+    # converged clouds in no slot order: the staged box, with 2% outliers
+    # (outside it), and a cloud too wide for the bounding box
+    for label, spread, outliers in (("cloud 1 px", 1.0, 0.0),
+                                    ("cloud 1 px, 2% outliers", 1.0, 0.02),
+                                    ("cloud 15 px", 15.0, 0.0)):
+        state, frames = patch_inputs(2, 2 ** 20, 512, 512, 31, dev)
+        converged(state, (200.0, 300.0), spread, 32, dev)
+        far = torch.rand(state.shape[:2], device=dev) < outliers
+        anywhere = torch.rand(state.shape[:2] + (2,), device=dev) * 511.0
+        state[..., 0:2] = torch.where(far[..., None], anywhere,
+                                      state[..., 0:2])
+        for matched in (True, False):
+            _, err = held(f"{label}, matched={matched}", state, frames,
+                          matched=matched)
+            worst = max(worst, err)
+    # Eq. 4 close fit: residuals of a few ulp, log-likelihoods near 0
+    state, frames = close_fit_inputs(2 ** 16, dev)
+    got, err = held("Eq. 4 close fit", state, frames, matched=False)
+    check(float(got.abs().max()) < 1e-4, "Eq. 4 close fit is not close")
+    worst = max(worst, err)
     # halo-slab geometry: a slab of rows/cols [128, 384) plus a radius-4
-    # halo, evaluated with center_bounds/frame_origin, equals the full frame
+    # halo (and one at an odd origin: 4-byte loads), evaluated with
+    # center_bounds/frame_origin, equals the full frame bit for bit
     state, frames = patch_inputs(2, 2 ** 16, 512, 512, 99, dev)
     state[..., 0:2] = 128.0 + torch.rand((2, 2 ** 16, 2), device=dev) * 255.0
-    slab = frames[:, 124:388, 124:388]
-    geom = dict(center_bounds=(128, 383, 128, 383), frame_origin=(124, 124))
-    got = kern(state, slab, **geom)
-    err = max_err(got, plain(state, slab, **geom), PATCH_TOL)
-    err_full = max_err(got, plain(state, frames), PATCH_TOL)
-    check(same_bits(got, kern(state, frames)),
-          "slab evaluation differs from the full frame")
-    worst = max(worst, err, err_full)
-    log(f"patch slab geometry: max_abs_err={max(err, err_full):.3g}")
+    full, err_full = held("full frame for the slabs", state, frames)
+    for lo in (124, 123):
+        slab = frames[:, lo:388 + (124 - lo), lo:388 + (124 - lo)]
+        geom = dict(center_bounds=(128, 383, 128, 383),
+                    frame_origin=(lo, lo))
+        got, err = held(f"slab at ({lo}, {lo})", state, slab, **geom)
+        check(same_bits(got, full),
+              f"slab at ({lo}, {lo}) differs from the full frame")
+        worst = max(worst, err, err_full)
+    # a frame view one column in (not 16-byte aligned): the 4-byte loads
+    wide = torch.randn((2, 512, 520), device=dev)
+    wide[:, :, 1:513] = frames
+    got, err = held("frame view at an odd column", state, wide[:, :, 1:513])
+    check(same_bits(got, full), "4-byte loads differ from 16-byte loads")
+    worst = max(worst, err)
+    check(kern.variants == {"separable": launched, "direct": 0},
+          f"patch variants {kern.variants}")
     return {"max_abs_err": worst}
+
+
+def check_patch_inputs(inputs: dict) -> None:
+    """B3 on the timing inputs (the filters' own particles) against its
+    plain version, member by member, and bit for bit on a second launch."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.patch_likelihood import \
+        patch_log_likelihood_kernel as kern
+    for label, (state, frames) in inputs.items():
+        got = kern(state, frames)
+        check(same_bits(got, kern(state, frames)),
+              f"patch kernel not repeatable on {label}")
+        err = max(max_err(got[i], ref.patch_log_likelihood_ref(
+            state[i, :, 0], state[i, :, 1], state[i, :, 4], frames[i]),
+            PATCH_TOL) for i in range(state.shape[0]))
+        log(f"patch timing input {label} {tuple(state.shape[:2])}: "
+            f"max_abs_err={err:.3g}, repeatable")
 
 
 def fused_inputs(b, n, seed, dev, d=5):
@@ -410,7 +553,8 @@ def check_systematic(dev) -> dict:
 # decoding's short rows (B prompts x K = 8 hypotheses, one launch), a
 # ragged tail across tiles, and a row of exactly one tile
 SCAN_CASES = [(1, 2 ** 22, 61), (8, 2 ** 22, 62), (32, 8, 63),
-              (3, 2 ** 20 + 333, 64), (2, 4096, 65)]
+              (3, 2 ** 20 + 333, 64), (2, 4096, 65), (4, 8, 66),
+              (1, 4095, 67), (2, 4097, 68), (1024, 4097, 69)]
 SCAN_TOL = 2.0 ** -23      # rtol = atol against the float64 scan: 1 ulp of 1
 
 
@@ -454,12 +598,18 @@ def check_scan(dev) -> dict:
     kernel repairs."""
     import torch
     from repro_torch.core import resampling
-    from repro_torch.kernels.scan import prefix_sum_kernel, prefix_sum_ref
+    from repro_torch.kernels.scan import (prefix_sum_emulated,
+                                          prefix_sum_kernel, prefix_sum_ref)
 
     worst, cdf_worst, ties, rec = 0.0, 0.0, 0, {}
-    for b, n, seed in SCAN_CASES:
-        lw, ll, _, _ = fused_inputs(b, n, seed, dev, d=1)
-        lw = lw + ll
+    for b, n, seed in SCAN_CASES + [(2, 2 ** 20, None)]:
+        if seed is None:
+            # all of a row's mass in its last element
+            lw = torch.full((b, n), -math.inf, device=dev)
+            lw[:, -1] = 0.0
+        else:
+            lw, ll, _, _ = fused_inputs(b, n, seed, dev, d=1)
+            lw = lw + ll
         w = comb_weights(lw)
         runs = [prefix_sum_kernel(w) for _ in range(3)]
         check(all(same_bits(runs[0], r) for r in runs[1:]),
@@ -467,6 +617,8 @@ def check_scan(dev) -> dict:
         y = runs[0]
         err = max_err(y, prefix_sum_ref(w), SCAN_TOL)
         exact = float((y == prefix_sum_ref(w)).float().mean())
+        # the kernel's own order of sums, written in torch (not gated)
+        emulated = float((y == prefix_sum_emulated(w)).float().mean())
         cdf64 = torch.cumsum(w.double(), -1)
         cdf_err = float((y.double() - cdf64).abs().max())
         check(cdf_err <= COMB_TOL, f"scan {b}x{n}: {cdf_err:.3g} from the "
@@ -474,6 +626,12 @@ def check_scan(dev) -> dict:
         if b > 1:
             solo = prefix_sum_kernel(w[b - 1:].contiguous())
             check(same_bits(solo[0], y[b - 1]), "scan row depends on batch")
+        if seed is None:
+            check(bool((y[:, :-1] == 0).all() and (y[:, -1] == 1).all()),
+                  "scan of a last-element mass")
+            rec[f"{b}x{n} last"] = {"max_abs_err": err}
+            log(f"scan {b}x{n}, all mass last: exact, repeatable, rows independent")
+            continue
         lib = [torch.cumsum(w, -1) for _ in range(3)]
         lib_repeats = all(same_bits(lib[0], c) for c in lib[1:])
         lib_err = float((lib[0].double() - cdf64).abs().max())
@@ -502,11 +660,13 @@ def check_scan(dev) -> dict:
                 comb[scheme]["comb_offset"] = off
         worst, cdf_worst = max(worst, err), max(cdf_worst, cdf_err)
         rec[f"{b}x{n}"] = {"max_abs_err": err, "bitwise_equal_share": exact,
+                           "emulated_bitwise_share": emulated,
                            "cdf64_err": cdf_err, "combs": comb,
                            "torch_cumsum_repeats": lib_repeats,
                            "torch_cumsum_cdf64_err": lib_err}
         log(f"scan {b}x{n}: max_abs_err {err:.3g} vs the plain version "
-            f"(rtol=atol={SCAN_TOL:.3g}; {exact:.4%} bitwise equal), "
+            f"(rtol=atol={SCAN_TOL:.3g}; {exact:.4%} bitwise equal; "
+            f"{emulated:.4%} bitwise equal to the emulated order), "
             f"{cdf_err:.3g} from the float64 CDF (limit {COMB_TOL}), "
             f"repeatable; combs {comb}; torch.cumsum on the card: repeats "
             f"{lib_repeats}, {lib_err:.3g} from the float64 CDF (not gated)")
@@ -617,15 +777,32 @@ def check_chains(dev) -> dict:
 # Bounds and timings
 # ---------------------------------------------------------------------------
 
+# the special-function units' exp rate: MUFU.EX2, 16 a clock an SM, at the
+# boost clock of the FP32 peak (132 SMs x 16 x 1.98 GHz)
+PEAK_SFU = 132 * 16 * 1.98e9
+
+
 def patch_bound(b, n, h, w, radius=4) -> tuple[float, str]:
-    """Least time: read y, x, i0 (12 B) and write 4 B per particle plus
-    each frame once; 12 FP32 operations per window pixel (the d², the
-    exp argument, the exp counted as one, the model FMA, the matched
-    term and the accumulate)."""
-    k = (2 * radius + 1) ** 2
-    bytes_ = b * n * 16 + b * h * w * 4
-    ops = b * n * k * 12
-    t_b, t_o = bytes_ / PEAK_BYTES, ops / PEAK_FP32
+    """Least time of B3 for ``b`` members of ``n`` particles on ``h`` x
+    ``w`` frames, the larger of two:
+
+    * bytes: each particle's whole 20-byte state row (y, x and i0 are
+      columns 0, 1 and 4 of contiguous 5-float rows, so reading them moves
+      every 32-byte sector of the rows), its 4-byte output, and each frame
+      once, over the HBM rate;
+    * operations, from the least arithmetic known — the separable form's:
+      2(2R+1) exps a particle (a row's and a column's) on the SFU at
+      PEAK_SFU, and on the FP32 pipes at PEAK_FP32 one FMA (2 FLOP) a
+      window pixel plus 6 FLOP a row and a column for the exps' arguments
+      and the weight sums.  The two units run side by side, so the
+      operations take the longer of their two times.
+
+    The window gathers are not counted: the frames stay in L2."""
+    k = 2 * radius + 1
+    bytes_ = b * n * 24 + b * h * w * 4
+    t_b = bytes_ / PEAK_BYTES
+    t_o = max(b * n * 2 * k / PEAK_SFU,
+              b * n * (2 * k * k + 6 * 2 * k) / PEAK_FP32)
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
@@ -669,23 +846,56 @@ def scan_bound(rows, n) -> tuple[float, str]:
 
 
 def time_scan(dev) -> dict:
-    """The comb scan, its plain version and torch.cumsum (the library call
-    for the same function, which the port never makes on the card) on a
-    comb's weights at the composed step's shape (1 x 2^22) and RPA's
-    (8 x 2^22)."""
+    """The comb scan at the composed step's shape (1 x 2^22) and RPA's (8 x
+    2^22) on a comb's weights: the kernel through its wrapper and the first
+    design (three passes, ``scan._launch`` with a fresh output as the
+    wrapper allocates one) in turns, the plain version, torch.cumsum (the
+    library call for the same function, which the port never makes on the
+    card), and the kernel's device time per launch back to back."""
     import torch
-    from repro_torch.kernels.scan import prefix_sum_kernel, prefix_sum_ref
+    from repro_torch.kernels import scan
+    first = scan.ScanPlan("three_pass", 0, 0, 0)
     out = {}
     for rows in (1, 8):
         lw, ll, _, _ = fused_inputs(rows, 2 ** 22, 9, dev, d=1)
         w = comb_weights(lw + ll)
         bound, by = scan_bound(rows, 2 ** 22)
+        ms, first_ms = in_turns(
+            lambda: scan.prefix_sum_kernel(w),
+            lambda: scan._launch(first, w, torch.empty_like(w)))
         out[f"{rows}x2^22"] = {
-            "ms": cuda_ms(lambda: prefix_sum_kernel(w)),
-            "plain_ms": cuda_ms(lambda: prefix_sum_ref(w)),
+            "variant": "lookback", "ms": ms, "first_ms": first_ms,
+            "device_ms": device_ms(lambda: scan.prefix_sum_kernel(w)),
+            "plain_ms": cuda_ms(lambda: scan.prefix_sum_ref(w)),
             "library_ms": cuda_ms(lambda: torch.cumsum(w, -1)),
             "bound_ms": bound, "bound_by": by}
         del lw, ll, w
+    return out
+
+
+def time_patch(inputs: dict, cfg) -> dict:
+    """B3 on each timing input: the kernel through its wrapper and the
+    first design (``patch_likelihood._launch`` with the ``"direct"`` plan,
+    after the same checks) in turns, the kernel's device time per launch
+    back to back, and the bound."""
+    from repro_torch.kernels import patch_likelihood as pl
+    direct = pl.PatchPlan("direct", False)
+    kw = dict(radius=cfg.patch_radius, sigma_psf=cfg.sigma_psf,
+              sigma_like=cfg.sigma_like, i_bg=cfg.i_bg, matched=True)
+    out = {}
+    for label, (state, frames) in inputs.items():
+        b, n = state.shape[:2]
+        ms, first_ms = in_turns(
+            lambda: pl.patch_log_likelihood_kernel(state, frames, **kw),
+            lambda: pl._launch(direct, state, frames, pl._check(
+                state, frames, cfg.patch_radius, None, None), **kw))
+        bound, by = patch_bound(b, n, *frames.shape[1:], cfg.patch_radius)
+        out[label] = {"shape": [b, n], "variant": "separable", "ms": ms,
+                      "first_ms": first_ms,
+                      "device_ms": device_ms(
+                          lambda: pl.patch_log_likelihood_kernel(
+                              state, frames, **kw)),
+                      "bound_ms": bound, "bound_by": by}
     return out
 
 
@@ -1196,7 +1406,7 @@ def main() -> int:
     def reset():
         for k in all_k.values():
             k.launches = 0
-        for k in (attn_k, metro_k, rej_k):
+        for k in (attn_k, metro_k, rej_k, patch_k):
             k.variants.update(dict.fromkeys(k.variants, 0))
 
     def counts(names=("patch_log_likelihood", "fused_weight_step")):
@@ -1220,6 +1430,8 @@ def main() -> int:
     check(launches_single == {"patch_log_likelihood": FRAMES,
                               "fused_weight_step": FRAMES},
           f"single filter launches {launches_single}")
+    check(patch_k.variants == {"separable": FRAMES, "direct": 0},
+          f"single filter patch variants {patch_k.variants}")
     check(bool(torch.isfinite(res.ess).all()
                and torch.isfinite(res.log_marginal).all()),
           "non-finite ESS / log-marginal")
@@ -1294,6 +1506,8 @@ def main() -> int:
         want = {k: 0 for k in all_k}
         want.update({"patch_log_likelihood": FRAMES, "prefix_sum": FRAMES})
         check(launches_comp == want, f"composed launches {launches_comp}")
+        check(patch_k.variants == {"separable": FRAMES, "direct": 0},
+              f"composed patch variants {patch_k.variants}")
     first = comp_runs[0][0]
     for cres, _ in comp_runs[1:]:
         check(same_bits(cres.estimates, first.estimates)
@@ -1385,6 +1599,12 @@ def main() -> int:
                      "systematic_ancestors": 0 if kind == "rpa" else FRAMES,
                      "prefix_sum": FRAMES if kind == "rpa" else 0})
         check(got == want, f"{kind} launches {got}")
+        check(patch_k.variants == {"separable": FRAMES, "direct": 0},
+              f"{kind} patch variants {patch_k.variants}")
+        if kind == "rna":
+            # B3's timing input (iii): the ensemble in the slot order RNA
+            # leaves it
+            rna_final = dres.final.state
         t0 = time.perf_counter()
         dres2 = dpf.run(1, movie.frames)
         torch.cuda.synchronize()
@@ -1430,20 +1650,43 @@ def main() -> int:
     lm = run_lm(dev, all_k, reset, counts, name)
 
     # -- phase 6: timings --------------------------------------------------------
-    state, frames1 = patch_inputs(1, n_single, 512, 512, 3, dev)
-    state[0] = res.final.state                       # the filter's particles
-    frames1[0] = movie.frames[-1]
-    patch_ms = cuda_ms(lambda: patch_k(state, frames1))
+    # B3's timing inputs: (i) the single filter's final particles, in
+    # ancestor order; (ii) the same under a fixed permutation; (iii) RNA's
+    # final 8 x 2^22 ensemble against the shared frame (a stride-0 view,
+    # as the distributed step passes it); the bank shape on uniformly
+    # spread particles
+    state = res.final.state[None].contiguous()
+    frames1 = movie.frames[-1][None].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    perm = torch.randperm(n_single, generator=g, device=dev)
+    bstate, bframes = patch_inputs(b_bank, n_bank, 512, 512, 4, dev)
+    patch_in = {"i": (state, frames1),
+                "ii": (state[:, perm].contiguous(), frames1),
+                "iii": (rna_final, movie.frames[-1].expand(
+                    p_mesh, *movie.frames.shape[1:])),
+                "bank": (bstate, bframes)}
+    check_patch_inputs(patch_in)
+    patch_times = time_patch(patch_in, cfg)
+    for label, t in patch_times.items():
+        log(f"times [{name}]: B3 input {label} {tuple(t['shape'])}: "
+            f"{t['ms']:.4f} ms (first design {t['first_ms']:.4f}, "
+            f"{t['first_ms'] / t['ms']:.2f}x; device {t['device_ms']:.4f}; "
+            f"bound {t['bound_ms']:.4f} {t['bound_by']})")
+    check(all(t["ms"] < t["first_ms"] for t in patch_times.values()),
+          "B3: the separable kernel is not faster than the first design "
+          "at every input")
+    patch_ms = patch_times["i"]["ms"]
     patch_plain_ms = cuda_ms(lambda: ref.patch_log_likelihood_ref(
         state[..., 0], state[..., 1], state[..., 4], frames1))
-    p_bound, p_by = patch_bound(1, n_single, 512, 512)
+    p_bound, p_by = patch_times["i"]["bound_ms"], patch_times["i"]["bound_by"]
+    del patch_in, rna_final
     lw, ll, fstate, u = fused_inputs(1, n_single, 5, dev)
     fused_ms = cuda_ms(lambda: fused_k(lw, ll, fstate, u))
     fused_plain_ms = cuda_ms(lambda: fused_weight_step_ref(lw, ll, fstate, u))
     n_res = int(fused_weight_step_ref(lw, ll, fstate, u).resampled.sum())
     f_bound, f_by = fused_bound(1, n_single, 5, n_res)
-    bstate, bframes = patch_inputs(b_bank, n_bank, 512, 512, 4, dev)
-    patch_bank_ms = cuda_ms(lambda: patch_k(bstate, bframes))
+    patch_bank_ms = patch_times["bank"]["ms"]
     blw, bll, bst, bu = fused_inputs(b_bank, n_bank, 6, dev)
     fused_bank_ms = cuda_ms(lambda: fused_k(blw, bll, bst, bu))
     slw, sll, _, su = fused_inputs(p_mesh, c_mesh, 7, dev, d=1)
@@ -1475,9 +1718,13 @@ def main() -> int:
           "the tma chain kernel is not faster than the lane kernel")
     scan_times = time_scan(dev)
     for label, t in scan_times.items():
-        log(f"times [{name}]: comb scan {label}: {t['ms']:.4f} ms (plain "
-            f"{t['plain_ms']:.4f}, torch.cumsum {t['library_ms']:.4f}, "
+        log(f"times [{name}]: comb scan {label}: {t['ms']:.4f} ms (first "
+            f"design {t['first_ms']:.4f}, device {t['device_ms']:.4f}, "
+            f"plain {t['plain_ms']:.4f}, torch.cumsum {t['library_ms']:.4f}, "
             f"bound {t['bound_ms']:.4f} {t['bound_by']})")
+    check(scan_times["8x2^22"]["ms"] < scan_times["8x2^22"]["first_ms"],
+          "comb scan: the one-pass kernel is not faster than the first "
+          "design at 8 x 2^22")
     attn_times = time_attention(dev)
     for label, t in attn_times.items():
         log(f"times [{name}]: B6 {label} [{t['variant']}] q{tuple(t['q'])} "
@@ -1493,7 +1740,8 @@ def main() -> int:
         f"{fused_bank_ms:.4f} ms")
 
     kernels = [
-        {"name": "patch_log_likelihood", "route": "cuda",
+        {"name": "patch_log_likelihood", "variant": "separable",
+         "route": "cuda",
          "source": "src/repro_torch/csrc/patch_likelihood.cu",
          "replaces": "src/repro/kernels/patch_likelihood.py:71",
          "launches": launches_single["patch_log_likelihood"],
@@ -1514,14 +1762,14 @@ def main() -> int:
          "max_abs_err": sys_check["max_abs_err"], "ms": sys_ms,
          "plain_ms": sys_plain_ms, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None},
-        {"name": "metropolis_ancestors", "route": "cuda",
+        {"name": "metropolis_ancestors", "variant": "tma", "route": "cuda",
          "source": "src/repro_torch/csrc/resample.cu",
          "replaces": "src/repro/kernels/resample.py:154",
          "launches": chain_runs["metropolis"]["launches"],
          "max_abs_err": chain_check["max_abs_err"], "ms": metro_ms,
          "plain_ms": metro_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
          "library_ms": None},
-        {"name": "rejection_ancestors", "route": "cuda",
+        {"name": "rejection_ancestors", "variant": "tma", "route": "cuda",
          "source": "src/repro_torch/csrc/resample.cu",
          "replaces": "src/repro/kernels/resample.py:207",
          "launches": chain_runs["rejection"]["launches"],
@@ -1530,7 +1778,7 @@ def main() -> int:
          "library_ms": None},
         # the composed step's shape; RPA's 8 x 2^22 is in the record's
         # "scan" entry
-        {"name": "prefix_sum", "route": "cuda",
+        {"name": "prefix_sum", "variant": "lookback", "route": "cuda",
          "source": "src/repro_torch/csrc/comb_scan.cu",
          "replaces": "src/repro/core/resampling.py:64",
          "launches": composed["launches"]["prefix_sum"],
@@ -1543,7 +1791,7 @@ def main() -> int:
         # the decode shape (the split variant), 31 of every 32 launches on
         # the LM path; the prefill shapes (the wgmma variant, the same
         # source) are in the record's "attention" entry
-        {"name": "flash_attention", "route": "cuda",
+        {"name": "flash_attention", "variant": "split", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
          "launches": lm["smc_decode"]["launches"],
@@ -1566,6 +1814,7 @@ def main() -> int:
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
         "distributed": dist_runs, "lm": lm,
         "attention": attn_times, "attention_check": attn_check,
+        "patch_inputs": patch_times,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,
                     "fused_weight_step": fused_bank_ms},
         "single": {"n": n_single, "frames": FRAMES, "warmup": WARMUP,

@@ -188,3 +188,77 @@ def test_prefix_sum_kernel_refuses_cpu_tensors():
             scan.prefix_sum_kernel(x)
     assert scan.prefix_sum_kernel.launches == launches
     assert not build._LIBS
+
+
+# ---------------------------------------------------------------------------
+# The kernel's fixed order (k_scan_lookback), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+SPAN = scan.SPAN
+
+
+def _scan_rows(kind, rows, n, seed):
+    """float32 rows to scan: comb weights over a wide range of exponents,
+    all the mass in the last element, or signed values."""
+    rng = np.random.default_rng(seed)
+    if kind == "weights":
+        return _comb_weights((rows, n), seed)
+    if kind == "last":
+        x = np.zeros((rows, n), np.float32)
+        x[:, -1] = 1.0
+        return x
+    return (rng.standard_normal((rows, n)) * 2.0 ** rng.integers(
+        -20, 20, (rows, n))).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["weights", "last", "signed"])
+@pytest.mark.parametrize("rows,n", [(1, SPAN - 1), (2, SPAN + 1), (4, 8),
+                                    (3, 33 * SPAN + 17), (1, 70 * SPAN + 5)])
+def test_emulated_scan_within_one_ulp_of_plain(kind, rows, n):
+    """The kernel's order of float64 sums (a thread's 16 elements in
+    sequence, Kogge-Stone over the block, the tile offsets from group sums
+    and in-group totals in fixed trees) rounds each prefix once, so it is
+    within one float32 ulp of the plain version's float64 scan."""
+    x = _scan_rows(kind, rows, n, rows * n)
+    got = scan.prefix_sum_emulated(_t(x)).numpy()
+    want = scan.prefix_sum_ref(_t(x)).numpy()
+    assert got.shape == (rows, n) and got.dtype == np.float32
+    assert np.all(np.abs(got.astype(np.float64) - want)
+                  <= np.spacing(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -23, atol=2.0 ** -23)
+
+
+@pytest.mark.parametrize("rows,n", [(5, 40 * SPAN + 3), (4, 8),
+                                    (3, 2 * SPAN)])
+def test_emulated_scan_rows_do_not_depend_on_the_batch(rows, n):
+    """A row's tiles and trees depend on the row alone: each row scanned
+    alone gives the batch's bits."""
+    x = _scan_rows("signed", rows, n, 7 + n)
+    batch = scan.prefix_sum_emulated(_t(x))
+    for r in range(rows):
+        alone = scan.prefix_sum_emulated(_t(x[r:r + 1]))
+        assert torch.equal(alone[0].view(torch.int32),
+                           batch[r].view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,n,tiles", [
+    (1, 2 ** 22, 1024), (8, 2 ** 22, 1024), (4, 8, 1), (1024, 4097, 2),
+    (1, SPAN, 1), (1, 33 * SPAN, 33), (3, 0, 0)])
+def test_scan_plan(rows, n, tiles):
+    """One launch of one block a tile at every shape; the scratch holds
+    the 16-byte ticket, then a 16-byte slot per tile and per group of 32
+    tiles."""
+    groups = -(-tiles // scan.GROUP)
+    assert scan.plan(rows, n) == scan.ScanPlan(
+        "lookback", tiles, rows * tiles, 16 + rows * (tiles + groups) * 16)
+
+
+def test_prefix_sum_kernel_refuses_cpu_tensors_before_planning(monkeypatch):
+    """The CPU refusal comes before the plan, the build and the count."""
+    planned = []
+    monkeypatch.setattr(scan, "plan", lambda *a: planned.append(a))
+    launches = scan.prefix_sum_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.prefix_sum_kernel(torch.zeros(4, 8))
+    assert not planned and not build._LIBS
+    assert scan.prefix_sum_kernel.launches == launches

@@ -6,7 +6,8 @@ path by path.
 
 For each path of ``chip_smoke.py`` — the single tracking filter at
 N = 2^22 (systematic, Metropolis and rejection resampling, fused step;
-the default composed step with its systematic comb),
+the default composed step with its systematic comb), the FilterBank of
+8 members × 2^20 (fused),
 the distributed filter on an emulated 8-shard mesh at 8 × 2^22 (MPF,
 RNA, RPA), all on 512×512 frames, and the LM serving cells at
 qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
@@ -15,8 +16,9 @@ under ``torch.profiler`` (``--frames`` frames of a filter; one whole
 call of an LM cell) and prints the wall time per frame or call, the
 device busy share (the sum of kernel times over the wall time: one
 stream, so kernels do not overlap), the kernels that take the most
-device time, and the time of each of the port's own kernels, grouped by
-source (``PORT_GROUPS``), wherever they rank.  ``--only`` keeps the paths
+device time, the time of each of the port's own kernels, grouped by
+source (``PORT_GROUPS``), wherever they rank, and for the tracking paths
+one line with B3's and the comb scan's device ms a frame.  ``--only`` keeps the paths
 whose name starts with it.
 Needs one CUDA card; exits non-zero without.
 """
@@ -44,7 +46,7 @@ PORT_GROUPS = {
     "B2 (sir_fused.cu)": ("k_tile_max", "k_member_max", "k_tile_expsum",
                           "k_member_sum", "k_tile_weights",
                           "k_member_finish", "k_commit"),
-    "B3 (patch_likelihood.cu)": ("patch_ll_kernel",),
+    "B3 (patch_likelihood.cu)": ("k_patch_sep", "patch_ll_kernel"),
     "B6 (flash_attention*.cu)": ("flash_",),
 }
 
@@ -109,7 +111,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
     from repro_torch.core.distributed import DRAConfig
     from repro_torch.core.draws import TorchDraws
     from repro_torch.core.runtime import EmulatedMesh
@@ -145,6 +147,16 @@ def main() -> int:
             pf = ParallelParticleFilter(model=model, **kw)
             return lambda: pf.run(1, frames)
         runs[label] = (run, args.frames, "frame")
+
+    def bank():
+        # chip_smoke.py's bank: 8 members x 2^20, fused, one movie each
+        movies = torch.stack([generate_movie(
+            TorchDraws.from_seed(10 + i, dev), cfg,
+            n_frames=args.frames).frames for i in range(8)])
+        fb = FilterBank(model=model, sir=SIRConfig(
+            n_particles=2 ** 20, ess_frac=0.5, step_backend="fused"))
+        return lambda: fb.run([100 + i for i in range(8)], movies)
+    runs["bank"] = (bank, args.frames, "frame")
     runs.update(lm_runs(dev))
     record = {"card": name, "frames": args.frames, "paths": {}}
     for label, (make, per, unit) in runs.items():
@@ -164,11 +176,12 @@ def main() -> int:
                    and "CUDA" in str(e.device_type) and _device_us(e) > 0]
         busy_us = sum(_device_us(e) for e in kernels)
         top = sorted(kernels, key=_device_us, reverse=True)[:12]
-        groups = {}
+        groups, launches = {}, {}
         for e in kernels:
             g = port_group(e.key)
             if g is not None:
                 groups[g] = groups.get(g, 0.0) + _device_us(e) / 1e3 / per
+                launches[g] = launches.get(g, 0) + e.count
         ms_frame = wall * 1e3 / per
         rec = {"unit": unit, "ms_per_unit": ms_frame,
                "device_busy_ms_per_unit": busy_us / 1e3 / per,
@@ -176,7 +189,8 @@ def main() -> int:
                "top": [{"kernel": e.key[:90], "calls": e.count,
                         "ms_per_unit": _device_us(e) / 1e3 / per}
                        for e in top],
-               "port_kernels_ms_per_unit": groups}
+               "port_kernels_ms_per_unit": groups,
+               "port_kernel_launches": launches}
         record["paths"][label] = rec
         print(f"{label}: {ms_frame:.3f} ms/{unit} wall, device busy "
               f"{rec['device_busy_ms_per_unit']:.3f} ms/{unit} "
@@ -185,7 +199,14 @@ def main() -> int:
             print(f"    {t['ms_per_unit']:8.4f} ms/{unit}  {t['calls']:5d}x "
                   f" {t['kernel']}")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"    port kernel {g}: {ms:.4f} ms/{unit}")
+            print(f"    port kernel {g}: {ms:.4f} ms/{unit} "
+                  f"({launches[g]} launches)")
+        if unit == "frame":
+            b3, cs = "B3 (patch_likelihood.cu)", "comb scan (comb_scan.cu)"
+            print(f"    B3 {groups.get(b3, 0.0):.4f} ms/frame "
+                  f"({launches.get(b3, 0)} launches), comb scan "
+                  f"{groups.get(cs, 0.0):.4f} ms/frame "
+                  f"({launches.get(cs, 0)} launches) [{name}]")
         del fn
         torch.cuda.empty_cache()
     if args.out:
