@@ -17,8 +17,15 @@
    the composed step's, RPA's and SMC decoding's shapes, ragged rows
    about the tile span, 1024 rows of 4097 and a row whose mass is all in
    its last element, with the systematic, stratified and multinomial
-   combs built on it; B4/B5 both on the tma kernel that ``plan`` picks at
-   the reference's budget and on the lane kernel;
+   combs built on it; B1 and B2 (the redesign: normalizer, look-back CDF,
+   merge comb) bit for bit equal to their torch emulations and on a second
+   run, a member independent of B, and held to their plain versions by
+   the comb rules (B2 also its decision and FUSED_TOL) at the DRA and bank
+   shapes, n_out != n_in with ragged tails, a skewed input (one slot with
+   99% of the mass, a dead run), without the comb, and, for B1, a member
+   with no finite weight (ancestor 0, as the first design); B4/B5 both on
+   the tma kernel that ``plan`` picks at the reference's budget and on the
+   lane kernel;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -57,7 +64,14 @@
    shape on uniformly spread particles — and times B3 and the comb scan
    beside their first designs on the same inputs, in turns (new, first,
    first, new), failing unless the new B3 is faster at every input and
-   the new scan at 8 x 2^22; then
+   the new scan at 8 x 2^22; holds B1 on its timing inputs — (i) a
+   filter's post-likelihood weights at 8 x 2^22, (ii) the mpf cell's final
+   log-weights plus the final particles' likelihood of the last frame, (iii)
+   the skewed input — to phase 2's gates, and times B1 there and B2 at
+   1 x 2^22 with and without the comb and at the bank's 8 x 2^20 beside
+   their first designs (``resample._sys_launch`` and ``sir_fused._launch``
+   with the seven-pass plans) in turns, failing unless each redesign is
+   faster at every input; then
    times each kernel and its plain version (median of 20 CUDA-event
    timed launches) beside the kernel's bound and, for B6, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs and B6's
@@ -379,6 +393,21 @@ def fused_inputs(b, n, seed, dev, d=5):
     return lw, ll, state, u
 
 
+def skewed_log_weights(b, n, seed, dev):
+    """Per member: N(0, 1) log-weights, a run of -inf slots (a sixteenth
+    of the member, from a quarter in), and one slot (below the run) holding
+    at least 99% of the mass."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lw = torch.randn((b, n), generator=g, device=dev)
+    lw[:, n // 4:n // 4 + n // 16] = -math.inf
+    hot = torch.randint(0, n // 4, (b,), generator=g, device=dev)
+    lw[torch.arange(b, device=dev), hot] = (torch.logsumexp(lw, -1)
+                                            + math.log(100.0))
+    return lw
+
+
 def comb_ties_ok(anc_k, anc_p, w, u) -> tuple[int, float]:
     """Ancestors must agree except where the comb point lies within
     TIE_DELTA of the float64 CDF at both disagreeing boundaries: two f32
@@ -435,6 +464,10 @@ def comb_offset(anc, w, u, resampled) -> float:
 
 
 def check_fused(dev) -> dict:
+    """B2 (the redesign) bit for bit equal to its torch emulation and on a
+    second run, a member independent of B, and against its plain version:
+    the decision equal, ESS, log Z, skew, the estimate and the new
+    log-weights within FUSED_TOL, the ancestors by the comb rules."""
     import torch
     from repro_torch.kernels import sir_fused
 
@@ -447,6 +480,12 @@ def check_fused(dev) -> dict:
         again = kern(lw, ll, state, u, always=always, comb=comb)
         check(all(same_bits(a, b) for a, b in zip(out, again)),
               f"fused kernel not repeatable {label}")
+        emu = sir_fused.fused_weight_step_emulated(lw, ll, state, u,
+                                                   always=always, comb=comb)
+        check(all(same_bits(a, b) for a, b in zip(out, emu)),
+              f"fused kernel differs from its emulation {label}: "
+              f"{[int((bits(a) != bits(b)).sum()) for a, b in zip(out, emu)]}"
+              f" differing elements (anc, new_lw, est, stats)")
         anc, new_lw, est, stats = out
         ref = sir_fused.fused_weight_step_ref(lw, ll, state, u, always=always,
                                               comb=comb)
@@ -479,6 +518,13 @@ def check_fused(dev) -> dict:
         return out, ref
 
     one(*fused_inputs(1, 2 ** 22, 1, dev), label="B=1 N=2^22")
+    one(*fused_inputs(1, 2 ** 22, 1, dev), comb=False,
+        label="B=1 N=2^22 comb=False")
+    _, _, sstate, su = fused_inputs(2, 2 ** 22, 3, dev)
+    slw = skewed_log_weights(2, 2 ** 22, 4, dev)
+    one(slw, torch.zeros_like(slw), sstate, su, always=True,
+        label="B=2 N=2^22 skewed")
+    del sstate, slw
     lw, ll, state, u = fused_inputs(8, 2 ** 20, 2, dev)
     lw[0] = -math.inf                      # an all -inf member
     ll[1] = 1e-3 * ll[1]                   # a member that does not resample
@@ -505,48 +551,88 @@ def check_fused(dev) -> dict:
             "comb_offset": offsets}
 
 
-def check_systematic(dev) -> dict:
-    """B1 against its plain version: ancestors within the comb rules of
-    the fused check (TIE_DELTA against the plain version, COMB_TOL
-    against the float64 CDF's comb), bit for bit on a second run, a
-    member independent of B; at the DRA shape 8 x 2^22 and at n_out != n_in
-    with a ragged tail.  The reported error is in CDF units: the largest
-    distance of a comb point where kernel and plain version disagree
-    from the float64 CDF (limit TIE_DELTA)."""
+def systematic_case(lw, u, n_out, label, acc) -> None:
+    """B1 (the redesign) on one input: bit for bit equal to its torch
+    emulation and on a second run, member 1 alone equal to member 1 in the
+    batch, and against its plain version by the comb rules (TIE_DELTA
+    against the plain version, COMB_TOL against the float64 CDF's comb).
+    Adds the tie lanes, the largest tie distance and the comb offsets to
+    ``acc``."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.resample import systematic_ancestors_kernel
+    from repro_torch.kernels import ref, resample
+    kern = resample.systematic_ancestors_kernel
+    b, n_in = lw.shape
+    anc = kern(lw, u, n_out)
+    check(same_bits(anc, kern(lw, u, n_out)), f"B1 not repeatable {label}")
+    emu = resample.systematic_ancestors_emulated(lw, u, n_out)
+    check(same_bits(anc, emu), f"B1 {label}: differs from its emulation at "
+                               f"{int((anc != emu).sum())} lanes")
+    plain = ref.systematic_ancestors_ref(lw, u, n_out)
+    w = torch.softmax(lw.double(), -1)
+    t, dist = comb_ties_ok(anc, plain, w, u)
+    every = torch.ones(b, dtype=torch.bool, device=lw.device)
+    off = {"kernel": comb_offset(anc, w, u, every),
+           "plain": comb_offset(plain, w, u, every)}
+    check(off["kernel"] <= COMB_TOL,
+          f"B1 {label}: kernel ancestors {off['kernel']:.3g} from the "
+          f"float64 CDF's comb (limit {COMB_TOL})")
+    check(bool((anc >= 0).all() and (anc < n_in).all()),
+          f"B1 {label}: ancestors out of range")
+    if b > 1:
+        solo = kern(lw[1:2].contiguous(), u[1:2].contiguous(), n_out)
+        check(same_bits(solo[0], anc[1]),
+              f"B1 {label}: member depends on the batch")
+    acc["tie_lanes"] += t
+    acc["max_abs_err"] = max(acc["max_abs_err"], dist)
+    for k in off:
+        acc["comb_offset"][k] = max(acc["comb_offset"][k], off[k])
+    acc["cases"][label] = {"tie_lanes": t, "lanes": anc.numel(),
+                           "comb_offset": off}
+    log(f"B1 {label} B={b} n_in={n_in} n_out={n_out}: == emulation, "
+        f"repeatable; tie lanes={t} ({t / anc.numel():.4%}); comb offset "
+        f"from the float64 CDF: kernel {off['kernel']:.3g}, plain "
+        f"{off['plain']:.3g}")
 
-    ties, worst, offsets = 0, 0.0, {"kernel": 0.0, "plain": 0.0}
+
+def check_systematic(dev) -> dict:
+    """B1 by ``systematic_case`` at the DRA shape 8 x 2^22, at n_out != n_in
+    with ragged tails, and on a skewed input (one slot with 99% of the
+    mass, a dead run); a member with no finite weight (its CDF NaN) takes
+    ancestor 0 on both designs, as the first design's bisection gives.
+    The reported error is in CDF units: the largest distance of a comb
+    point where kernel and plain version disagree from the float64 CDF
+    (limit TIE_DELTA)."""
+    import torch
+    from repro_torch.kernels import resample
+    acc = {"tie_lanes": 0, "max_abs_err": 0.0, "cases": {},
+           "comb_offset": {"kernel": 0.0, "plain": 0.0}}
     cases = [(8, 2 ** 22, 2 ** 22, 31), (2, 2 ** 20 + 333, 2 ** 19, 32),
              (2, 2 ** 19, 2 ** 20 + 77, 33)]
     for b, n_in, n_out, seed in cases:
         lw, ll, _, u = fused_inputs(b, n_in, seed, dev, d=1)
-        lw = lw + ll                      # a filter's post-likelihood weights
-        anc = systematic_ancestors_kernel(lw, u, n_out)
-        again = systematic_ancestors_kernel(lw, u, n_out)
-        check(same_bits(anc, again), f"B1 not repeatable {b}x{n_in}")
-        plain = ref.systematic_ancestors_ref(lw, u, n_out)
-        w = torch.softmax(lw.double(), -1)
-        t, dist = comb_ties_ok(anc, plain, w, u)
-        ties, worst = ties + t, max(worst, dist)
-        every = torch.ones(b, dtype=torch.bool, device=dev)
-        off = {"kernel": comb_offset(anc, w, u, every),
-               "plain": comb_offset(plain, w, u, every)}
-        check(off["kernel"] <= COMB_TOL,
-              f"B1 {b}x{n_in}->{n_out}: kernel ancestors {off['kernel']:.3g}"
-              f" from the float64 CDF's comb (limit {COMB_TOL})")
-        check(bool((anc >= 0).all() and (anc < n_in).all()),
-              "B1 ancestors out of range")
-        for k in offsets:
-            offsets[k] = max(offsets[k], off[k])
-        solo = systematic_ancestors_kernel(lw[1:2].contiguous(),
-                                           u[1:2].contiguous(), n_out)
-        check(same_bits(solo[0], anc[1]), "B1 member depends on the batch")
-        log(f"B1 B={b} n_in={n_in} n_out={n_out}: tie lanes={t} "
-            f"({t / anc.numel():.4%}); comb offset from the float64 CDF: "
-            f"kernel {off['kernel']:.3g}, plain {off['plain']:.3g}")
-    return {"max_abs_err": worst, "tie_lanes": ties, "comb_offset": offsets}
+        # a filter's post-likelihood weights
+        systematic_case(lw + ll, u, n_out, f"{b}x{n_in}->{n_out}", acc)
+    n = 2 ** 20 + 333
+    u = fused_inputs(2, 8, 34, dev, d=1)[3]
+    systematic_case(skewed_log_weights(2, n, 35, dev), u, n, "skewed", acc)
+    # a member with no finite weight: ancestor 0 on both designs
+    lw = torch.full((1, 5000), -math.inf, device=dev)
+    anc = resample.systematic_ancestors_kernel(lw, u[:1].contiguous(), 3000)
+    first = resample._sys_launch(resample.SysPlan("seven_pass"), lw,
+                                 u[:1].contiguous(), 3000)
+    check(bool((anc == 0).all()) and same_bits(anc, first) and same_bits(
+        anc, resample.systematic_ancestors_emulated(lw, u[:1], 3000)),
+          "B1 all -inf member: ancestors must be 0, as the first design's")
+    return acc
+
+
+def check_systematic_inputs(inputs: dict) -> dict:
+    """B1's timing inputs held to ``systematic_case``'s gates."""
+    acc = {"tie_lanes": 0, "max_abs_err": 0.0, "cases": {},
+           "comb_offset": {"kernel": 0.0, "plain": 0.0}}
+    for label, (lw, u) in inputs.items():
+        systematic_case(lw, u, lw.shape[1], f"timing input {label}", acc)
+    return acc
 
 
 # the comb scan's shapes: the composed step's one row, RPA's 8 shards, SMC
@@ -896,6 +982,57 @@ def time_patch(inputs: dict, cfg) -> dict:
                           lambda: pl.patch_log_likelihood_kernel(
                               state, frames, **kw)),
                       "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def time_systematic(inputs: dict) -> dict:
+    """B1 on each timing input: the redesign through its wrapper and the
+    first design (``resample._sys_launch`` with the seven-pass plan) in
+    turns, each design's device time per call back to back, and the
+    bound."""
+    from repro_torch.kernels import resample
+    first = resample.SysPlan("seven_pass")
+    kern = resample.systematic_ancestors_kernel
+    out = {}
+    for label, (lw, u) in inputs.items():
+        b, n = lw.shape
+
+        def old():
+            return resample._sys_launch(first, lw, u, n)
+        ms, first_ms = in_turns(lambda: kern(lw, u, n), old)
+        bound, by = systematic_bound(b, n, n)
+        out[label] = {"shape": [b, n], "variant": "merge", "ms": ms,
+                      "first_ms": first_ms,
+                      "device_ms": device_ms(lambda: kern(lw, u, n)),
+                      "first_device_ms": device_ms(old),
+                      "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def time_fused(inputs: dict) -> dict:
+    """B2 on each timing input ``(lw, ll, state, u, comb)``: the redesign
+    through its wrapper and the first design (``sir_fused._launch`` with
+    the seven-pass plan) in turns, device times back to back, the bound."""
+    from repro_torch.kernels import sir_fused
+    first = sir_fused.FusedPlan("seven_pass")
+    kern = sir_fused.fused_weight_step_kernel
+    out = {}
+    for label, (lw, ll, st, u, comb) in inputs.items():
+        b, n, d = st.shape
+
+        def new():
+            return kern(lw, ll, st, u, comb=comb)
+
+        def old():
+            return sir_fused._launch(first, lw, ll, st, u, 0.5, False, comb)
+        ms, first_ms = in_turns(new, old)
+        n_res = int((new()[3][:, 2] > 0).sum()) if comb else 0
+        bound, by = fused_bound(b, n, d, n_res)
+        out[label] = {"shape": [b, n, d], "comb": comb, "variant": "merge",
+                      "ms": ms, "first_ms": first_ms,
+                      "device_ms": device_ms(new),
+                      "first_device_ms": device_ms(old),
+                      "resampled": n_res, "bound_ms": bound, "bound_by": by}
     return out
 
 
@@ -1406,7 +1543,7 @@ def main() -> int:
     def reset():
         for k in all_k.values():
             k.launches = 0
-        for k in (attn_k, metro_k, rej_k, patch_k):
+        for k in (attn_k, metro_k, rej_k, patch_k, sys_k, fused_k):
             k.variants.update(dict.fromkeys(k.variants, 0))
 
     def counts(names=("patch_log_likelihood", "fused_weight_step")):
@@ -1432,6 +1569,8 @@ def main() -> int:
           f"single filter launches {launches_single}")
     check(patch_k.variants == {"separable": FRAMES, "direct": 0},
           f"single filter patch variants {patch_k.variants}")
+    check(fused_k.variants == {"merge": FRAMES, "seven_pass": 0},
+          f"single filter fused variants {fused_k.variants}")
     check(bool(torch.isfinite(res.ess).all()
                and torch.isfinite(res.log_marginal).all()),
           "non-finite ESS / log-marginal")
@@ -1471,6 +1610,8 @@ def main() -> int:
     check(launches_bank == {"patch_log_likelihood": FRAMES,
                             "fused_weight_step": FRAMES},
           f"bank launches {launches_bank}")
+    check(fused_k.variants == {"merge": FRAMES, "seven_pass": 0},
+          f"bank fused variants {fused_k.variants}")
     members = [track(bres, m, i) for i, m in enumerate(movies)]
     gate_tracks(members, "bank")
     solo = ParallelParticleFilter(model=model, sir=bank_sir).run(
@@ -1551,6 +1692,8 @@ def main() -> int:
         check(got == want, f"{scheme} filter launches {got}")
         check(all_k[kname].variants == {"tma": FRAMES, "lane": 0},
               f"{scheme} filter chain variants {all_k[kname].variants}")
+        check(fused_k.variants == {"merge": FRAMES, "seven_pass": 0},
+              f"{scheme} filter fused variants {fused_k.variants}")
         t0 = time.perf_counter()
         cres2 = cpf.run(1, movie.frames)
         torch.cuda.synchronize()
@@ -1601,6 +1744,19 @@ def main() -> int:
         check(got == want, f"{kind} launches {got}")
         check(patch_k.variants == {"separable": FRAMES, "direct": 0},
               f"{kind} patch variants {patch_k.variants}")
+        check(sys_k.variants == {"merge": 0 if kind == "rpa" else FRAMES,
+                                 "seven_pass": 0},
+              f"{kind} B1 variants {sys_k.variants}")
+        if kind == "mpf":
+            # B1's timing input (ii): the per-shard weights the next frame's
+            # local resample would comb, the final log-weights plus the
+            # final particles' likelihood of the last frame
+            mpf_next = (dres.final.log_weights + patch_k(
+                dres.final.state, movie.frames[-1].expand(
+                    p_mesh, *movie.frames.shape[1:]),
+                radius=cfg.patch_radius, sigma_psf=cfg.sigma_psf,
+                sigma_like=cfg.sigma_like, i_bg=cfg.i_bg,
+                matched=True)).contiguous()
         if kind == "rna":
             # B3's timing input (iii): the ensemble in the slot order RNA
             # leaves it
@@ -1681,21 +1837,56 @@ def main() -> int:
         state[..., 0], state[..., 1], state[..., 4], frames1))
     p_bound, p_by = patch_times["i"]["bound_ms"], patch_times["i"]["bound_by"]
     del patch_in, rna_final
+    # B2's timing inputs: the single filter's call (with the comb), the
+    # chain cells' call (comb=False) and the bank's
     lw, ll, fstate, u = fused_inputs(1, n_single, 5, dev)
-    fused_ms = cuda_ms(lambda: fused_k(lw, ll, fstate, u))
-    fused_plain_ms = cuda_ms(lambda: fused_weight_step_ref(lw, ll, fstate, u))
-    n_res = int(fused_weight_step_ref(lw, ll, fstate, u).resampled.sum())
-    f_bound, f_by = fused_bound(1, n_single, 5, n_res)
-    patch_bank_ms = patch_times["bank"]["ms"]
     blw, bll, bst, bu = fused_inputs(b_bank, n_bank, 6, dev)
-    fused_bank_ms = cuda_ms(lambda: fused_k(blw, bll, bst, bu))
+    fused_times = time_fused({
+        "1x2^22": (lw, ll, fstate, u, True),
+        "1x2^22 comb=False": (lw, ll, fstate, u, False),
+        "bank 8x2^20": (blw, bll, bst, bu, True)})
+    for label, t in fused_times.items():
+        log(f"times [{name}]: B2 {label}: {t['ms']:.4f} ms (first design "
+            f"{t['first_ms']:.4f}, {t['first_ms'] / t['ms']:.2f}x; device "
+            f"{t['device_ms']:.4f}, first design's {t['first_device_ms']:.4f};"
+            f" bound {t['bound_ms']:.4f} {t['bound_by']})")
+    check(all(t["ms"] < t["first_ms"] for t in fused_times.values()),
+          "B2: the redesign is not faster than the first design at every "
+          "input")
+    fused_ms = fused_times["1x2^22"]["ms"]
+    fused_plain_ms = cuda_ms(lambda: fused_weight_step_ref(lw, ll, fstate, u))
+    f_bound = fused_times["1x2^22"]["bound_ms"]
+    f_by = fused_times["1x2^22"]["bound_by"]
+    fused_bank_ms = fused_times["bank 8x2^20"]["ms"]
+    patch_bank_ms = patch_times["bank"]["ms"]
+    del blw, bll, bst, bu
+    # B1's timing inputs: (i) a filter's post-likelihood weights, (ii) the
+    # mpf cell's next-frame weights, (iii) a skewed input (one slot with
+    # 99% of each member's mass, a dead run)
     slw, sll, _, su = fused_inputs(p_mesh, c_mesh, 7, dev, d=1)
-    slw = slw + sll
-    sys_ms = cuda_ms(lambda: sys_k(slw, su, c_mesh))
+    sys_in = {"i": ((slw + sll).contiguous(), su), "ii": (mpf_next, su),
+              "iii": (skewed_log_weights(p_mesh, c_mesh, 36, dev), su)}
+    del slw, sll, mpf_next
+    sys_inputs_check = check_systematic_inputs(sys_in)
+    sys_times = time_systematic(sys_in)
+    for label, t in sys_times.items():
+        ties = sys_inputs_check["cases"][f"timing input {label}"]
+        t["tie_lanes"] = ties["tie_lanes"]
+        log(f"times [{name}]: B1 input {label} {tuple(t['shape'])}: "
+            f"{t['ms']:.4f} ms (first design {t['first_ms']:.4f}, "
+            f"{t['first_ms'] / t['ms']:.2f}x; device {t['device_ms']:.4f}, "
+            f"first design's {t['first_device_ms']:.4f}; bound "
+            f"{t['bound_ms']:.4f} {t['bound_by']}; tie lanes "
+            f"{t['tie_lanes']})")
+    check(all(t["ms"] < t["first_ms"] for t in sys_times.values()),
+          "B1: the redesign is not faster than the first design at every "
+          "input")
+    slw, su = sys_in["i"]
+    sys_ms = sys_times["i"]["ms"]
     sys_plain_ms = cuda_ms(lambda: ref.systematic_ancestors_ref(
         slw, su, c_mesh))
-    s_bound, s_by = systematic_bound(p_mesh, c_mesh, c_mesh)
-    del slw, sll, su
+    s_bound, s_by = sys_times["i"]["bound_ms"], sys_times["i"]["bound_by"]
+    del sys_in, slw, su
     clw, cprop, clogu = chain_inputs(1, n_single, 8, dev)
     metro_ms = cuda_ms(lambda: metro_k(clw, cprop, clogu))
     metro_plain_ms = cuda_ms(lambda: resample.metropolis_ancestors_ref(
@@ -1748,14 +1939,15 @@ def main() -> int:
          "max_abs_err": patch_check["max_abs_err"], "ms": patch_ms,
          "plain_ms": patch_plain_ms, "bound_ms": p_bound, "bound_by": p_by,
          "library_ms": None},
-        {"name": "fused_weight_step", "route": "cuda",
+        {"name": "fused_weight_step", "variant": "merge", "route": "cuda",
          "source": "src/repro_torch/csrc/sir_fused.cu",
          "replaces": "src/repro/kernels/sir_fused.py:225",
          "launches": launches_single["fused_weight_step"],
          "max_abs_err": fused_check["max_abs_err"], "ms": fused_ms,
          "plain_ms": fused_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": None},
-        {"name": "systematic_ancestors", "route": "cuda",
+        {"name": "systematic_ancestors", "variant": "merge",
+         "route": "cuda",
          "source": "src/repro_torch/csrc/resample.cu",
          "replaces": "src/repro/kernels/resample.py:68",
          "launches": dist_runs["mpf"]["launches"]["systematic_ancestors"],
@@ -1808,6 +2000,10 @@ def main() -> int:
         "comb_offset": fused_check["comb_offset"],
         "systematic_tie_lanes": sys_check["tie_lanes"],
         "systematic_comb_offset": sys_check["comb_offset"],
+        "systematic_cases": sys_check["cases"],
+        "systematic_inputs": sys_times,
+        "systematic_inputs_check": sys_inputs_check,
+        "fused_inputs": fused_times,
         "chains": chain_runs, "chain_check": chain_check,
         "chain_lane_ms": {"metropolis": lane_ms[False],
                           "rejection": lane_ms[True]},

@@ -18,22 +18,23 @@
 //
 // Bound on the H100: bytes — x read once, y written once (8 B an element).
 //
-// k_scan_lookback, the kernel every call takes: one launch, one pass.
-//   - A row is cut into tiles of LB_SPAN elements (a fixed span, whatever
+// k_scan_lookback, the kernel every call takes: one launch, one pass, on
+// the tile machinery of lookback.cuh (shared with B1's and B2's CDF).
+//   - A row is cut into tiles of lb::SPAN elements (a fixed span, whatever
 //     the number of rows or SMs).  A block takes the next tile from an
 //     integer ticket, row-major, so it only ever waits on tiles whose
 //     blocks are already running: no hang when part of the grid is
 //     resident.  The block that draws the last ticket resets the counter
 //     for the next call.
 //   - A block reads its tile once (16-byte loads where the row allows),
-//     scans it in double (a thread's LB_PER elements in sequence, then a
+//     scans it in double (a thread's lb::PER elements in sequence, then a
 //     fixed shuffle tree over the block) and publishes the tile's total at
 //     once, in one 16-byte word with the call's epoch.
 //   - The tile's offset is a sum, in a tree fixed by the tile's index
 //     alone, of totals that other tiles published: the totals of the tiles
-//     before it in its group of LB_GROUP tiles, and the group sums of the
+//     before it in its group of lb::GROUP tiles, and the group sums of the
 //     groups before that.  The last tile of a group publishes its group's
-//     sum (a fixed tree of the group's LB_GROUP totals) as soon as it has
+//     sum (a fixed tree of the group's lb::GROUP totals) as soon as it has
 //     them.  No tile reads a prefix that another tile happened to finish,
 //     so the order of every sum is the same in every run; no tile waits on
 //     more than one hop of publication.
@@ -51,188 +52,28 @@
 
 #include <stdint.h>
 
+#include "lookback.cuh"
 #include "tile_reduce.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// k_scan_lookback
+// k_scan_lookback: the tile machinery of lookback.cuh on x itself
 // ---------------------------------------------------------------------------
 
-constexpr int LB_THREADS = 256;
-constexpr int LB_WARPS = LB_THREADS / 32;
-constexpr int LB_PER = 16;                       // elements a thread scans
-constexpr int LB_SPAN = LB_THREADS * LB_PER;     // elements a tile
-constexpr int LB_CHUNKS = LB_SPAN / 4;           // float4s a tile
-constexpr int LB_GROUP = 32;                     // tiles a group sum covers
-
-// a published double and the epoch of the call that published it, in one
-// 16-byte word: written and read by single 16-byte accesses, so a reader
-// that sees the epoch sees the value (the packing CUB's single-pass scan
-// uses for 8-byte values), and no fence or acquire is needed
-struct __align__(16) Slot {
-  double v;
-  unsigned long long epoch;
-};
-
-__device__ __forceinline__ void publish(Slot* s, double v, unsigned epoch) {
-  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};"
-               :: "l"(s), "l"(__double_as_longlong(v)),
-                  "l"((unsigned long long)epoch) : "memory");
-}
-
-__device__ __forceinline__ double wait_for(const Slot* s, unsigned epoch) {
-  unsigned long long v, e;
-  while (true) {
-    asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
-                 : "=l"(v), "=l"(e) : "l"(s) : "memory");
-    if (e == epoch) return __longlong_as_double(v);
-    __nanosleep(32);
-  }
-}
-
-// lane 0's sum of the warp's 32 values, in the fixed tree of shfl_down
-__device__ __forceinline__ double warp_tree(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
-  return v;
-}
-
-// a padded float4 index: one float4 of padding every 8, so that thread t
-// reading its 4 consecutive float4s (t*4 ..) hits no bank twice
-__device__ __forceinline__ int pad4(int c) { return c + (c >> 3); }
-
-__global__ void __launch_bounds__(LB_THREADS)
+__global__ void __launch_bounds__(lb::THREADS)
 k_scan_lookback(const float* __restrict__ x, float* __restrict__ y, int n,
-                int nt, int ng, unsigned* ticket, Slot* agg, Slot* grp,
-                unsigned epoch, unsigned blocks, int vec) {
-  __shared__ __align__(16) float4 buf[LB_CHUNKS + LB_CHUNKS / 8];
-  __shared__ double sh[LB_WARPS];
+                int nt, int ng, unsigned* ticket, lb::Slot* agg,
+                lb::Slot* grp, unsigned epoch, unsigned blocks, int vec) {
+  __shared__ __align__(16) float4 buf[lb::BUF];
+  __shared__ double sh[lb::WARPS];
   __shared__ unsigned s_ticket;
   __shared__ double s_off;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  if (tid == 0) {
-    const unsigned t = atomicAdd(ticket, 1u);
-    if (t == blocks - 1) atomicExch(ticket, 0u);   // every block has drawn
-    s_ticket = t;
-  }
-  __syncthreads();
-  const long long row = s_ticket / (unsigned)nt;
-  const int tile = (int)(s_ticket - row * nt);
-  const long long start = (long long)tile * LB_SPAN;
-  const int len = (int)min((long long)LB_SPAN, (long long)n - start);
-  const float* xr = x + row * n + start;
-  float* yr = y + row * n + start;
-
-  // the tile, coalesced: chunk c of 4 elements at float4 pad4(c)
-#pragma unroll
-  for (int k = 0; k < LB_PER / 4; ++k) {
-    const int c = k * LB_THREADS + tid;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (vec && 4 * c + 3 < len) {
-      v = reinterpret_cast<const float4*>(xr)[c];
-    } else {
-      if (4 * c + 0 < len) v.x = xr[4 * c + 0];
-      if (4 * c + 1 < len) v.y = xr[4 * c + 1];
-      if (4 * c + 2 < len) v.z = xr[4 * c + 2];
-      if (4 * c + 3 < len) v.w = xr[4 * c + 3];
-    }
-    buf[pad4(c)] = v;
-  }
-  __syncthreads();
-
-  // the thread's LB_PER consecutive elements, summed in sequence
-  double sum = 0.0;
-#pragma unroll
-  for (int k = 0; k < LB_PER / 4; ++k) {
-    const float4 v = buf[pad4(4 * tid + k)];
-    sum += (double)v.x;
-    sum += (double)v.y;
-    sum += (double)v.z;
-    sum += (double)v.w;
-  }
-  // inclusive Kogge-Stone scan of the thread sums: in the warp, then over
-  // the warp totals (warp 0), as block_scan in tile_reduce.cuh
-  double incl = sum;
-  for (int o = 1; o < 32; o <<= 1) {
-    const double m = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += m;
-  }
-  if (lane == 31) sh[wid] = incl;
-  __syncthreads();
-  if (wid == 0) {
-    double t = lane < LB_WARPS ? sh[lane] : 0.0;
-    for (int o = 1; o < LB_WARPS; o <<= 1) {
-      const double m = __shfl_up_sync(FULL, t, o);
-      if (lane >= o) t += m;
-    }
-    if (lane < LB_WARPS) sh[lane] = t;
-  }
-  __syncthreads();
-  // the thread's exclusive prefix in the tile: the previous thread's
-  // inclusive one (an earlier warp's total for a warp's first thread)
-  const double prev = __shfl_up_sync(FULL, incl, 1);
-  const double excl = lane > 0 ? (wid > 0 ? sh[wid - 1] + prev : prev)
-                               : (wid > 0 ? sh[wid - 1] : 0.0);
-  const double total = sh[LB_WARPS - 1];
-
-  // publish the tile's total, then find its offset (warp 0)
-  Slot* ar = agg + row * nt;
-  if (wid == 0) {
-    if (lane == 0) publish(&ar[tile], total, epoch);
-    const int g = tile / LB_GROUP, r = tile - g * LB_GROUP;
-    const Slot* gs = ar + g * LB_GROUP;
-    double a = lane < r ? wait_for(&gs[lane], epoch) : 0.0;
-    // the group's sum, from its last tile, for the tiles after it
-    if (r == LB_GROUP - 1 && tile + 1 < nt) {
-      const double gsum = warp_tree(lane == r ? total : a);
-      if (lane == 0) publish(&grp[row * ng + g], gsum, epoch);
-    }
-    const double in_group = warp_tree(a);
-    // the groups before: lane l sums groups l, l + 32, ... in order
-    double before = 0.0;
-    for (int j = lane; j < g; j += 32)
-      before += wait_for(&grp[row * ng + j], epoch);
-    before = warp_tree(before);
-    if (lane == 0) s_off = before + in_group;
-  }
-  __syncthreads();
-
-  // y: (offset + the thread's exclusive prefix) + its running sum
-  const double base = s_off + excl;
-  double p = 0.0;
-#pragma unroll
-  for (int k = 0; k < LB_PER; k += 4) {
-    const int at = pad4(4 * tid + k / 4);
-    const float4 v = buf[at];
-    float4 o;
-    p += (double)v.x; o.x = (float)(base + p);
-    p += (double)v.y; o.y = (float)(base + p);
-    p += (double)v.z; o.z = (float)(base + p);
-    p += (double)v.w; o.w = (float)(base + p);
-    buf[at] = o;           // only this thread reads or writes these
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < LB_PER / 4; ++k) {
-    const int c = k * LB_THREADS + tid;
-    const float4 v = buf[pad4(c)];
-    if (vec && 4 * c + 3 < len) {
-      reinterpret_cast<float4*>(yr)[c] = v;
-    } else {
-      if (4 * c + 0 < len) yr[4 * c + 0] = v.x;
-      if (4 * c + 1 < len) yr[4 * c + 1] = v.y;
-      if (4 * c + 2 < len) yr[4 * c + 2] = v.z;
-      if (4 * c + 3 < len) yr[4 * c + 3] = v.w;
-    }
-  }
-}
-
-__host__ __device__ inline long long lb_tiles(long long n) {
-  return (n + LB_SPAN - 1) / LB_SPAN;
-}
-
-__host__ __device__ inline long long lb_groups(long long nt) {
-  return (nt + LB_GROUP - 1) / LB_GROUP;
+  const unsigned t = lb::draw_ticket(ticket, blocks, &s_ticket);
+  const long long row = t / (unsigned)nt;
+  const int tile = (int)(t - row * nt);
+  lb::scan_tile(x, y, n, nt, ng, row, tile, agg, grp, epoch, vec, buf, sh,
+                &s_off, [](float v) { return v; });
 }
 
 // ---------------------------------------------------------------------------
@@ -348,16 +189,16 @@ extern "C" int ppf_prefix_sum(const float* x, float* y, void* scratch,
                               int rows, int n, unsigned epoch,
                               void* stream) {
   if (rows == 0 || n == 0) return 0;
-  const long long nt = lb_tiles(n), ng = lb_groups(nt);
+  const long long nt = lb::tiles(n), ng = lb::groups(nt);
   const long long blocks = (long long)rows * nt;
   if (blocks > INT32_MAX || epoch == 0) return (int)cudaErrorInvalidValue;
   // 16-byte loads and stores when every tile's start is 16-byte aligned
   const int vec = ((uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
                    (rows == 1 || n % 4 == 0));
   unsigned* ticket = (unsigned*)scratch;
-  Slot* agg = (Slot*)((char*)scratch + 16);
-  Slot* grp = agg + rows * nt;
-  k_scan_lookback<<<(unsigned)blocks, LB_THREADS, 0,
+  lb::Slot* agg = (lb::Slot*)((char*)scratch + 16);
+  lb::Slot* grp = agg + rows * nt;
+  k_scan_lookback<<<(unsigned)blocks, lb::THREADS, 0,
                     (cudaStream_t)stream>>>(x, y, n, (int)nt, (int)ng,
                                             ticket, agg, grp, epoch,
                                             (unsigned)blocks, vec);

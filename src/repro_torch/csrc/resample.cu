@@ -12,17 +12,36 @@
 //   cdf = inclusive scan of w;  pos_i = ((float)i + u[b]) / (float)n_out
 //   anc[i] = min(first k with cdf[k] > pos_i, n_in - 1)
 // The TPU kernel builds the CDF once in VMEM at grid step 0 and searches it
-// at later (sequential) steps.  CUDA blocks run in no order, so the build is
-// explicit passes over tiles of TILE weights, one launch each, with the
-// fixed-order reductions of tile_reduce.cuh (the design of sir_fused.cu):
-//   1 tile max   2 member max   3 tile sum of exp(lw - m)   4 member sum
-//   5 w, the tile-local inclusive scan into the CDF scratch, the tile total
-//   6 member offsets: exclusive scan of the tile totals
-//   7 search: bisection over cdf(k) = offset[tile(k)] + local[k].
-// No float atomics: two runs give the same bits, and a member never depends
-// on B.  Bound on the H100: bytes — lw read (4 B), anc written (4 B) per
-// particle, plus the scan's CDF scratch written once and searched from L2;
-// passes 1, 3 and 5 re-read lw.
+// at later (sequential) steps.  CUDA blocks run in no order, so the build
+// is explicit launches.  Bound on the H100: bytes — lw read (4 B) per input
+// and anc written (4 B) per output, once.  Two designs:
+//   k_sys_norm, k_sys_cdf, k_sys_split, k_sys_merge (every call):
+//     1 the normalizer: each tile of lb::SPAN weights publishes (its max,
+//       the double sum of exp(lw - max)); the block that finishes a
+//       member's last tile combines the member's parts in a tree fixed by
+//       tile index (comb_merge.cuh) into m and s (s rounded to f32 once);
+//     2 the CDF: comb_scan.cu's one-launch look-back scan (lookback.cuh) on
+//       w = exp(lw - m) / s computed from lw as each tile loads: double
+//       sums rounded to f32 once, so the CDF is the plain version's
+//       float64-rounded CDF up to w's last bit; and every 64th CDF value
+//       beside it, for the merge's searches;
+//     3 the merge's splits: where each fixed-length diagonal of the merged
+//       sequence (the CDF and the comb points) starts, a warp's two-level
+//       32-way search each (the coarse samples, then 64 values), all at
+//       once, instead of a bisection per lane;
+//     4 the comb: a load-balanced merge of the CDF with the comb points
+//       (comb_merge.cuh), one block a diagonal.
+//     lw is read twice and the CDF written and read once: 20 B a lane when
+//     n_out == n_in, against the bound's 8.
+//   k_sys_* seven passes (the first design; same-run timing only):
+//     1 tile max   2 member max   3 tile sum of exp(lw - m)   4 member sum
+//     5 w, the tile-local inclusive scan into the CDF scratch, tile totals
+//     6 member offsets: exclusive scan of the tile totals
+//     7 search: a per-lane bisection over cdf(k) = offset[tile(k)] +
+//       local[k], ~2 log2(n_in) dependent loads a lane from a CDF that at
+//       8 x 2^22 (128 MB) is larger than the L2.
+// No float atomics in either: two runs give the same bits, and a member
+// never depends on B.
 //
 // B4 / B5, per member b and output lane l:
 //   B4: a = l % n_in; for r < iters: j = prop[l][r];
@@ -72,6 +91,8 @@
 
 #include <stdint.h>
 
+#include "comb_merge.cuh"
+#include "lookback.cuh"
 #include "tile_reduce.cuh"
 #include "tma.cuh"
 
@@ -192,6 +213,91 @@ __global__ void k_sys_search(const float* u, int N, int n_out, SysLayout L,
     if (c <= pos) lo = mid + 1; else hi = mid;
   }
   anc[(long long)b * n_out + i] = min(lo, N - 1);
+}
+
+// ---------------------------------------------------------------------------
+// B1 redesigned: normalizer, look-back CDF, merge comb (three launches)
+// ---------------------------------------------------------------------------
+
+// launch 1: a block a (tile, member); the member's last block writes its
+// (m, s) to ms[b].  The blocks run from the last tile of the last member
+// down, so the first tiles the CDF pass reads are the ones still in L2.
+__global__ void __launch_bounds__(cm::THREADS)
+k_sys_norm(const float* __restrict__ lw, int n, int nt, int vec,
+           cm::Part* parts, unsigned* count, float2* ms) {
+  __shared__ float shf[cm::WARPS];
+  __shared__ double shd[cm::WARPS];
+  __shared__ unsigned s_last;
+  const int b = gridDim.y - 1 - blockIdx.y, t = nt - 1 - blockIdx.x;
+  const long long start = (long long)t * cm::SPAN;
+  const int len = (int)min((long long)cm::SPAN, (long long)n - start);
+  const float* xr = lw + (long long)b * n + start;
+  float v[16];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 c = cm::load4(xr, len, vec, k * cm::THREADS + threadIdx.x,
+                               -INFINITY);
+    v[4 * k + 0] = c.x; v[4 * k + 1] = c.y;
+    v[4 * k + 2] = c.z; v[4 * k + 3] = c.w;
+  }
+  const cm::Part p = cm::tile_part<false>(v, shf, shd);
+  const long long row = (long long)b * nt;
+  if (!cm::publish_part(p, &parts[row + t], &count[b], nt, &s_last)) return;
+  float m;
+  double s, q;
+  cm::combine_parts<false>(parts + row, nt, false, &m, &s, &q, shf, shd);
+  if (threadIdx.x == 0) ms[b] = make_float2(m, (float)s);
+}
+
+// launch 2: the look-back scan of w = exp(lw - m) / s into the CDF, and
+// the CDF's coarse samples
+__global__ void __launch_bounds__(lb::THREADS)
+k_sys_cdf(const float* __restrict__ lw, float* __restrict__ cdf,
+          float* __restrict__ coarse, int n, int nt, int ng, unsigned* ticket,
+          lb::Slot* agg, lb::Slot* grp, unsigned epoch, unsigned blocks,
+          int vec, const float2* __restrict__ ms) {
+  __shared__ __align__(16) float4 buf[lb::BUF];
+  __shared__ double sh[lb::WARPS];
+  __shared__ unsigned s_ticket;
+  __shared__ double s_off;
+  const unsigned tk = lb::draw_ticket(ticket, blocks, &s_ticket);
+  const long long row = tk / (unsigned)nt;
+  const int tile = (int)(tk - row * nt);
+  const float2 p = ms[row];
+  const float m = p.x, s = p.y;
+  lb::scan_tile(lw, cdf, n, nt, ng, row, tile, agg, grp, epoch, vec, buf, sh,
+                &s_off, [m, s](float x) { return expf(x - m) / s; });
+  cm::store_coarse(buf, (int)min((long long)lb::SPAN,
+                                 (long long)n - (long long)tile * lb::SPAN),
+                   (long long)tile * lb::SPAN,
+                   coarse + row * cm::coarse_samples(n));
+}
+
+// launch 3: the merge's splits, a warp a split (B x (diagonals + 1))
+__global__ void __launch_bounds__(256)
+k_sys_split(const float* __restrict__ cdf, const float* __restrict__ coarse,
+            const float* __restrict__ u, int n_in, int n_out, int diags,
+            int B, int* __restrict__ splits) {
+  const long long s = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const long long per = diags + 1;
+  if (s >= (long long)B * per) return;
+  const int b = (int)(s / per);
+  cm::split_of(cdf + (long long)b * n_in, coarse + b * cm::coarse_samples(n_in),
+               n_in, n_out, u[b], s - b * per, &splits[s]);
+}
+
+// launch 4: a block a (diagonal, member) of the merge, from the last
+// diagonal of the last member down: the CDF the look-back wrote last is
+// what L2 still holds
+__global__ void __launch_bounds__(cm::MERGE_THREADS)
+k_sys_merge(const float* __restrict__ cdf, const int* __restrict__ splits,
+            const float* __restrict__ u, int n_in, int n_out, int vec,
+            int* __restrict__ anc) {
+  __shared__ float sm[cm::MERGE_WORDS];
+  const int b = gridDim.y - 1 - blockIdx.y;
+  const long long j = gridDim.x - 1 - blockIdx.x;
+  cm::merge(cdf + (long long)b * n_in, splits + (long long)b * (gridDim.x + 1),
+            n_in, n_out, u[b], j, vec, anc + (long long)b * n_out, sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -588,14 +694,71 @@ int launch_chain_tma(const float* lw, const int* prop, const float* logu,
 
 }  // namespace
 
-extern "C" long long ppf_systematic_scratch_floats(int B, int n_in) {
+// The redesign, every call, in two calls: ppf_systematic_normalize (launch
+// 1), then ppf_systematic_comb (launches 2-4), so that the wrapper
+// allocates the ancestors while the normalizer runs.  The scratch pointers
+// are the wrapper's (repro_torch/kernels/resample.py's systematic_plan()
+// lays them out): the look-back ticket, a counter a member, B * nt parts,
+// B (m, s) pairs, B * nt tile slots, B * ng group slots, the B * n_in CDF
+// and its B * ceil(n_in / 64) coarse samples (after the CDF: the merge's
+// 16-byte loads may read 3 floats past a row), and B * (diagonals + 1)
+// merge splits, with the ticket, counters and slots zeroed when the
+// wrapper made them; `epoch` is the call's flag value
+// (never 0, different from every earlier call's on this scratch).
+extern "C" int ppf_systematic_normalize(const float* lw, unsigned* count,
+                                        void* parts, void* ms, int B,
+                                        int n_in, void* stream) {
+  if (B == 0) return 0;
+  if (n_in == 0) return (int)cudaErrorInvalidValue;
+  const long long nt = lb::tiles(n_in);
+  if ((long long)B * nt > INT32_MAX) return (int)cudaErrorInvalidValue;
+  // 16-byte loads when every tile's start is 16-byte aligned
+  const int vec = (uintptr_t)lw % 16 == 0 && (B == 1 || n_in % 4 == 0);
+  k_sys_norm<<<dim3((unsigned)nt, B), cm::THREADS, 0,
+               (cudaStream_t)stream>>>(lw, n_in, (int)nt, vec,
+                                       (cm::Part*)parts, count, (float2*)ms);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ppf_systematic_comb(const float* lw, const float* u,
+                                   int* anc, unsigned* ticket, void* ms,
+                                   void* agg, void* grp, float* cdf,
+                                   float* coarse, int* splits, int B,
+                                   int n_in, int n_out, unsigned epoch,
+                                   void* stream) {
+  if (B == 0 || n_out == 0) return 0;
+  if (n_in == 0 || epoch == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long nt = lb::tiles(n_in), ng = lb::groups(nt);
+  const long long blocks = (long long)B * nt;
+  const long long diags = cm::merge_blocks(n_in, n_out);
+  const long long warps = (long long)B * (diags + 1);
+  if (blocks > INT32_MAX || diags >= INT32_MAX || warps > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int vec = ((uintptr_t)lw % 16 == 0 && (uintptr_t)cdf % 16 == 0 &&
+                   (B == 1 || n_in % 4 == 0));
+  k_sys_cdf<<<(unsigned)blocks, lb::THREADS, 0, st>>>(
+      lw, cdf, coarse, n_in, (int)nt, (int)ng, ticket, (lb::Slot*)agg,
+      (lb::Slot*)grp, epoch, (unsigned)blocks, vec, (const float2*)ms);
+  k_sys_split<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
+      cdf, coarse, u, n_in, n_out, (int)diags, B, splits);
+  k_sys_merge<<<dim3((unsigned)diags, B), cm::MERGE_THREADS, 0, st>>>(
+      cdf, splits, u, n_in, n_out, vec, anc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long ppf_systematic_seven_pass_scratch_floats(int B,
+                                                              int n_in) {
   long long nt = n_tiles(n_in);
   return (long long)B * n_in + 4LL * B * nt + 2LL * B;
 }
 
-extern "C" int ppf_systematic_ancestors(const float* lw, const float* u,
-                                        int* anc, float* scratch, int B,
-                                        int n_in, int n_out, void* stream) {
+// The first design, for same-run timing: seven launches.
+extern "C" int ppf_systematic_ancestors_seven_pass(const float* lw,
+                                                   const float* u, int* anc,
+                                                   float* scratch, int B,
+                                                   int n_in, int n_out,
+                                                   void* stream) {
   if (B == 0 || n_out == 0) return 0;
   if (n_in == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

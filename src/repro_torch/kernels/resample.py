@@ -6,11 +6,20 @@ DRA shards) and any length:
 
 * ``systematic_ancestors_kernel`` (B1) — the normalized CDF and the
   systematic comb; plain version ``ref.systematic_ancestors_ref``;
+  ``systematic_ancestors_emulated`` is the kernel's order of sums and its
+  merge written in torch (its bits on any device);
 * ``metropolis_ancestors_kernel`` (B4) — one Metropolis chain per output
   lane on injected draws; plain version ``metropolis_ancestors_ref``;
 * ``rejection_ancestors_kernel`` (B5) — rejection against the member's
   max, then a Metropolis fallback chain; plain version
   ``rejection_ancestors_ref``.
+
+B1 is four launches on every call (``systematic_plan``'s ``"merge"``:
+the normalizer, the look-back CDF, the merge's splits and the merge comb
+of ``csrc/comb_merge.cuh``); the first design (``"seven_pass"``: seven
+launches ending in a per-lane bisection) stays launchable through
+``_sys_launch`` for same-run timing.  Its scratch is kept per device and
+stream (``comb_merge.scratch``).
 
 B4 and B5 have two chain kernels, which ``plan`` chooses between from the
 shapes and the draws' alignment alone: ``"tma"`` (``k_chain_tma``, the
@@ -32,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, comb_merge, scan
 
 _c_p = ctypes.c_void_p
 _c_i = ctypes.c_int
@@ -112,11 +121,16 @@ def rejection_ancestors_ref(log_weights: torch.Tensor,
 def _lib():
     """The library, bound once: a launch pays no ctypes set-up."""
     lib = build.library("resample")
-    lib.ppf_systematic_ancestors.argtypes = [_c_p, _c_p, _c_p, _c_p, _c_i,
-                                             _c_i, _c_i, _c_p]
-    lib.ppf_systematic_ancestors.restype = _c_i
-    lib.ppf_systematic_scratch_floats.argtypes = [_c_i, _c_i]
-    lib.ppf_systematic_scratch_floats.restype = ctypes.c_longlong
+    lib.ppf_systematic_normalize.argtypes = [_c_p] * 4 + [_c_i, _c_i, _c_p]
+    lib.ppf_systematic_normalize.restype = _c_i
+    lib.ppf_systematic_comb.argtypes = [_c_p] * 10 + [
+        _c_i, _c_i, _c_i, ctypes.c_uint, _c_p]
+    lib.ppf_systematic_comb.restype = _c_i
+    lib.ppf_systematic_ancestors_seven_pass.argtypes = [
+        _c_p, _c_p, _c_p, _c_p, _c_i, _c_i, _c_i, _c_p]
+    lib.ppf_systematic_ancestors_seven_pass.restype = _c_i
+    lib.ppf_systematic_seven_pass_scratch_floats.argtypes = [_c_i, _c_i]
+    lib.ppf_systematic_seven_pass_scratch_floats.restype = ctypes.c_longlong
     lib.ppf_chain_ancestors.argtypes = [_c_p, _c_p, _c_p, _c_p, _c_p, _c_i,
                                         _c_i, _c_i, _c_i, _c_i, _c_p]
     lib.ppf_chain_ancestors.restype = _c_i
@@ -145,31 +159,123 @@ def _check_sizes(b: int, n_in: int, n_out: int) -> None:
                          f"beyond the kernel")
 
 
+class SysPlan(NamedTuple):
+    variant: str          # "merge", or "seven_pass" (the first design)
+    tiles: int = 0        # tiles of comb_merge.SPAN weights a member
+    groups: int = 0       # groups of scan.GROUP tiles a member
+    diagonals: int = 0    # merge blocks a member
+    flag_bytes: int = 0   # zeroed scratch: ticket, counters, then the slots
+    work_bytes: int = 0   # scratch written before it is read
+    agg_at: int = 0       # flags: the tile slots (B x tiles)
+    grp_at: int = 0       # flags: the group slots (B x groups)
+    ms_at: int = 0        # work: (m, s) a member, after the B x tiles parts
+    cdf_at: int = 0       # work: the B x n_in CDF
+    coarse_at: int = 0    # work: its every COARSE-th value, B x samples
+    splits_at: int = 0    # work: the merge's B x (diagonals + 1) splits
+
+
+def systematic_plan(b: int, n_in: int, n_out: int) -> SysPlan:
+    """B1's launches for ``b`` members of ``n_in`` weights and ``n_out``
+    comb points, and the scratch layout ``ppf_systematic_normalize`` and
+    ``ppf_systematic_comb`` read.  Pure Python; the C entries check the
+    grids again."""
+    nt = comb_merge.tiles(n_in)
+    ng = -(-nt // scan.GROUP)
+    diags = comb_merge.merge_blocks(n_in, n_out)
+    agg_at = comb_merge.FLAGS_HEAD
+    grp_at = agg_at + b * nt * comb_merge.SLOT_BYTES
+    ms_at = b * nt * comb_merge.PART_BYTES
+    cdf_at = comb_merge.align(ms_at + b * 8)
+    coarse_at = comb_merge.align(cdf_at + b * n_in * 4)
+    splits_at = comb_merge.align(
+        coarse_at + b * comb_merge.coarse_samples(n_in) * 4)
+    return SysPlan("merge", nt, ng, diags,
+                   grp_at + b * ng * comb_merge.SLOT_BYTES,
+                   splits_at + b * (diags + 1) * 4, agg_at, grp_at, ms_at,
+                   cdf_at, coarse_at, splits_at)
+
+
+def systematic_ancestors_emulated(log_weights: torch.Tensor, u: torch.Tensor,
+                                  n_out: int) -> torch.Tensor:
+    """B1's ``(B, n_out)`` int32 result for float32 ``log_weights`` ``(B,
+    n_in)`` and offsets ``u`` ``(B,)``, from the kernel's own order: the
+    normalizer's parts and their tree (``comb_merge``), the look-back
+    scan's sums (``scan.prefix_sum_emulated``) of ``w = exp(lw - m) / s``,
+    and the merge comb."""
+    m, s, _ = comb_merge.tile_parts(log_weights)
+    big, total, _ = comb_merge.combine_parts(m, s)
+    w = torch.exp(log_weights - big[:, None]) / total.float()[:, None]
+    return comb_merge.merge_ancestors(scan.prefix_sum_emulated(w), u, n_out)
+
+
+def _sys_launch(p: SysPlan, log_weights: torch.Tensor, u: torch.Tensor,
+                n_out: int) -> torch.Tensor:
+    """Run plan ``p``'s kernels on checked inputs and return the ancestors;
+    count nothing.  The redesign's normalizer is launched before the
+    output is allocated, so the allocation overlaps it."""
+    b, n_in = log_weights.shape
+    dev = log_weights.device
+    stream = torch._C._cuda_getCurrentRawStream(log_weights.get_device())
+    lib = _lib()
+    if p.variant == "merge":
+        flags, work, epoch = comb_merge.scratch(
+            "systematic", log_weights, stream, p.flag_bytes, p.work_bytes)
+        err = lib.ppf_systematic_normalize(
+            log_weights.data_ptr(), flags + comb_merge.COUNTERS_AT, work,
+            work + p.ms_at, b, n_in, stream)
+        anc = torch.empty((b, n_out), dtype=torch.int32, device=dev)
+        if err == 0:
+            err = lib.ppf_systematic_comb(
+                log_weights.data_ptr(), u.data_ptr(), anc.data_ptr(), flags,
+                work + p.ms_at, flags + p.agg_at, flags + p.grp_at,
+                work + p.cdf_at, work + p.coarse_at, work + p.splits_at, b,
+                n_in, n_out, epoch, stream)
+    else:
+        anc = torch.empty((b, n_out), dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            (lib.ppf_systematic_seven_pass_scratch_floats(b, n_in),),
+            dtype=torch.float32, device=dev)
+        err = lib.ppf_systematic_ancestors_seven_pass(
+            log_weights.data_ptr(), u.data_ptr(), anc.data_ptr(),
+            scratch.data_ptr(), b, n_in, n_out, stream)
+    if err != 0:
+        raise RuntimeError(f"systematic_ancestors {p.variant} kernel launch "
+                           f"failed: cudaError {err}")
+    return anc
+
+
+_SYS_CHECKED: dict = {}     # call signatures that passed the checks -> plan
+
+
 def systematic_ancestors_kernel(log_weights: torch.Tensor, u: torch.Tensor,
                                 n_out: int) -> torch.Tensor:
     """B1 on the card: ``(B, n_out)`` int32 ancestors of contiguous CUDA
     float32 ``log_weights`` ``(B, n_in)`` with comb offsets ``u``
-    ``(B,)``."""
-    if log_weights.dim() != 2:
-        raise ValueError(f"log_weights (B, n_in) expected, got "
-                         f"{tuple(log_weights.shape)}")
-    b, n_in = log_weights.shape
-    dev = log_weights.device
-    _check("log_weights", log_weights, (b, n_in), torch.float32, dev)
-    _check("u", u, (b,), torch.float32, dev)
-    _check_sizes(b, n_in, n_out)
-    lib = _lib()
-    anc = torch.empty((b, n_out), dtype=torch.int32, device=dev)
-    scratch = torch.empty((lib.ppf_systematic_scratch_floats(b, n_in),),
-                          dtype=torch.float32, device=dev)
-    err = lib.ppf_systematic_ancestors(
-        log_weights.data_ptr(), u.data_ptr(), anc.data_ptr(),
-        scratch.data_ptr(), b, n_in, n_out,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"systematic_ancestors kernel launch failed: "
-                           f"cudaError {err}")
+    ``(B,)``.  A signature that passed the checks keeps its plan."""
+    sig = (log_weights.shape, log_weights.dtype, log_weights.device,
+           log_weights.is_contiguous(), u.shape, u.dtype, u.device,
+           u.is_contiguous(), n_out)
+    p = _SYS_CHECKED.get(sig)
+    if p is None:
+        if log_weights.dim() != 2:
+            raise ValueError(f"log_weights (B, n_in) expected, got "
+                             f"{tuple(log_weights.shape)}")
+        b, n_in = log_weights.shape
+        dev = log_weights.device
+        _check("log_weights", log_weights, (b, n_in), torch.float32, dev)
+        _check("u", u, (b,), torch.float32, dev)
+        _check_sizes(b, n_in, n_out)
+        p = systematic_plan(b, n_in, n_out)
+        if len(_SYS_CHECKED) >= 4096:
+            _SYS_CHECKED.clear()
+        _SYS_CHECKED[sig] = p
+    b = log_weights.shape[0]
+    if not (b and n_out):
+        return torch.empty((b, n_out), dtype=torch.int32,
+                           device=log_weights.device)
+    anc = _sys_launch(p, log_weights, u, n_out)
     systematic_ancestors_kernel.launches += 1
+    systematic_ancestors_kernel.variants[p.variant] += 1
     return anc
 
 
@@ -260,6 +366,7 @@ def rejection_ancestors_kernel(log_weights: torch.Tensor,
 
 
 systematic_ancestors_kernel.launches = 0
+systematic_ancestors_kernel.variants = {"merge": 0, "seven_pass": 0}
 metropolis_ancestors_kernel.launches = 0
 metropolis_ancestors_kernel.variants = {"tma": 0, "lane": 0}
 rejection_ancestors_kernel.launches = 0

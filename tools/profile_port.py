@@ -18,8 +18,12 @@ device busy share (the sum of kernel times over the wall time: one
 stream, so kernels do not overlap), the kernels that take the most
 device time, the time of each of the port's own kernels, grouped by
 source (``PORT_GROUPS``), wherever they rank, and for the tracking paths
-one line with B3's and the comb scan's device ms a frame.  ``--only`` keeps the paths
-whose name starts with it.
+one line with B3's and the comb scan's device ms a frame.  The ``passes-``
+paths time B1 and B2 alone, each design on chip_smoke.py's timing inputs
+(B1 at 8 × 2^22, B2 at 1 × 2^22 with and without the comb and at the
+bank's 8 × 2^20), ten calls under the profiler, and list each launch of
+the design (its passes) with its device ms a call.  ``--only`` keeps the
+paths whose name starts with it.
 Needs one CUDA card; exits non-zero without.
 """
 from __future__ import annotations
@@ -43,8 +47,8 @@ PORT_GROUPS = {
     "B4/B5 chains (resample.cu)": ("k_chain", "k_tile_argmax",
                                    "k_member_argmax"),
     "B1 (resample.cu)": ("k_sys_",),
-    "B2 (sir_fused.cu)": ("k_tile_max", "k_member_max", "k_tile_expsum",
-                          "k_member_sum", "k_tile_weights",
+    "B2 (sir_fused.cu)": ("k_fw_", "k_tile_max", "k_member_max",
+                          "k_tile_expsum", "k_member_sum", "k_tile_weights",
                           "k_member_finish", "k_commit"),
     "B3 (patch_likelihood.cu)": ("k_patch_sep", "patch_ll_kernel"),
     "B6 (flash_attention*.cu)": ("flash_",),
@@ -97,6 +101,53 @@ def lm_runs(dev) -> dict:
 
     return {"lm-generate": (gen, 1, "call"),
             "lm-smc-decode": (smc, 1, "call")}
+
+
+PASS_CALLS = 10
+
+
+def pass_runs(dev) -> dict:
+    """B1 and B2 alone, each design, on chip_smoke.py's timing inputs: ten
+    calls a run (the redesign through its wrapper, the first design through
+    the wrapper module's ``_launch`` with the seven-pass plan)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import resample, sir_fused
+
+    def b1(first):
+        def make():
+            lw, ll, _, u = cs.fused_inputs(8, 2 ** 22, 7, dev, d=1)
+            lw = (lw + ll).contiguous()
+            n = lw.shape[1]
+            if first:
+                p = resample.SysPlan("seven_pass")
+                return lambda: [resample._sys_launch(p, lw, u, n)
+                                for _ in range(PASS_CALLS)]
+            return lambda: [resample.systematic_ancestors_kernel(lw, u, n)
+                            for _ in range(PASS_CALLS)]
+        return make
+
+    def b2(first, b, n, comb):
+        def make():
+            lw, ll, st, u = cs.fused_inputs(b, n, 5, dev)
+            if first:
+                p = sir_fused.FusedPlan("seven_pass")
+                return lambda: [sir_fused._launch(p, lw, ll, st, u, 0.5,
+                                                  False, comb)
+                                for _ in range(PASS_CALLS)]
+            return lambda: [sir_fused.fused_weight_step_kernel(
+                lw, ll, st, u, comb=comb) for _ in range(PASS_CALLS)]
+        return make
+
+    runs = {}
+    for first, tag in ((False, "merge"), (True, "seven-pass")):
+        runs[f"passes-b1-{tag}"] = (b1(first), PASS_CALLS, "call")
+        for label, b, n, comb in (("single", 1, 2 ** 22, True),
+                                  ("nocomb", 1, 2 ** 22, False),
+                                  ("bank", 8, 2 ** 20, True)):
+            runs[f"passes-b2-{label}-{tag}"] = (b2(first, b, n, comb),
+                                                PASS_CALLS, "call")
+    return runs
 
 
 def main() -> int:
@@ -158,6 +209,7 @@ def main() -> int:
         return lambda: fb.run([100 + i for i in range(8)], movies)
     runs["bank"] = (bank, args.frames, "frame")
     runs.update(lm_runs(dev))
+    runs.update(pass_runs(dev))
     record = {"card": name, "frames": args.frames, "paths": {}}
     for label, (make, per, unit) in runs.items():
         if not label.startswith(args.only):
