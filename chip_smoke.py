@@ -13,7 +13,12 @@
    an Eq. 4 close fit, on converged clouds in no slot order (the staged
    window box, with outliers, too wide for the box), and on halo slabs
    and a frame view at an odd column, bit for bit equal to the full
-   frame.  The comb scan (one launch) is held against the float64 scan at
+   frame; and B3 with a per-member geometry table at the domain path's
+   shape (8 x 9 · 2^22 merged states against the 8 slabs, 264 x 136, of
+   a 512x512 frame on a 2 x 4 grid, and a ragged N whose blocks straddle
+   two members): every particle within PATCH_TOL of the plain version
+   with the same table, every particle its member's tile owns bit for bit
+   the full frame's, repeatable.  The comb scan (one launch) is held against the float64 scan at
    the composed step's, RPA's and SMC decoding's shapes, ragged rows
    about the tile span, 1024 rows of 4097 and a row whose mass is all in
    its last element, with the systematic, stratified and multinomial
@@ -44,9 +49,19 @@
    collective-free resamplers (fused step, ``metropolis`` and
    ``rejection``), through the patch, fused and chain kernels;
 5c. runs the paper's distributed filter on an emulated 8-shard mesh,
-   8 × 2^22 = 2^25 particles over the same movie, for MPF, RNA and RPA,
-   and checks tracking, repeatability, the comm accounting against the
-   analytic formulas and the kernels it launched;
+   8 × 2^22 = 2^25 particles over the same movie, for MPF, RNA, ARNA, RPA
+   and butterfly, and checks tracking, repeatability, the comm accounting
+   against the analytic formulas and the kernels it launched (butterfly:
+   the comb scan once a stage, no overflow or truncated units; ARNA's
+   lost-mode frames are printed);
+5e. runs the domain-decomposed filter (2 x 4 tiles of the 512x512 frame,
+   one per shard) for RNA and RPA with 5c's configs, movie and seed: it
+   must equal 5c's replicated runs bit for bit, launch B3 once a frame
+   with the per-member geometry, overflow nothing and move particles, and
+   repeat; the per-shard observation bytes and each run's peak memory
+   are printed; then RNA with a bounded window (k_cap = 2^16), whose
+   migration is checked frame by frame (kept + shipped units == each
+   shard's units, the diagnostics as the reference defines them);
 5d. serves the qwen3-32b architecture at full width (d_model 5120, 64/8
    heads, d_ff 25600, vocab 151936) with 16 of its 64 layers and random
    bf16 weights drawn on the card: ``generate`` (4 prompts × 1024
@@ -64,7 +79,10 @@
    shape on uniformly spread particles — and times B3 and the comb scan
    beside their first designs on the same inputs, in turns (new, first,
    first, new), failing unless the new B3 is faster at every input and
-   the new scan at 8 x 2^22; holds B1 on its timing inputs — (i) a
+   the new scan at 8 x 2^22; times B3 with a one-row per-member table
+   against the shared geometry on input (i), in turns, and B3 at the
+   domain shape (RNA's final ensemble migrated to its owners against 8
+   slabs) beside its bound; holds B1 on its timing inputs — (i) a
    filter's post-likelihood weights at 8 x 2^22, (ii) the mpf cell's final
    log-weights plus the final particles' likelihood of the last frame, (iii)
    the skewed input — to phase 2's gates, and times B1 there and B2 at
@@ -362,6 +380,76 @@ def check_patch(dev) -> dict:
     check(kern.variants == {"separable": launched, "direct": 0},
           f"patch variants {kern.variants}")
     return {"max_abs_err": worst}
+
+
+DOMAIN_P, DOMAIN_FRAME = 8, (512, 512)
+
+
+def check_patch_domain(dev) -> dict:
+    """B3 with a per-member geometry table at the domain path's shape: the
+    merged ``(8, 9 · 2^22, 5)`` states of ``DomainSpec.for_mesh((512,
+    512), 8, 4)`` (grid 2 x 4, slabs 264 x 136) against the ``(8, 264,
+    136)`` slab stack of one frame, and a ragged N (a block straddles two
+    members).  Positions are uniform over the frame and past its edges,
+    so most particles sit in a foreign slab and are clamped into it (the
+    overflow residents' case).  Every particle is held to the plain
+    version (with the same table) within PATCH_TOL; every particle its
+    member's tile owns equals, bit for bit, the kernel on the full frame
+    with the default geometry; a second launch repeats the bits."""
+    import torch
+    from repro_torch.core.domain import DomainSpec, owner_of, tile_frames
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.patch_likelihood import \
+        patch_log_likelihood_kernel as kern
+    from repro_torch.models.tracking import TrackingConfig, tile_geometry
+    cfg = TrackingConfig()
+    spec = DomainSpec.for_mesh(DOMAIN_FRAME, DOMAIN_P, cfg.patch_radius)
+    check(spec.grid == (2, 4) and spec.slab_shape == (264, 136),
+          f"domain spec {spec}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(51)
+    frame = torch.randn(DOMAIN_FRAME, generator=g, device=dev)
+    slabs = tile_frames(spec, frame[None])[0]
+    table = tile_geometry(cfg, spec.slab_shape, spec.slab_origins(), dev)
+    full_frames = frame.expand(DOMAIN_P, *DOMAIN_FRAME)
+    shard = torch.arange(DOMAIN_P, device=dev)[:, None]
+    worst, out = 0.0, {}
+    launches0 = kern.per_member_launches
+    for n in (9 * 2 ** 22, 2 ** 16 + 37):
+        state = torch.empty((DOMAIN_P, n, 5), device=dev)
+        state[..., 0:2] = (torch.rand((DOMAIN_P, n, 2), generator=g,
+                                      device=dev) * 520.0 - 4.0)
+        state[..., 2:4] = 0.0
+        state[..., 4] = torch.rand((DOMAIN_P, n), generator=g,
+                                   device=dev) * 3.0
+        got = kern(state, slabs, geometry=table)
+        check(same_bits(got, kern(state, slabs, geometry=table)),
+              f"per-member B3 not repeatable at N={n}")
+        full = kern(state, full_frames)
+        own = owner_of(spec, state[..., 0], state[..., 1]) == shard
+        check(same_bits(got[own], full[own]),
+              f"per-member B3 at N={n}: an owned particle differs from the "
+              f"full frame")
+        err, chunk = 0.0, 2 ** 21
+        for m in range(DOMAIN_P):
+            for a in range(0, n, chunk):
+                st = state[m:m + 1, a:a + chunk]
+                err = max(err, max_err(got[m:m + 1, a:a + chunk],
+                                       ref.patch_log_likelihood_ref(
+                                           st[..., 0], st[..., 1],
+                                           st[..., 4], slabs[m:m + 1],
+                                           geometry=table[m:m + 1]),
+                                       PATCH_TOL))
+        worst = max(worst, err)
+        out[f"N={n}"] = {"max_abs_err": err,
+                         "owned": int(own.sum()), "rows": DOMAIN_P * n}
+        log(f"patch per-member geometry (8, {n}) vs (8, 264, 136) slabs: "
+            f"max_abs_err={err:.3g}, {int(own.sum())} owned bitwise equal "
+            f"to the full frame, repeatable")
+        del state, got, full, own
+    check(kern.per_member_launches - launches0 == 4,
+          "per-member launches not counted")
+    return {"max_abs_err": worst, "cases": out}
 
 
 def check_patch_inputs(inputs: dict) -> None:
@@ -985,6 +1073,55 @@ def time_patch(inputs: dict, cfg) -> dict:
     return out
 
 
+def time_patch_domain(state, frame1, rna_final, frame, cfg) -> dict:
+    """B3 with a per-member table: (1) on timing input (i) with a one-row
+    table of the default geometry, in turns against the shared-geometry
+    call (the bits must agree); (2) at the domain path's shape: RNA's
+    final 8 x 2^22 ensemble migrated to its tile owners (8 x 9 · 2^22
+    merged rows, k_cap = C) against the last frame's 8 slabs, one launch
+    with the per-member geometry, beside its bound."""
+    import torch
+    from repro_torch.core import domain as domain_mod
+    from repro_torch.core.particles import ParticleEnsemble
+    from repro_torch.core.runtime import EmulatedMesh
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.patch_likelihood import (
+        member_geometry, patch_log_likelihood_kernel as kern)
+    from repro_torch.models.tracking import make_domain_spec, tile_geometry
+    r = cfg.patch_radius
+    h, w = frame1.shape[1:]
+    table1 = member_geometry([ref.default_geometry(r, h, w)], r, h, w,
+                             state.device)
+    check(same_bits(kern(state, frame1, geometry=table1),
+                    kern(state, frame1)),
+          "B3: a one-row default table differs from the shared geometry")
+    pm_ms, shared_ms = in_turns(lambda: kern(state, frame1, geometry=table1),
+                                lambda: kern(state, frame1))
+    p = rna_final.shape[0]
+    spec = make_domain_spec(cfg, p)
+    ens = ParticleEnsemble(rna_final, torch.zeros(rna_final.shape[:2],
+                                                  device=state.device),
+                           torch.ones(rna_final.shape[:2], dtype=torch.int32,
+                                      device=state.device))
+    merged, _ = domain_mod.migrate(spec, ens, rna_final[..., 0:2],
+                                   mesh=EmulatedMesh(p))
+    st = merged.state
+    del merged, ens
+    slabs = domain_mod.tile_frames(spec, frame[None])[0]
+    table = tile_geometry(cfg, spec.slab_shape, spec.slab_origins(),
+                          state.device)
+    b, n = st.shape[:2]
+    bound, by = patch_bound(b, n, *spec.slab_shape, r)
+    out = {"per_member_ms": pm_ms, "shared_ms": shared_ms,
+           "shape": [b, n], "ms": cuda_ms(lambda: kern(st, slabs,
+                                                       geometry=table)),
+           "device_ms": device_ms(lambda: kern(st, slabs, geometry=table)),
+           "bound_ms": bound, "bound_by": by}
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_systematic(inputs: dict) -> dict:
     """B1 on each timing input: the redesign through its wrapper and the
     first design (``resample._sys_launch`` with the seven-pass plan) in
@@ -1045,6 +1182,13 @@ def comm_formulas(kind, p, c, cfg, state_bytes, estimate_bytes):
     elif kind == "rna":
         m = max(int(round(cfg.exchange_ratio * c)), 1)
         dra = (4 + m * (state_bytes + 4), 2)
+    elif kind == "arna":
+        m_buf = max(int(round(cfg.q_max * c)) // p * p, p)
+        dra = (12 + m_buf * (state_bytes + 4), 4)
+    elif kind == "butterfly":
+        stages = p.bit_length() - 1
+        dra = (stages * (8 + cfg.butterfly_cap * (state_bytes + 8)),
+               2 * stages)
     else:
         dra = (4 + p * cfg.k_cap * (state_bytes + 8), 2)
     return dra[0] + 12 + estimate_bytes, dra[1] + 4
@@ -1447,6 +1591,154 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
             "generate": gen, "smc_decode": smc_rec}
 
 
+def dist_launches(kind, all_k, stages) -> dict:
+    """The kernel launches of a 40-frame distributed run: B3 once a frame;
+    MPF, RNA and ARNA comb on B1; RPA's per-shard comb scans its CDF once
+    a frame, butterfly's once a stage."""
+    want = {k: 0 for k in all_k}
+    want["patch_log_likelihood"] = FRAMES
+    if kind in ("mpf", "rna", "arna"):
+        want["systematic_ancestors"] = FRAMES
+    elif kind == "rpa":
+        want["prefix_sum"] = FRAMES
+    else:
+        want["prefix_sum"] = FRAMES * stages
+    return want
+
+
+def run_domain(dev, model, movie, dras, replicated, all_k, reset, counts,
+               name) -> dict:
+    """Phase 5e: ``ParallelParticleFilter(domain=make_domain_spec(cfg, 8),
+    mesh=EmulatedMesh(8))`` for RNA and RPA with phase 5c's configs, movie
+    and seed, at ``k_cap=None``: equal to 5c's replicated runs bit for bit
+    (estimates, ESS, log-marginal, resampled, final ensemble), B3 once a
+    frame with the per-member geometry, no overflow, particles moved,
+    repeatable; then RNA with ``k_cap = 2^16``, whose migration is
+    recorded frame by frame (kept + shipped == each shard's units, and
+    the diagnostics as the reference defines them)."""
+    import torch
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.core import domain as domain_mod
+    from repro_torch.core.runtime import EmulatedMesh
+    from repro_torch.kernels.patch_likelihood import \
+        patch_log_likelihood_kernel as patch_k
+    from repro_torch.models.tracking import make_domain_spec
+    cfg = model.cfg
+    p, c = DOMAIN_P, 2 ** 22
+    spec = make_domain_spec(cfg, p)
+    slab_b, frame_b = spec.slab_bytes(), spec.frame_bytes()
+    check((slab_b, frame_b) == (143616, 1048576),
+          f"observation bytes {slab_b} / {frame_b}")
+    stages = p.bit_length() - 1
+    runs = {}
+    for kind in ("rna", "rpa"):
+        pf = ParallelParticleFilter(model=model, sir=SIRConfig(
+            n_particles=p * c, ess_frac=0.5), mesh=EmulatedMesh(p),
+            dra=dras[kind], domain=spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        patch_k.per_member_launches = 0
+        t0 = time.perf_counter()
+        res = pf.run(1, movie.frames)
+        got = counts(all_k)
+        t_first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(got == dist_launches(kind, all_k, stages),
+              f"domain {kind} launches {got}")
+        check(patch_k.per_member_launches == FRAMES
+              and patch_k.variants == {"separable": FRAMES, "direct": 0},
+              f"domain {kind}: B3 per-member launches "
+              f"{patch_k.per_member_launches}, variants {patch_k.variants}")
+        rep = replicated[kind]
+        for f in ("estimates", "ess", "log_marginal", "resampled"):
+            check(same_bits(getattr(res, f), rep[f]),
+                  f"domain {kind}: {f} differs from the replicated run")
+        for f in ("state", "log_weights", "counts"):
+            check(same_bits(getattr(res.final, f), getattr(rep["final"], f)),
+                  f"domain {kind}: final {f} differs from the replicated "
+                  f"run")
+        moved, over = res.diag["mig_moved"], res.diag["mig_overflow"]
+        check(int(over.abs().sum()) == 0, f"domain {kind}: overflow {over}")
+        check(bool((moved > 0).all()), f"domain {kind}: frames with nothing "
+                                       f"moved: {moved}")
+        t0 = time.perf_counter()
+        res2 = pf.run(1, movie.frames)
+        torch.cuda.synchronize()
+        fps = FRAMES / (time.perf_counter() - t0)
+        check(same_bits(res.estimates, res2.estimates)
+              and same_bits(res.final.state, res2.final.state),
+              f"domain {kind} not repeatable")
+        tr = track(res, movie)
+        runs[kind] = {"launches": got, "track": tr, "frames_per_s": fps,
+                      "first_run_frames_per_s": FRAMES / t_first,
+                      "mig_moved_per_frame": [int(v) for v in moved],
+                      "peak_bytes": peak, "base_bytes": base,
+                      "slab_bytes": slab_b, "frame_bytes": frame_b}
+        log(f"domain {kind} 8 x 2^22 on 2x4 tiles of 512x512: bitwise equal "
+            f"to the replicated run (estimates, ESS, log-marginal, resampled,"
+            f" final ensemble), RMSE {tr['rmse']:.4f} px, B3 per-member "
+            f"launches {FRAMES}/{FRAMES}, mig_overflow 0, mig_moved/frame "
+            f"{int(moved.min())}-{int(moved.max())}, launches {got}, "
+            f"{fps:.2f} frames/s steady ({FRAMES / t_first:.2f} first run); "
+            f"observation {slab_b} B a slab against {frame_b} B a frame; "
+            f"peak memory {peak / 2 ** 30:.2f} GiB (before the run "
+            f"{base / 2 ** 30:.2f}) [{name}]")
+        del res, res2, pf
+        torch.cuda.empty_cache()
+
+    # a bounded window: the overflow residents stay home, with the
+    # migration recorded frame by frame around the step's own call
+    spec_k = make_domain_spec(cfg, p, k_cap=2 ** 16)
+    orig = domain_mod._migrate_route
+    rec = []
+
+    def recording(spec, ens, yx, mesh):
+        plan, route, merged, diag = orig(spec, ens, yx, mesh)
+        live = torch.where(torch.isfinite(ens.log_weights), ens.counts,
+                           torch.zeros_like(ens.counts))
+        rec.append((live.sum(-1), route.kept_counts.sum(-1),
+                    route.send_units.sum((-2, -1)), route.overflow_units,
+                    plan.row_send.sum(-1), diag))
+        return plan, route, merged, diag
+
+    pf = ParallelParticleFilter(model=model, sir=SIRConfig(
+        n_particles=p * c, ess_frac=0.5), mesh=EmulatedMesh(p),
+        dra=dras["rna"], domain=spec_k)
+    domain_mod._migrate_route = recording
+    try:
+        res = pf.run(1, movie.frames)
+    finally:
+        domain_mod._migrate_route = orig
+    check(len(rec) == FRAMES, f"bounded run recorded {len(rec)} frames")
+    check(bool(torch.isfinite(res.estimates).all()
+               and torch.isfinite(res.ess).all()
+               and torch.isfinite(res.log_marginal).all()),
+          "bounded domain run: non-finite outputs")
+    for k, (units, kept, shipped, over, sched, diag) in enumerate(rec):
+        check(torch.equal(kept.long() + shipped.long(), units.long()),
+              f"bounded run frame {k}: kept + shipped != units per shard")
+        check(int(diag["mig_moved"]) == int(sched.sum() - over.sum())
+              == int(shipped.sum()) == int(res.diag["mig_moved"][k])
+              and int(diag["mig_overflow"]) == int(over.sum())
+              == int(res.diag["mig_overflow"][k]),
+              f"bounded run frame {k}: migration diagnostics")
+    tr = track(res, movie)
+    over = res.diag["mig_overflow"]
+    runs["rna_k_cap_2^16"] = {
+        "track": tr, "mig_overflow_per_frame": [int(v) for v in over],
+        "mig_moved_per_frame": [int(v) for v in res.diag["mig_moved"]]}
+    log(f"domain rna k_cap=2^16: finite, kept + shipped == units on every "
+        f"shard and frame, diagnostics as defined; mig_overflow total "
+        f"{int(over.sum())} (max {int(over.max())}/frame), mig_moved total "
+        f"{int(res.diag['mig_moved'].sum())}, RMSE {tr['rmse']:.4f} px "
+        f"(no gate: the overflow residents' likelihood is clamped) [{name}]")
+    del res, pf, rec
+    torch.cuda.empty_cache()
+    return runs
+
+
 def make_movie(seed, cfg, dev):
     from repro_torch.core.draws import TorchDraws
     from repro_torch.data.synthetic_movie import generate_movie
@@ -1528,6 +1820,7 @@ def main() -> int:
 
     # -- phase 2 -------------------------------------------------------------
     patch_check = check_patch(dev)
+    patch_domain_check = check_patch_domain(dev)
     fused_check = check_fused(dev)
     sys_check = check_systematic(dev)
     scan_check = check_scan(dev)
@@ -1725,8 +2018,12 @@ def main() -> int:
     dras = {"mpf": DRAConfig(kind="mpf"),
             "rna": DRAConfig(kind="rna", exchange_ratio=0.1),
             "rpa": DRAConfig(kind="rpa", scheduler="lgs", k_cap=64,
-                             slack=2.0)}
+                             slack=2.0),
+            "arna": DRAConfig(kind="arna", q_min=0.05, q_max=0.5),
+            "butterfly": DRAConfig(kind="butterfly", butterfly_cap=32)}
+    stages = p_mesh.bit_length() - 1
     dist_runs = {}
+    replicated = {}          # RNA's and RPA's results, for phase 5e
     for kind, dra in dras.items():
         dpf = ParallelParticleFilter(model=model, sir=SIRConfig(
             n_particles=p_mesh * c_mesh, ess_frac=0.5), mesh=EmulatedMesh(
@@ -1736,15 +2033,11 @@ def main() -> int:
         dres = dpf.run(1, movie.frames)
         got = counts(all_k)
         t_first = time.perf_counter() - t0
-        want = {k: 0 for k in all_k}
-        # MPF and RNA comb on B1; RPA's per-shard comb scans its CDF
-        want.update({"patch_log_likelihood": FRAMES,
-                     "systematic_ancestors": 0 if kind == "rpa" else FRAMES,
-                     "prefix_sum": FRAMES if kind == "rpa" else 0})
+        want = dist_launches(kind, all_k, stages)
         check(got == want, f"{kind} launches {got}")
         check(patch_k.variants == {"separable": FRAMES, "direct": 0},
               f"{kind} patch variants {patch_k.variants}")
-        check(sys_k.variants == {"merge": 0 if kind == "rpa" else FRAMES,
+        check(sys_k.variants == {"merge": want["systematic_ancestors"],
                                  "seven_pass": 0},
               f"{kind} B1 variants {sys_k.variants}")
         if kind == "mpf":
@@ -1786,12 +2079,31 @@ def main() -> int:
             extra = (f", overflow units/frame max "
                      f"{int(dres.diag['overflow'].max())}, links max "
                      f"{int(dres.diag['links'].max())}")
+        if kind == "arna":
+            extra = (f", lost mode {int(dres.diag['lost'].sum())}/{FRAMES} "
+                     f"frames, exchanged "
+                     f"{int(dres.diag['exchanged'].min())}-"
+                     f"{int(dres.diag['exchanged'].max())} slots/shard")
+        if kind == "butterfly":
+            check(int(dres.diag["overflow"].abs().sum()) == 0
+                  and int(dres.diag["truncated"].abs().sum()) == 0,
+                  "butterfly: overflow or truncated units")
+            extra = (f", overflow 0, truncated 0, shipped units/shard "
+                     f"{int(dres.diag['exchanged'].min())}-"
+                     f"{int(dres.diag['exchanged'].max())}")
+        if kind in ("rna", "rpa"):
+            replicated[kind] = {
+                f: getattr(dres, f) for f in ("estimates", "ess",
+                                              "log_marginal", "resampled")}
+            replicated[kind]["final"] = dres.final
         dist_runs[kind] = {
             "launches": got, "track": tr, "frames_per_s": fps,
             "first_run_frames_per_s": FRAMES / t_first,
             "comm_bytes": cb, "comm_stages": cs,
             "resampled": int(dres.resampled.sum()),
             "mean_ess": float(dres.ess.mean())}
+        if kind == "arna":
+            dist_runs[kind]["lost_frames"] = int(dres.diag["lost"].sum())
         log(f"{kind} 8 x 2^22 = 2^25 particles, 512x512: RMSE "
             f"{tr['rmse']:.4f} px after {WARMUP} (after 10: "
             f"{tr['rmse_after_10']:.4f}, lock-on frame {tr['lock_frame']}),"
@@ -1801,6 +2113,11 @@ def main() -> int:
             f"{got}, {fps:.2f} frames/s steady ({FRAMES / t_first:.2f} "
             f"first run) [{name}]")
         del dres, dres2
+
+    # -- phase 5e: domain decomposition at full width --------------------------
+    domain_runs = run_domain(dev, model, movie, dras, replicated, all_k,
+                             reset, counts, name)
+    del replicated
 
     # -- phase 5d: LM serving at qwen3-32b width ------------------------------
     lm = run_lm(dev, all_k, reset, counts, name)
@@ -1836,6 +2153,16 @@ def main() -> int:
     patch_plain_ms = cuda_ms(lambda: ref.patch_log_likelihood_ref(
         state[..., 0], state[..., 1], state[..., 4], frames1))
     p_bound, p_by = patch_times["i"]["bound_ms"], patch_times["i"]["bound_by"]
+    patch_domain = time_patch_domain(state, frames1, rna_final,
+                                     movie.frames[-1], cfg)
+    log(f"times [{name}]: B3 per-member table on input (i), every row the "
+        f"default geometry: {patch_domain['per_member_ms']:.4f} ms against "
+        f"the shared geometry's {patch_domain['shared_ms']:.4f} (in turns, "
+        f"same bits); at the domain shape {tuple(patch_domain['shape'])} "
+        f"(RNA's final ensemble migrated to its owners, 8 slabs of 264x136):"
+        f" {patch_domain['ms']:.4f} ms, device "
+        f"{patch_domain['device_ms']:.4f}, bound "
+        f"{patch_domain['bound_ms']:.4f} {patch_domain['bound_by']}")
     del patch_in, rna_final
     # B2's timing inputs: the single filter's call (with the comb), the
     # chain cells' call (comb=False) and the bank's
@@ -2008,9 +2335,10 @@ def main() -> int:
         "chain_lane_ms": {"metropolis": lane_ms[False],
                           "rejection": lane_ms[True]},
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
-        "distributed": dist_runs, "lm": lm,
+        "distributed": dist_runs, "domain": domain_runs, "lm": lm,
+        "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
-        "patch_inputs": patch_times,
+        "patch_inputs": patch_times, "patch_domain_times": patch_domain,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,
                     "fused_weight_step": fused_bank_ms},
         "single": {"n": n_single, "frames": FRAMES, "warmup": WARMUP,

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs import base as configs
 from repro_torch.core.distributed import DRAConfig
+from repro_torch.core.domain import DomainSpec
 from repro_torch.core.particles import ParticleEnsemble
 from repro_torch.core.smc import SIRConfig
 from repro_torch.models.lm import model as lm
@@ -90,14 +91,23 @@ def lgssm(fields: dict) -> LinearGaussianSSM:
 def dra_config(fields: dict) -> DRAConfig:
     """``DRAConfig`` from the reference config's fields.  Its
     ``resample_backend`` must be the default ``"auto"``: the port takes
-    the B1 kernel or its plain version by device.  ARNA and butterfly
-    raise ``NotImplementedError`` until their slice."""
+    the B1 kernel or its plain version by device."""
     fields = dict(fields)
     backend = fields.pop("resample_backend", "auto")
     if backend != "auto":
         raise ValueError(f"resample_backend={backend!r}: the port chooses "
                          f"the local-resample kernel by the tensors' device")
     return DRAConfig(**fields)
+
+
+def domain_spec(fields: dict) -> DomainSpec:
+    """The port's ``DomainSpec`` from the reference spec's fields
+    (``dataclasses.asdict`` of ``repro.core.domain.DomainSpec``)."""
+    fields = dict(fields)
+    return DomainSpec(frame_shape=tuple(int(v) for v in
+                                        fields.pop("frame_shape")),
+                      grid=tuple(int(v) for v in fields.pop("grid")),
+                      **fields)
 
 
 _SUB_CONFIGS = {"moe": configs.MoEConfig, "mla": configs.MLAConfig,

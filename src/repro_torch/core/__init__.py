@@ -1,7 +1,8 @@
 """PPF core on torch: particle ensembles, local resampling, the SIR step,
-the distributed resampling algorithms on an emulated mesh, and the
-entry points."""
+the distributed resampling algorithms and the domain decomposition on an
+emulated mesh, and the entry points."""
 from repro_torch.core.distributed import DRAConfig
+from repro_torch.core.domain import DomainSpec
 from repro_torch.core.draws import (BankDraws, ReplayDraws, TorchDraws,
                                     as_draws)
 from repro_torch.core.filters import (FilterBank, FilterResult,
@@ -19,7 +20,7 @@ from repro_torch.core.smc import (SIRCarry, SIRConfig, ess_resample,
                                   make_sir_step, run_sir)
 
 __all__ = [
-    "DRAConfig", "EmulatedMesh",
+    "DRAConfig", "DomainSpec", "EmulatedMesh",
     "BankDraws", "ReplayDraws", "TorchDraws", "as_draws",
     "FilterBank", "FilterResult", "ParallelParticleFilter",
     "make_bank_step", "member_carry",

@@ -10,16 +10,24 @@ exactly what the reference's per-shard program sees:
   weight (one scalar all-gather of the shard log-normalizers);
 * **RNA** — local resample to C, a random slot shuffle, then a static
   ring exchange of a fixed fraction of the particles;
+* **ARNA** — RNA with the exchanged fraction adapted from the effective
+  number of processes, and an all_to_all shuffle in place of the ring
+  when the target is lost (both computed, one picked per frame on the
+  device);
 * **RPA** — proportional allocation of the N offspring over shards,
   local resampling in compressed (counts) form, DLB routing of the
   compressed particles (``repro_torch.core.dlb``) and a local
-  materialize.
+  materialize;
+* **butterfly** — ``log2 P`` pairwise mix stages on distance-doubling
+  partners, each shipping one capped compressed slab to the partner,
+  with a scalar butterfly carrying the global normalizer.
 
-ARNA and the butterfly DRA wait for the next slice.  The local resample
-of MPF/RNA with the systematic scheme takes its ancestors from the B1
-kernel on the card (``kernels.ops.systematic_ancestors``).  Every DRA
-reports the reference's analytic comm-volume accounting
-(``comm_bytes``, ``comm_stages``: the reference's DESIGN.md §14.3).
+The local resample of MPF/RNA/ARNA with the systematic scheme takes its
+ancestors from the B1 kernel on the card
+(``kernels.ops.systematic_ancestors``); RPA's and butterfly's compressed
+resamples comb the comb scan's CDF.  Every DRA reports the reference's
+analytic comm-volume accounting (``comm_bytes``, ``comm_stages``: the
+reference's DESIGN.md §14.3).
 """
 from __future__ import annotations
 
@@ -32,7 +40,6 @@ from repro_torch.core.particles import ParticleEnsemble, log_sum_weights
 from repro_torch.kernels import ops
 
 KINDS = ("mpf", "rna", "arna", "rpa", "butterfly")
-NEXT_SLICE = ("arna", "butterfly")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +48,7 @@ class DRAConfig:
     reference's config except ``resample_backend``: the device chooses
     between the B1 kernel and its plain version."""
 
-    kind: str = "rna"                # mpf | rna | rpa (arna, butterfly next)
+    kind: str = "rna"                # mpf | rna | arna | rpa | butterfly
     resampler: str = "systematic"
     ess_frac: float = 0.5
     exchange_ratio: float = 0.10     # RNA: the paper's 10%-50%
@@ -51,15 +58,11 @@ class DRAConfig:
     scheduler: str = "lgs"           # RPA: gs | sgs | lgs
     k_cap: int = 64                  # RPA routing window per destination
     slack: float = 2.0               # RPA per-shard allocation cap = slack·C
-    butterfly_cap: int = 32
+    butterfly_cap: int = 32          # butterfly: slab slots per stage
 
     def __post_init__(self):
         if self.kind not in KINDS:
             raise ValueError(f"unknown DRA kind {self.kind!r} ({KINDS})")
-        if self.kind in NEXT_SLICE:
-            raise NotImplementedError(
-                f"DRA kind {self.kind!r} waits for the next port slice "
-                f"(ROADMAP A8: ARNA and butterfly)")
         if self.scheduler not in dlb.SCHEDULERS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
         if self.resampler not in resampling.RESAMPLERS:
@@ -181,21 +184,42 @@ def mpf_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
 
 
 def _ring_exchange(state: torch.Tensor, log_weights: torch.Tensor,
-                   m_buf: int, m_valid: int, mesh: runtime.EmulatedMesh):
+                   m_buf: int, m_valid, mesh: runtime.EmulatedMesh,
+                   shuffle: torch.Tensor | None = None):
     """Send the first ``m_buf`` slots of every shard to its ring
-    neighbour; the first ``m_valid`` received slots replace the head.
-    (ARNA's all_to_all shuffle waits with ARNA.)"""
+    neighbour; the first ``m_valid`` (an int or a ``(P,)`` tensor)
+    received slots replace the head.  With ``shuffle`` (ARNA's lost
+    mode, ``(P,)`` bool, the same on every shard) the head travels by a
+    fused all_to_all perfect shuffle instead: both exchanges run and the
+    frame's one is selected on the device."""
+    p = runtime.axis_size(mesh)
     perm = runtime.ring(mesh)
-    recv_state = runtime.ppermute(state[:, :m_buf], mesh, perm)
-    recv_lw = runtime.ppermute(log_weights[:, :m_buf], mesh, perm)
-    keep = torch.arange(m_buf, device=state.device) < m_valid
 
-    def splice(orig, recv):
-        k = keep.reshape((1, -1) + (1,) * (recv.dim() - 2))
-        return torch.cat([torch.where(k, recv, orig[:, :m_buf]),
+    def ring(x):
+        return runtime.ppermute(x[:, :m_buf], mesh, perm)
+
+    def mix(x):
+        b = m_buf // p
+        y = x[:, :b * p].reshape((p, p, b) + x.shape[2:])
+        y = runtime.all_to_all(y, mesh).reshape((p, b * p) + x.shape[2:])
+        return torch.cat([y, x[:, b * p:m_buf]], 1)
+
+    def recv(x):
+        if shuffle is None:
+            return ring(x)
+        pick = shuffle.reshape((p,) + (1,) * (x.dim() - 1))
+        return torch.where(pick, mix(x), ring(x))
+
+    m_valid = torch.as_tensor(m_valid, device=state.device).reshape(-1, 1)
+    keep = torch.arange(m_buf, device=state.device) < m_valid  # (P|1, m_buf)
+
+    def splice(orig, got):
+        k = keep.reshape(keep.shape + (1,) * (got.dim() - 2))
+        return torch.cat([torch.where(k, got, orig[:, :m_buf]),
                           orig[:, m_buf:]], 1)
 
-    return splice(state, recv_state), splice(log_weights, recv_lw)
+    return (splice(state, recv(state)),
+            splice(log_weights, recv(log_weights)))
 
 
 def _permute_ensemble(draws, ensemble: ParticleEnsemble) -> ParticleEnsemble:
@@ -225,6 +249,42 @@ def rna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
                  # logZ gather + ring ppermute of m (state, log-weight) rows
                  **_comm_diag(4 + m * (_per_particle_bytes(ens.state) + 4),
                               2, dev)}
+
+
+def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
+                  mesh: runtime.EmulatedMesh, max_log_lik: torch.Tensor
+                  ) -> tuple[ParticleEnsemble, dict]:
+    """ARNA: RNA with a P_eff-adaptive exchange fraction (all shards
+    tracking → ``q_min``, collapsed → ``q_max``) over a static
+    ``m_buf``-slot buffer, and the all_to_all shuffle when every shard's
+    best log-likelihood ``max_log_lik`` ``(P,)`` is below
+    ``lost_log_lik``.  Draws: the local resample's, then the shuffle's
+    permutation (RNA's order)."""
+    c = ensemble.capacity
+    p = runtime.axis_size(mesh)
+    eff = particles.effective_log_weights(ensemble.log_weights,
+                                          ensemble.counts)
+    p_eff = effective_processes(eff, mesh)
+    local_lz, gathered = _shard_log_z(eff, mesh)
+    glz = torch.logsumexp(gathered, -1)
+    ens = _local_resample_ensemble(draws, ensemble,
+                                   local_lz - glz - log_f32(c), cfg)
+    ens = _permute_ensemble(draws, ens)
+    frac_eff = torch.clamp(p_eff / p, 0.0, 1.0)
+    q = cfg.q_min + (cfg.q_max - cfg.q_min) * (1.0 - frac_eff)
+    m_buf = max(int(round(cfg.q_max * c)) // p * p, p)   # P-divisible
+    m_valid = torch.clamp(torch.ceil(q * c).to(torch.int32), max=m_buf)
+    lost = runtime.pmax(max_log_lik, mesh) < cfg.lost_log_lik
+    state, lw = _ring_exchange(ens.state, ens.log_weights, m_buf, m_valid,
+                               mesh, shuffle=lost)
+    ens = ens.replace(state=state, log_weights=lw)
+    return ens, {
+        "exchanged": m_valid[0], "p_eff": p_eff[0], "q": q[0],
+        "lost": lost[0].to(torch.int32),
+        # P_eff gather + logZ gather + lost-mode pmax + the m_buf exchange
+        # (ring and shuffle ship the same slab)
+        **_comm_diag(12 + m_buf * (_per_particle_bytes(ens.state) + 4), 4,
+                     lw.device)}
 
 
 def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
@@ -259,4 +319,81 @@ def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     }
 
 
-DRAS = {"mpf": mpf_resample, "rna": rna_resample, "rpa": rpa_resample}
+def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
+                       mesh: runtime.EmulatedMesh
+                       ) -> tuple[ParticleEnsemble, dict]:
+    """Butterfly DRA: ``log2 P`` pairwise mix stages (stage ``s`` pairs
+    shard ``i`` with ``i XOR 2^s``).  In a pair of aggregate weights
+    ``(W_i, W_j)`` shard ``i`` draws ``n_i = C − m_i←j + m_i→j`` offspring
+    in compressed form, ``m_i→j = min(round(C·W_i/(W_i+W_j)), cap)``,
+    every unit carrying ``W_i / n_i``, and ships the last ``m_i→j`` units
+    as one ``cap``-slot slab (``dlb.pack_slab``) to the partner; a scalar
+    butterfly (``lz_run ← logaddexp(lz_run, partner) − log 2``) ends as
+    ``log(W / P)`` on every shard.  Capacity grows by ``cap`` a stage;
+    one materialize restores ``C``.  Draws: each stage's comb, in stage
+    order."""
+    c = ensemble.capacity
+    p = runtime.axis_size(mesh)
+    schedule = runtime.butterfly_schedule(p)
+    cap = cfg.butterfly_cap
+    dev = ensemble.log_weights.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # per stage: the two scalars (lz, lz_run) and one slab of (state,
+    # count, log-weight) triples to the partner: 2 rounds
+    comm = _comm_diag(len(schedule) * (8 + cap * (
+        _per_particle_bytes(ensemble.state) + 8)), 2 * len(schedule), dev)
+    if not schedule:                 # P == 1: a plain local resample
+        out = _local_resample_ensemble(
+            draws, ensemble, torch.full((p,), -log_f32(c), device=dev), cfg)
+        return out, {"exchanged": zero, "overflow": zero, "truncated": zero,
+                     **comm}
+    ens = ensemble
+    lz_run = particles.log_sum_weights(ens.log_weights, ens.counts)
+    log2 = log_f32(2.0)
+    shipped_total = torch.zeros(p, dtype=torch.int32, device=dev)
+    overflow_total = torch.zeros(p, dtype=torch.int32, device=dev)
+    for perm in schedule:
+        eff = particles.effective_log_weights(ens.log_weights, ens.counts)
+        lz = torch.logsumexp(eff, -1)
+        lz_p, lzr_p = runtime.grouped_ppermute((lz, lz_run), mesh, perm)
+        lz_run = torch.logaddexp(lz_run, lzr_p) - log2
+        pair = torch.logaddexp(lz, lz_p)
+        # a dead pair (both totals -inf) moves no units either way
+        live = torch.isfinite(pair)
+        frac_own = torch.where(live, torch.exp(lz - pair),
+                               torch.zeros_like(pair))
+        frac_partner = torch.where(live, torch.exp(lz_p - pair),
+                                   torch.zeros_like(pair))
+        m_send = torch.clamp(torch.round(c * frac_own), max=cap).to(
+            torch.int32)
+        m_recv = torch.clamp(torch.round(c * frac_partner), max=cap).to(
+            torch.int32)
+        n_tot = c - m_recv + m_send
+        fill = lz - torch.log(n_tot.clamp(min=1).to(torch.float32))
+        # the comb must cover n_tot <= C + cap points
+        comp = particles.resample_compressed(
+            draws, ens, n_tot, scheme=cfg.resampler,
+            capacity=ens.capacity + cap, fill_log_weight=fill)
+        pack = dlb.pack_slab(comp, m_send, k_cap=cap)
+        recv_state, recv_counts, recv_lw = runtime.grouped_ppermute(
+            (pack.slab_state, pack.slab_counts, pack.slab_log_weights),
+            mesh, perm)
+        ens = ParticleEnsemble(
+            state=torch.cat([comp.state, recv_state], 1),
+            log_weights=torch.cat([comp.log_weights, recv_lw], 1),
+            counts=torch.cat([pack.kept_counts, recv_counts], 1))
+        shipped_total = shipped_total + pack.shipped_units
+        overflow_total = overflow_total + pack.overflow_units
+    # the scalar butterfly is a hypercube all-reduce: lz_run = log(W / P)
+    glz = lz_run + log_f32(float(p))
+    truncated = torch.clamp(particles.logical_size(ens) - c, min=0).to(
+        torch.int32)
+    out = particles.materialize(
+        ens.replace(log_weights=ens.log_weights - glz[:, None]), c)
+    return out, {"exchanged": shipped_total[0],
+                 "overflow": runtime.psum(overflow_total, mesh)[0],
+                 "truncated": runtime.psum(truncated, mesh)[0], **comm}
+
+
+DRAS = {"mpf": mpf_resample, "rna": rna_resample, "arna": arna_resample,
+        "rpa": rpa_resample, "butterfly": butterfly_resample}

@@ -12,11 +12,11 @@ The routing executor packs, per destination, a window of ``k_cap``
 (state, count, per-replica log-weight) triples and moves all windows with
 one ``all_to_all``; units that do not fit stay local.  Here it acts on the
 whole ``(P, C, ...)`` ensemble: shard ``i``'s windows are row ``i``.
-``pack_slab`` (the butterfly's one-destination window) waits with the
-butterfly DRA.
+``pack_slab`` packs the butterfly DRA's one-destination slab.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -196,8 +196,14 @@ def pack_windows(ensemble: ParticleEnsemble, row_send: torch.Tensor, *,
     send_state = gather_particles(ensemble.state, flat).reshape(
         idx.shape + ensemble.state.shape[2:])
     send_lw = ensemble.log_weights.gather(-1, flat).reshape(idx.shape)
-    shipped = torch.zeros_like(counts).scatter_add_(-1, flat,
-                                                    sent.reshape(p, -1))
+    # the entries that ship nothing (a window's padding, all on slot C-1)
+    # add their 0 at spread slots: on one address the CUDA scatter queues
+    # them all (at k_cap = C that is most of 2^28 entries)
+    sent_flat = sent.reshape(p, -1)
+    lanes = torch.arange(flat.shape[-1], device=counts.device) % c
+    shipped = torch.zeros_like(counts).scatter_add_(
+        -1, torch.where(sent_flat > 0, flat, lanes.expand_as(flat)),
+        sent_flat)
     return PackResult((counts - shipped).to(torch.int32), send_state,
                       sent.to(torch.int32), send_lw, idx.to(torch.int32),
                       overflow.to(torch.int32))
@@ -233,3 +239,54 @@ def merge_routed(ensemble: ParticleEnsemble,
                                flat(route.recv_log_weights)], 1),
         counts=torch.cat([route.kept_counts.to(torch.int32),
                           flat(route.recv_counts)], 1))
+
+
+class SlabPack(NamedTuple):
+    """Every shard's outbound slab to its one stage partner."""
+
+    kept_counts: torch.Tensor        # (P, C) multiplicities staying local
+    slab_state: torch.Tensor         # (P, K, ...) outbound particles
+    slab_counts: torch.Tensor        # (P, K) outbound multiplicities
+    slab_log_weights: torch.Tensor   # (P, K) per-replica log-weights
+    shipped_units: torch.Tensor      # (P,) units packed
+    overflow_units: torch.Tensor     # (P,) units that did not fit
+
+
+def pack_slab(ensemble: ParticleEnsemble, m_units: torch.Tensor, *,
+              k_cap: int) -> SlabPack:
+    """Pack the last ``m_units`` (per shard) units of each shard's unit
+    line into one ``k_cap``-slot slab (no collective).  The slab takes
+    the slots with a positive overlap of the suffix window, in slot order,
+    and pads with slot ``C - 1`` carrying 0 units (the reference's
+    ``nonzero(..., size=k_cap, fill_value=C-1)``, as a fixed-size
+    selection with no host sync): a window of ``m ≤ k_cap`` units
+    overlaps at most ``m`` such slots, so it never overflows.  Units that
+    do not fit stay in ``kept_counts``."""
+    counts = ensemble.counts.to(torch.int32)
+    p, c = counts.shape
+    u_hi = row_cumsum(counts)
+    u_lo = u_hi - counts
+    total = u_hi[:, -1:]
+    m = torch.minimum(torch.as_tensor(m_units, device=counts.device)
+                      .to(torch.int64).reshape(p, 1).clamp(min=0), total)
+    sent_all = _window_overlap(u_lo, u_hi, total - m, total)    # (P, C)
+    pos = sent_all > 0
+    rank = row_cumsum(pos.to(torch.int32)) - 1
+    # the k-th positive slot goes to column k; the rest to a spare column
+    dest = torch.where(pos & (rank < k_cap), rank,
+                       torch.full_like(rank, k_cap))
+    lanes = torch.arange(c, device=counts.device).expand(p, c)
+    idx = torch.full((p, k_cap + 1), c - 1, dtype=torch.int64,
+                     device=counts.device).scatter_(-1, dest, lanes)
+    idx = idx[:, :k_cap]
+    valid = torch.arange(k_cap, device=counts.device) < pos.sum(
+        -1, keepdim=True)
+    sent = torch.where(valid, sent_all.gather(-1, idx),
+                       torch.zeros_like(idx)).to(torch.int32)
+    shipped = sent.sum(-1)
+    slab_lw = torch.where(sent > 0, ensemble.log_weights.gather(-1, idx),
+                          torch.full(sent.shape, -math.inf,
+                                     device=counts.device))
+    kept = counts.scatter_add(-1, idx, -sent)
+    return SlabPack(kept, gather_particles(ensemble.state, idx), sent,
+                    slab_lw, shipped, m[:, 0].to(torch.int32) - shipped)

@@ -3,14 +3,17 @@
 ``ParallelParticleFilter`` runs one SIR filter over a frame sequence,
 on one device or — with ``mesh=EmulatedMesh(P)`` and a ``DRAConfig`` —
 as the paper's distributed filter: P shards of ``C = N / P`` slots held
-as one ``(P, C, ...)`` ensemble on the card, resampled by MPF, RNA or
-RPA through the emulated collectives of ``repro_torch.core.runtime``.
+as one ``(P, C, ...)`` ensemble on the card, resampled by MPF, RNA,
+ARNA, RPA or butterfly through the emulated collectives of
+``repro_torch.core.runtime``; with ``domain=`` (a
+``repro_torch.core.domain.DomainSpec``) each shard holds only its halo
+slab of every frame and reweights its tile's particles against it.
 ``FilterBank`` runs B independent filters of one model as one batched
 program, member ``i`` reproducing ``ParallelParticleFilter.run(keys[i],
 observations[i])``.  Both run on the CUDA device unless built with
 ``device="cpu"``; with no CUDA device and no explicit ``device`` they
-raise rather than run elsewhere.  Domain decomposition (ROADMAP A9), a
-bank over a mesh and ``bank_axis`` raise ``NotImplementedError``.
+raise rather than run elsewhere.  A bank over a mesh and ``bank_axis``
+raise ``NotImplementedError`` (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core import distributed as dist
+from repro_torch.core import domain as domain_mod
 from repro_torch.core import particles, runtime, smc
 from repro_torch.core.draws import BankDraws, as_draws, shard_draws
 
@@ -56,9 +60,15 @@ class ParallelParticleFilter:
     """SIR particle filter, on one device or distributed over an emulated
     mesh.
 
-    With ``mesh=None`` (or a 1-shard mesh) it runs the single-device
-    path; otherwise the configured DRA (``dra``, default RNA) over the
-    mesh's ``P`` shards, each of ``C = n_particles / P`` slots.
+    With ``mesh=None`` (or a 1-shard mesh without a domain) it runs the
+    single-device path; otherwise the configured DRA (``dra``, default
+    RNA) over the mesh's ``P`` shards, each of ``C = n_particles / P``
+    slots.  ``domain`` (a ``DomainSpec`` of ``P`` tiles; it needs a mesh)
+    decomposes the input space: each shard reads only its halo slab of
+    every frame, and the trajectory is the replicated filter's.
+    ``observations`` may then be ``(K, H, W)`` frames (tiled here) or a
+    pre-tiled ``(K, P, sh, sw)`` slab stack
+    (``repro_torch.data.synthetic_movie.tile_shard_frames``).
     """
 
     model: Any
@@ -69,9 +79,6 @@ class ParallelParticleFilter:
     domain: Any = None
 
     def __post_init__(self):
-        if self.domain is not None:
-            raise NotImplementedError("domain decomposition (domain=) waits "
-                                      "for ROADMAP A9")
         if self.mesh is not None and not isinstance(self.mesh,
                                                     runtime.EmulatedMesh):
             raise TypeError(f"mesh must be an EmulatedMesh, got "
@@ -80,6 +87,19 @@ class ParallelParticleFilter:
         if not isinstance(self.dra, dist.DRAConfig):
             raise TypeError(f"dra must be a DRAConfig, got "
                             f"{type(self.dra).__name__}")
+        if self.domain is not None:
+            if not isinstance(self.domain, domain_mod.DomainSpec):
+                raise TypeError(f"domain must be a DomainSpec, got "
+                                f"{type(self.domain).__name__}")
+            if self.mesh is None:
+                raise ValueError("domain decomposition needs a mesh: the "
+                                 "tile grid maps onto the mesh's shards "
+                                 "(pass mesh=, or drop domain= for the "
+                                 "single-device path)")
+            if self.domain.tiles != self.mesh.shards:
+                raise ValueError(f"domain grid {self.domain.grid} has "
+                                 f"{self.domain.tiles} tiles but the mesh "
+                                 f"has {self.mesh.shards} shards")
         self.device = resolve_device(self.device)
 
     def run(self, key, observations) -> FilterResult:
@@ -88,10 +108,13 @@ class ParallelParticleFilter:
         int seed or a provider with ``batch_shape (P,)`` (one stream per
         shard)."""
         obs = _to_device(observations, self.device)
-        if self.mesh is None or self.mesh.shards == 1:
+        if self.mesh is None or (self.mesh.shards == 1
+                                 and self.domain is None):
             carry, outs = smc.run_sir(as_draws(key, self.device),
                                       self.model, self.sir, obs)
         else:
+            if self.domain is not None:
+                obs = _tiled_observations(self.domain, obs)
             carry, outs = self._run_sharded(key, obs)
         return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
                             outs.resampled, outs.ancestors, outs.diag,
@@ -103,7 +126,7 @@ class ParallelParticleFilter:
         carry = shard_carry(shard_draws(key, p, self.device), self.model,
                             _shard_capacity(n, p), n)
         step = smc.make_distributed_sir_step(self.model, self.sir, self.dra,
-                                             self.mesh)
+                                             self.mesh, domain=self.domain)
         outs = []
         for k in range(obs.shape[0]):
             carry, out = step(carry, obs[k])
@@ -167,6 +190,21 @@ def member_carry(members, model, sir: smc.SIRConfig) -> smc.SIRCarry:
     draws = BankDraws(members)
     ens = particles.init_ensemble(draws, model.init, sir.n_particles)
     return smc.SIRCarry(draws, ens)
+
+
+def _tiled_observations(dom: domain_mod.DomainSpec,
+                        obs: torch.Tensor) -> torch.Tensor:
+    """``(K, H, W)`` frames, tiled here, or an already tiled ``(K, P, sh,
+    sw)`` slab stack, as it is."""
+    if obs.dim() == 3 and tuple(obs.shape[1:]) == dom.frame_shape:
+        return domain_mod.tile_frames(dom, obs)
+    if obs.dim() == 4 and obs.shape[1] == dom.tiles \
+            and tuple(obs.shape[2:]) == dom.slab_shape:
+        return obs
+    raise ValueError(
+        f"domain observations must be (K,) + {dom.frame_shape} frames or "
+        f"(K, {dom.tiles}) + {dom.slab_shape} slabs, got "
+        f"{tuple(obs.shape)}")
 
 
 def _shard_capacity(n: int, p: int) -> int:

@@ -18,9 +18,10 @@ below acts on that leading dim:
   transpose of the ``(P, P, ...)`` blocks;
 * ``axis_index`` is ``arange(P)`` and ``axis_size`` is ``P``.
 
-A ``torch.distributed`` (NCCL) backend, where each card holds one shard,
-waits for a later slice; so do the butterfly's ``butterfly_schedule`` and
-``grouped_ppermute``.
+``butterfly_schedule`` gives the butterfly DRA's distance-doubling
+partner stages, and ``grouped_ppermute`` moves a pytree along one of
+them.  A ``torch.distributed`` (NCCL) backend, where each card holds one
+shard, waits for a later slice (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -105,6 +106,28 @@ def ring(mesh: EmulatedMesh) -> list[tuple[int, int]]:
     """The ring ``i -> i + 1 (mod P)``."""
     p = mesh.shards
     return [(i, (i + 1) % p) for i in range(p)]
+
+
+def butterfly_schedule(p: int) -> list[list[tuple[int, int]]]:
+    """The ``log2(p)`` distance-doubling stages: stage ``s`` pairs shard
+    ``i`` with ``i XOR 2**s`` (each stage a full ``ppermute``
+    permutation).  ``p`` must be a power of two."""
+    if p < 1 or (p & (p - 1)):
+        raise ValueError(f"butterfly topology needs a power-of-two shard "
+                         f"count, got {p}")
+    return [[(i, i ^ (1 << s)) for i in range(p)]
+            for s in range(p.bit_length() - 1)]
+
+
+def grouped_ppermute(tree: Any, mesh: EmulatedMesh,
+                     perm: Sequence[tuple[int, int]]) -> Any:
+    """``ppermute`` every tensor of a tuple/list/dict along one
+    permutation (one logical exchange)."""
+    if isinstance(tree, torch.Tensor):
+        return ppermute(tree, mesh, perm)
+    if isinstance(tree, dict):
+        return {k: grouped_ppermute(v, mesh, perm) for k, v in tree.items()}
+    return type(tree)(grouped_ppermute(v, mesh, perm) for v in tree)
 
 
 def all_to_all(x: torch.Tensor, mesh: EmulatedMesh) -> torch.Tensor:

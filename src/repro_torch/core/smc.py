@@ -13,8 +13,9 @@ same step on a ``(B, N, ...)`` ensemble with a ``BankDraws`` provider.
 same Alg. 1 over a ``(P, C, ...)`` ensemble of an emulated P-shard mesh,
 with the global normalizer, ESS and estimate taken through the
 collective facade and the resample done by a DRA
-(``repro_torch.core.distributed``).  Domain decomposition waits for
-ROADMAP A9.
+(``repro_torch.core.distributed``); with a ``domain``
+(``repro_torch.core.domain``) each shard reweights against its own halo
+slab through the migrate-after-advance hook.
 """
 from __future__ import annotations
 
@@ -25,9 +26,11 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core import distributed as dist
+from repro_torch.core import domain as domain_mod
 from repro_torch.core import particles, resampling, runtime
 from repro_torch.core.particles import ParticleEnsemble, effective_sample_size
 from repro_torch.kernels import sir_fused
+from repro_torch.models.ssm.base import domain_hooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +236,8 @@ def run_sir(draws, model, cfg: SIRConfig,
 # ---------------------------------------------------------------------------
 
 def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
-                              mesh: runtime.EmulatedMesh):
+                              mesh: runtime.EmulatedMesh,
+                              domain: domain_mod.DomainSpec | None = None):
     """The SIR step of the distributed filter over an emulated ``P``-shard
     mesh.  ``cfg.n_particles`` is the GLOBAL count; the carry's ensemble
     is ``(P, C, ...)`` with ``C = n_particles / P``, and its draws
@@ -243,15 +247,37 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
     DRA always runs (its draws are always taken), and the global ESS
     decides whether its result is kept.  Outputs are the replicated
     values (one copy); ``diag`` holds the DRA's diagnostics and the
-    step's comm-volume accounting."""
+    step's comm-volume accounting.
+
+    With ``domain``, the observation is the ``(P, sh, sw)`` stack of the
+    shards' halo slabs, and the reweight goes through
+    ``domain.exchange_log_likelihood``: particles travel to their tile
+    owners, are reweighted against the owner's slab (one call of the
+    model's ``tile_observation_log_prob`` for all shards) and the values
+    travel back to their home slots, so everything after the reweight is
+    the replicated filter's.  ``mig_moved``/``mig_overflow`` join
+    ``diag``, outside the DRA's comm accounting.  It needs the model's
+    ``positions`` and ``tile_observation_log_prob`` hooks."""
+    positions_fn, tile_fn = domain_hooks(model)
+    if domain is not None and tile_fn is None:
+        raise ValueError("domain decomposition needs a model with "
+                         "tile_observation_log_prob and positions hooks")
+    origins = None if domain is None else domain.slab_origins()
     resample = dist.DRAS[dra.kind]
 
     def step(carry: SIRCarry, observation):
         draws, ens = carry
         p, c = ens.log_weights.shape
         ens = particles.advance(ens, draws, model.transition_sample)
-        ens = particles.reweight(ens, model.observation_log_prob(
-            ens.state, observation))
+        if domain is None:
+            ll = model.observation_log_prob(ens.state, observation)
+            mig_diag = {}
+        else:
+            ll, mig_diag = domain_mod.exchange_log_likelihood(
+                domain, ens, positions_fn(ens.state),
+                lambda state: tile_fn(state, observation, origins),
+                mesh=mesh)
+        ens = particles.reweight(ens, ll)
         lw = ens.log_weights
         glz = dist.global_log_z(lw, mesh)
         ess = dist.global_ess(lw, mesh)
@@ -263,12 +289,18 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
         do_resample = torch.logical_or(
             ess < cfg.ess_frac * (p * c),
             torch.tensor(bool(cfg.always_resample), device=ess.device))
-        r_ens, diag = resample(draws, ens, dra, mesh)
+        if dra.kind == "arna":
+            # each shard's best live log-likelihood: the lost-mode test
+            max_ll = torch.where(torch.isfinite(lw), ll,
+                                 torch.full_like(ll, -math.inf)).amax(-1)
+            r_ens, diag = resample(draws, ens, dra, mesh, max_ll)
+        else:
+            r_ens, diag = resample(draws, ens, dra, mesh)
         # fold the weight phase's collectives into the comm accounting:
         # logZ gather + ESS gather/psum + estimate psum
         step_bytes = 12 + runtime.tree_bytes(estimate[0])
         diag = {**diag, "comm_bytes": diag["comm_bytes"] + step_bytes,
-                "comm_stages": diag["comm_stages"] + 4}
+                "comm_stages": diag["comm_stages"] + 4, **mig_diag}
         ens = _select(do_resample, r_ens,
                       ens.replace(log_weights=lw - glz[:, None]))
         out = StepOutput(estimate[0], ess[0], glz[0], do_resample[0],

@@ -50,6 +50,14 @@
 //   - R = 4 (the tracking model's) is unrolled with the column weights in
 //     registers; any other R takes the same arithmetic in loops,
 //     recomputing the column weights a row.
+//   - Geometry: one centre clamp and frame origin for every member (the
+//     call's six integers), or a per-member table (`geom`, B rows of lo_y,
+//     hi_y, lo_x, hi_x, oy, ox): a domain-decomposed filter's P halo slabs,
+//     each with its own clamp and origin, in one launch.  Each thread reads
+//     its own member's row (a block's threads share one or two rows, so
+//     the loads are broadcasts), and a block stages a box only when all
+//     its windows belong to one member, so the box's rows and columns are
+//     that member's frame array's.  The arithmetic is the same either way.
 //
 // What bounds it on the H100: the instructions and their latency for a
 // converged cloud (~460 a particle at R = 4, 21 of them exps on the SFU),
@@ -96,6 +104,7 @@ struct PatchCall {
   long long f_b, f_row;
   float* out;
   void* stream;
+  const int* geom;  // (B, 6) per-member geometry, or null: the six below
   int B, N, R, h, w, matched, vec, lo_y, hi_y, lo_x, hi_x, oy, ox;
   float inv2s2, sl2, i_bg;
 };
@@ -106,7 +115,7 @@ struct PatchCall {
 template <int RT, bool MATCHED, bool BG, class Load>
 __device__ __forceinline__ float sep_value(const PatchCall& c, float y,
                                            float x, float i0, int cy,
-                                           int cx, Load load) {
+                                           int cx, int ox, Load load) {
   constexpr bool FIXED = RT >= 0;
   const int R = FIXED ? RT : c.R;
   const int W = 2 * R + 1;
@@ -115,7 +124,7 @@ __device__ __forceinline__ float sep_value(const PatchCall& c, float y,
   // the window's first column in the frame array (>= 0: the wrapper
   // checks the geometry), the aligned column of slot 0 and the window's
   // first slot
-  const int c0 = cx - R - c.ox;
+  const int c0 = cx - R - ox;
   const int a = c0 & ~3;
   const int sft = c0 - a;
 
@@ -124,7 +133,7 @@ __device__ __forceinline__ float sep_value(const PatchCall& c, float y,
     return (j >= 3 || j >= sft) && (j < W || j < sft + W);
   };
   auto col_weight = [&](int j) {
-    const float d = (float)(a + c.ox + j) - x;
+    const float d = (float)(a + ox + j) - x;
     const float e = __expf(-d * d * k2);
     return in_window(j) ? e : 0.f;
   };
@@ -223,11 +232,23 @@ __global__ void __launch_bounds__(PL_THREADS) k_patch_sep(PatchCall c) {
     x = __ldg(s + 1);
     i0 = __ldg(s + 4);
   }
+  // this member's geometry: its row of the table, or the call's
+  int lo_y = c.lo_y, hi_y = c.hi_y, lo_x = c.lo_x, hi_x = c.hi_x,
+      oy = c.oy, ox = c.ox;
+  if (c.geom != nullptr) {
+    const int* g = c.geom + 6 * b;
+    lo_y = __ldg(g + 0);
+    hi_y = __ldg(g + 1);
+    lo_x = __ldg(g + 2);
+    hi_x = __ldg(g + 3);
+    oy = __ldg(g + 4);
+    ox = __ldg(g + 5);
+  }
   // jnp.round is round-half-to-even: rintf, not roundf
-  const int cy = min(max((int)rintf(y), c.lo_y), c.hi_y);
-  const int cx = min(max((int)rintf(x), c.lo_x), c.hi_x);
+  const int cy = min(max((int)rintf(y), lo_y), hi_y);
+  const int cx = min(max((int)rintf(x), lo_x), hi_x);
   // the window's top-left pixel in the frame array
-  const int wy = cy - R - c.oy, wx = cx - R - c.ox;
+  const int wy = cy - R - oy, wx = cx - R - ox;
 
   // the block's windows: their bounds, mean and members
   int v[8] = {valid ? wy : INT_MAX, valid ? -wy : INT_MAX,
@@ -297,14 +318,14 @@ __global__ void __launch_bounds__(PL_THREADS) k_patch_sep(PatchCall c) {
   float val;
   if (staged && inside) {
     const int top = (wy - r0) * cols - a0;
-    val = sep_value<RT, MATCHED, BG>(c, y, x, i0, cy, cx,
+    val = sep_value<RT, MATCHED, BG>(c, y, x, i0, cy, cx, ox,
         [&](int ry, int q, int a, int, int) {
           return reinterpret_cast<const float4*>(box + top + ry * cols +
                                                  a)[q];
         });
   } else {
     const float* top = c.frames + b * c.f_b + (long long)wy * c.f_row;
-    val = sep_value<RT, MATCHED, BG>(c, y, x, i0, cy, cx,
+    val = sep_value<RT, MATCHED, BG>(c, y, x, i0, cy, cx, ox,
         [&](int ry, int q, int a, int sft, int w) {
           const float* rp = top + (long long)ry * c.f_row + a;
           if constexpr (VEC) {
@@ -412,7 +433,8 @@ void launch_direct(bool matched, dim3 grid, cudaStream_t st,
 // k_patch_sep.  `vec` asks for the 16-byte window loads: the frames' base
 // is 16-byte aligned and their member and row strides and width are
 // multiples of 4 (the wrapper's rule; the base and strides are checked
-// again here).
+// again here).  A non-null `geom` holds every member's geometry (the
+// wrapper checked each row keeps its windows inside the frame).
 extern "C" int ppf_patch_log_likelihood(const void* call) {
   const PatchCall* a = static_cast<const PatchCall*>(call);
   const long long total = (long long)a->B * a->N;
@@ -430,9 +452,11 @@ extern "C" int ppf_patch_log_likelihood(const void* call) {
   return (int)cudaGetLastError();
 }
 
-// The first design, for same-run timing (`vec` is not read).
+// The first design, for same-run timing (`vec` is not read; one shared
+// geometry only).
 extern "C" int ppf_patch_log_likelihood_direct(const void* call) {
   const PatchCall* a = static_cast<const PatchCall*>(call);
+  if (a->geom != nullptr) return (int)cudaErrorInvalidValue;
   const long long total = (long long)a->B * a->N;
   if (total == 0) return 0;
   const PatchCall& c = *a;

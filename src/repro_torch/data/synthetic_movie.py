@@ -53,6 +53,15 @@ def generate_movie(draws, cfg: TrackingConfig, n_frames: int = 50,
     return Movie(frames=clean + noise, trajectories=traj, intensities=inten)
 
 
+def tile_shard_frames(frames: torch.Tensor, spec) -> torch.Tensor:
+    """``(K, H, W)`` frames -> ``(K, P, sh, sw)`` halo slabs of the
+    ``repro_torch.core.domain.DomainSpec`` ``spec``: dim 1 is the shard
+    dim, so each shard reads its own tile and halo ring, about 1/P of the
+    frame's bytes."""
+    from repro_torch.core.domain import tile_frames
+    return tile_frames(spec, frames)
+
+
 def tracking_rmse(estimates: torch.Tensor, trajectory: torch.Tensor,
                   warmup: int = 5) -> torch.Tensor:
     """Positional RMSE in pixels after ``warmup`` frames."""

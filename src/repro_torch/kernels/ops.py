@@ -27,15 +27,18 @@ def patch_log_likelihood(state: torch.Tensor, frames: torch.Tensor, *,
                          radius: int = 4, sigma_psf: float = 1.16,
                          sigma_like: float = 2.0, i_bg: float = 0.0,
                          matched: bool = True, center_bounds=None,
-                         frame_origin=None) -> torch.Tensor:
+                         frame_origin=None, geometry=None) -> torch.Tensor:
     """``(..., N)`` patch log-likelihoods of ``(..., N, S)`` particle
     states (columns y, x and i0 = 0, 1, 4) against ``(..., H, W)`` frames.
     Frames with fewer leading dims are broadcast (a stride-0 view, no
-    copy): the shards of a distributed filter share one frame.
+    copy): the shards of a distributed filter share one frame.  One
+    geometry (``center_bounds``/``frame_origin``) serves every member, or
+    ``geometry``, a ``(..., 6)`` int table (on the card one made by
+    ``patch_likelihood.member_geometry``), gives each member its own.
     """
     kw = dict(radius=radius, sigma_psf=sigma_psf, sigma_like=sigma_like,
               i_bg=i_bg, matched=matched, center_bounds=center_bounds,
-              frame_origin=frame_origin)
+              frame_origin=frame_origin, geometry=geometry)
     frames = frames.expand(state.shape[:-2] + frames.shape[-2:])
     if on_cuda(state):
         return patch_likelihood.patch_log_likelihood_kernel(state, frames,

@@ -26,12 +26,36 @@ def default_geometry(radius: int, h: int, w: int, center_bounds=None,
     return geom
 
 
+def geometry_columns(radius: int, h: int, w: int, lead: tuple,
+                     center_bounds=None, frame_origin=None, geometry=None,
+                     device=None) -> tuple[torch.Tensor, ...]:
+    """The six geometry integers as int64 tensors that broadcast against
+    ``lead + (1,)``: 0-dim for one geometry shared by every member (the
+    defaults, or ``center_bounds``/``frame_origin``), ``lead + (1,)``
+    columns of a per-member ``lead + (6,)`` ``geometry`` table (a domain's
+    slabs, each with its own clamp and origin)."""
+    if geometry is None:
+        return tuple(torch.tensor(v, dtype=torch.int64, device=device)
+                     for v in default_geometry(radius, h, w, center_bounds,
+                                               frame_origin))
+    if center_bounds is not None or frame_origin is not None:
+        raise ValueError("give a per-member geometry table or "
+                         "center_bounds/frame_origin, not both")
+    g = torch.as_tensor(geometry, device=device)
+    if g.shape != tuple(lead) + (6,) or g.is_floating_point():
+        raise ValueError(f"geometry must be an integer {tuple(lead) + (6,)}"
+                         f" table, got {g.dtype} {tuple(g.shape)}")
+    g = g.to(torch.int64)
+    return tuple(g[..., k, None] for k in range(6))
+
+
 def patch_log_likelihood_ref(y: torch.Tensor, x: torch.Tensor,
                              i0: torch.Tensor, image: torch.Tensor, *,
                              radius: int = 4, sigma_psf: float = 1.16,
                              sigma_like: float = 2.0, i_bg: float = 0.0,
                              matched: bool = True, center_bounds=None,
-                             frame_origin=None) -> torch.Tensor:
+                             frame_origin=None,
+                             geometry=None) -> torch.Tensor:
     """``(..., N)`` Gaussian-PSF patch log-likelihoods.
 
     ``y``, ``x``, ``i0`` are ``(..., N)`` and ``image`` is ``(..., H, W)``
@@ -39,20 +63,23 @@ def patch_log_likelihood_ref(y: torch.Tensor, x: torch.Tensor,
     to even (``torch.round``, as ``jnp.round``), clamped to the centre
     bounds, and its ``(2R+1)²`` window is gathered at an offset of
     ``frame_origin``; positions, centres and the PSF stay in frame
-    coordinates.
+    coordinates.  ``geometry`` (``(..., 6)``: ``lo_y, hi_y, lo_x, hi_x,
+    oy, ox`` per member) gives each member its own bounds and origin.
     """
     h, w = image.shape[-2:]
-    lo_y, hi_y, lo_x, hi_x, oy, ox = default_geometry(
-        radius, h, w, center_bounds, frame_origin)
+    lo_y, hi_y, lo_x, hi_x, oy, ox = geometry_columns(
+        radius, h, w, y.shape[:-1], center_bounds, frame_origin, geometry,
+        y.device)
     r = torch.arange(-radius, radius + 1, device=y.device)
     dy, dx = torch.meshgrid(r, r, indexing="ij")
     dy, dx = dy.reshape(-1), dx.reshape(-1)                    # (K,)
-    cy = torch.round(y).to(torch.int64).clamp(lo_y, hi_y)
-    cx = torch.round(x).to(torch.int64).clamp(lo_x, hi_x)
+    cy = torch.clamp(torch.round(y).to(torch.int64), lo_y, hi_y)
+    cx = torch.clamp(torch.round(x).to(torch.int64), lo_x, hi_x)
     py = cy[..., None] + dy                                     # (..., N, K)
     px = cx[..., None] + dx
     flat = image.reshape(image.shape[:-2] + (h * w,))
-    idx = ((py - oy) * w + (px - ox)).reshape(py.shape[:-2] + (-1,))
+    idx = ((py - oy[..., None]) * w + (px - ox[..., None])).reshape(
+        py.shape[:-2] + (-1,))
     patch = torch.gather(flat, -1, idx).reshape(py.shape)
     d2 = (py.to(y.dtype) - y[..., None]) ** 2 + (
         px.to(x.dtype) - x[..., None]) ** 2

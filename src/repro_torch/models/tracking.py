@@ -4,16 +4,21 @@ near-constant-velocity dynamics and a Gaussian-PSF observation model
 
 State ``(..., N, 5)`` = (y, x, v_y, v_x, I_0).  ``TrackingSSM``'s
 likelihood goes through ``repro_torch.kernels.ops``: the Hopper patch
-kernel on the card, the plain version on the CPU.  The tile/domain hooks
-wait for ROADMAP A9.
+kernel on the card, the plain version on the CPU.  Its spatial hooks
+(``positions``, ``tile_observation_log_prob``) let the distributed filter
+decompose the input space (``repro_torch.core.domain``): the tile
+likelihood of every shard's halo slab is one patch-kernel launch, each
+slab with its own geometry.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.core.domain import DomainSpec
+from repro_torch.kernels import ops, patch_likelihood, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +69,66 @@ def patch_log_likelihood(state: torch.Tensor, frame: torch.Tensor,
         **_likelihood_kwargs(cfg))
 
 
+def _tile_bounds(cfg: TrackingConfig, slab_shape: tuple[int, int],
+                 origin: tuple[int, int]) -> tuple[int, ...]:
+    """The ``(lo_y, hi_y, lo_x, hi_x, oy, ox)`` geometry of one halo slab:
+    the centre clamp is the frame interior intersected with "the patch
+    fits in the slab"."""
+    oy, ox = (int(v) for v in origin)
+    h, w = cfg.img_size
+    r = cfg.patch_radius
+    sh, sw = slab_shape
+    return (max(r, oy + r), min(h - 1 - r, oy + sh - 1 - r),
+            max(r, ox + r), min(w - 1 - r, ox + sw - 1 - r), oy, ox)
+
+
+@functools.lru_cache(maxsize=64)
+def tile_geometry(cfg: TrackingConfig, slab_shape: tuple[int, int],
+                  origins: tuple, device: torch.device) -> torch.Tensor:
+    """The ``(P, 6)`` geometry table of P slabs, checked once on the host
+    and kept on ``device`` (a frame then costs no check and no sync)."""
+    return patch_likelihood.member_geometry(
+        [_tile_bounds(cfg, slab_shape, o) for o in origins],
+        cfg.patch_radius, *slab_shape, device)
+
+
+def tile_patch_log_likelihood(state: torch.Tensor, slab: torch.Tensor,
+                              origin_yx, cfg: TrackingConfig
+                              ) -> torch.Tensor:
+    """Tile-local likelihood against halo slabs.
+
+    ``slab`` is one ``(sh, sw)`` slab whose ``[0, 0]`` pixel sits at frame
+    coordinates ``origin_yx`` (two ints, possibly negative at a frame
+    edge) for ``(N, 5)`` particles, or a ``(P, sh, sw)`` slab stack with
+    one origin per slab (a sequence of ``P`` pairs) for ``(P, M, 5)``
+    particles: then every slab's geometry goes into one kernel launch.
+    All float arithmetic stays in frame coordinates; the centre clamp is
+    the frame interior intersected with "the patch fits in the slab".
+    For a particle its slab's tile owns (``domain.owner_of``) the slab
+    constraint is a no-op, and the value is the full frame's, bit for
+    bit."""
+    kw = _likelihood_kwargs(cfg)
+    sh, sw = slab.shape[-2:]
+    if slab.dim() == 2:
+        geom = _tile_bounds(cfg, (sh, sw), origin_yx)
+        return ops.patch_log_likelihood(state, slab, center_bounds=geom[:4],
+                                        frame_origin=geom[4:], **kw)
+    origins = tuple((int(oy), int(ox)) for oy, ox in origin_yx)
+    if len(origins) != slab.shape[0]:
+        raise ValueError(f"{len(origins)} origins for {slab.shape[0]} "
+                         f"slabs")
+    table = tile_geometry(cfg, (sh, sw), origins, state.device)
+    return ops.patch_log_likelihood(state, slab, geometry=table, **kw)
+
+
+def make_domain_spec(cfg: TrackingConfig, tiles: int, *,
+                     k_cap: int | None = None) -> DomainSpec:
+    """The domain decomposition of this imaging model: halo = patch
+    radius, the squarest tile grid that divides the frame."""
+    return DomainSpec.for_mesh(cfg.img_size, tiles, cfg.patch_radius,
+                               k_cap=k_cap)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrackingSSM:
     """The tracking application as a ``StateSpaceModel``."""
@@ -106,3 +171,14 @@ class TrackingSSM:
         the Hopper kernel for CUDA tensors."""
         return ops.patch_log_likelihood(state, frame,
                                         **_likelihood_kwargs(self.cfg))
+
+    def positions(self, state: torch.Tensor) -> torch.Tensor:
+        """Frame-coordinate ``(y, x)`` of every particle (domain hook)."""
+        return state[..., 0:2]
+
+    def tile_observation_log_prob(self, state: torch.Tensor,
+                                  slab: torch.Tensor,
+                                  origin_yx) -> torch.Tensor:
+        """Tile-local patch likelihood against halo slabs (domain hook;
+        ``tile_patch_log_likelihood``)."""
+        return tile_patch_log_likelihood(state, slab, origin_yx, self.cfg)

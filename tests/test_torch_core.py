@@ -211,4 +211,8 @@ def test_domain_hooks_resolve_like_the_reference():
 
     pos, tile = domain_hooks(Legacy())
     assert callable(pos) and callable(tile)
-    assert domain_hooks(TrackingSSM(TrackingConfig())) == (None, None)
+    model = TrackingSSM(TrackingConfig())
+    pos, tile = domain_hooks(model)
+    assert pos == model.positions
+    assert tile == model.tile_observation_log_prob
+    assert domain_hooks(object()) == (None, None)

@@ -403,9 +403,12 @@ def test_dra_config_converter_carries_reference_fields():
         convert.dra_config(dataclasses.asdict(dataclasses.replace(
             ref, resample_backend="jnp")))
     for kind in ("arna", "butterfly"):
-        with pytest.raises(NotImplementedError, match="next port slice"):
-            convert.dra_config(dataclasses.asdict(dataclasses.replace(
-                ref, kind=kind)))
+        other = dataclasses.replace(ref, kind=kind, q_min=0.1,
+                                    butterfly_cap=8)
+        want = dataclasses.asdict(other)
+        want.pop("resample_backend")
+        assert dataclasses.asdict(convert.dra_config(
+            dataclasses.asdict(other))) == want
 
 
 def test_shard_ensemble_layout_round_trips():

@@ -5,10 +5,10 @@
 * Importing the port builds nothing and loads no CUDA library.
 * Entry points run on the CUDA device by default and raise without one
   (the filters, ``generate`` and ``smc_decode``); the options of later
-  slices (domain decomposition, ARNA, butterfly, a bank over a mesh,
-  ``bank_axis``, the LM layer kinds L/M/X/R/D, MoE FFNs, multi-codebook
-  heads, sliding windows, session-hosted decoding) raise
-  ``NotImplementedError``.
+  slices (a bank over a mesh, ``bank_axis``, the LM layer kinds
+  L/M/X/R/D, MoE FFNs, multi-codebook heads, sliding windows,
+  session-hosted decoding) raise ``NotImplementedError``; ARNA, butterfly
+  and ``domain=`` build and run.
 * The chain resamplers and attention run on the CPU through their plain
   versions, and their CUDA wrappers refuse a CPU tensor instead of
   falling back.
@@ -88,19 +88,41 @@ def _later_slice(option):
     sir = SIRConfig(n_particles=8)
     if option == "mesh":        # a bank over a mesh
         return FilterBank(model, sir, device="cpu", mesh=EmulatedMesh(2))
-    if option == "dra":         # the DRAs of the next slice
-        return [DRAConfig(kind=k) for k in ("arna", "butterfly")]
-    if option == "domain":
-        return ParallelParticleFilter(model, sir, device="cpu",
-                                      mesh=EmulatedMesh(2),
-                                      domain=object())
     return FilterBank(model, sir, device="cpu", bank_axis="bank")
 
 
-@pytest.mark.parametrize("option", ["mesh", "dra", "domain", "bank_axis"])
+@pytest.mark.parametrize("option", ["mesh", "bank_axis"])
 def test_later_slices_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         _later_slice(option)
+
+
+@pytest.mark.parametrize("kind", ["arna", "butterfly"])
+def test_arna_and_butterfly_construct(kind):
+    """Both DRAs of this slice build and run on the CPU: a filter on an
+    emulated mesh takes them."""
+    dra = DRAConfig(kind=kind)
+    model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
+    pf = ParallelParticleFilter(model, SIRConfig(n_particles=16),
+                                device="cpu", mesh=EmulatedMesh(2), dra=dra)
+    res = pf.run(0, torch.randn(2, 16, 16,
+                                generator=torch.Generator().manual_seed(0)))
+    assert pf.dra.kind == kind
+    assert bool(torch.isfinite(res.estimates).all())
+
+
+def test_domain_constructs_and_runs():
+    """``domain=`` builds on a mesh of as many shards as tiles and runs."""
+    from repro_torch.models.tracking import make_domain_spec
+    cfg = TrackingConfig(img_size=(16, 16))
+    spec = make_domain_spec(cfg, 2)
+    pf = ParallelParticleFilter(TrackingSSM(cfg), SIRConfig(n_particles=16),
+                                device="cpu", mesh=EmulatedMesh(2),
+                                domain=spec)
+    res = pf.run(0, torch.randn(2, 16, 16,
+                                generator=torch.Generator().manual_seed(0)))
+    assert pf.domain is spec
+    assert res.diag["mig_overflow"].shape == (2,)
 
 
 @pytest.mark.parametrize("backend", ["composed", "fused"])

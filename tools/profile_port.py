@@ -9,7 +9,10 @@ N = 2^22 (systematic, Metropolis and rejection resampling, fused step;
 the default composed step with its systematic comb), the FilterBank of
 8 members × 2^20 (fused),
 the distributed filter on an emulated 8-shard mesh at 8 × 2^22 (MPF,
-RNA, RPA), all on 512×512 frames, and the LM serving cells at
+RNA, ARNA, RPA, butterfly; RNA and RPA also domain-decomposed over 2 × 4
+tiles, ``domain-rna``/``domain-rpa``, where the migration's torch ops
+show in the top kernels), all on 512×512 frames, and the LM serving
+cells at
 qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
 chip_smoke.py's sizes) — it runs the path once to warm up, then once
 under ``torch.profiler`` (``--frames`` frames of a filter; one whole
@@ -167,7 +170,8 @@ def main() -> int:
     from repro_torch.core.draws import TorchDraws
     from repro_torch.core.runtime import EmulatedMesh
     from repro_torch.data.synthetic_movie import generate_movie
-    from repro_torch.models.tracking import TrackingConfig, TrackingSSM
+    from repro_torch.models.tracking import (TrackingConfig, TrackingSSM,
+                                             make_domain_spec)
 
     dev = torch.device("cuda")
     name = subprocess.run(
@@ -188,10 +192,13 @@ def main() -> int:
         "single-composed": dict(sir=SIRConfig(n_particles=2 ** 22,
                                               ess_frac=0.5)),
     }
-    for kind in ("mpf", "rna", "rpa"):
+    for kind in ("mpf", "rna", "arna", "rpa", "butterfly"):
         paths[f"dist8-{kind}"] = dict(
             sir=SIRConfig(n_particles=8 * 2 ** 22, ess_frac=0.5),
             mesh=EmulatedMesh(8), dra=DRAConfig(kind=kind))
+    for kind in ("rna", "rpa"):
+        paths[f"domain-{kind}"] = dict(paths[f"dist8-{kind}"],
+                                       domain=make_domain_spec(cfg, 8))
     runs = {}
     for label, kw in paths.items():
         def run(kw=kw):
