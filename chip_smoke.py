@@ -30,7 +30,10 @@
    99% of the mass, a dead run), without the comb, and, for B1, a member
    with no finite weight (ancestor 0, as the first design); B4/B5 both on
    the tma kernel that ``plan`` picks at the reference's budget and on the
-   lane kernel;
+   lane kernel; and this slice's shapes: B2 at state widths 1, 8 and 40,
+   B1 and B3 at the bank over the mesh's 32 x 2^22 and B3 on ASIR's
+   262,144-row lattice, and the fixed-order row sums of ``core`` giving a
+   row the same bits alone, in 8 rows and in 32;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -62,6 +65,23 @@
    are printed; then RNA with a bounded window (k_cap = 2^16), whose
    migration is checked frame by frame (kept + shipped units == each
    shard's units, the diagnostics as the reference defines them);
+5f. runs a FilterBank over the emulated 8-shard mesh at full width: 4
+   members x 2^25 particles (2^27 on the card), RNA and RPA twice each,
+   member 0 on 5c's seed and movie: every member under the tracking gate,
+   member 0 bit for bit 5c's standalone run, the two runs bit for bit
+   equal, B3 and the comb (B1 or the comb scan) launched once a frame for
+   the whole bank; RNA again on a (2, 8) bank x data grid with
+   ``bank_axis``, bit for bit the bank without it;
+5g. runs the rest of the filter layer: ASIR on a 256 x 256 x 4 lattice
+   (one B3 launch over its 262,144 rows and one B2 launch a frame, RMSE
+   within 2.5 px of phase 3's exact filter for each of its 8 seeds);
+   stochastic volatility and Lorenz-96 at N = 2^22 over 200 frames
+   simulated on the card, 8 seeds, fused and composed (normalized
+   weights after every step, ESS in [1, N], seed 0 repeated step by step
+   bit for bit, B2 or the comb scan once a frame, the backends' mean
+   summed log-marginals within 4 standard errors); and the genealogy
+   smoothers at N = 2^20, T = 24 against the Kalman RTS smoother (the
+   reference's CLT bound, smoothing and lag 8 beating filtering);
 5d. serves the qwen3-32b architecture at full width (d_model 5120, 64/8
    heads, d_ff 25600, vocab 151936) with 16 of its 64 layers and random
    bf16 weights drawn on the card: ``generate`` (4 prompts × 1024
@@ -97,14 +117,18 @@
    for B4/B5 their lane kernel launched directly (yardsticks: the port
    never calls SDPA or a float ``torch.cumsum`` on the card, and takes the
    mma.sync and lane kernels only at other shapes), and the end-to-end
-   frames/s and tokens/s.
+   frames/s and tokens/s; and, recorded but not gated, B1 and B3 at the
+   bank over the mesh's 32 x 2^22 (B3 on 5f's final RNA ensemble), B3 on
+   ASIR's lattice and B2 at D = 1, 8 and 40, each beside its first design
+   and its bound.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
 check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
-that the ``{"kernels": [...]}`` record.
+that the ``{"kernels": [...]}`` record, where each kernel also lists its
+launches in phases 5f and 5g (``launches_new_phases``).
 """
 from __future__ import annotations
 
@@ -629,6 +653,11 @@ def check_fused(dev) -> dict:
     check(torch.equal(anc, torch.arange(2 ** 20, device=dev,
                                         dtype=torch.int32).expand(8, -1)),
           "comb=False must give identity ancestors")
+    # this slice's state widths: stochastic volatility (D = 1), Lorenz-96
+    # (D = 8, one estimate pass of EST_DIMS) and D = 40 (five passes)
+    for d in (1, 8, 40):
+        one(*fused_inputs(1, 2 ** 22, 40 + d, dev, d=d),
+            label=f"B=1 N=2^22 D={d}")
     # a member's result must not depend on B: member 2 alone == in the bank
     solo = kern(lw[2:3].contiguous(), ll[2:3].contiguous(),
                 state[2:3].contiguous(), u[2:3].contiguous())
@@ -1739,6 +1768,387 @@ def run_domain(dev, model, movie, dras, replicated, all_k, reset, counts,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phases 5f and 5g: the bank over the mesh, and the rest of the filter layer
+# ---------------------------------------------------------------------------
+
+BANK_B, BANK_P, BANK_C = 4, 8, 2 ** 22
+ASIR_GRID, ASIR_BINS, ASIR_ROWS = 256, 4, 262144
+FAMILY_FRAMES, FAMILY_N = 200, 2 ** 22
+SMOOTH_N, SMOOTH_T = 2 ** 20, 24
+# tests/test_genealogy.py's seeds and smoother slacks (slack · sqrt(mean
+# tr P_t|T / N), tests/stats.py's smoother_mean_bound)
+SMOOTH_SEEDS = {"ar1": 11, "spiral": 13}
+SMOOTH_SLACKS = {"ar1": 14.0, "spiral": 16.0}
+
+
+def bank_launches(kind, all_k) -> dict:
+    """A 40-frame bank run over the mesh: B3 and the kind's comb once a
+    frame for the whole bank."""
+    want = {k: 0 for k in all_k}
+    want["patch_log_likelihood"] = FRAMES
+    want["systematic_ancestors" if kind == "rna" else "prefix_sum"] = FRAMES
+    return want
+
+
+def run_bank_mesh(dev, model, movie, dras, replicated, all_k, reset, counts,
+                  name) -> tuple[dict, object]:
+    """Phase 5f: ``FilterBank(mesh=EmulatedMesh(8), dra=...)`` with B = 4
+    members of N = 2^25 (C = 2^22 a shard): 2^27 particles, four users of
+    the paper's 33.5M-particle filter.  Member 0 takes phase 5c's seed and
+    movie, the others their own.  RNA and RPA, each twice: every member
+    under the tracking gate, member 0 bit for bit phase 5c's standalone run
+    of the same DRA, the two runs bit for bit equal, one launch of B3 and
+    of the comb a frame for the bank; RNA once more on a (2, 8) bank x data
+    grid with ``bank_axis``, bit for bit the bank without it.  Returns the
+    record and RNA's final (32, 2^22, 5) particles with the last frames,
+    phase 6's B3 input at the bank shape."""
+    import torch
+    from repro_torch.core import FilterBank, SIRConfig
+    from repro_torch.core.runtime import EmulatedMesh, make_mesh
+    from repro_torch.kernels.patch_likelihood import \
+        patch_log_likelihood_kernel as patch_k
+    movies = [movie] + [make_movie(20 + i, model.cfg, dev)
+                        for i in range(BANK_B - 1)]
+    frames = torch.stack([m.frames for m in movies])
+    seeds = [1] + [201 + i for i in range(BANK_B - 1)]
+    sir = SIRConfig(n_particles=BANK_P * BANK_C, ess_frac=0.5)
+    runs, b3_input = {}, None
+    for kind in ("rna", "rpa"):
+        bank = FilterBank(model=model, sir=sir, mesh=EmulatedMesh(BANK_P),
+                          dra=dras[kind])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        res = bank.run(seeds, frames)
+        got = counts(all_k)
+        t_first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(got == bank_launches(kind, all_k),
+              f"bank-mesh {kind} launches {got}")
+        check(patch_k.variants == {"separable": FRAMES, "direct": 0},
+              f"bank-mesh {kind} patch variants {patch_k.variants}")
+        check(res.final.state.shape == (BANK_B, BANK_P, BANK_C, 5),
+              f"bank-mesh {kind}: final {tuple(res.final.state.shape)}")
+        rep = replicated[kind]
+        for f in ("estimates", "ess", "log_marginal", "resampled"):
+            check(same_bits(getattr(res, f)[0], rep[f]),
+                  f"bank-mesh {kind}: member 0 {f} differs from phase 5c")
+        for f in ("state", "log_weights", "counts"):
+            check(same_bits(getattr(res.final, f)[0],
+                            getattr(rep["final"], f)),
+                  f"bank-mesh {kind}: member 0 final {f} differs from 5c")
+        t0 = time.perf_counter()
+        res2 = bank.run(seeds, frames)
+        torch.cuda.synchronize()
+        fps = FRAMES / (time.perf_counter() - t0)
+        for f in ("estimates", "ess", "log_marginal", "resampled"):
+            check(same_bits(getattr(res, f), getattr(res2, f)),
+                  f"bank-mesh {kind}: {f} not repeatable")
+        for f in ("state", "log_weights", "counts"):
+            check(same_bits(getattr(res.final, f), getattr(res2.final, f)),
+                  f"bank-mesh {kind}: final {f} not repeatable")
+        del res2
+        tracks = [track(res, m, i) for i, m in enumerate(movies)]
+        gate_tracks(tracks, f"bank-mesh {kind} member")
+        runs[kind] = {"launches": got, "tracks": tracks,
+                      "frames_per_s": fps,
+                      "first_run_frames_per_s": FRAMES / t_first,
+                      "peak_bytes": peak, "base_bytes": base}
+        log(f"bank-mesh {kind} B={BANK_B} x 8 x 2^22 = 2^27 particles, "
+            f"512x512: member 0 bitwise == phase 5c's standalone run, two "
+            f"runs bitwise equal, launches {got}, {fps:.2f} bank frames/s "
+            f"steady ({FRAMES / t_first:.2f} first run), peak memory "
+            f"{peak / 2 ** 30:.2f} GiB (before the run "
+            f"{base / 2 ** 30:.2f}) [{name}]")
+        log(f"bank-mesh {kind} members: {fmt_tracks(tracks)}")
+        if kind == "rna":
+            grid = make_mesh((2, BANK_P), ("bank", "data"))
+            laid = FilterBank(model=model, sir=sir, mesh=grid,
+                              dra=dras[kind], bank_axis="bank").run(seeds,
+                                                                   frames)
+            for f in ("estimates", "ess", "log_marginal", "resampled"):
+                check(same_bits(getattr(laid, f), getattr(res, f)),
+                      f"bank_axis: {f} differs from the bank without it")
+            for f in ("state", "log_weights", "counts"):
+                check(same_bits(getattr(laid.final, f),
+                                getattr(res.final, f)),
+                      f"bank_axis: final {f} differs")
+            del laid
+            log(f"bank-mesh rna on a (2, 8) bank x data grid with bank_axis:"
+                f" bitwise equal to the bank without it [{name}]")
+            b3_input = (res.final.state.reshape(-1, BANK_C, 5),
+                        frames[:, -1, None].expand(
+                            BANK_B, BANK_P, *frames.shape[2:]).reshape(
+                            -1, *frames.shape[2:]))
+        del res, bank
+        torch.cuda.empty_cache()
+    return runs, b3_input
+
+
+def stepwise(model, sir, seed, zs, dev):
+    """The single-device SIR run step by step, as ``run_sir`` drives it,
+    with every step's ``logsumexp`` of the carried log-weights (the
+    normalization gate) and the outputs for a bitwise repeat check."""
+    import torch
+    from repro_torch.core import particles, smc
+    from repro_torch.core.draws import as_draws
+    draws = as_draws(seed, dev)
+    carry = smc.SIRCarry(draws, particles.init_ensemble(
+        draws, model.init, sir.n_particles))
+    step = smc.make_sir_step(model, sir)
+    lse, outs = [], []
+    for k in range(zs.shape[0]):
+        carry, out = step(carry, zs[k])
+        lse.append(torch.logsumexp(carry.ensemble.log_weights, -1))
+        outs.append(out)
+    return torch.stack(lse), smc.stack_outputs(outs), carry.ensemble
+
+
+def run_families(dev, all_k, reset, counts, name) -> dict:
+    """Phase 5g's stochastic volatility and Lorenz-96 (the reference's
+    defaults: mu -1, phi 0.97, sigma 0.3; D 8, F 8, stride 2) at N = 2^22,
+    200 frames simulated on the card, 8 seeds, fused and composed steps:
+    every output finite, ESS in [1, N], seed 0 step by step with the
+    carried weights normalized after every step and bit for bit the
+    filter's run, B2 once a frame (fused) or the comb scan once a frame
+    (composed), and the two backends' mean summed log-marginals within 4
+    standard errors over the seeds."""
+    import torch
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.models import ssm
+    out = {}
+    for fam, model in (("stochvol", ssm.StochasticVolatilitySSM()),
+                       ("lorenz96", ssm.Lorenz96SSM())):
+        sims = [ssm.simulate(TorchDraws.from_seed(300 + s, dev), model,
+                             FAMILY_FRAMES)[1] for s in range(N_SEEDS)]
+        totals, rec = {}, {}
+        for backend, kname in (("fused", "fused_weight_step"),
+                               ("composed", "prefix_sum")):
+            sir = SIRConfig(n_particles=FAMILY_N, ess_frac=0.5,
+                            step_backend=backend)
+            pf = ParallelParticleFilter(model=model, sir=sir)
+            sums = []
+            for s in range(N_SEEDS):
+                if s == 0:
+                    reset()
+                    t0 = time.perf_counter()
+                res = pf.run(400 + s, sims[s])
+                if s == 0:
+                    got = counts(all_k)
+                    secs = time.perf_counter() - t0
+                    want = {k: 0 for k in all_k}
+                    want[kname] = FAMILY_FRAMES
+                    check(got == want, f"{fam} {backend} launches {got}")
+                    lse, souts, final = stepwise(model, sir, 400, sims[0],
+                                                 dev)
+                    check(float(lse.abs().max()) < 1e-4,
+                          f"{fam} {backend}: weights not normalized after "
+                          f"every step (max |logsumexp| "
+                          f"{float(lse.abs().max()):.3g})")
+                    for f, g in (("estimates", "estimate"), ("ess", "ess"),
+                                 ("log_marginal", "log_marginal"),
+                                 ("resampled", "resampled")):
+                        check(same_bits(getattr(res, f), getattr(souts, g)),
+                              f"{fam} {backend}: {f} not repeatable")
+                    check(same_bits(res.final.state, final.state),
+                          f"{fam} {backend}: final state not repeatable")
+                    rec[backend] = {"launches": got,
+                                    "frames_per_s": FAMILY_FRAMES / secs,
+                                    "max_abs_log_sum_weights":
+                                        float(lse.abs().max())}
+                check(bool(torch.isfinite(res.estimates).all()
+                           and torch.isfinite(res.log_marginal).all()
+                           and torch.isfinite(res.ess).all()),
+                      f"{fam} {backend} seed {s}: non-finite outputs")
+                ess = res.ess.double()
+                check(float(ess.min()) >= 1.0 - 1e-3
+                      and float(ess.max()) <= FAMILY_N * (1 + 1e-5),
+                      f"{fam} {backend} seed {s}: ESS outside [1, N]")
+                sums.append(float(res.log_marginal.double().sum()))
+            totals[backend] = sums
+            rec[backend]["summed_log_marginals"] = sums
+        mf, mc = (statistics.mean(totals[b]) for b in ("fused", "composed"))
+        se = math.sqrt((statistics.variance(totals["fused"])
+                        + statistics.variance(totals["composed"]))
+                       / N_SEEDS)
+        check(abs(mf - mc) <= 4 * se, f"{fam}: fused and composed mean "
+                                      f"summed log-marginals {mf:.3f} / "
+                                      f"{mc:.3f} beyond 4 SE ({se:.3f})")
+        rec["mean_gap_in_se"] = abs(mf - mc) / se
+        out[fam] = rec
+        log(f"{fam} N=2^22, {FAMILY_FRAMES} frames simulated on the card, "
+            f"{N_SEEDS} seeds: mean summed log-marginal fused {mf:.3f}, "
+            f"composed {mc:.3f} ({abs(mf - mc) / se:.2f} SE apart); "
+            f"weights normalized after every step, ESS in [1, N], seed 0 "
+            f"step by step bitwise the filter's run; fused "
+            f"{rec['fused']['launches']['fused_weight_step']} B2 launches, "
+            f"{rec['fused']['frames_per_s']:.1f} frames/s; composed "
+            f"{rec['composed']['launches']['prefix_sum']} comb scans, "
+            f"{rec['composed']['frames_per_s']:.1f} frames/s [{name}]")
+        del sims
+    return out
+
+
+def run_asir(dev, model, movies, single, all_k, reset, counts,
+             name) -> dict:
+    """Phase 5g's ASIR: ``ASIRConfig(grid=256, intensity_bins=4)`` on the
+    512x512 frame (2-px cells, the reference's test and benchmark cell
+    size) at N = 2^22, fused step, phase 3's 8 seeds and movies: RMSE at
+    most phase 3's exact RMSE for the seed + 2.5 px after the warm-up, and
+    one B3 launch over the 262,144-row lattice and one B2 launch a
+    frame."""
+    import torch
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.core.asir import (ASIRConfig, lattice_states,
+                                       make_asir_model)
+    acfg = ASIRConfig(grid=ASIR_GRID, intensity_bins=ASIR_BINS)
+    check(lattice_states(model.cfg, acfg, dev).shape == (ASIR_ROWS, 5),
+          "ASIR lattice rows")
+    am = make_asir_model(model, model.cfg, acfg, device=dev)
+    pf = ParallelParticleFilter(model=am, sir=SIRConfig(
+        n_particles=2 ** 22, ess_frac=0.5, step_backend="fused"))
+    tracks = []
+    for s, m in enumerate(movies):
+        if s == 0:
+            reset()
+            t0 = time.perf_counter()
+        res = pf.run(s + 1, m.frames)
+        if s == 0:
+            got = counts(all_k)
+            fps = FRAMES / (time.perf_counter() - t0)
+            want = {k: 0 for k in all_k}
+            want.update({"patch_log_likelihood": FRAMES,
+                         "fused_weight_step": FRAMES})
+            check(got == want, f"ASIR launches {got}")
+            res2 = pf.run(1, m.frames)
+            check(same_bits(res.estimates, res2.estimates)
+                  and same_bits(res.final.state, res2.final.state),
+                  "ASIR not repeatable")
+            del res2
+        t = track(res, m)
+        check(t["finite"], f"ASIR seed {s}: non-finite estimates")
+        check(t["rmse"] <= single[s]["rmse"] + 2.5,
+              f"ASIR seed {s}: RMSE {t['rmse']:.4f} beyond the exact "
+              f"filter's {single[s]['rmse']:.4f} + 2.5 px")
+        tracks.append(t)
+    torch.cuda.synchronize()
+    log(f"ASIR grid {ASIR_GRID}x{ASIR_GRID}x{ASIR_BINS} ({ASIR_ROWS} lattice "
+        f"rows a B3 launch) N=2^22 fused, {len(movies)} seeds: "
+        f"{fmt_tracks(tracks)}; exact filter's "
+        f"{[round(t['rmse'], 4) for t in single]} (+2.5 px gate); launches "
+        f"{got}, repeatable, {fps:.2f} frames/s (first run) [{name}]")
+    return {"tracks": tracks, "launches": got, "first_run_frames_per_s": fps}
+
+
+def run_smoothers(dev, name) -> dict:
+    """Phase 5g's smoothers: ``ar1`` and ``spiral`` at N = 2^20, T = 24,
+    ``record_ancestry=True`` (the composed step), observations simulated on
+    the card: the reference's three gates (tests/test_genealogy.py) — the
+    filter-smoother within the CLT bound of ``kalman_smoother`` with its
+    slacks, smoothing beats filtering, lag 8 beats filtering."""
+    import numpy as np
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.core import genealogy
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.models import ssm
+
+    def rmse(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.sqrt(np.mean(np.sum((a - b) ** 2, axis=-1))))
+
+    out = {}
+    for fam, seed in SMOOTH_SEEDS.items():
+        model = ssm.oracle_configs()[fam]
+        _, zs = ssm.simulate(TorchDraws.from_seed(seed, dev), model,
+                             SMOOTH_T)
+        res = ParallelParticleFilter(model=model, sir=SIRConfig(
+            n_particles=SMOOTH_N, ess_frac=0.9, record_ancestry=True)).run(
+            seed + 100, zs)
+        oracle = ssm.kalman_smoother(model, zs)
+        tr = np.trace(oracle.covs, axis1=-2, axis2=-1)
+        bound = SMOOTH_SLACKS[fam] * float(np.sqrt(tr.mean() / SMOOTH_N))
+        emis, lws = res.diag["emission"], res.diag["log_weights"]
+        sm = genealogy.filter_smoother_mean(res.ancestors, emis, lws[-1])
+        lag = genealogy.fixed_lag_smoother_mean(res.ancestors, emis, lws, 8)
+        err = rmse(sm.cpu(), oracle.means)
+        filt = rmse(res.estimates.cpu(), oracle.means)
+        lag_err = rmse(lag.cpu(), oracle.means)
+        check(err <= bound, f"{fam}: smoother RMSE {err:.4g} beyond the CLT "
+                            f"bound {bound:.4g}")
+        check(err < filt, f"{fam}: smoothing ({err:.4g}) does not beat "
+                          f"filtering ({filt:.4g})")
+        check(lag_err < filt, f"{fam}: lag 8 ({lag_err:.4g}) does not beat "
+                              f"filtering ({filt:.4g})")
+        out[fam] = {"smoother_rmse": err, "bound": bound,
+                    "filter_rmse": filt, "lag8_rmse": lag_err}
+        log(f"smoother {fam} N=2^20 T={SMOOTH_T}: RMSE to kalman_smoother "
+            f"{err:.4g} (CLT bound {bound:.4g}), filtering {filt:.4g}, lag 8 "
+            f"{lag_err:.4g} [{name}]")
+    return out
+
+
+def check_invariant_sums(dev) -> dict:
+    """The fixed-order row sums (``particles.invariant_sum`` and
+    ``invariant_logsumexp``) give a row the same bits alone, in a
+    filter's 8 rows and in the bank over the mesh's 32, at the distributed
+    step's shapes: 2^22 slots, butterfly's 2^22 + 32, the estimate's
+    (2^22, 5) over the slots; torch's own sum, for contrast, is
+    counted where it differs."""
+    import torch
+    from repro_torch.core.particles import (invariant_logsumexp,
+                                            invariant_sum)
+    g = torch.Generator(device=dev)
+    g.manual_seed(45)
+    torch_differs = 0
+    for shape, dim in (((32, 2 ** 22), -1), ((32, 2 ** 22 + 32), -1),
+                       ((32, 2 ** 22, 5), 1)):
+        x = torch.randn(shape, generator=g, device=dev)
+        for fn in (invariant_sum, invariant_logsumexp):
+            whole = fn(x, dim)
+            for rows in (1, 8):
+                check(same_bits(fn(x[:rows].contiguous(), dim), whole[:rows]),
+                      f"{fn.__name__} {shape}: {rows} rows alone differ "
+                      f"from the same rows in the batch")
+        torch_differs += int(not same_bits(x[:8].sum(dim), x.sum(dim)[:8]))
+        del x
+    log(f"fixed-order sums: a row's bits alone == in 8 == in 32 rows at 2^22,"
+        f" 2^22 + 32 and (2^22, 5); torch's sum differs at "
+        f"{torch_differs} of 3 shapes")
+    return {"torch_sum_differs": torch_differs}
+
+
+def check_new_shapes(dev, cfg) -> dict:
+    """Phase 2 at this slice's shapes: B1 at the bank over the mesh's 32 x
+    2^22 by ``systematic_case``; B3 there (spread particles, one frame a
+    member) and on ASIR's 262,144-row lattice against a 512x512 frame,
+    member by member against its plain version within PATCH_TOL and bit
+    for bit on a second launch (``check_patch_inputs``).  Returns B1's
+    record and the B3 inputs for phase 6."""
+    import torch
+    from repro_torch.core.asir import ASIRConfig, lattice_states
+    acc = {"tie_lanes": 0, "max_abs_err": 0.0, "cases": {},
+           "comb_offset": {"kernel": 0.0, "plain": 0.0}}
+    lw, ll, _, u = fused_inputs(BANK_B * BANK_P, BANK_C, 37, dev, d=1)
+    sys_in = ((lw + ll).contiguous(), u)
+    del lw, ll
+    systematic_case(*sys_in, BANK_C, "bank-mesh 32x2^22", acc)
+    lattice = lattice_states(cfg, ASIRConfig(grid=ASIR_GRID,
+                                             intensity_bins=ASIR_BINS), dev)
+    frame = patch_inputs(1, 8, 512, 512, 38, dev)[1]
+    patch_in = {"bank-mesh 32x2^22": patch_inputs(BANK_B * BANK_P, BANK_C,
+                                                  512, 512, 39, dev),
+                "ASIR lattice": (lattice[None].contiguous(), frame)}
+    check_patch_inputs(patch_in)
+    del patch_in["bank-mesh 32x2^22"]
+    torch.cuda.empty_cache()
+    return {"systematic": acc, "systematic_input": sys_in,
+            "patch_inputs": patch_in}
+
+
 def make_movie(seed, cfg, dev):
     from repro_torch.core.draws import TorchDraws
     from repro_torch.data.synthetic_movie import generate_movie
@@ -1823,6 +2233,8 @@ def main() -> int:
     patch_domain_check = check_patch_domain(dev)
     fused_check = check_fused(dev)
     sys_check = check_systematic(dev)
+    new_shapes = check_new_shapes(dev, TrackingConfig())
+    sums_check = check_invariant_sums(dev)
     scan_check = check_scan(dev)
     chain_check = check_chains(dev)
     attn_check = check_attention(dev)
@@ -1886,6 +2298,7 @@ def main() -> int:
         f"{fps_single:.2f} frames/s steady ({FRAMES / t_single:.2f} "
         f"first run) [{name}]")
     log(f"single filter, {N_SEEDS} seeds: {fmt_tracks(single)}")
+    single_movies = movies
 
     # -- phase 4: FilterBank at the same frame ---------------------------------
     b_bank, n_bank = 8, 2 ** 20
@@ -2117,7 +2530,18 @@ def main() -> int:
     # -- phase 5e: domain decomposition at full width --------------------------
     domain_runs = run_domain(dev, model, movie, dras, replicated, all_k,
                              reset, counts, name)
+
+    # -- phase 5f: a FilterBank over the emulated mesh at full width ---------
+    bank_mesh, bank_b3 = run_bank_mesh(dev, model, movie, dras, replicated,
+                                       all_k, reset, counts, name)
     del replicated
+
+    # -- phase 5g: ASIR, stochastic volatility, Lorenz-96, the smoothers -----
+    asir_run = run_asir(dev, model, single_movies, single, all_k, reset,
+                        counts, name)
+    del single_movies
+    families = run_families(dev, all_k, reset, counts, name)
+    smoothers = run_smoothers(dev, name)
 
     # -- phase 5d: LM serving at qwen3-32b width ------------------------------
     lm = run_lm(dev, all_k, reset, counts, name)
@@ -2243,6 +2667,26 @@ def main() -> int:
     check(scan_times["8x2^22"]["ms"] < scan_times["8x2^22"]["first_ms"],
           "comb scan: the one-pass kernel is not faster than the first "
           "design at 8 x 2^22")
+    # this slice's shapes, recorded and not gated: B1 at the bank over the
+    # mesh's 32 x 2^22, B3 there (RNA's final bank ensemble against each
+    # member's last frame) and on ASIR's lattice, B2 at D = 1, 8 and 40
+    new_sys = time_systematic({"bank-mesh 32x2^22":
+                               new_shapes.pop("systematic_input")})
+    new_patch = time_patch({"bank-mesh 32x2^22": bank_b3,
+                            "ASIR lattice":
+                                new_shapes["patch_inputs"]["ASIR lattice"]},
+                           cfg)
+    del bank_b3, new_shapes["patch_inputs"]
+    new_fused = time_fused({f"1x2^22 D={d}": fused_inputs(
+        1, 2 ** 22, 40 + d, dev, d=d) + (True,) for d in (1, 8, 40)})
+    for label, t in {**{f"B1 {k}": v for k, v in new_sys.items()},
+                     **{f"B3 {k}": v for k, v in new_patch.items()},
+                     **{f"B2 {k}": v for k, v in new_fused.items()}}.items():
+        log(f"times [{name}]: {label} {tuple(t['shape'])}: {t['ms']:.4f} ms "
+            f"(first design {t['first_ms']:.4f}; device "
+            f"{t['device_ms']:.4f}; bound {t['bound_ms']:.4f} "
+            f"{t['bound_by']})")
+    torch.cuda.empty_cache()
     attn_times = time_attention(dev)
     for label, t in attn_times.items():
         log(f"times [{name}]: B6 {label} [{t['variant']}] q{tuple(t['q'])} "
@@ -2321,8 +2765,34 @@ def main() -> int:
          "bound_by": attn_times["smc_decode"]["bound_by"],
          "library_ms": attn_times["smc_decode"]["library_ms"]},
     ]
+    fam_l = {f"5g {fam} {b}": families[fam][b]["launches"]
+             for fam in families for b in ("fused", "composed")}
+    new_launches = {
+        "patch_log_likelihood": {
+            "5f bank-mesh rna": bank_mesh["rna"]["launches"][
+                "patch_log_likelihood"],
+            "5f bank-mesh rpa": bank_mesh["rpa"]["launches"][
+                "patch_log_likelihood"],
+            "5g asir": asir_run["launches"]["patch_log_likelihood"]},
+        "fused_weight_step": {
+            "5g asir": asir_run["launches"]["fused_weight_step"],
+            **{k: v["fused_weight_step"] for k, v in fam_l.items()
+               if k.endswith("fused")}},
+        "systematic_ancestors": {
+            "5f bank-mesh rna": bank_mesh["rna"]["launches"][
+                "systematic_ancestors"]},
+        "prefix_sum": {
+            "5f bank-mesh rpa": bank_mesh["rpa"]["launches"]["prefix_sum"],
+            **{k: v["prefix_sum"] for k, v in fam_l.items()
+               if k.endswith("composed")}}}
+    for k in kernels:
+        k["launches_new_phases"] = new_launches.get(k["name"], {})
     record = {
         "card": name, "kernels": kernels,
+        "bank_mesh": bank_mesh, "asir": asir_run, "families": families,
+        "smoothers": smoothers, "invariant_sums": sums_check, "new_shapes": {
+            "systematic_check": new_shapes["systematic"],
+            "systematic": new_sys, "patch": new_patch, "fused": new_fused},
         "tie_lanes": fused_check["tie_lanes"],
         "comb_offset": fused_check["comb_offset"],
         "systematic_tie_lanes": sys_check["tie_lanes"],

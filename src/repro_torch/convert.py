@@ -9,7 +9,8 @@ objects, so this module needs neither package's runtime.
 
 A distributed ensemble is laid out differently on the two sides: the
 reference's sharded leaves are ``(P·C, ...)``, shard-major (what its
-``shard_map`` returns), the port's ``(P, C, ...)``.
+``shard_map`` returns), the port's ``(P, C, ...)``; a bank over a mesh
+has ``(B, P·C, ...)`` there and ``(B, P, C, ...)`` here.
 """
 from __future__ import annotations
 
@@ -17,12 +18,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs import base as configs
+from repro_torch.core.asir import ASIRConfig
 from repro_torch.core.distributed import DRAConfig
 from repro_torch.core.domain import DomainSpec
 from repro_torch.core.particles import ParticleEnsemble
 from repro_torch.core.smc import SIRConfig
 from repro_torch.models.lm import model as lm
 from repro_torch.models.ssm.lgssm import LinearGaussianSSM
+from repro_torch.models.ssm.lorenz96 import Lorenz96SSM
+from repro_torch.models.ssm.stochvol import StochasticVolatilitySSM
 from repro_torch.models.tracking import TrackingConfig
 
 
@@ -49,6 +53,29 @@ def shard_ensemble_from_numpy(state, log_weights, counts, shards: int,
     return ParticleEnsemble(*(
         x.reshape((shards, n // shards) + x.shape[1:])
         for x in (ens.state, ens.log_weights, ens.counts)))
+
+
+def bank_shard_ensemble_from_numpy(state, log_weights, counts, shards: int,
+                                   device="cpu") -> ParticleEnsemble:
+    """The reference bank's sharded ``(B, P·C, ...)`` leaves as the port's
+    ``(B, P, C, ...)`` ensemble of a bank over a mesh."""
+    b, n = np.shape(log_weights)[:2]
+    if n % shards:
+        raise ValueError(f"{n} slots do not split over {shards} shards")
+    ens = ensemble_from_numpy(state, log_weights, counts, device)
+    return ParticleEnsemble(*(
+        x.reshape((b, shards, n // shards) + x.shape[2:])
+        for x in (ens.state, ens.log_weights, ens.counts)))
+
+
+def bank_ensemble_to_numpy(ensemble: ParticleEnsemble) -> tuple:
+    """``(state, log_weights, counts)`` numpy arrays of a bank in the
+    reference's layout: ``(B, P, C, ...)`` flattens to ``(B, P·C, ...)``
+    (a single-device bank's ``(B, N, ...)`` stays as it is)."""
+    lead = ensemble.log_weights.dim() - 1
+    return tuple(x.detach().cpu().reshape(
+        (x.shape[0], -1) + x.shape[lead + 1:]).numpy()
+        for x in (ensemble.state, ensemble.log_weights, ensemble.counts))
 
 
 def ensemble_to_numpy(ensemble: ParticleEnsemble) -> tuple:
@@ -86,6 +113,27 @@ def lgssm(fields: dict) -> LinearGaussianSSM:
     return LinearGaussianSSM(**{
         k: torch.as_tensor(np.array(v, np.float32)) for k, v in
         fields.items()})
+
+
+def stochvol(fields: dict) -> StochasticVolatilitySSM:
+    """``StochasticVolatilitySSM`` from the reference model's fields."""
+    return StochasticVolatilitySSM(**{k: float(v) for k, v in
+                                      fields.items()})
+
+
+def lorenz96(fields: dict) -> Lorenz96SSM:
+    """``Lorenz96SSM`` from the reference model's fields."""
+    ints = ("dim", "obs_stride")
+    return Lorenz96SSM(**{k: int(v) if k in ints else float(v)
+                          for k, v in fields.items()})
+
+
+def asir_config(fields: dict) -> ASIRConfig:
+    """``ASIRConfig`` from the reference config's fields."""
+    fields = dict(fields)
+    return ASIRConfig(grid=int(fields.pop("grid")),
+                      intensity_bins=int(fields.pop("intensity_bins")),
+                      **fields)
 
 
 def dra_config(fields: dict) -> DRAConfig:

@@ -4,7 +4,11 @@
 Each DRA takes the whole ``(P, C, ...)`` ensemble of an emulated P-shard
 mesh (``repro_torch.core.runtime``) and returns the resampled one; every
 collective goes through the runtime facade, so each shard's row sees
-exactly what the reference's per-shard program sees:
+exactly what the reference's per-shard program sees.  A bank's
+``(B, P, C, ...)`` ensemble (any member dims in front of the shard dim)
+goes through the same code in one pass: each member gets the bits it
+gets alone, and its diagnostics are per member, as the reference's
+``vmap`` over members gives them:
 
 * **MPF** — independent local resampling; each shard keeps its aggregate
   weight (one scalar all-gather of the shard log-normalizers);
@@ -32,11 +36,13 @@ reference's DESIGN.md §14.3).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.core import dlb, particles, resampling, runtime
-from repro_torch.core.particles import ParticleEnsemble, log_sum_weights
+from repro_torch.core.particles import (ParticleEnsemble, invariant_logsumexp,
+                                        invariant_sum, log_sum_weights)
 from repro_torch.kernels import ops
 
 KINDS = ("mpf", "rna", "arna", "rpa", "butterfly")
@@ -77,9 +83,9 @@ def log_f32(x: float) -> float:
     return float(torch.log(torch.tensor(float(x), dtype=torch.float32)))
 
 
-def _per_particle_bytes(state: torch.Tensor) -> int:
+def _per_particle_bytes(state: torch.Tensor, slot_dim: int) -> int:
     """Payload bytes of one particle's state (one shard's slot)."""
-    return runtime.tree_bytes(state[0, :1])
+    return math.prod(state.shape[slot_dim + 1:]) * state.element_size()
 
 
 def _comm_diag(bytes_per_frame: int, stages: int, device) -> dict:
@@ -92,36 +98,52 @@ def _comm_diag(bytes_per_frame: int, stages: int, device) -> dict:
                                         device=device)}
 
 
+def _over(log_weights: torch.Tensor,
+          mesh: runtime.EmulatedMesh) -> tuple[runtime.EmulatedMesh, int]:
+    """The mesh with the member dims of ``(..., P, C)`` log-weights, and
+    the shard dim."""
+    lead = log_weights.shape[:-2]
+    return mesh.over(lead), len(lead)
+
+
+def _shard0(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Shard 0's copy of a replicated per-shard value."""
+    return x.select(d, 0)
+
+
 def _shard_log_z(log_weights: torch.Tensor, mesh: runtime.EmulatedMesh
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(P,)`` local log-normalizers and their ``(P, P)`` all-gather."""
+    """``(..., P)`` local log-normalizers and their ``(..., P, P)``
+    all-gather."""
+    mesh, _ = _over(log_weights, mesh)
     local = log_sum_weights(log_weights)
     return local, runtime.all_gather(local, mesh)
 
 
 def global_log_z(log_weights: torch.Tensor,
                  mesh: runtime.EmulatedMesh) -> torch.Tensor:
-    """``(P,)``: logsumexp of all shards' weights on every shard."""
+    """``(..., P)``: logsumexp of all shards' weights on every shard."""
     _, gathered = _shard_log_z(log_weights, mesh)
-    return torch.logsumexp(gathered, -1)
+    return invariant_logsumexp(gathered, -1)
 
 
 def global_ess(log_weights: torch.Tensor,
                mesh: runtime.EmulatedMesh) -> torch.Tensor:
-    """``(P,)``: the global N_eff (Alg. 1 line 15) with one psum."""
+    """``(..., P)``: the global N_eff (Alg. 1 line 15) with one psum."""
     glz = global_log_z(log_weights, mesh)
-    sq = torch.exp(2.0 * (log_weights - glz[:, None]))
-    sq = torch.where(torch.isfinite(log_weights), sq,
-                     torch.zeros_like(sq)).sum(-1)
-    return 1.0 / runtime.psum(sq, mesh).clamp(min=1e-38)
+    sq = torch.exp(2.0 * (log_weights - glz[..., None]))
+    sq = invariant_sum(torch.where(torch.isfinite(log_weights), sq,
+                                   torch.zeros_like(sq)), -1)
+    return 1.0 / runtime.psum(sq, _over(log_weights, mesh)[0]).clamp(
+        min=1e-38)
 
 
 def effective_processes(log_weights: torch.Tensor,
                         mesh: runtime.EmulatedMesh) -> torch.Tensor:
-    """``(P,)``: P_eff = (Σ W_i)² / Σ W_i² over the shard weights."""
+    """``(..., P)``: P_eff = (Σ W_i)² / Σ W_i² over the shard weights."""
     _, gathered = _shard_log_z(log_weights, mesh)
-    w = torch.exp(gathered - torch.logsumexp(gathered, -1, keepdim=True))
-    return 1.0 / torch.square(w).sum(-1).clamp(min=1e-38)
+    w = torch.exp(gathered - invariant_logsumexp(gathered, -1, keepdim=True))
+    return 1.0 / invariant_sum(torch.square(w), -1).clamp(min=1e-38)
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +156,9 @@ def _local_resample_materialize(draws, state: torch.Tensor,
     """Resample ``n_out`` offspring per shard and materialize ``C`` slots
     of state.  The systematic scheme with ``n_out == C`` takes its
     ancestors from B1 (the kernel on the card, its plain version on the
-    CPU) on the same one-uniform comb; the other schemes take the counts
-    path.  (The reference also returns the counts, which no caller
-    reads.)"""
+    CPU) on the same one-uniform comb, one launch for every shard of
+    every member; the other schemes take the counts path.  (The
+    reference also returns the counts, which no caller reads.)"""
     c = log_weights.shape[-1]
     if n_out == c and cfg.resampler == "systematic":
         ancestors = ops.systematic_ancestors(log_weights, draws.uniform(()),
@@ -152,13 +174,13 @@ def _local_resample_ensemble(draws, ensemble: ParticleEnsemble,
                              log_weight: torch.Tensor,
                              cfg: DRAConfig) -> ParticleEnsemble:
     """Full-capacity local resample to a materialized ensemble whose
-    every slot of shard ``i`` carries ``log_weight[i]``; counts are
+    every slot of shard ``i`` carries ``log_weight[..., i]``; counts are
     folded into the sampling weights."""
     c = ensemble.capacity
     eff = particles.effective_log_weights(ensemble.log_weights,
                                           ensemble.counts)
     state = _local_resample_materialize(draws, ensemble.state, eff, c, cfg)
-    lw = log_weight.to(torch.float32)[:, None].expand(eff.shape)
+    lw = log_weight.to(torch.float32)[..., None].expand(eff.shape)
     return ParticleEnsemble(state=state, log_weights=lw.contiguous(),
                             counts=torch.ones_like(ensemble.counts))
 
@@ -174,7 +196,7 @@ def mpf_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     c = ensemble.capacity
     local_lz, gathered = _shard_log_z(particles.effective_log_weights(
         ensemble.log_weights, ensemble.counts), mesh)
-    glz = torch.logsumexp(gathered, -1)
+    glz = invariant_logsumexp(gathered, -1)
     out = _local_resample_ensemble(draws, ensemble,
                                    local_lz - glz - log_f32(c), cfg)
     dev = ensemble.log_weights.device
@@ -187,36 +209,43 @@ def _ring_exchange(state: torch.Tensor, log_weights: torch.Tensor,
                    m_buf: int, m_valid, mesh: runtime.EmulatedMesh,
                    shuffle: torch.Tensor | None = None):
     """Send the first ``m_buf`` slots of every shard to its ring
-    neighbour; the first ``m_valid`` (an int or a ``(P,)`` tensor)
+    neighbour; the first ``m_valid`` (an int or a ``(..., P)`` tensor)
     received slots replace the head.  With ``shuffle`` (ARNA's lost
-    mode, ``(P,)`` bool, the same on every shard) the head travels by a
-    fused all_to_all perfect shuffle instead: both exchanges run and the
-    frame's one is selected on the device."""
+    mode, ``(..., P)`` bool, the same on every shard) the head travels by
+    a fused all_to_all perfect shuffle instead: both exchanges run and
+    the frame's one is selected on the device."""
+    mesh, d = _over(log_weights, mesh)
     p = runtime.axis_size(mesh)
     perm = runtime.ring(mesh)
 
+    def head(x, n):
+        return x.narrow(d + 1, 0, n)
+
     def ring(x):
-        return runtime.ppermute(x[:, :m_buf], mesh, perm)
+        return runtime.ppermute(head(x, m_buf), mesh, perm)
 
     def mix(x):
         b = m_buf // p
-        y = x[:, :b * p].reshape((p, p, b) + x.shape[2:])
-        y = runtime.all_to_all(y, mesh).reshape((p, b * p) + x.shape[2:])
-        return torch.cat([y, x[:, b * p:m_buf]], 1)
+        lead, rest = x.shape[:d], x.shape[d + 2:]
+        y = head(x, b * p).reshape(lead + (p, p, b) + rest)
+        y = runtime.all_to_all(y, mesh).reshape(lead + (p, b * p) + rest)
+        return torch.cat([y, x.narrow(d + 1, b * p, m_buf - b * p)], d + 1)
 
     def recv(x):
         if shuffle is None:
             return ring(x)
-        pick = shuffle.reshape((p,) + (1,) * (x.dim() - 1))
+        pick = shuffle.reshape(shuffle.shape + (1,) * (x.dim() - d - 1))
         return torch.where(pick, mix(x), ring(x))
 
-    m_valid = torch.as_tensor(m_valid, device=state.device).reshape(-1, 1)
-    keep = torch.arange(m_buf, device=state.device) < m_valid  # (P|1, m_buf)
+    m_valid = torch.as_tensor(m_valid, device=state.device)
+    # (m_buf,) for one count, (..., P, m_buf) for a count a shard
+    keep = torch.arange(m_buf, device=state.device) < m_valid[..., None]
 
     def splice(orig, got):
-        k = keep.reshape(keep.shape + (1,) * (got.dim() - 2))
-        return torch.cat([torch.where(k, got, orig[:, :m_buf]),
-                          orig[:, m_buf:]], 1)
+        k = keep.reshape(keep.shape + (1,) * (got.dim() - d - 2))
+        return torch.cat([torch.where(k, got, head(orig, m_buf)),
+                          orig.narrow(d + 1, m_buf,
+                                      orig.shape[d + 1] - m_buf)], d + 1)
 
     return (splice(state, recv(state)),
             splice(log_weights, recv(log_weights)))
@@ -235,9 +264,10 @@ def rna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     fraction (paper §III / §VII.D).  Draws: the local resample's, then
     the shuffle's permutation."""
     c = ensemble.capacity
+    d = ensemble.log_weights.dim() - 2
     local_lz, gathered = _shard_log_z(particles.effective_log_weights(
         ensemble.log_weights, ensemble.counts), mesh)
-    glz = torch.logsumexp(gathered, -1)
+    glz = invariant_logsumexp(gathered, -1)
     ens = _local_resample_ensemble(draws, ensemble,
                                    local_lz - glz - log_f32(c), cfg)
     ens = _permute_ensemble(draws, ens)
@@ -247,8 +277,8 @@ def rna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     dev = lw.device
     return ens, {"exchanged": torch.tensor(m, dtype=torch.int32, device=dev),
                  # logZ gather + ring ppermute of m (state, log-weight) rows
-                 **_comm_diag(4 + m * (_per_particle_bytes(ens.state) + 4),
-                              2, dev)}
+                 **_comm_diag(4 + m * (_per_particle_bytes(ens.state, d + 1)
+                                       + 4), 2, dev)}
 
 
 def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
@@ -257,16 +287,17 @@ def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     """ARNA: RNA with a P_eff-adaptive exchange fraction (all shards
     tracking → ``q_min``, collapsed → ``q_max``) over a static
     ``m_buf``-slot buffer, and the all_to_all shuffle when every shard's
-    best log-likelihood ``max_log_lik`` ``(P,)`` is below
+    best log-likelihood ``max_log_lik`` ``(..., P)`` is below
     ``lost_log_lik``.  Draws: the local resample's, then the shuffle's
     permutation (RNA's order)."""
     c = ensemble.capacity
+    bank_mesh, d = _over(ensemble.log_weights, mesh)
     p = runtime.axis_size(mesh)
     eff = particles.effective_log_weights(ensemble.log_weights,
                                           ensemble.counts)
     p_eff = effective_processes(eff, mesh)
     local_lz, gathered = _shard_log_z(eff, mesh)
-    glz = torch.logsumexp(gathered, -1)
+    glz = invariant_logsumexp(gathered, -1)
     ens = _local_resample_ensemble(draws, ensemble,
                                    local_lz - glz - log_f32(c), cfg)
     ens = _permute_ensemble(draws, ens)
@@ -274,17 +305,17 @@ def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     q = cfg.q_min + (cfg.q_max - cfg.q_min) * (1.0 - frac_eff)
     m_buf = max(int(round(cfg.q_max * c)) // p * p, p)   # P-divisible
     m_valid = torch.clamp(torch.ceil(q * c).to(torch.int32), max=m_buf)
-    lost = runtime.pmax(max_log_lik, mesh) < cfg.lost_log_lik
+    lost = runtime.pmax(max_log_lik, bank_mesh) < cfg.lost_log_lik
     state, lw = _ring_exchange(ens.state, ens.log_weights, m_buf, m_valid,
                                mesh, shuffle=lost)
     ens = ens.replace(state=state, log_weights=lw)
     return ens, {
-        "exchanged": m_valid[0], "p_eff": p_eff[0], "q": q[0],
-        "lost": lost[0].to(torch.int32),
+        "exchanged": _shard0(m_valid, d), "p_eff": _shard0(p_eff, d),
+        "q": _shard0(q, d), "lost": _shard0(lost, d).to(torch.int32),
         # P_eff gather + logZ gather + lost-mode pmax + the m_buf exchange
         # (ring and shuffle ship the same slab)
-        **_comm_diag(12 + m_buf * (_per_particle_bytes(ens.state) + 4), 4,
-                     lw.device)}
+        **_comm_diag(12 + m_buf * (_per_particle_bytes(ens.state, d + 1)
+                                   + 4), 4, lw.device)}
 
 
 def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
@@ -293,29 +324,34 @@ def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     resampling in compressed form, DLB routing of the compressed
     particles, then a local materialize (paper §III–§V)."""
     c = ensemble.capacity
+    bank_mesh, d = _over(ensemble.log_weights, mesh)
     p = runtime.axis_size(mesh)
     n_total = c * p
     cap_units = int(round(cfg.slack * c))
     _, gathered = _shard_log_z(particles.effective_log_weights(
         ensemble.log_weights, ensemble.counts), mesh)
     # every shard holds the same gathered vector: compute the allocation
-    # and the schedule once
-    alloc = dlb.proportional_allocation(gathered[0], n_total, cap_units)
+    # and the schedule once per member
+    alloc = dlb.proportional_allocation(_shard0(gathered, d), n_total,
+                                        cap_units)
     comp = particles.resample_compressed(
         draws, ensemble, alloc, scheme=cfg.resampler, capacity=cap_units,
         fill_log_weight=-log_f32(n_total))
     targets = dlb.balanced_targets(n_total, p).to(alloc.device)
-    schedule = dlb.SCHEDULERS[cfg.scheduler](alloc, targets)     # (P, P)
-    route = dlb.route_compressed(comp, schedule, k_cap=cfg.k_cap, mesh=mesh)
+    schedule = dlb.SCHEDULERS[cfg.scheduler](alloc, targets)  # (..., P, P)
+    route = dlb.route_compressed(comp, schedule, k_cap=cfg.k_cap,
+                                 mesh=bank_mesh)
     out = particles.materialize(dlb.merge_routed(comp, route), c)
     stats = dlb.schedule_stats(schedule)
     dev = ensemble.log_weights.device
     return out, {
-        "overflow": runtime.psum(route.overflow_units, mesh)[0],
+        "overflow": _shard0(runtime.psum(route.overflow_units, bank_mesh),
+                            d),
         **stats,
         # logZ gather + all_to_all of P×K (state, count, log-weight) triples
         **_comm_diag(4 + p * cfg.k_cap
-                     * (_per_particle_bytes(ensemble.state) + 8), 2, dev),
+                     * (_per_particle_bytes(ensemble.state, d + 1) + 8), 2,
+                     dev),
     }
 
 
@@ -333,6 +369,7 @@ def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     one materialize restores ``C``.  Draws: each stage's comb, in stage
     order."""
     c = ensemble.capacity
+    bank_mesh, d = _over(ensemble.log_weights, mesh)
     p = runtime.axis_size(mesh)
     schedule = runtime.butterfly_schedule(p)
     cap = cfg.butterfly_cap
@@ -341,21 +378,24 @@ def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     # per stage: the two scalars (lz, lz_run) and one slab of (state,
     # count, log-weight) triples to the partner: 2 rounds
     comm = _comm_diag(len(schedule) * (8 + cap * (
-        _per_particle_bytes(ensemble.state) + 8)), 2 * len(schedule), dev)
+        _per_particle_bytes(ensemble.state, d + 1) + 8)),
+        2 * len(schedule), dev)
     if not schedule:                 # P == 1: a plain local resample
         out = _local_resample_ensemble(
-            draws, ensemble, torch.full((p,), -log_f32(c), device=dev), cfg)
+            draws, ensemble, torch.full(ensemble.log_weights.shape[:-1],
+                                        -log_f32(c), device=dev), cfg)
         return out, {"exchanged": zero, "overflow": zero, "truncated": zero,
                      **comm}
     ens = ensemble
     lz_run = particles.log_sum_weights(ens.log_weights, ens.counts)
     log2 = log_f32(2.0)
-    shipped_total = torch.zeros(p, dtype=torch.int32, device=dev)
-    overflow_total = torch.zeros(p, dtype=torch.int32, device=dev)
+    shipped_total = torch.zeros(lz_run.shape, dtype=torch.int32, device=dev)
+    overflow_total = torch.zeros_like(shipped_total)
     for perm in schedule:
         eff = particles.effective_log_weights(ens.log_weights, ens.counts)
-        lz = torch.logsumexp(eff, -1)
-        lz_p, lzr_p = runtime.grouped_ppermute((lz, lz_run), mesh, perm)
+        lz = invariant_logsumexp(eff, -1)
+        lz_p, lzr_p = runtime.grouped_ppermute((lz, lz_run), bank_mesh,
+                                               perm)
         lz_run = torch.logaddexp(lz_run, lzr_p) - log2
         pair = torch.logaddexp(lz, lz_p)
         # a dead pair (both totals -inf) moves no units either way
@@ -377,11 +417,11 @@ def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
         pack = dlb.pack_slab(comp, m_send, k_cap=cap)
         recv_state, recv_counts, recv_lw = runtime.grouped_ppermute(
             (pack.slab_state, pack.slab_counts, pack.slab_log_weights),
-            mesh, perm)
+            bank_mesh, perm)
         ens = ParticleEnsemble(
-            state=torch.cat([comp.state, recv_state], 1),
-            log_weights=torch.cat([comp.log_weights, recv_lw], 1),
-            counts=torch.cat([pack.kept_counts, recv_counts], 1))
+            state=torch.cat([comp.state, recv_state], d + 1),
+            log_weights=torch.cat([comp.log_weights, recv_lw], d + 1),
+            counts=torch.cat([pack.kept_counts, recv_counts], d + 1))
         shipped_total = shipped_total + pack.shipped_units
         overflow_total = overflow_total + pack.overflow_units
     # the scalar butterfly is a hypercube all-reduce: lz_run = log(W / P)
@@ -389,10 +429,11 @@ def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     truncated = torch.clamp(particles.logical_size(ens) - c, min=0).to(
         torch.int32)
     out = particles.materialize(
-        ens.replace(log_weights=ens.log_weights - glz[:, None]), c)
-    return out, {"exchanged": shipped_total[0],
-                 "overflow": runtime.psum(overflow_total, mesh)[0],
-                 "truncated": runtime.psum(truncated, mesh)[0], **comm}
+        ens.replace(log_weights=ens.log_weights - glz[..., None]), c)
+    return out, {
+        "exchanged": _shard0(shipped_total, d),
+        "overflow": _shard0(runtime.psum(overflow_total, bank_mesh), d),
+        "truncated": _shard0(runtime.psum(truncated, bank_mesh), d), **comm}
 
 
 DRAS = {"mpf": mpf_resample, "rna": rna_resample, "arna": arna_resample,

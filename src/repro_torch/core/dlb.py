@@ -6,12 +6,15 @@ per-shard particle counts that every shard knows, how many units each
 sender ships to each receiver: greedy matching of ordered senders to
 ordered receivers is the interval intersection of their cumulative
 surplus and deficit ranges.  They are plain functions of that vector;
-the emulated mesh computes them once for all shards.
+the emulated mesh computes them once for all shards, and a bank's
+``(B, P)`` vectors in one pass (every function here batches over
+leading member dims).
 
 The routing executor packs, per destination, a window of ``k_cap``
 (state, count, per-replica log-weight) triples and moves all windows with
 one ``all_to_all``; units that do not fit stay local.  Here it acts on the
-whole ``(P, C, ...)`` ensemble: shard ``i``'s windows are row ``i``.
+whole ``(P, C, ...)`` ensemble: shard ``i``'s windows are row ``i``
+(a bank's ``(B, P, C, ...)`` ensemble packs its ``B·P`` rows at once).
 ``pack_slab`` packs the butterfly DRA's one-destination slab.
 """
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import runtime
-from repro_torch.core.particles import ParticleEnsemble, gather_particles
+from repro_torch.core.particles import (ParticleEnsemble, gather_particles,
+                                        invariant_logsumexp)
 from repro_torch.core.resampling import row_cumsum
 
 
@@ -48,20 +52,21 @@ def surplus_deficit(counts: torch.Tensor, targets: torch.Tensor
 
 def _interval_overlap_matrix(s: torch.Tensor, d: torch.Tensor
                              ) -> torch.Tensor:
-    """``M[i, j]``: overlap of sender ``i``'s surplus interval with
+    """``M[..., i, j]``: overlap of sender ``i``'s surplus interval with
     receiver ``j``'s deficit interval on the shared unit line."""
-    s_hi = torch.cumsum(s, 0)
+    s_hi = torch.cumsum(s, -1)
     s_lo = s_hi - s
-    d_hi = torch.cumsum(d, 0)
+    d_hi = torch.cumsum(d, -1)
     d_lo = d_hi - d
-    lo = torch.maximum(s_lo[:, None], d_lo[None, :])
-    hi = torch.minimum(s_hi[:, None], d_hi[None, :])
+    lo = torch.maximum(s_lo[..., :, None], d_lo[..., None, :])
+    hi = torch.minimum(s_hi[..., :, None], d_hi[..., None, :])
     return torch.clamp(hi - lo, min=0).to(torch.int32)
 
 
 def _descending(v: torch.Tensor) -> torch.Tensor:
-    """``argsort(-v)``, stable as ``jnp.argsort``: ties in index order."""
-    return torch.argsort(-v, stable=True)
+    """``argsort(-v)`` over the last dim, stable as ``jnp.argsort``: ties
+    in index order."""
+    return torch.argsort(-v, dim=-1, stable=True)
 
 
 def schedule_gs(counts: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -76,11 +81,13 @@ def schedule_sgs(counts: torch.Tensor, targets: torch.Tensor
     descending order of magnitude first."""
     s, d = surplus_deficit(counts, targets)
     order_s, order_d = _descending(s), _descending(d)
-    m_sorted = _interval_overlap_matrix(s[order_s], d[order_d])
-    p = counts.shape[0]
-    m = torch.zeros((p, p), dtype=torch.int32, device=counts.device)
-    m[order_s[:, None], order_d[None, :]] = m_sorted
-    return m
+    m_sorted = _interval_overlap_matrix(s.gather(-1, order_s),
+                                        d.gather(-1, order_d))
+    # m[order_s[i], order_d[j]] = m_sorted[i, j]: read through the inverse
+    # orders
+    inv_s, inv_d = torch.argsort(order_s, -1), torch.argsort(order_d, -1)
+    rows = m_sorted.gather(-2, inv_s[..., :, None].expand(m_sorted.shape))
+    return rows.gather(-1, inv_d[..., None, :].expand(m_sorted.shape))
 
 
 def schedule_lgs(counts: torch.Tensor, targets: torch.Tensor
@@ -89,20 +96,22 @@ def schedule_lgs(counts: torch.Tensor, targets: torch.Tensor
     ``min(surplus, deficit)`` to the rank-k receiver."""
     s, d = surplus_deficit(counts, targets)
     order_s, order_d = _descending(s), _descending(d)
-    p = counts.shape[0]
-    m = torch.zeros((p, p), dtype=torch.int32, device=counts.device)
-    m[order_s, order_d] = torch.minimum(s[order_s], d[order_d]).to(
-        torch.int32)
-    return m
+    p = counts.shape[-1]
+    units = torch.minimum(s.gather(-1, order_s), d.gather(-1, order_d))
+    m = torch.zeros(counts.shape[:-1] + (p * p,), dtype=torch.int32,
+                    device=counts.device)
+    m.scatter_(-1, order_s * p + order_d, units.to(torch.int32))
+    return m.reshape(counts.shape[:-1] + (p, p))
 
 
 SCHEDULERS = {"gs": schedule_gs, "sgs": schedule_sgs, "lgs": schedule_lgs}
 
 
 def schedule_stats(m: torch.Tensor) -> dict[str, torch.Tensor]:
-    """The paper's latency and bandwidth criteria of a schedule."""
-    return {"links": (m > 0).sum(), "units_moved": m.sum(),
-            "max_message_units": m.max()}
+    """The paper's latency and bandwidth criteria of a ``(..., P, P)``
+    schedule, per member."""
+    return {"links": (m > 0).sum((-2, -1)), "units_moved": m.sum((-2, -1)),
+            "max_message_units": m.amax((-2, -1))}
 
 
 # ---------------------------------------------------------------------------
@@ -111,23 +120,24 @@ def schedule_stats(m: torch.Tensor) -> dict[str, torch.Tensor]:
 
 def proportional_allocation(shard_log_weights: torch.Tensor, total: int,
                             cap: int) -> torch.Tensor:
-    """Integer allocation ``n_i ∝ exp(shard_log_weights)`` with
-    ``Σ n_i == total``: largest-remainder apportionment, then the units
-    clipped by the per-shard ``cap`` refill the remaining room in shard
-    order."""
-    lw = shard_log_weights - torch.logsumexp(shard_log_weights, 0)
+    """Integer allocation ``n_i ∝ exp(shard_log_weights)`` over the last
+    dim with ``Σ n_i == total``: largest-remainder apportionment, then
+    the units clipped by the per-shard ``cap`` refill the remaining room
+    in shard order."""
+    lw = shard_log_weights - invariant_logsumexp(shard_log_weights, -1,
+                                                 keepdim=True)
     quota = torch.exp(lw) * total
     n = torch.floor(quota).to(torch.int32)
-    rem = total - n.sum()
+    rem = total - n.sum(-1, keepdim=True)
     order = _descending(quota - torch.floor(quota))
-    p = n.shape[0]
-    bump = torch.zeros_like(n)
-    bump[order] = (torch.arange(p, device=n.device) < rem).to(torch.int32)
+    p = n.shape[-1]
+    bump = torch.zeros_like(n).scatter_(
+        -1, order, (torch.arange(p, device=n.device) < rem).to(torch.int32))
     n = n + bump
-    lost = torch.clamp(n - cap, min=0).sum()
+    lost = torch.clamp(n - cap, min=0).sum(-1, keepdim=True)
     n = torch.clamp(n, max=cap)
     room = torch.clamp(cap - n, min=0)
-    room_before = torch.cumsum(room, 0) - room
+    room_before = torch.cumsum(room, -1) - room
     add = torch.minimum(torch.clamp(lost - room_before, min=0), room)
     return (n + add).to(torch.int32)
 
@@ -159,6 +169,14 @@ class RouteResult(NamedTuple):
     send_units: torch.Tensor         # (P, P, K)
 
 
+def _rows(ensemble: ParticleEnsemble) -> ParticleEnsemble:
+    """A bank's ``(..., P, C, ...)`` ensemble as ``(B·P, C, ...)`` rows (a
+    view): packing is per shard, so the member dims fold into rows."""
+    d = ensemble.counts.dim() - 1
+    return ParticleEnsemble(*(x.reshape((-1,) + x.shape[d:]) for x in (
+        ensemble.state, ensemble.log_weights, ensemble.counts)))
+
+
 def _window_overlap(u_lo, u_hi, a, b):
     return torch.clamp(torch.minimum(u_hi, b) - torch.maximum(u_lo, a),
                        min=0)
@@ -175,6 +193,11 @@ def pack_windows(ensemble: ParticleEnsemble, row_send: torch.Tensor, *,
     each window takes up to ``k_cap`` consecutive slots from the first
     particle overlapping its interval.
     """
+    lead = ensemble.counts.shape[:-1]          # (..., P): one row a shard
+    if len(lead) > 1:
+        pack = pack_windows(_rows(ensemble), row_send.reshape(
+            (-1,) + row_send.shape[-1:]), k_cap=k_cap)
+        return PackResult(*(x.reshape(lead + x.shape[1:]) for x in pack))
     counts = ensemble.counts.to(torch.int64)
     p, c = counts.shape
     u_hi = row_cumsum(counts)
@@ -228,17 +251,18 @@ def merge_routed(ensemble: ParticleEnsemble,
                  route: RouteResult) -> ParticleEnsemble:
     """Kept plus received compressed particles, still compressed:
     capacity ``C + P·K`` (``particles.materialize`` expands them)."""
-    p = route.recv_counts.shape[0]
+    d = route.recv_counts.dim() - 2            # the slot dim
 
     def flat(x):
-        return x.reshape((p, -1) + x.shape[3:])
+        return x.reshape(x.shape[:d - 1] + (x.shape[d - 1], -1)
+                         + x.shape[d + 2:])
 
     return ParticleEnsemble(
-        state=torch.cat([ensemble.state, flat(route.recv_state)], 1),
+        state=torch.cat([ensemble.state, flat(route.recv_state)], d),
         log_weights=torch.cat([ensemble.log_weights,
-                               flat(route.recv_log_weights)], 1),
+                               flat(route.recv_log_weights)], d),
         counts=torch.cat([route.kept_counts.to(torch.int32),
-                          flat(route.recv_counts)], 1))
+                          flat(route.recv_counts)], d))
 
 
 class SlabPack(NamedTuple):
@@ -262,6 +286,11 @@ def pack_slab(ensemble: ParticleEnsemble, m_units: torch.Tensor, *,
     selection with no host sync): a window of ``m ≤ k_cap`` units
     overlaps at most ``m`` such slots, so it never overflows.  Units that
     do not fit stay in ``kept_counts``."""
+    lead = ensemble.counts.shape[:-1]          # (..., P): one row a shard
+    if len(lead) > 1:
+        pack = pack_slab(_rows(ensemble), torch.as_tensor(m_units).reshape(
+            -1), k_cap=k_cap)
+        return SlabPack(*(x.reshape(lead + x.shape[1:]) for x in pack))
     counts = ensemble.counts.to(torch.int32)
     p, c = counts.shape
     u_hi = row_cumsum(counts)

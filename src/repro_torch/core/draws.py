@@ -21,7 +21,8 @@ default "low" Gumbel ``-log(-log(u))``, ``u`` uniform on
   zeros of the kind's dtype), so its stream stays frozen exactly like
   its carry.  The distributed filter stacks one provider per shard the
   same way (``shard_draws``), where the reference folds the shard index
-  into its key.
+  into its key, and a bank over a mesh stacks those: ``(B, P)``
+  (``bank_shard_draws``).
 """
 from __future__ import annotations
 
@@ -146,6 +147,10 @@ class BankDraws:
 
     ``active`` (a sequence of bools, default all) selects the members
     that draw; the others get zeros and their providers are untouched.
+    A member may itself be batched (every member's ``batch_shape`` the
+    same): a bank over a mesh stacks one ``shard_draws`` provider per
+    member, ``(B, P)``, and member ``i`` draws exactly what its provider
+    draws alone.
     """
 
     def __init__(self, members: Sequence, active: Sequence[bool] | None = None):
@@ -153,12 +158,33 @@ class BankDraws:
         self.active = ([True] * len(self.members) if active is None
                        else [bool(a) for a in active])
         self.device = self.members[0].device
-        self.batch_shape = (len(self.members),)
+        inner = {tuple(getattr(m, "batch_shape", ())) for m in self.members}
+        if len(inner) != 1:
+            raise ValueError(f"bank members of different batch shapes "
+                             f"{sorted(inner)}")
+        self.member_shape = inner.pop()
+        self.batch_shape = (len(self.members),) + self.member_shape
+
+    def set_active(self, active) -> None:
+        """Set which members draw from a nested list of bools shaped like
+        the member dims (``(B,)``, or ``(B1, B2)`` for a bank of banks:
+        a sub-bank draws where any of its members does)."""
+        active = list(active)
+        if len(active) != len(self.members):
+            raise ValueError(f"{len(active)} activity flags for "
+                             f"{len(self.members)} members")
+        flags = []
+        for m, a in zip(self.members, active):
+            if isinstance(a, (list, tuple)):
+                m.set_active(a)
+                a = any(m.active)
+            flags.append(bool(a))
+        self.active = flags
 
     def _stack(self, kind: str, shape, *args) -> torch.Tensor:
         outs = [getattr(m, kind)(shape, *args) if a else
-                torch.zeros(tuple(shape), dtype=KIND_DTYPES[kind],
-                            device=self.device)
+                torch.zeros(self.member_shape + tuple(shape),
+                            dtype=KIND_DTYPES[kind], device=self.device)
                 for m, a in zip(self.members, self.active)]
         return torch.stack(outs)
 
@@ -184,8 +210,9 @@ class BankDraws:
 
     def permutation(self, n: int) -> torch.Tensor:
         """``(B, n)``: one permutation per member."""
+        ident = torch.arange(int(n), device=self.device)
         outs = [m.permutation(n) if a else
-                torch.arange(int(n), device=self.device)
+                ident.expand(self.member_shape + (int(n),))
                 for m, a in zip(self.members, self.active)]
         return torch.stack(outs)
 
@@ -209,6 +236,13 @@ def shard_draws(key, shards: int, device):
         return key
     raise TypeError(f"distributed draws need an int seed or a provider "
                     f"with batch_shape ({shards},), got {type(key).__name__}")
+
+
+def bank_shard_draws(keys, shards: int, device) -> BankDraws:
+    """The ``(B, P)`` draws of a bank over a ``shards``-shard mesh: member
+    ``i``'s shard ``s`` draws exactly the stream ``shard_draws(keys[i],
+    shards)`` gives shard ``s`` of a standalone distributed filter."""
+    return BankDraws([shard_draws(k, shards, device) for k in keys])
 
 
 def as_draws(key, device):

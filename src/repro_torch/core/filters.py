@@ -10,14 +10,17 @@ ARNA, RPA or butterfly through the emulated collectives of
 slab of every frame and reweights its tile's particles against it.
 ``FilterBank`` runs B independent filters of one model as one batched
 program, member ``i`` reproducing ``ParallelParticleFilter.run(keys[i],
-observations[i])``.  Both run on the CUDA device unless built with
-``device="cpu"``; with no CUDA device and no explicit ``device`` they
-raise rather than run elsewhere.  A bank over a mesh and ``bank_axis``
-raise ``NotImplementedError`` (ROADMAP A8).
+observations[i])`` — on one device, or over the mesh (the reference's
+"many users, one program" layout): a ``(B, P, C, ...)`` ensemble whose
+every member runs the DRA through collectives that act for all members
+at once (``make_sharded_bank_step``).  Both run on the CUDA device unless
+built with ``device="cpu"``; with no CUDA device and no explicit
+``device`` they raise rather than run elsewhere.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -25,7 +28,8 @@ import torch
 from repro_torch.core import distributed as dist
 from repro_torch.core import domain as domain_mod
 from repro_torch.core import particles, runtime, smc
-from repro_torch.core.draws import BankDraws, as_draws, shard_draws
+from repro_torch.core.draws import (BankDraws, as_draws, bank_shard_draws,
+                                    shard_draws)
 
 
 class FilterResult(NamedTuple):
@@ -83,7 +87,7 @@ class ParallelParticleFilter:
                                                     runtime.EmulatedMesh):
             raise TypeError(f"mesh must be an EmulatedMesh, got "
                             f"{type(self.mesh).__name__} (the torch."
-                            f"distributed backend waits for ROADMAP A8)")
+                            f"distributed backend waits for ROADMAP A8b)")
         if not isinstance(self.dra, dist.DRAConfig):
             raise TypeError(f"dra must be a DRAConfig, got "
                             f"{type(self.dra).__name__}")
@@ -136,43 +140,110 @@ class ParallelParticleFilter:
 
 @dataclasses.dataclass
 class FilterBank:
-    """B independent SIR filters (shared model and config) batched along
-    an explicit leading slot dim; the fused weight phase and the patch
-    likelihood are one kernel launch each for the whole bank."""
+    """B independent SIR filters (shared model and config) in one
+    program; member ``i`` consumes ``observations[i]`` with stream
+    ``keys[i]`` and reproduces ``ParallelParticleFilter(mesh=mesh,
+    dra=dra).run(keys[i], observations[i])`` bit for bit.
+
+    * ``mesh=None`` (or a one-shard mesh) — every member's ``N``
+      particles on one device, batched along a leading slot dim; the
+      fused weight phase and the patch likelihood are one kernel launch
+      each for the whole bank.
+    * ``mesh`` (an ``EmulatedMesh``, or an ``EmulatedGrid`` from
+      ``runtime.make_mesh`` holding the ``axis_name`` axis) — every
+      member's particles are sharded over ``axis_name``'s ``P`` shards:
+      a ``(B, P, C, ...)`` ensemble, ``C = N / P``, and the DRA runs for
+      all members in one pass (one launch of each kernel a frame).
+    * ``bank_axis`` — the members are also sharded over that axis of the
+      grid: ``B / P_b`` members a bank shard.  On one card that is a
+      layout: the ensemble becomes ``(P_b, B / P_b, P, C, ...)`` and the
+      collectives act behind both member dims; the bits are those of the
+      bank without it, and the results come back as ``(B, ...)``.
+    """
 
     model: Any
     sir: smc.SIRConfig
     device: Any = None
     mesh: Any = None
-    dra: Any = None
-    bank_axis: Any = None
+    dra: dist.DRAConfig = dataclasses.field(default_factory=dist.DRAConfig)
+    axis_name: str = "data"
+    bank_axis: str | None = None
 
     def __post_init__(self):
-        if self.mesh is not None or self.dra is not None:
-            raise NotImplementedError("a FilterBank over a mesh (mesh=, "
-                                      "dra=) waits for ROADMAP A8")
-        if self.bank_axis is not None:
-            raise NotImplementedError("bank_axis waits for ROADMAP A8")
+        if self.mesh is not None and not isinstance(
+                self.mesh, (runtime.EmulatedMesh, runtime.EmulatedGrid)):
+            raise TypeError(f"mesh must be an EmulatedMesh or EmulatedGrid, "
+                            f"got {type(self.mesh).__name__} (the torch."
+                            f"distributed backend waits for ROADMAP A8b)")
+        if not isinstance(self.dra, dist.DRAConfig):
+            raise TypeError(f"dra must be a DRAConfig, got "
+                            f"{type(self.dra).__name__}")
+        if self.mesh is not None:
+            for axis in (self.axis_name, self.bank_axis):
+                if axis is not None and axis not in self.mesh.shape:
+                    raise ValueError(f"axis {axis!r} not in mesh axes "
+                                     f"{tuple(self.mesh.shape)}")
         self.device = resolve_device(self.device)
 
     def run(self, keys, observations) -> FilterResult:
         """Run every member over its stream.  ``keys`` holds one seed,
-        generator or provider per member; ``observations`` is
-        ``(B, K, ...)``.  Every result field has a leading bank dim."""
+        generator or provider per member (over a mesh: a seed or a
+        provider with ``batch_shape (P,)``); ``observations`` is ``(B, K,
+        ...)``.  Every result field has a leading bank dim."""
         obs = _to_device(observations, self.device)
+        if self.mesh is None or math.prod(self.mesh.shape.values()) == 1:
+            return self._run_local(keys, obs)
+        return self._run_sharded(keys, obs)
+
+    def _run_local(self, keys, obs) -> FilterResult:
         carry = member_carry([as_draws(k, self.device) for k in keys],
                              self.model, self.sir)
-        step = make_bank_step(self.model, self.sir)
-        active = torch.ones(obs.shape[0], dtype=torch.bool,
-                            device=self.device)
-        outs = []
-        for k in range(obs.shape[1]):
-            carry, out = step(carry, (obs[:, k], active))
-            outs.append(out)
-        outs = smc.stack_outputs(outs, axis=1)
-        return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
-                            outs.resampled, outs.ancestors, outs.diag,
-                            carry.ensemble)
+        return _run_bank(make_bank_step(self.model, self.sir), carry, obs,
+                         (obs.shape[0],))
+
+    def _run_sharded(self, keys, obs) -> FilterResult:
+        p = self.mesh.shape[self.axis_name]
+        n = self.sir.n_particles
+        c = _shard_capacity(n, p)
+        b = len(keys)
+        p_bank = self.mesh.shape[self.bank_axis] if self.bank_axis else 1
+        if b % p_bank:
+            raise ValueError(f"bank size {b} not divisible by {p_bank} "
+                             f"bank shards")
+        members = (p_bank, b // p_bank) if self.bank_axis else (b,)
+        draws = bank_shard_draws(keys, p, self.device)
+        if self.bank_axis:
+            # one sub-bank a bank shard: draws (P_b, B / P_b, P)
+            per = b // p_bank
+            draws = BankDraws([BankDraws(draws.members[j * per:(j + 1) * per])
+                               for j in range(p_bank)])
+        step = make_sharded_bank_step(self.model, self.sir, self.dra,
+                                      self.mesh.axis(self.axis_name))
+        carry = shard_carry(draws, self.model, c, n)
+        return _run_bank(step, carry, obs.reshape(members + obs.shape[1:]),
+                         members)
+
+
+def _run_bank(step, carry: smc.SIRCarry, obs: torch.Tensor,
+              members: tuple[int, ...]) -> FilterResult:
+    """Drive a bank step over ``members + (K, ...)`` observations with
+    every slot active; the results lead with one bank dim ``B``."""
+    d = len(members)
+    active = torch.ones(members, dtype=torch.bool, device=obs.device)
+    outs = []
+    for k in range(obs.shape[d]):
+        carry, out = step(carry, (obs.select(d, k), active))
+        outs.append(out)
+    outs = smc.stack_outputs(outs, axis=d)
+
+    def bank(x):
+        return x.reshape((math.prod(members),) + x.shape[d:])
+
+    final = carry.ensemble
+    return FilterResult(*(particles.tree_map(bank, getattr(outs, f)) for f in (
+        "estimate", "ess", "log_marginal", "resampled", "ancestors", "diag")),
+        final=particles.ParticleEnsemble(*(particles.tree_map(bank, x) for x in (
+            final.state, final.log_weights, final.counts))))
 
 
 def make_bank_step(model, sir: smc.SIRConfig):
@@ -180,6 +251,22 @@ def make_bank_step(model, sir: smc.SIRConfig):
     active (B,))) -> (carry, StepOutput)``: the batched SIR step under
     the per-slot mask (``smc.make_masked_step``)."""
     return smc.make_masked_step(smc.make_sir_step(model, sir))
+
+
+def make_sharded_bank_step(model, sir: smc.SIRConfig, dra: dist.DRAConfig,
+                           mesh: runtime.EmulatedMesh):
+    """The bank step over a mesh (the reference's per-shard bank step,
+    its distributed SIR step ``vmap``ped over slots): ``step(carry,
+    (observations (B, ...), active (B,)))`` on a ``(B, P, C, ...)``
+    carry whose draws are ``(B, P)`` (``shard_carry`` over
+    ``draws.bank_shard_draws``).  One pass
+    serves every member — each collective and kernel launches once for
+    the bank, not once a member — under the per-slot mask of
+    ``make_bank_step``: an inactive member keeps its ensemble and its
+    streams bit for bit and emits zeros.  Any number of member dims may
+    lead (``bank_axis``'s ``(P_b, B / P_b)``)."""
+    return smc.make_masked_step(smc.make_distributed_sir_step(
+        model, sir, dra, mesh))
 
 
 def member_carry(members, model, sir: smc.SIRConfig) -> smc.SIRCarry:
@@ -216,7 +303,10 @@ def _shard_capacity(n: int, p: int) -> int:
 def shard_carry(draws, model, c: int, n: int) -> smc.SIRCarry:
     """A fresh ``(P, C, ...)`` carry of the distributed filter: each
     shard draws its ``C``-slot piece of the ``n``-particle ensemble from
-    its own stream, every slot weighted ``-log n`` (float32)."""
+    its own stream, every slot weighted ``-log n`` (float32).  With
+    ``(B, P)`` draws it is a bank's ``(B, P, C, ...)`` carry, every member
+    drawn as its standalone filter draws it (the reference's
+    ``_shard_carry`` under ``vmap``)."""
     ens = particles.init_ensemble(draws, model.init, c,
                                   log_weight=-dist.log_f32(n))
     return smc.SIRCarry(draws, ens)

@@ -80,6 +80,52 @@ def _per_particle(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # Weight algebra (counts-aware)
 # ---------------------------------------------------------------------------
 
+# the width of one stage of ``invariant_sum`` on the card
+SUM_FOLD = 32
+
+
+def invariant_sum(x: torch.Tensor, dim: int = -1,
+                  keepdim: bool = False) -> torch.Tensor:
+    """Float sum over ``dim`` whose bits for one row do not depend on the
+    member or shard dims in front of it, so a bank member sums exactly as
+    the standalone filter does.  On the card torch's reduction of a long
+    row chooses how to split it from the whole tensor's shape (a filter's
+    8 shards and a bank's 32 sum one row in different orders), so there a
+    batched row (``dim`` behind other dims) is summed in stages of
+    ``SUM_FOLD`` (zero-padded to a multiple): a reduction of at most 32
+    elements is one thread's or one warp's, whose order depends on its
+    width alone (chip_smoke.py checks the bits per row).  A lone row (a
+    single filter's particles, ``dim`` first) and every CPU sum keep
+    torch's one-launch sum, which on the CPU reduces each row by itself
+    below its parallel grain (the sizes the CPU runs)."""
+    dim %= max(x.dim(), 1)
+    if x.device.type != "cuda" or dim == 0:
+        return x.sum(dim, keepdim=keepdim)
+    while x.shape[dim] > SUM_FOLD:
+        n = x.shape[dim]
+        pad = -n % SUM_FOLD
+        if pad:
+            shape = list(x.shape)
+            shape[dim] = pad
+            x = torch.cat([x, x.new_zeros(shape)], dim)
+        x = x.unflatten(dim, ((n + pad) // SUM_FOLD, SUM_FOLD)).sum(dim + 1)
+    return x.sum(dim, keepdim=keepdim)
+
+
+def invariant_logsumexp(x: torch.Tensor, dim: int = -1,
+                        keepdim: bool = False) -> torch.Tensor:
+    """``torch.logsumexp`` with ``invariant_sum``'s order for a batched
+    row on the card (the max is exact in any order); torch's own
+    elsewhere."""
+    dim %= max(x.dim(), 1)
+    if x.device.type != "cuda" or dim == 0:
+        return torch.logsumexp(x, dim, keepdim=keepdim)
+    m = x.amax(dim, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    out = torch.log(invariant_sum(torch.exp(x - m), dim, keepdim=True)) + m
+    return out if keepdim else out.squeeze(dim)
+
+
 def effective_log_weights(log_weights: torch.Tensor,
                           counts: torch.Tensor | None) -> torch.Tensor:
     """Per-slot log-weight with multiplicity folded in (count 0 → -inf)."""
@@ -97,21 +143,22 @@ def normalized_weights(log_weights: torch.Tensor,
     m = lw.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     w = torch.exp(lw - m)
-    s = w.sum(-1, keepdim=True)
+    s = invariant_sum(w, -1, keepdim=True)
     return torch.where(s > 0, w / s, torch.ones_like(w) / w.shape[-1])
 
 
 def log_sum_weights(log_weights: torch.Tensor,
                     counts: torch.Tensor | None = None) -> torch.Tensor:
     """``log Σ w`` over the particle axis."""
-    return torch.logsumexp(effective_log_weights(log_weights, counts), -1)
+    return invariant_logsumexp(effective_log_weights(log_weights, counts),
+                               -1)
 
 
 def effective_sample_size(log_weights: torch.Tensor,
                           counts: torch.Tensor | None = None) -> torch.Tensor:
     """``N_eff = 1 / Σ w²`` (Alg. 1 line 15), weight-normalized."""
     w = normalized_weights(log_weights, counts)
-    return 1.0 / torch.square(w).sum(-1)
+    return 1.0 / invariant_sum(torch.square(w), -1)
 
 
 def weighted_mean(ensemble: ParticleEnsemble) -> Any:
@@ -120,8 +167,8 @@ def weighted_mean(ensemble: ParticleEnsemble) -> Any:
     state."""
     w = normalized_weights(ensemble.log_weights, ensemble.counts)
     axis = ensemble.log_weights.dim() - 1
-    return tree_map(lambda x: (_per_particle(w.to(x.dtype), x) * x).sum(axis),
-                    ensemble.state)
+    return tree_map(lambda x: invariant_sum(_per_particle(w.to(x.dtype), x)
+                                            * x, axis), ensemble.state)
 
 
 def logical_size(ensemble: ParticleEnsemble) -> torch.Tensor:

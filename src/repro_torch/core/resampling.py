@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.particles import normalized_weights
+from repro_torch.core.particles import invariant_sum, normalized_weights
 from repro_torch.kernels import ops
 from repro_torch.kernels.resample import \
     dead_slot_guard as _dead_slot_guard  # noqa: F401  (the reference's name)
@@ -106,7 +106,7 @@ def _comb_counts(weights: torch.Tensor, u: torch.Tensor, n_out,
     (one per member for systematic, ``(..., capacity)`` for stratified);
     ``n_out`` may be a per-member tensor ``≤ capacity``."""
     lead = weights.dim() - 1
-    w = weights / weights.sum(-1, keepdim=True).clamp(min=1e-38)
+    w = weights / invariant_sum(weights, -1, keepdim=True).clamp(min=1e-38)
     cdf = ops.prefix_sum(w)
     if u.dim() == lead:
         u = u[..., None]
@@ -157,7 +157,8 @@ def multinomial_counts(draws, log_weights: torch.Tensor, n_out,
 def _multinomial_from_sorted(w: torch.Tensor, sorted_u: torch.Tensor,
                              n_out_t: torch.Tensor,
                              capacity: int) -> torch.Tensor:
-    cdf = ops.prefix_sum(w / w.sum(-1, keepdim=True).clamp(min=1e-38))
+    cdf = ops.prefix_sum(w / invariant_sum(w, -1, keepdim=True).clamp(
+        min=1e-38))
     lanes = torch.arange(capacity, device=w.device)
     valid = (lanes < n_out_t).expand(sorted_u.shape)
     return _searchsorted_counts(cdf, sorted_u, valid)

@@ -5,23 +5,29 @@ one device.
 The reference runs each DRA as a per-shard program under ``shard_map``
 (or, in its tier-1 tests, under ``vmap`` with an ``axis_name``:
 ``tests/emesh.py``).  The port writes the shard axis out: every
-per-shard tensor carries a leading dim of size ``P``, the distributed
+per-shard tensor carries a shard dim of size ``P``, the distributed
 ensemble is one ``(P, C, ...)`` ensemble on the card, and each collective
-below acts on that leading dim:
+below acts on that dim.  A ``FilterBank`` over the mesh puts its member
+dims in front of it (``EmulatedMesh.lead``: ``(B, P, C, ...)``, where the
+reference ``vmap``s the per-shard program over members), and the
+collectives act on the shard dim behind them, for every member at once:
 
-* ``psum``/``pmax`` — a fixed-order reduction over dim 0 (shard 0 first),
-  broadcast back to every shard;
+* ``psum``/``pmax`` — a fixed-order reduction over the shard dim (shard 0
+  first), broadcast back to every shard;
 * ``all_gather`` — every shard receives the ``(P, ...)`` stack;
 * ``ppermute`` — shard ``dst`` receives shard ``src``'s block (the ring
-  is a roll along dim 0);
+  is a roll along the shard dim);
 * ``all_to_all`` — shard ``i`` receives block ``i`` of every shard: a
   transpose of the ``(P, P, ...)`` blocks;
 * ``axis_index`` is ``arange(P)`` and ``axis_size`` is ``P``.
 
-``butterfly_schedule`` gives the butterfly DRA's distance-doubling
-partner stages, and ``grouped_ppermute`` moves a pytree along one of
-them.  A ``torch.distributed`` (NCCL) backend, where each card holds one
-shard, waits for a later slice (ROADMAP A8b).
+Each collective gives a member the bits it gives the same values without
+the bank.  ``make_mesh`` builds an emulated mesh of named axes (the
+bank's 2-D ``(bank, data)`` layout); ``butterfly_schedule`` gives the
+butterfly DRA's distance-doubling partner stages, and
+``grouped_ppermute`` moves a pytree along one of them.  A
+``torch.distributed`` (NCCL) backend, where each card holds one shard,
+waits for a later slice (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -35,15 +41,76 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class EmulatedMesh:
     """``shards`` emulated shards of one mesh axis on one device (the
-    port's stand-in for the reference's ``mesh=``)."""
+    port's stand-in for the reference's ``mesh=``).  ``lead`` is the
+    shape of the member dims in front of the shard dim of every
+    per-shard tensor: ``()`` for one filter, ``(B,)`` for a bank of B
+    (``over``)."""
 
     shards: int
     axis_name: str = "data"
+    lead: tuple[int, ...] = ()
 
     def __post_init__(self):
         if int(self.shards) < 1:
             raise ValueError(f"a mesh needs at least one shard, got "
                              f"{self.shards}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name to size, as the reference's ``Mesh.shape``."""
+        return {self.axis_name: self.shards}
+
+    def axis(self, name: str) -> "EmulatedMesh":
+        """The mesh of axis ``name`` (this one)."""
+        if name != self.axis_name:
+            raise ValueError(f"axis {name!r} not in mesh axes "
+                             f"{tuple(self.shape)}")
+        return self
+
+    def over(self, lead) -> "EmulatedMesh":
+        """The same axis with member dims ``lead`` in front of the shard
+        dim."""
+        return dataclasses.replace(self, lead=tuple(int(v) for v in lead))
+
+
+@dataclasses.dataclass(frozen=True)
+class EmulatedGrid:
+    """An emulated mesh of several named axes on one device (the
+    counterpart of the reference's ``make_mesh``), e.g. a FilterBank's 2-D
+    ``(bank, data)`` grid: members sharded over one axis, particles over
+    the other.  On one card the grid is a layout; ``axis`` gives one
+    axis as an ``EmulatedMesh`` for the collectives."""
+
+    axis_shapes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_shapes) != len(self.axis_names) \
+                or len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"axis shapes {self.axis_shapes} and names "
+                             f"{self.axis_names} do not pair up")
+        if any(int(v) < 1 for v in self.axis_shapes):
+            raise ValueError(f"every axis needs at least one shard, got "
+                             f"{self.axis_shapes}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name to size, as the reference's ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_shapes))
+
+    def axis(self, name: str) -> EmulatedMesh:
+        """The 1-D emulated mesh of axis ``name``."""
+        if name not in self.shape:
+            raise ValueError(f"axis {name!r} not in mesh axes "
+                             f"{self.axis_names}")
+        return EmulatedMesh(self.shape[name], name)
+
+
+def make_mesh(axis_shapes, axis_names) -> EmulatedGrid:
+    """An emulated mesh of ``axis_shapes`` shards over ``axis_names``
+    (the reference's ``make_mesh``)."""
+    return EmulatedGrid(tuple(int(v) for v in axis_shapes),
+                        tuple(axis_names))
 
 
 def host_mesh(n: int | None = None, axis: str = "data") -> EmulatedMesh:
@@ -62,43 +129,50 @@ def axis_index(mesh: EmulatedMesh, device=None) -> torch.Tensor:
     return torch.arange(mesh.shards, device=device)
 
 
-def _check(x: torch.Tensor, mesh: EmulatedMesh) -> None:
-    if x.dim() == 0 or x.shape[0] != mesh.shards:
-        raise ValueError(f"per-shard tensor needs a leading dim of "
-                         f"{mesh.shards} shards, got {tuple(x.shape)}")
+def _check(x: torch.Tensor, mesh: EmulatedMesh) -> int:
+    """Raise unless ``x`` leads with the mesh's member dims and its
+    shards; return the shard dim."""
+    d = len(mesh.lead)
+    if tuple(x.shape[:d + 1]) != tuple(mesh.lead) + (mesh.shards,):
+        raise ValueError(f"per-shard tensor needs leading dims "
+                         f"{tuple(mesh.lead) + (mesh.shards,)}, got "
+                         f"{tuple(x.shape)}")
+    return d
 
 
 def psum(x: torch.Tensor, mesh: EmulatedMesh) -> torch.Tensor:
     """Sum over shards, shard 0 first, broadcast to every shard."""
-    _check(x, mesh)
-    acc = x[0]
+    d = _check(x, mesh)
+    acc = x.select(d, 0)
     for i in range(1, mesh.shards):
-        acc = acc + x[i]
-    return acc.expand(x.shape).clone()
+        acc = acc + x.select(d, i)
+    return acc.unsqueeze(d).expand(x.shape).clone()
 
 
 def pmax(x: torch.Tensor, mesh: EmulatedMesh) -> torch.Tensor:
     """Max over shards, broadcast to every shard."""
-    _check(x, mesh)
-    return x.amax(0, keepdim=True).expand(x.shape).clone()
+    d = _check(x, mesh)
+    return x.amax(d, keepdim=True).expand(x.shape).clone()
 
 
 def all_gather(x: torch.Tensor, mesh: EmulatedMesh) -> torch.Tensor:
     """``(P, ...)`` per-shard values -> ``(P, P, ...)``: every shard holds
     the stack of all shards' values."""
-    _check(x, mesh)
-    return x.unsqueeze(0).expand((mesh.shards,) + tuple(x.shape)).clone()
+    d = _check(x, mesh)
+    shape = tuple(x.shape)
+    return x.unsqueeze(d).expand(shape[:d] + (mesh.shards,)
+                                 + shape[d:]).clone()
 
 
 def ppermute(x: torch.Tensor, mesh: EmulatedMesh,
              perm: Sequence[tuple[int, int]]) -> torch.Tensor:
     """Shard ``dst`` receives shard ``src``'s block for each ``(src, dst)``
     of ``perm``; a shard that receives nothing gets zeros."""
-    _check(x, mesh)
+    d = _check(x, mesh)
     out = torch.zeros_like(x)
     if perm:
-        src, dst = zip(*perm)
-        out[list(dst)] = x[list(src)]
+        src, dst = (torch.tensor(v, device=x.device) for v in zip(*perm))
+        out.index_copy_(d, dst, x.index_select(d, src))
     return out
 
 
@@ -133,11 +207,11 @@ def grouped_ppermute(tree: Any, mesh: EmulatedMesh,
 def all_to_all(x: torch.Tensor, mesh: EmulatedMesh) -> torch.Tensor:
     """``(P, P, ...)`` blocks, shard ``i`` sending ``x[i, j]`` to shard
     ``j`` -> shard ``j`` holds ``x[:, j]`` in sender order."""
-    _check(x, mesh)
-    if x.dim() < 2 or x.shape[1] != mesh.shards:
+    d = _check(x, mesh)
+    if x.dim() < d + 2 or x.shape[d + 1] != mesh.shards:
         raise ValueError(f"all_to_all needs (P, P, ...) blocks, got "
                          f"{tuple(x.shape)}")
-    return x.transpose(0, 1).contiguous()
+    return x.transpose(d, d + 1).contiguous()
 
 
 def tree_bytes(tree: Any) -> int:

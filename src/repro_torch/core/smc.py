@@ -15,13 +15,15 @@ with the global normalizer, ESS and estimate taken through the
 collective facade and the resample done by a DRA
 (``repro_torch.core.distributed``); with a ``domain``
 (``repro_torch.core.domain``) each shard reweights against its own halo
-slab through the migrate-after-advance hook.
+slab through the migrate-after-advance hook.  The same step runs a bank
+over the mesh: a ``(B, P, C, ...)`` ensemble, one pass for all members.
+``StateSpaceModel`` is the reference's closure-style model bundle.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -31,6 +33,47 @@ from repro_torch.core import particles, resampling, runtime
 from repro_torch.core.particles import ParticleEnsemble, effective_sample_size
 from repro_torch.kernels import sir_fused
 from repro_torch.models.ssm.base import domain_hooks
+
+
+@dataclasses.dataclass(frozen=True)
+class StateSpaceModel:
+    """Closure-style adapter for the ``repro_torch.models.ssm``
+    ``StateSpaceModel`` protocol, as the reference's: three callables
+    exposed under the protocol's method names, the lightest way to write
+    a throwaway model (``core.asir`` returns one).
+
+    init_sampler:    (draws, n) -> state with leading dims (..., n)
+    dynamics_sample: (draws, state) -> state          (the proposal = prior)
+    log_likelihood:  (state, observation) -> (..., n) log p(z|x)
+
+    Image models may add the domain-decomposition hooks (both needed for
+    ``ParallelParticleFilter(domain=...)``):
+
+    positions:           (state) -> (..., n, 2) frame-coordinate (y, x)
+    tile_log_likelihood: (state, slabs, origins) -> (..., n)  log p(z|x)
+        against halo slabs, equal to ``log_likelihood`` for the
+        particles a slab's tile owns.
+    """
+
+    init_sampler: Callable[..., Any]
+    dynamics_sample: Callable[..., Any]
+    log_likelihood: Callable[..., torch.Tensor]
+    state_dim: int = 5
+    positions: Callable[..., torch.Tensor] | None = None
+    tile_log_likelihood: Callable[..., torch.Tensor] | None = None
+
+    def init(self, draws, n: int) -> Any:
+        """Protocol ``init``: ``init_sampler``."""
+        return self.init_sampler(draws, n)
+
+    def transition_sample(self, draws, state: Any) -> Any:
+        """Protocol ``transition_sample``: ``dynamics_sample``."""
+        return self.dynamics_sample(draws, state)
+
+    def observation_log_prob(self, state: Any,
+                             observation: Any) -> torch.Tensor:
+        """Protocol ``observation_log_prob``: ``log_likelihood``."""
+        return self.log_likelihood(state, observation)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +140,7 @@ def ess_resample(draws, log_weights: torch.Tensor, *, ess_frac: float,
     where the threshold is not hit (the resample still runs)."""
     n = log_weights.shape[-1]
     ess = effective_sample_size(log_weights)
-    log_z = torch.logsumexp(log_weights, -1)
+    log_z = particles.invariant_logsumexp(log_weights, -1)
     resampled = torch.logical_or(ess < ess_frac * n, torch.tensor(
         bool(always), device=ess.device))
     counts = resampling.RESAMPLERS[resampler](draws, log_weights, n,
@@ -249,6 +292,13 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
     values (one copy); ``diag`` holds the DRA's diagnostics and the
     step's comm-volume accounting.
 
+    Member dims may lead the shard dim: a bank's ``(B, P, C, ...)``
+    ensemble with ``(B, P)`` draws and one observation a member
+    (``(B, ...)``, broadcast over its shards) runs in one pass, each
+    member with the bits of its standalone run; outputs and ``diag``
+    are then per member (``(B, ...)``), as the reference's ``vmap`` of
+    this step gives them.
+
     With ``domain``, the observation is the ``(P, sh, sw)`` stack of the
     shards' halo slabs, and the reweight goes through
     ``domain.exchange_log_likelihood``: particles travel to their tile
@@ -267,11 +317,19 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
 
     def step(carry: SIRCarry, observation):
         draws, ens = carry
-        p, c = ens.log_weights.shape
+        *lead, p, c = ens.log_weights.shape
+        lead = tuple(lead)
+        d = len(lead)                      # the shard dim
+        bank_mesh = mesh.over(lead)
         ens = particles.advance(ens, draws, model.transition_sample)
         if domain is None:
-            ll = model.observation_log_prob(ens.state, observation)
+            # a member's observation broadcasts over its shards
+            obs = particles.tree_map(lambda o: o.unsqueeze(d), observation) \
+                if d else observation
+            ll = model.observation_log_prob(ens.state, obs)
             mig_diag = {}
+        elif d:
+            raise ValueError("a bank takes no domain decomposition")
         else:
             ll, mig_diag = domain_mod.exchange_log_likelihood(
                 domain, ens, positions_fn(ens.state),
@@ -282,10 +340,11 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
         glz = dist.global_log_z(lw, mesh)
         ess = dist.global_ess(lw, mesh)
         # MMSE estimate with globally normalized weights (one psum)
-        w = torch.exp(torch.where(torch.isfinite(lw), lw - glz[:, None],
+        w = torch.exp(torch.where(torch.isfinite(lw), lw - glz[..., None],
                                   torch.full_like(lw, -math.inf)))
         x = ens.state
-        estimate = runtime.psum((_bcast(w.to(x.dtype), x) * x).sum(1), mesh)
+        estimate = runtime.psum(particles.invariant_sum(
+            _bcast(w.to(x.dtype), x) * x, d + 1), bank_mesh).select(d, 0)
         do_resample = torch.logical_or(
             ess < cfg.ess_frac * (p * c),
             torch.tensor(bool(cfg.always_resample), device=ess.device))
@@ -298,13 +357,17 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
             r_ens, diag = resample(draws, ens, dra, mesh)
         # fold the weight phase's collectives into the comm accounting:
         # logZ gather + ESS gather/psum + estimate psum
-        step_bytes = 12 + runtime.tree_bytes(estimate[0])
+        step_bytes = 12 + math.prod(estimate.shape[d:]) \
+            * estimate.element_size()
         diag = {**diag, "comm_bytes": diag["comm_bytes"] + step_bytes,
                 "comm_stages": diag["comm_stages"] + 4, **mig_diag}
+        # every diagnostic per member, as the reference's vmap gives it
+        diag = {k: v.expand(lead) for k, v in diag.items()}
         ens = _select(do_resample, r_ens,
-                      ens.replace(log_weights=lw - glz[:, None]))
-        out = StepOutput(estimate[0], ess[0], glz[0], do_resample[0],
-                         no_ancestors((), lw.device), diag)
+                      ens.replace(log_weights=lw - glz[..., None]))
+        out = StepOutput(estimate, ess.select(d, 0), glz.select(d, 0),
+                         do_resample.select(d, 0),
+                         no_ancestors(lead, lw.device), diag)
         return SIRCarry(draws, ens), out
 
     return step
@@ -315,7 +378,8 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
 # ---------------------------------------------------------------------------
 
 def neutral_output(out: StepOutput, active: torch.Tensor) -> StepOutput:
-    """Zero a step's outputs wherever ``active`` (``(B,)`` bool) is False;
+    """Zero a step's outputs wherever ``active`` (``(B,)`` bool, or one
+    flag per member of several member dims) is False;
     ``resampled`` becomes False."""
     def zero(x):
         return torch.where(_bcast(active, x), x, torch.zeros_like(x))
@@ -341,9 +405,9 @@ def make_masked_step(step):
     def masked(carry: SIRCarry, xs):
         observation, active = xs
         draws = carry.draws
-        draws.active = [bool(a) for a in active.tolist()]
+        draws.set_active(active.tolist())
         new_carry, out = step(carry, observation)
-        if all(draws.active):
+        if bool(active.all()):
             return SIRCarry(draws, new_carry.ensemble), out
         ens = _select(active, new_carry.ensemble, carry.ensemble)
         return SIRCarry(draws, ens), neutral_output(out, active)

@@ -41,6 +41,14 @@ def patch_log_likelihood(state: torch.Tensor, frames: torch.Tensor, *,
               frame_origin=frame_origin, geometry=geometry)
     frames = frames.expand(state.shape[:-2] + frames.shape[-2:])
     if on_cuda(state):
+        if state.dim() > 3:
+            # a bank over a mesh: (B, P, C, S) particles as B·P rows (a
+            # frame shared by a member's shards is copied per row)
+            lead = state.shape[:-2]
+            out = patch_likelihood.patch_log_likelihood_kernel(
+                state.reshape((-1,) + state.shape[-2:]),
+                frames.reshape((-1,) + frames.shape[-2:]), **kw)
+            return out.reshape(lead + out.shape[-1:])
         return patch_likelihood.patch_log_likelihood_kernel(state, frames,
                                                             **kw)
     return ref.patch_log_likelihood_ref(state[..., 0], state[..., 1],

@@ -6,8 +6,9 @@
     x_0 ~ N(m0, P0)
 
 ``LinearGaussianSSM`` runs in float32 torch like the rest of the particle
-stack.  ``kalman_filter`` is the package's own copy of the reference's
-float64 NumPy oracle — independent of the torch numerics under test.
+stack.  ``kalman_filter`` and ``kalman_smoother`` (its RTS backward pass)
+are the package's own copies of the reference's float64 NumPy oracle —
+independent of the torch numerics under test.
 Timing convention: predict-then-update from ``(m0, P0)`` on every step,
 matching the SIR step (advance, then reweight).
 """
@@ -122,7 +123,8 @@ def _as_cov(x, d: int, name: str) -> np.ndarray:
 
 
 class KalmanResult(NamedTuple):
-    """Exact filtering moments and per-step log-marginal increments."""
+    """Exact filtering (or smoothing) moments and, for the filter, the
+    per-step log-marginal increments (zeros for the smoother)."""
 
     means: np.ndarray          # (T, dx)
     covs: np.ndarray           # (T, dx, dx)
@@ -164,6 +166,25 @@ def kalman_filter(model: LinearGaussianSSM, observations) -> KalmanResult:
         covs.append(p)
     return KalmanResult(np.asarray(means), np.asarray(covs),
                         np.asarray(logz))
+
+
+def kalman_smoother(model: LinearGaussianSSM, observations) -> KalmanResult:
+    """Exact smoothing ``p(x_k | z_{0..T-1})`` (the RTS backward pass over
+    ``kalman_filter``'s output, float64 NumPy); ``log_marginals`` are
+    zeros."""
+    a = _np(model.transition_matrix)
+    lq = _np(model.transition_chol)
+    q = lq @ lq.T
+    filt = kalman_filter(model, observations)
+    t = len(filt.means)
+    means, covs = list(filt.means), list(filt.covs)
+    for k in range(t - 2, -1, -1):
+        m_pred = a @ filt.means[k]
+        p_pred = a @ filt.covs[k] @ a.T + q
+        g = filt.covs[k] @ a.T @ np.linalg.inv(p_pred)
+        means[k] = filt.means[k] + g @ (means[k + 1] - m_pred)
+        covs[k] = filt.covs[k] + g @ (covs[k + 1] - p_pred) @ g.T
+    return KalmanResult(np.asarray(means), np.asarray(covs), np.zeros(t))
 
 
 def oracle_configs() -> dict[str, LinearGaussianSSM]:

@@ -5,10 +5,11 @@
 * Importing the port builds nothing and loads no CUDA library.
 * Entry points run on the CUDA device by default and raise without one
   (the filters, ``generate`` and ``smc_decode``); the options of later
-  slices (a bank over a mesh, ``bank_axis``, the LM layer kinds
-  L/M/X/R/D, MoE FFNs, multi-codebook heads, sliding windows,
-  session-hosted decoding) raise ``NotImplementedError``; ARNA, butterfly
-  and ``domain=`` build and run.
+  slices (the LM layer kinds L/M/X/R/D, MoE FFNs, multi-codebook heads,
+  sliding windows, session-hosted decoding) raise
+  ``NotImplementedError``; ARNA, butterfly, ``domain=``, a bank over a
+  mesh and ``bank_axis`` build and run, and an unknown ``bank_axis``
+  raises ``ValueError``.
 * The chain resamplers and attention run on the CPU through their plain
   versions, and their CUDA wrappers refuse a CPU tensor instead of
   falling back.
@@ -30,7 +31,7 @@ from repro.models import tracking as jtracking
 from repro_torch import convert
 from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
 from repro_torch.core.distributed import DRAConfig
-from repro_torch.core.runtime import EmulatedMesh
+from repro_torch.core.runtime import EmulatedMesh, make_mesh
 from repro_torch.kernels import build
 from repro_torch.kernels import resample as resample_kernels
 from repro_torch.models.tracking import TrackingConfig, TrackingSSM
@@ -83,18 +84,33 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert pf.device == torch.device("cpu")
 
 
-def _later_slice(option):
+def _bank_over_mesh(option):
     model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
     sir = SIRConfig(n_particles=8)
     if option == "mesh":        # a bank over a mesh
         return FilterBank(model, sir, device="cpu", mesh=EmulatedMesh(2))
-    return FilterBank(model, sir, device="cpu", bank_axis="bank")
+    return FilterBank(model, sir, device="cpu", bank_axis="bank",
+                      mesh=make_mesh((2, 2), ("bank", "data")))
 
 
 @pytest.mark.parametrize("option", ["mesh", "bank_axis"])
-def test_later_slices_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        _later_slice(option)
+def test_bank_over_mesh_runs(option):
+    """A bank over a mesh and ``bank_axis`` build and run on the CPU: a
+    ``(B, P, C, ...)`` final ensemble and ``(B, K, ...)`` results."""
+    bank = _bank_over_mesh(option)
+    res = bank.run([0, 1], torch.randn(
+        2, 2, 16, 16, generator=torch.Generator().manual_seed(0)))
+    assert res.final.state.shape == (2, 2, 4, 5)
+    assert res.estimates.shape == (2, 2, 5)
+    assert bool(torch.isfinite(res.estimates).all())
+
+
+def test_unknown_bank_axis_raises():
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        FilterBank(TrackingSSM(TrackingConfig(img_size=(16, 16))),
+                   SIRConfig(n_particles=8), device="cpu",
+                   mesh=make_mesh((2, 2), ("bank", "data")),
+                   bank_axis="members")
 
 
 @pytest.mark.parametrize("kind", ["arna", "butterfly"])

@@ -11,8 +11,11 @@ the default composed step with its systematic comb), the FilterBank of
 the distributed filter on an emulated 8-shard mesh at 8 × 2^22 (MPF,
 RNA, ARNA, RPA, butterfly; RNA and RPA also domain-decomposed over 2 × 4
 tiles, ``domain-rna``/``domain-rpa``, where the migration's torch ops
-show in the top kernels), all on 512×512 frames, and the LM serving
-cells at
+show in the top kernels), the FilterBank of 4 members × 2^25 over the
+same mesh (``bank-mesh-rna``, ``bank-mesh-rpa``: 2^27 particles, the
+transition's ``cat`` and the gathers the rows to watch), ASIR on a
+256 × 256 × 4 lattice at N = 2^22 (``asir``, fused), all on 512×512
+frames, and the LM serving cells at
 qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
 chip_smoke.py's sizes) — it runs the path once to warm up, then once
 under ``torch.profiler`` (``--frames`` frames of a filter; one whole
@@ -21,7 +24,7 @@ device busy share (the sum of kernel times over the wall time: one
 stream, so kernels do not overlap), the kernels that take the most
 device time, the time of each of the port's own kernels, grouped by
 source (``PORT_GROUPS``), wherever they rank, and for the tracking paths
-one line with B3's and the comb scan's device ms a frame.  The ``passes-``
+one line with B3's, B1's and the comb scan's device ms a frame.  The ``passes-``
 paths time B1 and B2 alone, each design on chip_smoke.py's timing inputs
 (B1 at 8 × 2^22, B2 at 1 × 2^22 with and without the comb and at the
 bank's 8 × 2^20), ten calls under the profiler, and list each launch of
@@ -166,6 +169,7 @@ def main() -> int:
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
+    from repro_torch.core.asir import ASIRConfig, make_asir_model
     from repro_torch.core.distributed import DRAConfig
     from repro_torch.core.draws import TorchDraws
     from repro_torch.core.runtime import EmulatedMesh
@@ -215,6 +219,28 @@ def main() -> int:
             n_particles=2 ** 20, ess_frac=0.5, step_backend="fused"))
         return lambda: fb.run([100 + i for i in range(8)], movies)
     runs["bank"] = (bank, args.frames, "frame")
+
+    def bank_mesh(kind):
+        # chip_smoke.py's phase 5f: 4 members x 2^25 over EmulatedMesh(8)
+        def make():
+            movies = torch.stack([frames] + [generate_movie(
+                TorchDraws.from_seed(20 + i, dev), cfg,
+                n_frames=args.frames).frames for i in range(3)])
+            fb = FilterBank(model=model, sir=SIRConfig(
+                n_particles=8 * 2 ** 22, ess_frac=0.5), mesh=EmulatedMesh(8),
+                dra=DRAConfig(kind=kind))
+            return lambda: fb.run([1, 201, 202, 203], movies)
+        return make
+    for kind in ("rna", "rpa"):
+        runs[f"bank-mesh-{kind}"] = (bank_mesh(kind), args.frames, "frame")
+
+    def asir():
+        # chip_smoke.py's phase 5g: 2-px cells, 4 intensity bins, fused
+        am = make_asir_model(model, cfg, ASIRConfig(grid=256,
+                                                    intensity_bins=4))
+        pf = ParallelParticleFilter(model=am, sir=SIRConfig(**single))
+        return lambda: pf.run(1, frames)
+    runs["asir"] = (asir, args.frames, "frame")
     runs.update(lm_runs(dev))
     runs.update(pass_runs(dev))
     record = {"card": name, "frames": args.frames, "paths": {}}
@@ -262,8 +288,11 @@ def main() -> int:
                   f"({launches[g]} launches)")
         if unit == "frame":
             b3, cs = "B3 (patch_likelihood.cu)", "comb scan (comb_scan.cu)"
+            b1 = "B1 (resample.cu)"
             print(f"    B3 {groups.get(b3, 0.0):.4f} ms/frame "
-                  f"({launches.get(b3, 0)} launches), comb scan "
+                  f"({launches.get(b3, 0)} launches), B1 "
+                  f"{groups.get(b1, 0.0):.4f} ms/frame "
+                  f"({launches.get(b1, 0)} launches), comb scan "
                   f"{groups.get(cs, 0.0):.4f} ms/frame "
                   f"({launches.get(cs, 0)} launches) [{name}]")
         del fn
