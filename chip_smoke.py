@@ -33,7 +33,13 @@
    lane kernel; and this slice's shapes: B2 at state widths 1, 8 and 40,
    B1 and B3 at the bank over the mesh's 32 x 2^22 and B3 on ASIR's
    262,144-row lattice, and the fixed-order row sums of ``core`` giving a
-   row the same bits alone, in 8 rows and in 32;
+   row the same bits alone, in 8 rows and in 32; and the row-sum kernel
+   (``csrc/row_sum.cu``, every float sum of ``core`` on the card) bit for
+   bit its torch emulation and a second launch, with and without the
+   shift of logsumexp, at 1, 8 and 32 x 2^22, ragged rows (2^22 - 1,
+   1025, 1) and inner = 5, within ROW_SUM_TOL of the float64 sum
+   (relative to the sum of |x|), a row's bits alone == in 2, 4, 8 and 32
+   rows;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -44,6 +50,9 @@
    the reference's 1.5 px, after a warm-up of 20 frames: from a prior
    uniform over a 512×512 frame the filter can take more than 10 frames
    to find the spot at SNR 2 (each run's lock-on frame is printed);
+4b. runs the composed FilterBank of 8 x 2^20 on phase 4's movies and
+   seeds: every member bit for bit the standalone composed filter with
+   its seed (ROADMAP C7), B3 and the comb scan once a frame;
 5. runs the composed default config (systematic comb) at N = 2^22 over
    the same 40-frame movie three times, through the patch kernel and the
    comb scan once a frame each: the runs must agree bit for bit and pass
@@ -93,6 +102,22 @@
    decode against prefill logits, repeatability, that SMC
    sequences are the recorded genealogy's paths, log Z and ESS, and a
    τ = 1 run's uniform weights;
+5h. serves on the card: 12 tracking sessions of 2^22 particles (512x512,
+   SNR 2, 40-frame movies) on a capacity-8 ``ParticleSessionServer``,
+   fused and composed, under a fixed churn schedule (staggered attaches,
+   detaches when a movie ends, session 2 suspended to a directory and
+   resumed, session 5 resumed on a capacity-4 server): every session bit
+   for bit its standalone filter and under the tracking gate, at most one
+   step program a tier, B3 and B2 or the comb scan once a tick for the
+   whole tier; the composed server under ``ParticleFrontend`` with 8
+   Poisson streams at 20 frames/s for 5 s (every frame delivered in
+   order, streams 0 and 1 bit for bit their standalone runs; latency
+   quantiles from the Metrics snapshot); a fleet of two capacity-4 banks
+   and a standby, 8 streams with skew 4, the standby brought up and one
+   stream migrated onto it, bank b killed at its 24th step (every stream
+   bit for bit its standalone run);
+   and two of 5d's prompts decoded as resident sessions with 5d's
+   weights (bit for bit ``smc_decode``, B6's launches as in 5d);
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -120,7 +145,8 @@
    frames/s and tokens/s; and, recorded but not gated, B1 and B3 at the
    bank over the mesh's 32 x 2^22 (B3 on 5f's final RNA ensemble), B3 on
    ASIR's lattice and B2 at D = 1, 8 and 40, each beside its first design
-   and its bound.
+   and its bound; and the row-sum kernel at 1, 8 and 32 x 2^22 beside
+   torch's sum (its plain version and the library call) and its bound.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -128,7 +154,8 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f and 5g (``launches_new_phases``).
+launches in phases 5f, 5g and 5h (``launches_new_phases``; for the row
+sum, its launches a frame in each cell).
 """
 from __future__ import annotations
 
@@ -1471,8 +1498,10 @@ def decode_vs_prefill(model, prompt, tokens) -> dict:
             "steps_checked": list(LM_CHECK_STEPS)}
 
 
-def run_lm(dev, all_k, reset, counts, name) -> dict:
-    """Phase 5d: generate and smc_decode at qwen3-32b width, 16 layers."""
+def run_lm(dev, all_k, reset, counts, name):
+    """Phase 5d: generate and smc_decode at qwen3-32b width, 16 layers.
+    Returns the record, the model and the prompts (phase 5h reuses
+    them)."""
     import dataclasses
     import torch
     from repro_torch.core import genealogy
@@ -1614,10 +1643,9 @@ def run_lm(dev, all_k, reset, counts, name) -> dict:
     smc_rec["tau1_max_abs_log_z"] = err
     plain_never_ran("the LM phase")
     log(f"smc_decode tau=1: max |log Z| {err:.3g} (limit 1e-4), no resample")
-    del flat, model
-    torch.cuda.empty_cache()
+    del flat
     return {"arch": LM_ARCH, "layers": LM_LAYERS, "params": n_params,
-            "generate": gen, "smc_decode": smc_rec}
+            "generate": gen, "smc_decode": smc_rec}, model, prompt
 
 
 def dist_launches(kind, all_k, stages) -> dict:
@@ -2121,6 +2149,99 @@ def check_invariant_sums(dev) -> dict:
     return {"torch_sum_differs": torch_differs}
 
 
+ROW_SUM_TOL = 1e-6         # relative to the float64 sum of |x|
+ROW_SUM_CASES = [(1, 2 ** 22, 1, 71), (8, 2 ** 22, 1, 72),
+                 (32, 2 ** 22, 1, 73), (1, 2 ** 22 - 1, 1, 74),
+                 (3, 1025, 1, 75), (5, 1, 1, 76), (8, 2 ** 20, 5, 77)]
+
+
+def check_row_sum(dev) -> dict:
+    """The row-sum kernel (``csrc/row_sum.cu``) at the sums' shapes: bit
+    for bit its torch emulation and a second launch, with and without the
+    shift (``exp(x - max)``, logsumexp's pass); within ROW_SUM_TOL of the
+    float64 sum relative to ``Σ|x|`` (weights in [0, 1), and signed values
+    at inner = 5, the estimate's view); a row's bits alone and in 2, 4, 8
+    and 32 rows; the plain version (torch's sum) within the same
+    tolerance."""
+    import torch
+    from repro_torch.kernels.row_sum import (row_sum_emulated,
+                                             row_sum_kernel, row_sum_ref)
+    g = torch.Generator(device=dev)
+    worst_rel, max_abs = 0.0, 0.0
+    for outer, n, inner, seed in ROW_SUM_CASES:
+        g.manual_seed(seed)
+        x = (torch.randn if inner > 1 else torch.rand)(
+            (outer, n, inner), generator=g, device=dev)
+        got = row_sum_kernel(x)
+        check(same_bits(got, row_sum_kernel(x)),
+              f"row sum {x.shape}: two launches differ")
+        check(same_bits(got, row_sum_emulated(x)),
+              f"row sum {x.shape}: differs from its emulation")
+        shift = x.amax(1)
+        got_s = row_sum_kernel(x, shift)
+        check(same_bits(got_s, row_sum_emulated(x, shift)),
+              f"row sum {x.shape} with a shift: differs from its emulation")
+        x64 = x.double()
+        scale = x64.abs().sum(1)
+        rel = float(((got.double() - x64.sum(1)).abs() / scale).max())
+        exp64 = torch.exp(x64 - shift.double()[:, None])
+        rel_s = float(((got_s.double() - exp64.sum(1)).abs()
+                       / exp64.sum(1)).max())
+        plain = row_sum_ref(x)
+        rel_p = float(((plain.double() - x64.sum(1)).abs() / scale).max())
+        check(max(rel, rel_s, rel_p) <= ROW_SUM_TOL,
+              f"row sum {x.shape}: {rel:.3g} / shifted {rel_s:.3g} / plain "
+              f"{rel_p:.3g} from the float64 sum (limit {ROW_SUM_TOL})")
+        worst_rel = max(worst_rel, rel, rel_s)
+        max_abs = max(max_abs, float((got - plain).abs().max()))
+        if outer == 32:
+            for rows in (1, 2, 4, 8):
+                check(same_bits(row_sum_kernel(x[:rows].contiguous()),
+                                got[:rows]),
+                      f"row sum: {rows} rows alone differ from the same "
+                      f"rows in 32")
+            check(same_bits(row_sum_kernel(x[17:18].contiguous()),
+                            got[17:18]), "row sum: row 17 alone differs")
+        del x, x64, exp64
+    log(f"row sum: bit for bit its emulation and repeatable (with and "
+        f"without the shift) at {[c[:3] for c in ROW_SUM_CASES]}; a row's "
+        f"bits alone == in 2, 4, 8 and 32 rows; worst error "
+        f"{worst_rel:.3g} of Σ|x| from the float64 sum (limit "
+        f"{ROW_SUM_TOL}); max |kernel - torch.sum| {max_abs:.3g}")
+    return {"max_abs_err": max_abs, "max_rel_err": worst_rel}
+
+
+def row_sum_bound(rows, n) -> tuple[float, str]:
+    """Bytes: every element read once, 4 B (the (rows,) output is
+    negligible); the adds are n a row, far under the FP32 rate."""
+    return rows * n * 4 / PEAK_BYTES * 1e3, "bytes"
+
+
+def time_row_sum(dev) -> dict:
+    """The row sum at 1, 8 and 32 x 2^22 (the single filter's, the 8-shard
+    mesh's and the bank over the mesh's rows) beside torch's sum (the
+    plain version and the library call, timed in turns) and its bound."""
+    import torch
+    from repro_torch.kernels.row_sum import row_sum_kernel, row_sum_ref
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(78)
+    for rows in (1, 8, 32):
+        x = torch.rand((rows, 2 ** 22, 1), generator=g, device=dev)
+        ms, plain_ms = in_turns(lambda: row_sum_kernel(x),
+                                lambda: row_sum_ref(x))
+        shift = x.amax(1)
+        bound, by = row_sum_bound(rows, 2 ** 22)
+        out[f"{rows}x2^22"] = {
+            "shape": [rows, 2 ** 22, 1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": cuda_ms(lambda: x.sum(1)),
+            "device_ms": device_ms(lambda: row_sum_kernel(x)),
+            "shift_ms": cuda_ms(lambda: row_sum_kernel(x, shift)),
+            "bound_ms": bound, "bound_by": by}
+        del x
+    return out
+
+
 def check_new_shapes(dev, cfg) -> dict:
     """Phase 2 at this slice's shapes: B1 at the bank over the mesh's 32 x
     2^22 by ``systematic_case``; B3 there (spread particles, one frame a
@@ -2149,11 +2270,453 @@ def check_new_shapes(dev, cfg) -> dict:
             "patch_inputs": patch_in}
 
 
-def make_movie(seed, cfg, dev):
+def run_composed_bank(model, frames, seeds, n, all_k, reset, counts, rsum_k,
+                      name) -> dict:
+    """Phase 4b (ROADMAP C7): the composed single-device FilterBank of 8 x
+    2^20 on phase 4's movies; every member bit for bit the standalone
+    composed filter with its seed; B3 and the comb scan once a frame for
+    the whole bank, and its float sums on the row-sum kernel."""
+    from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
+    sir = SIRConfig(n_particles=n, ess_frac=0.5)
+    bank = FilterBank(model=model, sir=sir)
+    reset()
+    t0 = time.perf_counter()
+    bres = bank.run(seeds, frames)
+    got = counts(all_k)
+    t_bank = time.perf_counter() - t0
+    row_sums = rsum_k.launches
+    want = {k: 0 for k in all_k}
+    want.update({"patch_log_likelihood": FRAMES, "prefix_sum": FRAMES})
+    check(got == want, f"composed bank launches {got}")
+    check(row_sums > 0, "composed bank: no row-sum launch")
+    for i, seed in enumerate(seeds):
+        solo = ParallelParticleFilter(model=model, sir=sir).run(seed,
+                                                                frames[i])
+        for f in ("estimates", "ess", "log_marginal", "resampled"):
+            check(same_bits(getattr(bres, f)[i], getattr(solo, f)),
+                  f"composed bank member {i} {f} differs from its "
+                  f"standalone filter (C7)")
+        check(same_bits(bres.final.state[i], solo.final.state)
+              and same_bits(bres.final.log_weights[i],
+                            solo.final.log_weights),
+              f"composed bank member {i}: final ensemble differs (C7)")
+    log(f"composed bank B={len(seeds)} x N=2^{n.bit_length() - 1} 512x512: "
+        f"every member bit "
+        f"for bit its standalone composed filter (C7), launches {got}, "
+        f"row sums {row_sums / FRAMES:.2f} a frame, "
+        f"{FRAMES / t_bank:.2f} bank frames/s first run [{name}]")
+    return {"launches": got, "row_sum_per_frame": row_sums / FRAMES,
+            "first_run_frames_per_s": FRAMES / t_bank,
+            "resampled": int(bres.resampled.sum())}
+
+
+# phase 5h: serving.  2^22 particles a session, the single cell's density
+# over the 512x512 frame: at 2^20 a slot one of 12 sessions (movie 59,
+# seed 909) locked on after the 20-frame warm-up (RMSE 1.8794 px; ROADMAP
+# C4's late lock-on, the session bit for bit its standalone filter)
+SERVE_N, SERVE_CAP = 2 ** 22, 8
+SERVE_STARTS = [4 * i for i in range(8)] + [44, 48, 52, 56]
+# session -> (suspend tick, resume tick, onto the capacity-4 server)
+SERVE_SUSPEND = {2: (20, 26, False), 5: (30, 31, True)}
+FE_STREAMS, FE_RATE, FE_SECONDS, FE_FRAMES = 8, 20.0, 5.0, 160
+FLEET_STREAMS, FLEET_FRAMES, FLEET_KILL_AT = 8, 40, 24
+
+
+def serve_sessions(model, backend, movies, all_k, reset, counts, rsum_k,
+                   tmp, name) -> dict:
+    """12 sessions of SERVE_N particles under SERVE_STARTS' churn on a
+    capacity-8 server; two suspended to directories and resumed, one on
+    a capacity-4 server.  Every session bit for bit its standalone
+    filter and under the tracking gate; one B3 launch and one B2 (fused)
+    or comb scan (composed) a tick for the whole tier."""
+    import torch
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.serve import ParticleSessionServer
+    sir = SIRConfig(n_particles=SERVE_N, ess_frac=0.5, step_backend=backend)
+    seeds = [900 + i for i in range(len(SERVE_STARTS))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    srv = ParticleSessionServer(model, sir, capacity=SERVE_CAP)
+    small = ParticleSessionServer(model, sir, capacity=4)
+    where, parked, done = {}, {}, {}
+    fed = [0] * len(seeds)
+    ticks = 0
+    reset()
+    t0 = time.perf_counter()
+    tick = 0
+    while len(done) < len(seeds):
+        for i, start in enumerate(SERVE_STARTS):
+            if tick == start:
+                where[i] = (srv, srv.attach(seeds[i]))
+            if i in SERVE_SUSPEND:
+                at, back, onto_small = SERVE_SUSPEND[i]
+                if tick == at:
+                    server_i, h = where.pop(i)
+                    d = os.path.join(tmp, f"{backend}-session-{i}")
+                    server_i.suspend(h, directory=d)
+                    parked[i] = d
+                if tick == back:
+                    target = small if onto_small else srv
+                    where[i] = (target, target.resume_from(parked.pop(i)))
+        for i, (server_i, h) in where.items():
+            server_i.submit(h, movies[i].frames[fed[i]])
+            fed[i] += 1
+        for server_i in (srv, small):
+            ticks += server_i.step() > 0
+        for i, (server_i, h) in list(where.items()):
+            if fed[i] == FRAMES:
+                done[i] = server_i.result(h)
+                server_i.detach(h)
+                del where[i]
+        tick += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(all_k)
+    row_sums = rsum_k.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    comb = "fused_weight_step" if backend == "fused" else "prefix_sum"
+    want = {k: 0 for k in all_k}
+    want.update({"patch_log_likelihood": ticks, comb: ticks})
+    check(got == want, f"sessions {backend}: launches {got}, want {want} "
+                       f"(one a tick)")
+    for server_i in (srv, small):
+        check(1 <= server_i.step_traces <= len(server_i.tiers),
+              f"sessions {backend}: {server_i.step_traces} step programs "
+              f"for tiers {server_i.tiers}")
+    tracks = []
+    for i, seed in enumerate(seeds):
+        solo = ParallelParticleFilter(model=model, sir=sir).run(
+            seed, movies[i].frames)
+        res = done[i]
+        for f in ("estimates", "ess", "log_marginal", "resampled"):
+            check(same_bits(getattr(res, f), getattr(solo, f).cpu()),
+                  f"sessions {backend}: session {i} {f} differs from its "
+                  f"standalone filter")
+        check(same_bits(res.final.state, solo.final.state)
+              and same_bits(res.final.log_weights, solo.final.log_weights),
+              f"sessions {backend}: session {i} final ensemble differs")
+        tracks.append(track(solo, movies[i]))
+    gate_tracks(tracks, f"sessions {backend}")
+    rec = {"ticks": ticks, "launches": got, "row_sums": row_sums,
+           "tier_hits": {"capacity 8": dict(srv.tier_hits),
+                         "capacity 4": dict(small.tier_hits)},
+           "step_traces": [srv.step_traces, small.step_traces],
+           "session_frames_per_s": len(seeds) * FRAMES / wall,
+           "ticks_per_s": ticks / wall, "peak_gib": peak, "tracks": tracks}
+    log(f"5h sessions {backend}: {len(seeds)} x 2^{SERVE_N.bit_length() - 1} "
+        f"under churn (capacity "
+        f"{SERVE_CAP}, sessions 2 and 5 suspended to directories, 5 resumed "
+        f"on capacity 4): all bit for bit their standalone filters, "
+        f"{fmt_tracks(tracks)}; {ticks} ticks, launches {got} (one a tick), "
+        f"row sums {row_sums / ticks:.2f} a tick, tier hits "
+        f"{rec['tier_hits']}, step programs {rec['step_traces']}; "
+        f"{rec['session_frames_per_s']:.2f} session frames/s, "
+        f"{rec['ticks_per_s']:.2f} ticks/s; peak {peak:.2f} GiB above the "
+        f"script's own [{name}]")
+    return rec
+
+
+def serve_frontend(model, movies, tmp, name) -> dict:
+    """The composed capacity-8 server under ParticleFrontend: FE_STREAMS
+    Poisson clients at FE_RATE frames/s for FE_SECONDS.  Every frame is
+    delivered, in order; streams 0 and 1 bit for bit their standalone
+    runs over the frames they sent."""
+    import asyncio
+    import numpy as np
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.serve import (FrontendConfig, ParticleFrontend,
+                                   ParticleSessionServer)
+    sir = SIRConfig(n_particles=SERVE_N, ess_frac=0.5)
+    seeds = [700 + i for i in range(FE_STREAMS)]
+
+    async def main():
+        server = ParticleSessionServer(model, sir, capacity=SERVE_CAP)
+        cfg = FrontendConfig(max_delay=0.005,
+                             park_dir=os.path.join(tmp, "park"))
+        async with ParticleFrontend(server, cfg) as fe:
+            await fe.warmup(movies[0].frames[0])
+            loop = asyncio.get_running_loop()
+            until = loop.time() + FE_SECONDS
+
+            async def client(i):
+                rng = np.random.default_rng(seeds[i])
+                stream = await fe.open(seeds[i])
+                futs = []
+                while loop.time() < until and len(futs) < FE_FRAMES:
+                    await asyncio.sleep(rng.exponential(1.0 / FE_RATE))
+                    futs.append(await asyncio.wait_for(fe.submit(
+                        stream, movies[i].frames[len(futs)]), 60))
+                out = await asyncio.wait_for(asyncio.gather(*futs), 120)
+                await fe.close(stream)
+                return out
+
+            results = await asyncio.gather(*(client(i)
+                                             for i in range(FE_STREAMS)))
+            return results, fe.snapshot(), server
+
+    dog = watchdog(300, "5h frontend")
+    results, snap, server = asyncio.run(main())
+    dog.cancel()
+    sent = [len(r) for r in results]
+    check(snap["counters"]["frames"] == sum(sent),
+          f"frontend: {snap['counters']['frames']} frames delivered of "
+          f"{sum(sent)}")
+    for i, res in enumerate(results):
+        check(all(np.isfinite(r.estimate).all() and np.isfinite(r.ess)
+                  for r in res), f"frontend stream {i}: non-finite result")
+    for i in (0, 1):
+        solo = ParallelParticleFilter(model=model, sir=sir).run(
+            seeds[i], movies[i].frames[:sent[i]])
+        est = np.stack([r.estimate for r in results[i]])
+        check(np.array_equal(est.view(np.int32),
+                             solo.estimates.cpu().numpy().view(np.int32))
+              and np.array_equal(np.asarray([r.log_marginal for r in
+                                             results[i]], np.float32),
+                                 solo.log_marginal.cpu().numpy())
+              and np.array_equal(np.asarray([r.resampled for r in
+                                             results[i]]),
+                                 solo.resampled.cpu().numpy()),
+              f"frontend stream {i}: not bit for bit its standalone run "
+              f"(or out of order)")
+    lat = snap["series"]["latency"]
+    rec = {"frames_sent": sent, "steps": snap["counters"]["steps"],
+           "latency_p50_ms": lat["p50"] * 1e3,
+           "latency_p99_ms": lat["p99"] * 1e3,
+           "coalesce_mean": snap["series"]["coalesce"]["mean"],
+           "park_events": snap["counters"].get("park_events", 0),
+           "tier_hits": snap["tier_hits"],
+           "step_traces": snap["step_traces"]}
+    log(f"5h frontend: {FE_STREAMS} Poisson streams at {FE_RATE:.0f} "
+        f"frames/s for {FE_SECONDS:.0f} s on the composed capacity-8 server "
+        f"(2^{SERVE_N.bit_length() - 1} a slot): {sum(sent)} frames all "
+        f"delivered in order "
+        f"({sent}), streams 0 and 1 bit for bit their standalone runs; "
+        f"latency p50 {rec['latency_p50_ms']:.3f} ms, p99 "
+        f"{rec['latency_p99_ms']:.3f} ms, mean coalesced batch "
+        f"{rec['coalesce_mean']:.3f}, {rec['steps']:.0f} steps, park "
+        f"events {rec['park_events']:.0f}, tier hits {rec['tier_hits']} "
+        f"[{name}]")
+    return rec
+
+
+def watchdog(seconds: float, what: str):
+    """A timer that ends the process (exit code 3) if ``what`` is not done
+    in ``seconds``: an asyncio phase that stops delivering can leave its
+    shutdown waiting on futures that never resolve.  ``cancel()`` it when
+    the phase is done."""
+    import threading
+
+    def fire():
+        print(f"chip_smoke: {what} did not finish in {seconds:.0f} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
+def serve_fleet(model, movies, tmp, name) -> dict:
+    """Two active banks of capacity 4 and a standby, FLEET_STREAMS streams
+    with skew 4 (every 4th stream at 4x the rate); after its third frame
+    stream 1 brings the standby up (``scale_out``) and is migrated onto
+    it by hand, and bank "b" is killed at its FLEET_KILL_AT-th step, its
+    streams re-homed.  No bank holds more streams than slots, so nothing
+    parks (a park writes the session's 2^22-particle state to disk), and
+    the controller neither scales nor rebalances on its own: every move
+    is one of these.  Every stream, the migrated and the recovered ones
+    among them, bit for bit its standalone run."""
+    import asyncio
+    import numpy as np
+    from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.launch.registry import BankSpec, FleetRegistry
+    from repro_torch.serve import (FleetConfig, FleetController,
+                                   FrontendConfig, ParticleSessionServer)
+    sir = SIRConfig(n_particles=SERVE_N, ess_frac=0.5)
+    seeds = [800 + i for i in range(FLEET_STREAMS)]
+    kill = {"calls": 0}
+
+    def make_server(spec):
+        server = ParticleSessionServer(model, sir, capacity=spec.capacity)
+        if spec.name == "b":
+            real = server.step
+
+            def step():
+                kill["calls"] += 1
+                if kill["calls"] > FLEET_KILL_AT:
+                    raise RuntimeError("bank b killed (phase 5h)")
+                return real()
+
+            server.step = step
+        return server
+
+    async def main():
+        registry = FleetRegistry([BankSpec("a", 4), BankSpec("b", 4),
+                                  BankSpec("spare", 4, standby=True)])
+        cfg = FleetConfig(rebalance_interval=0.05, auto_scale=False,
+                          imbalance_threshold=1.0, fail_timeout=60.0,
+                          state_dir=os.path.join(tmp, "fleet"),
+                          frontend=FrontendConfig(max_delay=0.005))
+        async with FleetController(make_server, registry, cfg) as fleet:
+            await fleet.warmup(movies[0].frames[0])
+            streams = [await fleet.open(s) for s in seeds]
+            homes = [fs.bank for fs in streams]
+
+            async def client(i):
+                fs = streams[i]
+                rate = 4 * FE_RATE if i % 4 == 0 else FE_RATE
+                futs = []
+                for k in range(FLEET_FRAMES):
+                    await asyncio.sleep(1.0 / rate)
+                    futs.append(await asyncio.wait_for(fleet.submit(
+                        fs, movies[i].frames[k]), 60))
+                    if i == 1 and k == 2:
+                        await asyncio.wait_for(fleet.scale_out("spare"), 60)
+                        await asyncio.wait_for(fleet.migrate(fs, "spare"), 60)
+                return await asyncio.wait_for(asyncio.gather(*futs), 120)
+
+            results = await asyncio.gather(*(client(i)
+                                             for i in range(FLEET_STREAMS)))
+            snap = fleet.snapshot()
+            placed = [fs.bank for fs in streams]
+            for fs in streams:
+                await fleet.close(fs)
+            return results, snap, homes, placed
+
+    dog = watchdog(300, "5h fleet")
+    results, snap, homes, placed = asyncio.run(main())
+    dog.cancel()
+    c = snap["counters"]
+    check(c.get("migrations", 0) == 1 and c.get("scale_out_events", 0) == 1,
+          f"fleet: migrations {c.get('migrations')}, scale-outs "
+          f"{c.get('scale_out_events')}")
+    check(c.get("bank_failures", 0) == 1
+          and c.get("sessions_recovered", 0) >= 1,
+          f"fleet: failures {c.get('bank_failures')} recovered "
+          f"{c.get('sessions_recovered')}")
+    for i, seed in enumerate(seeds):
+        solo = ParallelParticleFilter(model=model, sir=sir).run(
+            seed, movies[i].frames[:FLEET_FRAMES])
+        est = np.stack([r.estimate for r in results[i]])
+        check(np.array_equal(est.view(np.int32),
+                             solo.estimates.cpu().numpy().view(np.int32))
+              and np.array_equal(np.asarray([r.log_marginal for r in
+                                             results[i]], np.float32),
+                                 solo.log_marginal.cpu().numpy()),
+              f"fleet stream {i} (home {homes[i]}, now {placed[i]}): not "
+              f"bit for bit its standalone run")
+    rec = {"counters": c, "homes": homes, "placed": placed,
+           "banks": {k: {"dead": v["dead"], "steps": v["frontend"][
+               "counters"].get("steps", 0)} for k, v in snap["banks"].items()}}
+    log(f"5h fleet: banks a, b (capacity 4) + standby, {FLEET_STREAMS} "
+        f"streams (skew 4), the standby brought up and stream 1 migrated "
+        f"onto it, bank b killed at step "
+        f"{FLEET_KILL_AT}: all {FLEET_STREAMS} streams bit for bit their "
+        f"standalone runs; homes {homes} -> {placed}; counters "
+        f"{ {k: v for k, v in sorted(c.items())} } [{name}]")
+    return rec
+
+
+def serve_decode(model, prompt, all_k, reset, counts, name) -> dict:
+    """Two of phase 5d's prompts decoded as resident sessions on a
+    capacity-2 server (K = LM_K, LM_STEPS steps, 5d's weights): bit for
+    bit ``smc_decode`` of the same prompts and seed; B6 launched as in
+    5d (the prefill's wgmma once a layer, a split launch a layer and
+    step)."""
+    import torch
+    from repro_torch.serve import (LMDecodeSSM, ParticleSessionServer,
+                                   SMCDecodeConfig, smc_decode,
+                                   suspended_decode_session)
+    smc = SMCDecodeConfig(n_particles=LM_K, steps=LM_STEPS,
+                          proposal_temperature=LM_TAU)
+    seed = LM_SEED + 4
+    ref = smc_decode(model, prompt, smc, key=seed)
+    ssm = LMDecodeSSM(model=model, decode=smc, prompt_len=prompt.shape[1])
+    server = ParticleSessionServer(ssm, smc.sir(), capacity=prompt.shape[0])
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    handles = [server.resume(s)
+               for s in suspended_decode_session(ssm, seed, prompt)]
+    for t in range(1, LM_STEPS):
+        for h in handles:
+            server.submit(h, torch.tensor(float(t)))
+        server.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(all_k)
+    want = {k: 0 for k in all_k}
+    want.update({"flash_attention": LM_LAYERS * LM_STEPS,
+                 "prefix_sum": LM_STEPS - 1})
+    check(got == want, f"decode sessions launches {got}, want {want}")
+    attn = all_k["flash_attention"]
+    check(attn.variants == {"wgmma": LM_LAYERS,
+                            "split": LM_LAYERS * (LM_STEPS - 1), "mma": 0,
+                            "f32": 0},
+          f"decode sessions B6 variants {attn.variants}")
+    for i, h in enumerate(handles):
+        r = server.result(h)
+        check(torch.equal(r.final.state["tokens"], ref.sequences[i])
+              and same_bits(r.final.log_weights, ref.log_weights[i])
+              and same_bits(r.log_marginal, ref.log_marginal[:, i].cpu())
+              and same_bits(r.ess, ref.ess[:, i].cpu())
+              and torch.equal(r.ancestors, ref.ancestors[:, i].cpu())
+              and torch.equal(r.resampled, ref.resampled[:, i].cpu()),
+              f"decode session {i}: not bit for bit smc_decode")
+    rec = {"launches": got, "variants": dict(attn.variants),
+           "seconds": wall, "tier_hits": dict(server.tier_hits),
+           "hypothesis_tokens_per_s":
+               prompt.shape[0] * LM_K * (LM_STEPS - 1) / wall,
+           "resample_events": int(ref.resampled.sum())}
+    log(f"5h decode sessions: {prompt.shape[0]} x {prompt.shape[1]} prompts "
+        f"of {LM_ARCH} x {LM_LAYERS}, K={LM_K}, {LM_STEPS} steps on a "
+        f"capacity-{prompt.shape[0]} server: bit for bit smc_decode "
+        f"({rec['resample_events']} resample events), launches {got}, B6 "
+        f"{rec['variants']}; {wall:.3f} s with the prefill and the host "
+        f"round trip of the caches [{name}]")
+    del server, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_serving(dev, model, lm_model, lm_prompt, all_k, reset, counts,
+                rsum_k, name) -> dict:
+    """Phase 5h: resident sessions (fused and composed), the request plane,
+    the fleet and session-hosted decoding, on movies made on the card;
+    suspended sessions and the fleet's state go to a scratch directory
+    of the checkout, removed at the end."""
+    import shutil
+    import torch
+    tmp = os.path.join(ROOT, ".chip_scratch", "serve")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    movies = [make_movie(50 + i, model.cfg, dev)
+              for i in range(len(SERVE_STARTS))]
+    rec = {b: serve_sessions(model, b, movies, all_k, reset, counts, rsum_k,
+                             tmp, name) for b in ("fused", "composed")}
+    del movies
+    movies = [make_movie(70 + i, model.cfg, dev, n_frames=FE_FRAMES)
+              for i in range(FE_STREAMS)]
+    rec["frontend"] = serve_frontend(model, movies, tmp, name)
+    rec["fleet"] = serve_fleet(model, movies, tmp, name)
+    del movies
+    torch.cuda.empty_cache()
+    rec["decode"] = serve_decode(lm_model, lm_prompt, all_k, reset, counts,
+                                 name)
+    rec["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(tmp)
+    log(f"5h serving: {rec['seconds']:.1f} s")
+    return rec
+
+
+def make_movie(seed, cfg, dev, n_frames=FRAMES):
     from repro_torch.core.draws import TorchDraws
     from repro_torch.data.synthetic_movie import generate_movie
     return generate_movie(TorchDraws.from_seed(seed, dev), cfg,
-                          n_frames=FRAMES)
+                          n_frames=n_frames)
 
 
 def track(res, movie, member=None) -> dict:
@@ -2208,6 +2771,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import \
         flash_attention_kernel as attn_k
     from repro_torch.kernels.scan import prefix_sum_kernel as scan_k
+    from repro_torch.kernels.row_sum import row_sum_kernel as rsum_k
     from repro_torch.core.distributed import DRAConfig
     from repro_torch.core.runtime import EmulatedMesh
     from repro_torch.models.tracking import TrackingConfig, TrackingSSM
@@ -2235,6 +2799,7 @@ def main() -> int:
     sys_check = check_systematic(dev)
     new_shapes = check_new_shapes(dev, TrackingConfig())
     sums_check = check_invariant_sums(dev)
+    row_check = check_row_sum(dev)
     scan_check = check_scan(dev)
     chain_check = check_chains(dev)
     attn_check = check_attention(dev)
@@ -2245,14 +2810,20 @@ def main() -> int:
              "rejection_ancestors": rej_k, "flash_attention": attn_k,
              "prefix_sum": scan_k}
 
+    # the row-sum kernel serves every float sum of core, so each phase's
+    # count of it is recorded (row_sum_seen, one entry a counted run),
+    # not held to a fixed number
+    row_sum_seen = []
+
     def reset():
-        for k in all_k.values():
+        for k in (*all_k.values(), rsum_k):
             k.launches = 0
         for k in (attn_k, metro_k, rej_k, patch_k, sys_k, fused_k):
             k.variants.update(dict.fromkeys(k.variants, 0))
 
     def counts(names=("patch_log_likelihood", "fused_weight_step")):
         torch.cuda.synchronize()
+        row_sum_seen.append(rsum_k.launches)
         return {n: all_k[n].launches for n in names}
 
     # -- phase 3: single filter at the paper's §VII.C frame ------------------
@@ -2268,6 +2839,7 @@ def main() -> int:
     t0 = time.perf_counter()
     res = pf.run(1, movie.frames)
     launches_single = counts()
+    row_sum_cells = {"single": row_sum_seen[-1] / FRAMES}
     t_single = time.perf_counter() - t0
     check(launches_single == {"patch_log_likelihood": FRAMES,
                               "fused_weight_step": FRAMES},
@@ -2312,6 +2884,7 @@ def main() -> int:
     t0 = time.perf_counter()
     bres = bank.run(seeds, frames)
     launches_bank = counts()
+    row_sum_cells["bank"] = row_sum_seen[-1] / FRAMES
     t_bank = time.perf_counter() - t0
     check(launches_bank == {"patch_log_likelihood": FRAMES,
                             "fused_weight_step": FRAMES},
@@ -2338,6 +2911,11 @@ def main() -> int:
         f"first run) [{name}]")
     log(f"bank members: {fmt_tracks(members)}")
 
+    # -- phase 4b: the composed bank, member by member (C7) ---------------------
+    composed_bank = run_composed_bank(model, frames, seeds, n_bank, all_k,
+                                      reset, counts, rsum_k, name)
+    row_sum_cells["bank-composed"] = composed_bank["row_sum_per_frame"]
+
     # -- phase 5: composed default config at the main path's size -------------
     # the default SIRConfig (systematic comb, composed step): its CDF is the
     # scan kernel's, once a frame, and three runs must repeat bit for bit
@@ -2349,6 +2927,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cres = comp.run(1, movie.frames)
         launches_comp = counts(all_k)
+        row_sum_cells["composed"] = row_sum_seen[-1] / FRAMES
         comp_runs.append((cres, time.perf_counter() - t0))
         want = {k: 0 for k in all_k}
         want.update({"patch_log_likelihood": FRAMES, "prefix_sum": FRAMES})
@@ -2391,6 +2970,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cres = cpf.run(1, movie.frames)
         got = counts(all_k)
+        row_sum_cells[scheme] = row_sum_seen[-1] / FRAMES
         t_first = time.perf_counter() - t0
         want = {k: 0 for k in all_k}
         want.update({"patch_log_likelihood": FRAMES,
@@ -2445,6 +3025,7 @@ def main() -> int:
         t0 = time.perf_counter()
         dres = dpf.run(1, movie.frames)
         got = counts(all_k)
+        row_sum_cells[kind] = row_sum_seen[-1] / FRAMES
         t_first = time.perf_counter() - t0
         want = dist_launches(kind, all_k, stages)
         check(got == want, f"{kind} launches {got}")
@@ -2528,23 +3109,41 @@ def main() -> int:
         del dres, dres2
 
     # -- phase 5e: domain decomposition at full width --------------------------
+    seen = len(row_sum_seen)
     domain_runs = run_domain(dev, model, movie, dras, replicated, all_k,
                              reset, counts, name)
+    row_sum_cells["5e runs"] = [x / FRAMES for x in row_sum_seen[seen:]]
 
     # -- phase 5f: a FilterBank over the emulated mesh at full width ---------
+    seen = len(row_sum_seen)
     bank_mesh, bank_b3 = run_bank_mesh(dev, model, movie, dras, replicated,
                                        all_k, reset, counts, name)
+    for kind, x in zip(("bank-mesh-rna", "bank-mesh-rpa"),
+                       row_sum_seen[seen:]):
+        row_sum_cells[kind] = x / FRAMES
     del replicated
 
     # -- phase 5g: ASIR, stochastic volatility, Lorenz-96, the smoothers -----
+    seen = len(row_sum_seen)
     asir_run = run_asir(dev, model, single_movies, single, all_k, reset,
                         counts, name)
     del single_movies
     families = run_families(dev, all_k, reset, counts, name)
     smoothers = run_smoothers(dev, name)
+    row_sum_cells["5g runs"] = row_sum_seen[seen:]
 
     # -- phase 5d: LM serving at qwen3-32b width ------------------------------
-    lm = run_lm(dev, all_k, reset, counts, name)
+    lm, lm_model, lm_prompt = run_lm(dev, all_k, reset, counts, name)
+
+    # -- phase 5h: serving: sessions, the request plane, the fleet, decode ----
+    serving = run_serving(dev, model, lm_model, lm_prompt[:2], all_k, reset,
+                          counts, rsum_k, name)
+    del lm_model, lm_prompt
+    torch.cuda.empty_cache()
+    log(f"row-sum launches a frame by cell: "
+        f"{ {k: v for k, v in row_sum_cells.items() if 'runs' not in k} }; "
+        f"5e and 5g runs {row_sum_cells['5e runs']} / "
+        f"{row_sum_cells['5g runs']}")
 
     # -- phase 6: timings --------------------------------------------------------
     # B3's timing inputs: (i) the single filter's final particles, in
@@ -2667,6 +3266,12 @@ def main() -> int:
     check(scan_times["8x2^22"]["ms"] < scan_times["8x2^22"]["first_ms"],
           "comb scan: the one-pass kernel is not faster than the first "
           "design at 8 x 2^22")
+    row_times = time_row_sum(dev)
+    for label, t in row_times.items():
+        log(f"times [{name}]: row sum {label}: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}, with the shift {t['shift_ms']:.4f}; "
+            f"plain {t['plain_ms']:.4f}, torch.sum {t['library_ms']:.4f}; "
+            f"bound {t['bound_ms']:.4f} {t['bound_by']})")
     # this slice's shapes, recorded and not gated: B1 at the bank over the
     # mesh's 32 x 2^22, B3 there (RNA's final bank ensemble against each
     # member's last frame) and on ASIR's lattice, B2 at D = 1, 8 and 40
@@ -2764,6 +3369,18 @@ def main() -> int:
          "bound_ms": attn_times["smc_decode"]["bound_ms"],
          "bound_by": attn_times["smc_decode"]["bound_by"],
          "library_ms": attn_times["smc_decode"]["library_ms"]},
+        # the composed step's float sums at its 1 x 2^22 rows; 8 and 32 x
+        # 2^22 are in the record's "row_sum_times"
+        {"name": "row_sum", "variant": "grouped", "route": "cuda",
+         "source": "src/repro_torch/csrc/row_sum.cu",
+         "replaces": "src/repro/core/particles.py:95",
+         "launches": int(row_sum_cells["composed"] * FRAMES),
+         "max_abs_err": row_check["max_abs_err"],
+         "ms": row_times["1x2^22"]["ms"],
+         "plain_ms": row_times["1x2^22"]["plain_ms"],
+         "bound_ms": row_times["1x2^22"]["bound_ms"],
+         "bound_by": row_times["1x2^22"]["bound_by"],
+         "library_ms": row_times["1x2^22"]["library_ms"]},
     ]
     fam_l = {f"5g {fam} {b}": families[fam][b]["launches"]
              for fam in families for b in ("fused", "composed")}
@@ -2785,12 +3402,27 @@ def main() -> int:
             "5f bank-mesh rpa": bank_mesh["rpa"]["launches"]["prefix_sum"],
             **{k: v["prefix_sum"] for k, v in fam_l.items()
                if k.endswith("composed")}}}
+    for b in ("fused", "composed"):
+        ticks = serving[b]["ticks"]
+        new_launches["patch_log_likelihood"][f"5h sessions {b}"] = ticks
+        comb = "fused_weight_step" if b == "fused" else "prefix_sum"
+        new_launches[comb][f"5h sessions {b}"] = ticks
+    new_launches["prefix_sum"]["5h decode sessions"] = \
+        serving["decode"]["launches"]["prefix_sum"]
+    new_launches["flash_attention"] = {
+        "5h decode sessions": serving["decode"]["launches"]["flash_attention"]}
+    new_launches["row_sum"] = {
+        f"{k} (a frame)": v for k, v in row_sum_cells.items()
+        if "runs" not in k}
     for k in kernels:
         k["launches_new_phases"] = new_launches.get(k["name"], {})
     record = {
         "card": name, "kernels": kernels,
         "bank_mesh": bank_mesh, "asir": asir_run, "families": families,
-        "smoothers": smoothers, "invariant_sums": sums_check, "new_shapes": {
+        "smoothers": smoothers, "invariant_sums": sums_check,
+        "row_sum": row_check, "row_sum_times": row_times,
+        "row_sum_cells": row_sum_cells, "composed_bank": composed_bank,
+        "serving": serving, "new_shapes": {
             "systematic_check": new_shapes["systematic"],
             "systematic": new_sys, "patch": new_patch, "fused": new_fused},
         "tie_lanes": fused_check["tie_lanes"],

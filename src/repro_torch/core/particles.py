@@ -18,6 +18,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels import ops
+
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leafwise over matching pytrees (dicts, lists and plain
@@ -64,11 +66,14 @@ def init_ensemble(draws, sampler: Callable, n: int, *,
     if log_weight is None:
         log_weight = -math.log(n)
     lead = tuple(draws.batch_shape) + (n,)
+    leaves = []
+    tree_map(leaves.append, state)
+    dev = leaves[0].device        # a pytree state's first leaf
     return ParticleEnsemble(
         state=state,
         log_weights=torch.full(lead, log_weight, dtype=torch.float32,
-                               device=state.device),
-        counts=torch.ones(lead, dtype=torch.int32, device=state.device))
+                               device=dev),
+        counts=torch.ones(lead, dtype=torch.int32, device=dev))
 
 
 def _per_particle(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -80,49 +85,50 @@ def _per_particle(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # Weight algebra (counts-aware)
 # ---------------------------------------------------------------------------
 
-# the width of one stage of ``invariant_sum`` on the card
-SUM_FOLD = 32
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x``'s sums take the row-sum kernel (a CUDA tensor)."""
+    return x.device.type == "cuda"
+
+
+def _row_sum(x: torch.Tensor, dim: int, keepdim: bool,
+             shift: torch.Tensor | None = None) -> torch.Tensor:
+    """``ops.row_sum`` over ``dim`` of ``x`` viewed as ``(outer, n,
+    inner)``; ``shift`` is shaped like the sum with ``keepdim``."""
+    lead, n, tail = x.shape[:dim], x.shape[dim], x.shape[dim + 1:]
+    outer, inner = math.prod(lead), math.prod(tail)
+    out = ops.row_sum(x.reshape(outer, n, inner),
+                      None if shift is None else shift.reshape(outer, inner))
+    return out.reshape(lead + (1,) + tail if keepdim else lead + tail)
 
 
 def invariant_sum(x: torch.Tensor, dim: int = -1,
                   keepdim: bool = False) -> torch.Tensor:
     """Float sum over ``dim`` whose bits for one row do not depend on the
     member or shard dims in front of it, so a bank member sums exactly as
-    the standalone filter does.  On the card torch's reduction of a long
-    row chooses how to split it from the whole tensor's shape (a filter's
-    8 shards and a bank's 32 sum one row in different orders), so there a
-    batched row (``dim`` behind other dims) is summed in stages of
-    ``SUM_FOLD`` (zero-padded to a multiple): a reduction of at most 32
-    elements is one thread's or one warp's, whose order depends on its
-    width alone (chip_smoke.py checks the bits per row).  A lone row (a
-    single filter's particles, ``dim`` first) and every CPU sum keep
-    torch's one-launch sum, which on the CPU reduces each row by itself
-    below its parallel grain (the sizes the CPU runs)."""
+    the standalone filter does.  On the card every such sum, a lone row
+    or a batched one, is one launch of the row-sum kernel
+    (``ops.row_sum``), whose order of additions depends on the row's
+    length alone (torch's own CUDA reduction of a long row splits it by
+    the whole tensor's shape).  On the CPU it is torch's sum, which
+    reduces each row by itself below its parallel grain (the sizes the
+    CPU runs)."""
     dim %= max(x.dim(), 1)
-    if x.device.type != "cuda" or dim == 0:
+    if not _on_card(x):
         return x.sum(dim, keepdim=keepdim)
-    while x.shape[dim] > SUM_FOLD:
-        n = x.shape[dim]
-        pad = -n % SUM_FOLD
-        if pad:
-            shape = list(x.shape)
-            shape[dim] = pad
-            x = torch.cat([x, x.new_zeros(shape)], dim)
-        x = x.unflatten(dim, ((n + pad) // SUM_FOLD, SUM_FOLD)).sum(dim + 1)
-    return x.sum(dim, keepdim=keepdim)
+    return _row_sum(x, dim, keepdim)
 
 
 def invariant_logsumexp(x: torch.Tensor, dim: int = -1,
                         keepdim: bool = False) -> torch.Tensor:
-    """``torch.logsumexp`` with ``invariant_sum``'s order for a batched
-    row on the card (the max is exact in any order); torch's own
-    elsewhere."""
+    """``torch.logsumexp`` with ``invariant_sum``'s order on the card (the
+    max is exact in any order; the kernel sums ``exp(x - max)`` in the
+    same pass); torch's own on the CPU."""
     dim %= max(x.dim(), 1)
-    if x.device.type != "cuda" or dim == 0:
+    if not _on_card(x):
         return torch.logsumexp(x, dim, keepdim=keepdim)
     m = x.amax(dim, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-    out = torch.log(invariant_sum(torch.exp(x - m), dim, keepdim=True)) + m
+    out = torch.log(_row_sum(x, dim, True, shift=m)) + m
     return out if keepdim else out.squeeze(dim)
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (flash_attention, patch_likelihood, ref,
-                                 resample, scan)
+                                 resample, row_sum as row_sum_mod, scan)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -71,6 +71,18 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     if not on_cuda(x):
         return scan.prefix_sum_ref(x)
     return _batched(scan.prefix_sum_kernel, x)
+
+
+def row_sum(x: torch.Tensor, shift: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """``(outer, inner)`` float32 sums over dim 1 of ``x`` ``(outer, n,
+    inner)``, of ``exp(x - shift)`` with an ``(outer, inner)`` ``shift``:
+    on the card one launch of ``csrc/row_sum.cu``, whose order depends on
+    ``n`` alone; torch's sum on the CPU."""
+    if not on_cuda(x):
+        return row_sum_mod.row_sum_ref(x, shift)
+    return row_sum_mod.row_sum_kernel(
+        x.contiguous(), None if shift is None else shift.contiguous())
 
 
 def systematic_ancestors(log_weights: torch.Tensor, u: torch.Tensor,

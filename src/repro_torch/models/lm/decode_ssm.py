@@ -70,6 +70,27 @@ def _proposal(model: "LMDecodeSSM", draws, logits: torch.Tensor):
     return p_log, q_log, tok
 
 
+def _position(draws, pos: torch.Tensor) -> int:
+    """The one decode position of a step: every row decodes at it (one
+    ``forward_decode`` call), so every prompt that draws this step (a
+    bank's active slots; all rows otherwise) must be at it.  Sessions
+    hosted on one server therefore advance together; an idle row in the
+    step has its cache written at this position, which its own next
+    step at that position overwrites."""
+    per_prompt = pos[..., 0].reshape(-1)
+    active = getattr(draws, "active", None)
+    live = per_prompt
+    if active is not None and any(active):
+        live = per_prompt[torch.tensor(active, device=pos.device)]
+    at = int(live[0])
+    if not bool((live == at).all()):
+        raise ValueError(f"prompts decoding in one step are at positions "
+                         f"{sorted(set(live.tolist()))}: one step decodes "
+                         f"every row at one position (sessions on one "
+                         f"server advance together)")
+    return at
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class LMDecodeSSM:
     """The LM-as-``StateSpaceModel`` adapter (B prompts × K particles).
@@ -126,7 +147,7 @@ class LMDecodeSSM:
         draw; the increment waits in ``state["inc"]``."""
         lead = tuple(state["token"].shape)
         rows = math.prod(lead)
-        pos = int(state["pos"].reshape(-1)[0])
+        pos = _position(draws, state["pos"])
         flat = tree_map(lambda c: c.view((rows,) + c.shape[len(lead):]),
                         state["caches"])
         logits, _ = M.forward_decode(self.model,

@@ -14,23 +14,27 @@ sums every increment including the prefill draw's.
 Prompt ``i`` draws from its own stream: an int seed ``s`` gives it a
 ``torch.Generator`` seeded ``shard_seed(s, i)``; the tests hand in one
 replay of the reference's key stream per prompt.  Session-hosted
-decoding (``suspended_decode_session``) needs ``serve/sessions.py`` and
-waits for ROADMAP A11.
+decoding: ``suspended_decode_session`` prefills prompts and packages
+each as a ``SuspendedSession`` that ``ParticleSessionServer.resume``
+hosts as a resident decode session.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import filters, smc as smc_core
-from repro_torch.core.draws import BankDraws, shard_draws
+from repro_torch.core.draws import BankDraws, TorchDraws, shard_draws
+from repro_torch.core.particles import tree_map, weighted_mean
 from repro_torch.models.lm import decode_ssm
 from repro_torch.models.lm.decode_ssm import (  # noqa: F401  (re-exports)
     LMDecodeSSM, SMCDecodeConfig,
 )
 from repro_torch.models.lm.model import Decoder
 from repro_torch.serve.engine import check_device
+from repro_torch.serve.sessions import SuspendedSession, host
 
 
 class SMCDecodeResult(NamedTuple):
@@ -104,7 +108,50 @@ def smc_decode(model: Decoder, prompt,
 
 
 def suspended_decode_session(model: LMDecodeSSM, key, prompt):
-    """Session-hosted decoding needs ``serve/sessions.py``; it waits for
-    ROADMAP A11."""
-    raise NotImplementedError("suspended_decode_session needs "
-                              "serve/sessions.py (ROADMAP A11)")
+    """Prefill prompts and package each as a ``SuspendedSession``.
+
+    ``ParticleSessionServer.resume`` on one attaches its prompt as a
+    resident decode session: frame ``t`` (a float32 step index, ``t = 1,
+    2, ...``) advances it one token, as ``smc_decode``'s loop does.  The
+    snapshot's history holds the prefill draw as frame 0 (its ``log_z0``,
+    ``ess0`` and identity-ancestors row), so ``result()`` after ``steps -
+    1`` served frames spans the whole decode.
+
+    ``prompt`` is one ``(T0,)`` prompt (one session) or ``(B, T0)``
+    prompts, prefilled in one call (a list of B sessions): the rows of
+    ``smc_decode``'s prefill, so B sessions hosted together on one
+    server decode bit for bit as ``smc_decode`` of those prompts with the
+    same ``key`` (an int seed ``s`` gives prompt ``i`` the generator
+    seeded ``shard_seed(s, i)``, or one ``TorchDraws`` a prompt).  All
+    sessions on one server share one ``prompt_len`` and config, and
+    advance together (``LMDecodeSSM``'s rows decode at one position).
+    """
+    dev = model.model.device
+    prompts = torch.as_tensor(prompt, device=dev).to(torch.int64)
+    single = prompts.dim() == 1
+    prompts = prompts.reshape(-1, prompts.shape[-1])
+    b = prompts.shape[0]
+    if single and hasattr(key, "uniform"):
+        key = [key]                  # one prompt's provider
+    draws = prompt_draws(key, b, dev)
+    if not all(isinstance(m, TorchDraws) for m in draws.members):
+        raise TypeError("a suspended session resumes from a "
+                        "torch.Generator's state: give an int seed or "
+                        "TorchDraws providers")
+    k_part = model.decode.n_particles
+    with torch.inference_mode():
+        carry, log_z0, ess0 = decode_ssm.decode_carry(model, draws, prompts)
+        ens = carry.ensemble
+        est0 = weighted_mean(ens.replace(
+            state=model.estimate_state(ens.state)))
+    sessions = [SuspendedSession(
+        generator_state=m.generator.get_state().numpy().copy(),
+        state=tree_map(lambda x: host(x[i]), ens.state),
+        log_weights=host(ens.log_weights[i]), counts=host(ens.counts[i]),
+        frames_done=1,
+        estimates=tree_map(lambda x: host(x[i])[None], est0),
+        ess=host(ess0[i])[None], log_marginal=host(log_z0[i])[None],
+        resampled=np.zeros((1,), bool),
+        ancestors=np.arange(k_part, dtype=np.int32)[None])
+        for i, m in enumerate(draws.members)]
+    return sessions[0] if single else sessions

@@ -4,12 +4,13 @@
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Importing the port builds nothing and loads no CUDA library.
 * Entry points run on the CUDA device by default and raise without one
-  (the filters, ``generate`` and ``smc_decode``); the options of later
-  slices (the LM layer kinds L/M/X/R/D, MoE FFNs, multi-codebook heads,
-  sliding windows, session-hosted decoding) raise
-  ``NotImplementedError``; ARNA, butterfly, ``domain=``, a bank over a
-  mesh and ``bank_axis`` build and run, and an unknown ``bank_axis``
-  raises ``ValueError``.
+  (the filters, ``generate``, ``smc_decode``, the session server and
+  the serve launcher); the options of later slices (the LM layer kinds
+  L/M/X/R/D, MoE FFNs, multi-codebook heads, sliding windows, training)
+  raise ``NotImplementedError``; the serving slice's modules exist and
+  import neither ``jax`` nor the reference; ARNA, butterfly,
+  ``domain=``, a bank over a mesh and ``bank_axis`` build and run, and
+  an unknown ``bank_axis`` raises ``ValueError``.
 * The chain resamplers and attention run on the CPU through their plain
   versions, and their CUDA wrappers refuse a CPU tensor instead of
   falling back.
@@ -39,6 +40,12 @@ from repro_torch.models.tracking import TrackingConfig, TrackingSSM
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the serving slice's modules (ROADMAP A11)
+SERVING_MODULES = ("repro_torch.checkpoint.store", "repro_torch.serve.metrics",
+                   "repro_torch.serve.sessions", "repro_torch.serve.frontend",
+                   "repro_torch.serve.fleet", "repro_torch.launch.registry",
+                   "repro_torch.launch.serve", "repro_torch.serve.smc_decode",
+                   "repro_torch.kernels.row_sum")
 
 
 def _port_files():
@@ -68,7 +75,7 @@ def test_importing_the_port_builds_nothing():
     assert not build._LIBS
     assert sorted(p.name for p in build.sources()) == [
         "comb_scan.cu", "flash_attention.cu", "flash_attention_sm90.cu",
-        "patch_likelihood.cu", "resample.cu", "sir_fused.cu"]
+        "patch_likelihood.cu", "resample.cu", "row_sum.cu", "sir_fused.cu"]
     assert len(build.source_hash()) == 16
 
 
@@ -82,6 +89,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
     pf = ParallelParticleFilter(model, SIRConfig(n_particles=8),
                                 device="cpu")
     assert pf.device == torch.device("cpu")
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    """The session server and the serve launcher run on the card unless
+    told ``cpu``, and fail without one."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import ParticleSessionServer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = serve.lg_demo_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParticleSessionServer(model, SIRConfig(n_particles=8), capacity=2)
+    with pytest.raises(SystemExit, match="CUDA"):
+        serve.main(["--mode", "sessions"])
+    srv = ParticleSessionServer(model, SIRConfig(n_particles=8), capacity=2,
+                                device="cpu")
+    assert srv.device == torch.device("cpu")
 
 
 def _bank_over_mesh(option):
@@ -240,10 +263,16 @@ def test_sliding_window_training_and_sessions_raise():
     from repro_torch.models.lm import model as lm
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         lm.forward_train(_smoke_lm(), torch.zeros((1, 4), dtype=torch.int64))
-    ssm = decode_ssm.LMDecodeSSM(_smoke_lm(), decode_ssm.SMCDecodeConfig(),
-                                 prompt_len=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        suspended_decode_session(ssm, 0, torch.zeros(4))
+    # session-hosted decoding is ported (ROADMAP A11): its module and the
+    # other serving modules exist and import neither jax nor the reference
+    assert callable(suspended_decode_session)
+    assert decode_ssm.LMDecodeSSM
+    for mod in SERVING_MODULES:
+        path = PORT.joinpath(*mod.split(".")[1:]).with_suffix(".py")
+        assert path.is_file(), mod
+        importlib.import_module(mod)
+        bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{mod} imports {bad}"
 
 
 def test_attention_kernel_refuses_cpu_tensors():

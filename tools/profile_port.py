@@ -24,7 +24,8 @@ device busy share (the sum of kernel times over the wall time: one
 stream, so kernels do not overlap), the kernels that take the most
 device time, the time of each of the port's own kernels, grouped by
 source (``PORT_GROUPS``), wherever they rank, and for the tracking paths
-one line with B3's, B1's and the comb scan's device ms a frame.  The ``passes-``
+one line with B3's, B1's, the comb scan's and the row sum's device ms a
+frame.  The ``passes-``
 paths time B1 and B2 alone, each design on chip_smoke.py's timing inputs
 (B1 at 8 × 2^22, B2 at 1 × 2^22 with and without the comb and at the
 bank's 8 × 2^20), ten calls under the profiler, and list each launch of
@@ -58,6 +59,7 @@ PORT_GROUPS = {
                           "k_member_finish", "k_commit"),
     "B3 (patch_likelihood.cu)": ("k_patch_sep", "patch_ll_kernel"),
     "B6 (flash_attention*.cu)": ("flash_",),
+    "row sum (row_sum.cu)": ("k_row_sum",),
 }
 
 
@@ -288,13 +290,15 @@ def main() -> int:
                   f"({launches[g]} launches)")
         if unit == "frame":
             b3, cs = "B3 (patch_likelihood.cu)", "comb scan (comb_scan.cu)"
-            b1 = "B1 (resample.cu)"
+            b1, rs = "B1 (resample.cu)", "row sum (row_sum.cu)"
             print(f"    B3 {groups.get(b3, 0.0):.4f} ms/frame "
                   f"({launches.get(b3, 0)} launches), B1 "
                   f"{groups.get(b1, 0.0):.4f} ms/frame "
                   f"({launches.get(b1, 0)} launches), comb scan "
                   f"{groups.get(cs, 0.0):.4f} ms/frame "
-                  f"({launches.get(cs, 0)} launches) [{name}]")
+                  f"({launches.get(cs, 0)} launches), row sum "
+                  f"{groups.get(rs, 0.0):.4f} ms/frame "
+                  f"({launches.get(rs, 0)} launches) [{name}]")
         del fn
         torch.cuda.empty_cache()
     if args.out:
