@@ -37,9 +37,10 @@
    (``csrc/row_sum.cu``, every float sum of ``core`` on the card) bit for
    bit its torch emulation and a second launch, with and without the
    shift of logsumexp, at 1, 8 and 32 x 2^22, ragged rows (2^22 - 1,
-   1025, 1) and inner = 5, within ROW_SUM_TOL of the float64 sum
-   (relative to the sum of |x|), a row's bits alone == in 2, 4, 8 and 32
-   rows;
+   4097, 1025, 1), rows whose starts are not 16-byte aligned (8 x (2^22 -
+   3), 7 x (2^22 + 5)) and inner = 5, 40 and 48, within ROW_SUM_TOL of the
+   float64 sum (relative to the sum of |x|), a row's bits alone == in its
+   batch, in 2, 4, 8 and 32 rows and from a misaligned start;
 3. runs the paper's §VII.C tracking filter at full width — 512×512
    frames, SNR 2, N = 2^22 particles, fused step — over 40-frame movies
    made on the card, for 8 seeds, and checks its RMSE, ESS and
@@ -145,8 +146,11 @@
    frames/s and tokens/s; and, recorded but not gated, B1 and B3 at the
    bank over the mesh's 32 x 2^22 (B3 on 5f's final RNA ensemble), B3 on
    ASIR's lattice and B2 at D = 1, 8 and 40, each beside its first design
-   and its bound; and the row-sum kernel at 1, 8 and 32 x 2^22 beside
-   torch's sum (its plain version and the library call) and its bound.
+   and its bound; and the row-sum kernel at 1, 8 and 32 x 2^22 and at
+   (2^22, 5) beside its first design (``row_sum.first_design_kernel``)
+   and torch's sum (its plain version and the library call) in turns,
+   with its bound, registers and blocks an SM, failing unless its device
+   time beats the first design's at every shape.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -257,6 +261,26 @@ def device_ms(fn, reps: int = REPS) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_device_ms(fn, reps: int = 100) -> float:
+    """Device time per call of ``fn()`` even where the host enqueues a
+    call slower than the card runs it (where ``device_ms`` times the
+    host): the calls queue behind a ~10 ms ``torch.cuda._sleep`` and the
+    events time them back to back."""
+    import torch
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -2150,9 +2174,26 @@ def check_invariant_sums(dev) -> dict:
 
 
 ROW_SUM_TOL = 1e-6         # relative to the float64 sum of |x|
+# (outer, n, inner, seed): the sums' shapes; ragged rows about the tile
+# (4096, and the first design's 1024); rows whose starts are not 16-byte
+# aligned (n * inner % 4 != 0: the kernel's scalar loads); the estimate's
+# view at inner = 5; inner = 40 and 48 (the generic path in one pass and
+# in two)
 ROW_SUM_CASES = [(1, 2 ** 22, 1, 71), (8, 2 ** 22, 1, 72),
                  (32, 2 ** 22, 1, 73), (1, 2 ** 22 - 1, 1, 74),
-                 (3, 1025, 1, 75), (5, 1, 1, 76), (8, 2 ** 20, 5, 77)]
+                 (3, 1025, 1, 75), (5, 1, 1, 76), (8, 2 ** 20, 5, 77),
+                 (8, 2 ** 22 - 3, 1, 79), (7, 2 ** 22 + 5, 1, 80),
+                 (4, 2 ** 22, 5, 81), (3, 4096 + 1, 1, 82),
+                 (2, 2 ** 20 + 3, 40, 83), (2, 3 * 4096 + 5, 48, 84)]
+
+
+def misaligned(x):
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def check_row_sum(dev) -> dict:
@@ -2160,11 +2201,13 @@ def check_row_sum(dev) -> dict:
     for bit its torch emulation and a second launch, with and without the
     shift (``exp(x - max)``, logsumexp's pass); within ROW_SUM_TOL of the
     float64 sum relative to ``Σ|x|`` (weights in [0, 1), and signed values
-    at inner = 5, the estimate's view); a row's bits alone and in 2, 4, 8
-    and 32 rows; the plain version (torch's sum) within the same
-    tolerance."""
+    at inner > 1, the estimate's view); a row's bits alone (a fresh,
+    aligned copy) and in its batch, in 2, 4, 8 and 32 rows, and from a
+    misaligned start; the plain version (torch's sum) and the first
+    design within the same tolerance."""
     import torch
-    from repro_torch.kernels.row_sum import (row_sum_emulated,
+    from repro_torch.kernels.row_sum import (first_design_kernel,
+                                             row_sum_emulated,
                                              row_sum_kernel, row_sum_ref)
     g = torch.Generator(device=dev)
     worst_rel, max_abs = 0.0, 0.0
@@ -2189,11 +2232,22 @@ def check_row_sum(dev) -> dict:
                        / exp64.sum(1)).max())
         plain = row_sum_ref(x)
         rel_p = float(((plain.double() - x64.sum(1)).abs() / scale).max())
-        check(max(rel, rel_s, rel_p) <= ROW_SUM_TOL,
+        first = first_design_kernel(x)
+        rel_f = float(((first.double() - x64.sum(1)).abs() / scale).max())
+        check(max(rel, rel_s, rel_p, rel_f) <= ROW_SUM_TOL,
               f"row sum {x.shape}: {rel:.3g} / shifted {rel_s:.3g} / plain "
-              f"{rel_p:.3g} from the float64 sum (limit {ROW_SUM_TOL})")
+              f"{rel_p:.3g} / first design {rel_f:.3g} from the float64 sum "
+              f"(limit {ROW_SUM_TOL})")
         worst_rel = max(worst_rel, rel, rel_s)
         max_abs = max(max_abs, float((got - plain).abs().max()))
+        for r in sorted({0, outer // 2, outer - 1}):
+            check(same_bits(row_sum_kernel(x[r:r + 1].clone()),
+                            got[r:r + 1]) and same_bits(
+                      row_sum_kernel(x[r:r + 1].clone(),
+                                     shift[r:r + 1].clone()),
+                      got_s[r:r + 1]),
+                  f"row sum {x.shape}: row {r} alone differs from the same "
+                  f"row in the batch")
         if outer == 32:
             for rows in (1, 2, 4, 8):
                 check(same_bits(row_sum_kernel(x[:rows].contiguous()),
@@ -2202,42 +2256,74 @@ def check_row_sum(dev) -> dict:
                       f"rows in 32")
             check(same_bits(row_sum_kernel(x[17:18].contiguous()),
                             got[17:18]), "row sum: row 17 alone differs")
+        if outer <= 8:
+            mis = misaligned(x)
+            check(same_bits(row_sum_kernel(mis), got)
+                  and same_bits(row_sum_kernel(mis, shift), got_s),
+                  f"row sum {x.shape}: a misaligned copy differs")
+            del mis
         del x, x64, exp64
     log(f"row sum: bit for bit its emulation and repeatable (with and "
         f"without the shift) at {[c[:3] for c in ROW_SUM_CASES]}; a row's "
-        f"bits alone == in 2, 4, 8 and 32 rows; worst error "
-        f"{worst_rel:.3g} of Σ|x| from the float64 sum (limit "
-        f"{ROW_SUM_TOL}); max |kernel - torch.sum| {max_abs:.3g}")
+        f"bits alone == in its batch, in 2, 4, 8 and 32 rows and from a "
+        f"misaligned start; worst error {worst_rel:.3g} of Σ|x| from the "
+        f"float64 sum (limit {ROW_SUM_TOL}); max |kernel - torch.sum| "
+        f"{max_abs:.3g}")
     return {"max_abs_err": max_abs, "max_rel_err": worst_rel}
 
 
-def row_sum_bound(rows, n) -> tuple[float, str]:
-    """Bytes: every element read once, 4 B (the (rows,) output is
-    negligible); the adds are n a row, far under the FP32 rate."""
-    return rows * n * 4 / PEAK_BYTES * 1e3, "bytes"
+def row_sum_bound(rows, n, inner=1) -> tuple[float, str]:
+    """Bytes: every element read once, 4 B (the (rows, inner) output is
+    negligible); the adds are n a row and column, far under the FP32
+    rate."""
+    return rows * n * inner * 4 / PEAK_BYTES * 1e3, "bytes"
+
+
+ROW_SUM_TIMED = [(1, 2 ** 22, 1), (8, 2 ** 22, 1), (32, 2 ** 22, 1),
+                 (1, 2 ** 22, 5)]
 
 
 def time_row_sum(dev) -> dict:
     """The row sum at 1, 8 and 32 x 2^22 (the single filter's, the 8-shard
-    mesh's and the bank over the mesh's rows) beside torch's sum (the
-    plain version and the library call, timed in turns) and its bound."""
+    mesh's and the bank over the mesh's rows) and at (2^22, 5) (the
+    estimate's view), beside its first design and torch's sum (the plain
+    version and the library call) in turns (new, first, torch, torch,
+    first, new): host-inclusive ms (``cuda_ms``) and device ms
+    (``queued_device_ms``), with the shift, the bound, and the kernel's
+    registers and resident blocks an SM."""
     import torch
-    from repro_torch.kernels.row_sum import row_sum_kernel, row_sum_ref
+    from repro_torch.kernels.row_sum import (first_design_kernel,
+                                             occupancy, row_sum_kernel)
     out = {}
     g = torch.Generator(device=dev)
     g.manual_seed(78)
-    for rows in (1, 8, 32):
-        x = torch.rand((rows, 2 ** 22, 1), generator=g, device=dev)
-        ms, plain_ms = in_turns(lambda: row_sum_kernel(x),
-                                lambda: row_sum_ref(x))
+    for rows, n, inner in ROW_SUM_TIMED:
+        x = torch.rand((rows, n, inner), generator=g, device=dev)
         shift = x.amax(1)
-        bound, by = row_sum_bound(rows, 2 ** 22)
-        out[f"{rows}x2^22"] = {
-            "shape": [rows, 2 ** 22, 1], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": cuda_ms(lambda: x.sum(1)),
-            "device_ms": device_ms(lambda: row_sum_kernel(x)),
-            "shift_ms": cuda_ms(lambda: row_sum_kernel(x, shift)),
-            "bound_ms": bound, "bound_by": by}
+        fns = {"ms": lambda: row_sum_kernel(x),
+               "first_ms": lambda: first_design_kernel(x),
+               "library_ms": lambda: x.sum(1)}
+        host = {k: [] for k in fns}
+        dev_t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                host[k].append(cuda_ms(fns[k]))
+                dev_t[k].append(queued_device_ms(fns[k]))
+        bound, by = row_sum_bound(rows, n, inner)
+        rec = {"shape": [rows, n, inner], "bound_ms": bound, "bound_by": by,
+               **{k: statistics.mean(v) for k, v in host.items()},
+               "device_ms": statistics.mean(dev_t["ms"]),
+               "first_device_ms": statistics.mean(dev_t["first_ms"]),
+               "library_device_ms": statistics.mean(dev_t["library_ms"]),
+               "shift_ms": cuda_ms(lambda: row_sum_kernel(x, shift)),
+               "shift_device_ms": queued_device_ms(
+                   lambda: row_sum_kernel(x, shift)),
+               "first_shift_ms": cuda_ms(lambda: first_design_kernel(
+                   x, shift)),
+               **occupancy(inner)}
+        # the plain version is torch's sum: the same call
+        rec["plain_ms"] = rec["library_ms"]
+        out[f"{rows}x2^22" + ("" if inner == 1 else f"x{inner}")] = rec
         del x
     return out
 
@@ -3269,9 +3355,16 @@ def main() -> int:
     row_times = time_row_sum(dev)
     for label, t in row_times.items():
         log(f"times [{name}]: row sum {label}: {t['ms']:.4f} ms (device "
-            f"{t['device_ms']:.4f}, with the shift {t['shift_ms']:.4f}; "
-            f"plain {t['plain_ms']:.4f}, torch.sum {t['library_ms']:.4f}; "
-            f"bound {t['bound_ms']:.4f} {t['bound_by']})")
+            f"{t['device_ms']:.4f}, with the shift {t['shift_ms']:.4f} / "
+            f"{t['shift_device_ms']:.4f}; first design {t['first_ms']:.4f} "
+            f"/ {t['first_device_ms']:.4f}, with the shift "
+            f"{t['first_shift_ms']:.4f}; torch.sum {t['library_ms']:.4f} / "
+            f"{t['library_device_ms']:.4f}; bound {t['bound_ms']:.4f} "
+            f"{t['bound_by']}; {t['registers']} registers, "
+            f"{t['blocks_per_sm']} blocks of {t['threads']} an SM)")
+    check(all(t["device_ms"] < t["first_device_ms"]
+              for t in row_times.values()),
+          "row sum: the kernel is not faster than its first design")
     # this slice's shapes, recorded and not gated: B1 at the bank over the
     # mesh's 32 x 2^22, B3 there (RNA's final bank ensemble against each
     # member's last frame) and on ASIR's lattice, B2 at D = 1, 8 and 40
@@ -3371,7 +3464,7 @@ def main() -> int:
          "library_ms": attn_times["smc_decode"]["library_ms"]},
         # the composed step's float sums at its 1 x 2^22 rows; 8 and 32 x
         # 2^22 are in the record's "row_sum_times"
-        {"name": "row_sum", "variant": "grouped", "route": "cuda",
+        {"name": "row_sum", "variant": "runs", "route": "cuda",
          "source": "src/repro_torch/csrc/row_sum.cu",
          "replaces": "src/repro/core/particles.py:95",
          "launches": int(row_sum_cells["composed"] * FRAMES),
@@ -3380,7 +3473,8 @@ def main() -> int:
          "plain_ms": row_times["1x2^22"]["plain_ms"],
          "bound_ms": row_times["1x2^22"]["bound_ms"],
          "bound_by": row_times["1x2^22"]["bound_by"],
-         "library_ms": row_times["1x2^22"]["library_ms"]},
+         "library_ms": row_times["1x2^22"]["library_ms"],
+         "first_design_ms": row_times["1x2^22"]["first_ms"]},
     ]
     fam_l = {f"5g {fam} {b}": families[fam][b]["launches"]
              for fam in families for b in ("fused", "composed")}
