@@ -82,6 +82,19 @@
    equal, B3 and the comb (B1 or the comb scan) launched once a frame for
    the whole bank; RNA again on a (2, 8) bank x data grid with
    ``bank_axis``, bit for bit the bank without it;
+5i. runs the distributed filter as 8 processes, one shard each, over a
+   gloo process group on this one card (``python -m
+   torch.distributed.run --standalone --nproc-per-node 8 -m
+   repro_torch.launch.track --transport gloo``, 5c's movie saved to a
+   ``.npy``): RNA and RPA at 5c's width and seed and a 2-member RNA bank
+   (member 0 on 5c's seed); every rank's outputs and diag, its final
+   shard and the ensemble gathered from the rank files bit for bit 5c's
+   runs; each rank launches B3 and B1 (RNA) or the comb scan (RPA) once a
+   frame and the row sum as often a frame as 5c (5f for the bank).  Then
+   the nccl transport at world size 1 (``launch.mesh.spawn``): every verb
+   bit for bit ``EmulatedMesh(1)``'s.  Frames/s (contention of 8
+   processes on one card), staged bytes a frame and the phase's seconds
+   are printed, not gated; a failed rank fails the script;
 5g. runs the rest of the filter layer: ASIR on a 256 x 256 x 4 lattice
    (one B3 launch over its 262,144 rows and one B2 launch a frame, RMSE
    within 2.5 px of phase 3's exact filter for each of its 8 seeds);
@@ -158,8 +171,8 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f, 5g and 5h (``launches_new_phases``; for the row
-sum, its launches a frame in each cell).
+launches in phases 5f, 5g, 5h and 5i (``launches_new_phases``; for the
+row sum, its launches a frame in each cell; for 5i, each rank's).
 """
 from __future__ import annotations
 
@@ -167,6 +180,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1940,6 +1954,167 @@ def run_bank_mesh(dev, model, movie, dras, replicated, all_k, reset, counts,
     return runs, b3_input
 
 
+# ---------------------------------------------------------------------------
+# Phase 5i: one process a shard over a torch.distributed group
+# ---------------------------------------------------------------------------
+
+# 5c's mesh as processes: 8 ranks of 2^22 particles on the one card
+PROC_P, PROC_C = 8, 2 ** 22
+
+def run_group(cmd, env, timeout: float, log_path: str) -> None:
+    """Run ``cmd`` (``torchrun`` and its ranks) in a session of its own,
+    its output to ``log_path``; on a failure or past ``timeout`` kill the
+    whole session and raise with the log's tail."""
+    import signal
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    if rc != 0:
+        tail = open(log_path).read()[-4000:]
+        raise AssertionError(f"{cmd[:6]} ... "
+                             f"{'timed out' if rc is None else f'rc {rc}'}"
+                             f":\n{tail}")
+
+
+def run_processes(dev, movie, replicated, row_sum_cells, name) -> dict:
+    """Phase 5i: the paper's distributed filter as ``PROC_P`` processes, one
+    shard each, over a gloo group on this one card
+    (``python -m torch.distributed.run --standalone --nproc-per-node 8 -m
+    repro_torch.launch.track --transport gloo``): RNA and RPA at 5c's
+    width, seed and movie, and a 2-member RNA bank (member 0 on 5c's
+    seed).  Every rank's outputs and diag, its final shard and the
+    ensemble gathered from the ranks must be 5c's bit for bit (bank
+    member 0 too); each rank must launch B3 once a frame, B1 (RNA) or
+    the comb scan (RPA) once a frame, and the row sum as often a frame as
+    5c (5f for the bank).  Then the nccl transport at world size 1:
+    every verb bit for bit ``EmulatedMesh(1)``'s.  Frames/s (eight
+    processes time-sharing one card: contention, not a multi-card
+    filter), the bytes staged between the card and host memory a frame
+    and the phase's seconds are printed, not gated."""
+    import numpy as np
+    import torch
+    from repro_torch.core.runtime import EmulatedMesh
+    from repro_torch.launch import mesh as launch_mesh
+    t_phase = time.perf_counter()
+    p, particles = PROC_P, PROC_P * PROC_C
+    tmp = os.path.join(ROOT, ".chip_scratch", "processes")
+    os.makedirs(tmp, exist_ok=True)
+    movie_path = os.path.join(tmp, "movie.npy")
+    np.save(movie_path, movie.frames.cpu().numpy())
+    out_dir = os.path.join(tmp, "out")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [x for x in [os.environ.get("PYTHONPATH")] if x]),
+        OMP_NUM_THREADS="1")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(p), "-m", "repro_torch.launch.track",
+           "--transport", "gloo", "--device", dev.type, "--dra", "rna", "rpa",
+           "--bank", "2", "--particles", str(particles),
+           "--frames", str(FRAMES), "--seed", "1", "--movie", movie_path,
+           "--out", out_dir]
+    t0 = time.perf_counter()
+    try:
+        run_group(cmd, env, 900, os.path.join(tmp, "torchrun.log"))
+        t_run = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(p)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.remove(movie_path)
+    want_launch = {
+        "rna": {"patch_log_likelihood": FRAMES,
+                "systematic_ancestors": FRAMES, "prefix_sum": 0,
+                "row_sum": round(row_sum_cells["rna"] * FRAMES)},
+        "rpa": {"patch_log_likelihood": FRAMES, "systematic_ancestors": 0,
+                "prefix_sum": FRAMES,
+                "row_sum": round(row_sum_cells["rpa"] * FRAMES)},
+        "bank-rna": {"patch_log_likelihood": FRAMES,
+                     "systematic_ancestors": FRAMES, "prefix_sum": 0,
+                     "row_sum": round(row_sum_cells["bank-mesh-rna"]
+                                      * FRAMES)}}
+    runs = {}
+    for label, want in want_launch.items():
+        kind = label.removeprefix("bank-")
+        rep = replicated[kind]
+        member = (lambda x: x[0]) if label.startswith("bank") \
+            else (lambda x: x)
+        for r, rec in enumerate(ranks):
+            check((rec["rank"], rec["world"], rec["transport"])
+                  == (r, p, "gloo"), f"5i rank file {r}: {rec['rank']}, "
+                  f"{rec['world']}, {rec['transport']}")
+            got = rec["runs"][label]
+            for f in ("estimates", "ess", "log_marginal", "resampled"):
+                check(same_bits(member(got[f]), rep[f].cpu()),
+                      f"5i {label} rank {r}: {f} differs from phase 5c")
+            check(set(got["diag"]) == set(rep["diag"]),
+                  f"5i {label} rank {r}: diag keys {sorted(got['diag'])}")
+            for k, v in rep["diag"].items():
+                check(same_bits(member(got["diag"][k]), v.cpu()),
+                      f"5i {label} rank {r}: diag {k} differs from 5c")
+            for f in ("state", "log_weights", "counts"):
+                shard = member(got["final"][f])
+                check(shard.shape[0] == 1 and same_bits(
+                    shard[0], getattr(rep["final"], f)[r].cpu()),
+                    f"5i {label} rank {r}: final {f} differs from 5c")
+            check(got["launches"] == want,
+                  f"5i {label} rank {r}: launches {got['launches']}, "
+                  f"want {want}")
+        for f in ("state", "log_weights", "counts"):
+            gathered = torch.cat([member(rec["runs"][label]["final"][f])
+                                  for rec in ranks])
+            check(same_bits(gathered, getattr(rep["final"], f).cpu()),
+                  f"5i {label}: gathered final {f} differs from 5c")
+        if label.startswith("bank"):
+            other = ranks[0]["runs"][label]
+            check(bool(torch.isfinite(other["ess"][1]).all()
+                       and torch.isfinite(other["log_marginal"][1]).all()),
+                  "5i bank member 1: non-finite ESS / log-marginal")
+        secs = [rec["runs"][label]["seconds"] for rec in ranks]
+        staged = [rec["runs"][label]["staged_bytes"] for rec in ranks]
+        runs[label] = {
+            "launches_per_rank": want,
+            "frames_per_s": FRAMES / max(secs),
+            "rank_seconds": secs,
+            "staged_bytes_per_frame_per_rank": [s / FRAMES for s in staged],
+            "staged_bytes_per_frame": sum(staged) / FRAMES}
+        log(f"5i {label} over {p} gloo ranks on one card, "
+            f"{particles // p} particles a rank: every rank and the gathered"
+            f" ensemble bitwise == phase 5c{' member 0' if 'bank' in label else ''}"
+            f", launches a rank {want}, {FRAMES / max(secs):.3f} frames/s "
+            f"(contention of {p} processes on one card), staged "
+            f"{sum(staged) / FRAMES:.0f} B a frame in all [{name}]")
+    # the nccl transport at world size 1: every verb, ppermute and
+    # all_to_all to itself included, bit for bit the one-shard mesh's
+    inputs = launch_mesh.verb_inputs(1)
+    got = launch_mesh.spawn(launch_mesh.verbs, 1, (inputs, "cuda"),
+                            transport="nccl", deadline=300)[0]
+    want = launch_mesh.verbs(EmulatedMesh(1), inputs, dev)
+    check(set(got) == set(want), f"5i nccl verbs {sorted(got)}")
+    for k, v in want.items():
+        check(same_bits(got[k], v), f"5i nccl verb {k} differs from "
+                                     f"EmulatedMesh(1)")
+    log(f"5i nccl transport, world size 1: {len(want)} verb results "
+        f"bitwise == EmulatedMesh(1) [{name}]")
+    seconds = time.perf_counter() - t_phase
+    log(f"5i: torchrun {t_run:.1f} s, phase {seconds:.1f} s [{name}]")
+    return {"p": p, "particles": particles, "runs": runs,
+            "torchrun_seconds": t_run, "seconds": seconds,
+            "nccl_verbs": sorted(want)}
+
+
 def stepwise(model, sir, seed, zs, dev):
     """The single-device SIR run step by step, as ``run_sir`` drives it,
     with every step's ``logsumexp`` of the carried log-weights (the
@@ -3174,7 +3349,8 @@ def main() -> int:
         if kind in ("rna", "rpa"):
             replicated[kind] = {
                 f: getattr(dres, f) for f in ("estimates", "ess",
-                                              "log_marginal", "resampled")}
+                                              "log_marginal", "resampled",
+                                              "diag")}
             replicated[kind]["final"] = dres.final
         dist_runs[kind] = {
             "launches": got, "track": tr, "frames_per_s": fps,
@@ -3207,6 +3383,9 @@ def main() -> int:
     for kind, x in zip(("bank-mesh-rna", "bank-mesh-rpa"),
                        row_sum_seen[seen:]):
         row_sum_cells[kind] = x / FRAMES
+
+    # -- phase 5i: one process a shard over a gloo group, nccl at world 1 ---
+    processes = run_processes(dev, movie, replicated, row_sum_cells, name)
     del replicated
 
     # -- phase 5g: ASIR, stochastic volatility, Lorenz-96, the smoothers -----
@@ -3508,11 +3687,18 @@ def main() -> int:
     new_launches["row_sum"] = {
         f"{k} (a frame)": v for k, v in row_sum_cells.items()
         if "runs" not in k}
+    # phase 5i: every one of the 8 ranks launches these on its own shard
+    for label, r in processes["runs"].items():
+        for kname, n in r["launches_per_rank"].items():
+            if n:
+                new_launches[kname][f"5i {label} (each of "
+                                    f"{processes['p']} ranks)"] = n
     for k in kernels:
         k["launches_new_phases"] = new_launches.get(k["name"], {})
     record = {
         "card": name, "kernels": kernels,
-        "bank_mesh": bank_mesh, "asir": asir_run, "families": families,
+        "bank_mesh": bank_mesh, "processes": processes, "asir": asir_run,
+        "families": families,
         "smoothers": smoothers, "invariant_sums": sums_check,
         "row_sum": row_check, "row_sum_times": row_times,
         "row_sum_cells": row_sum_cells, "composed_bank": composed_bank,

@@ -1,10 +1,12 @@
 """Distributed resampling algorithms, paper §III (port of
 ``repro.core.distributed``).
 
-Each DRA takes the whole ``(P, C, ...)`` ensemble of an emulated P-shard
-mesh (``repro_torch.core.runtime``) and returns the resampled one; every
-collective goes through the runtime facade, so each shard's row sees
-exactly what the reference's per-shard program sees.  A bank's
+Each DRA takes the ``(P, C, ...)`` ensemble of the shards this process
+holds — all ``P`` on an emulated mesh, one (``(1, C, ...)``) on a
+process mesh (``repro_torch.core.runtime``) — and returns the resampled
+one; every collective goes through the runtime facade, so each shard's
+row sees exactly what the reference's per-shard program sees, and a
+shard gets the same bits on either backend.  A bank's
 ``(B, P, C, ...)`` ensemble (any member dims in front of the shard dim)
 goes through the same code in one pass: each member gets the bits it
 gets alone, and its diagnostics are per member, as the reference's
@@ -99,19 +101,22 @@ def _comm_diag(bytes_per_frame: int, stages: int, device) -> dict:
 
 
 def _over(log_weights: torch.Tensor,
-          mesh: runtime.EmulatedMesh) -> tuple[runtime.EmulatedMesh, int]:
+          mesh: runtime.Mesh) -> tuple[runtime.Mesh, int]:
     """The mesh with the member dims of ``(..., P, C)`` log-weights, and
     the shard dim."""
     lead = log_weights.shape[:-2]
     return mesh.over(lead), len(lead)
 
 
-def _shard0(x: torch.Tensor, d: int) -> torch.Tensor:
-    """Shard 0's copy of a replicated per-shard value."""
+def _replicated(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The one value of a per-shard tensor that every shard already holds
+    (a ``psum``'s, an all-gather's): this process's first copy, with no
+    collective.  A value that differs across shards needs
+    ``runtime.shard0``."""
     return x.select(d, 0)
 
 
-def _shard_log_z(log_weights: torch.Tensor, mesh: runtime.EmulatedMesh
+def _shard_log_z(log_weights: torch.Tensor, mesh: runtime.Mesh
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(..., P)`` local log-normalizers and their ``(..., P, P)``
     all-gather."""
@@ -121,14 +126,14 @@ def _shard_log_z(log_weights: torch.Tensor, mesh: runtime.EmulatedMesh
 
 
 def global_log_z(log_weights: torch.Tensor,
-                 mesh: runtime.EmulatedMesh) -> torch.Tensor:
+                 mesh: runtime.Mesh) -> torch.Tensor:
     """``(..., P)``: logsumexp of all shards' weights on every shard."""
     _, gathered = _shard_log_z(log_weights, mesh)
     return invariant_logsumexp(gathered, -1)
 
 
 def global_ess(log_weights: torch.Tensor,
-               mesh: runtime.EmulatedMesh) -> torch.Tensor:
+               mesh: runtime.Mesh) -> torch.Tensor:
     """``(..., P)``: the global N_eff (Alg. 1 line 15) with one psum."""
     glz = global_log_z(log_weights, mesh)
     sq = torch.exp(2.0 * (log_weights - glz[..., None]))
@@ -139,7 +144,7 @@ def global_ess(log_weights: torch.Tensor,
 
 
 def effective_processes(log_weights: torch.Tensor,
-                        mesh: runtime.EmulatedMesh) -> torch.Tensor:
+                        mesh: runtime.Mesh) -> torch.Tensor:
     """``(..., P)``: P_eff = (Σ W_i)² / Σ W_i² over the shard weights."""
     _, gathered = _shard_log_z(log_weights, mesh)
     w = torch.exp(gathered - invariant_logsumexp(gathered, -1, keepdim=True))
@@ -190,7 +195,7 @@ def _local_resample_ensemble(draws, ensemble: ParticleEnsemble,
 # ---------------------------------------------------------------------------
 
 def mpf_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
-                 mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+                 mesh: runtime.Mesh) -> tuple[ParticleEnsemble, dict]:
     """Independent local resampling; each offspring carries ``Ŵ_i / C`` of
     the global posterior mass."""
     c = ensemble.capacity
@@ -206,7 +211,7 @@ def mpf_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
 
 
 def _ring_exchange(state: torch.Tensor, log_weights: torch.Tensor,
-                   m_buf: int, m_valid, mesh: runtime.EmulatedMesh,
+                   m_buf: int, m_valid, mesh: runtime.Mesh,
                    shuffle: torch.Tensor | None = None):
     """Send the first ``m_buf`` slots of every shard to its ring
     neighbour; the first ``m_valid`` (an int or a ``(..., P)`` tensor)
@@ -226,9 +231,9 @@ def _ring_exchange(state: torch.Tensor, log_weights: torch.Tensor,
 
     def mix(x):
         b = m_buf // p
-        lead, rest = x.shape[:d], x.shape[d + 2:]
-        y = head(x, b * p).reshape(lead + (p, p, b) + rest)
-        y = runtime.all_to_all(y, mesh).reshape(lead + (p, b * p) + rest)
+        lead, own, rest = x.shape[:d], x.shape[d], x.shape[d + 2:]
+        y = head(x, b * p).reshape(lead + (own, p, b) + rest)
+        y = runtime.all_to_all(y, mesh).reshape(lead + (own, b * p) + rest)
         return torch.cat([y, x.narrow(d + 1, b * p, m_buf - b * p)], d + 1)
 
     def recv(x):
@@ -259,7 +264,7 @@ def _permute_ensemble(draws, ensemble: ParticleEnsemble) -> ParticleEnsemble:
 
 
 def rna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
-                 mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+                 mesh: runtime.Mesh) -> tuple[ParticleEnsemble, dict]:
     """RNA: local resample to C, then a static ring exchange of a fixed
     fraction (paper §III / §VII.D).  Draws: the local resample's, then
     the shuffle's permutation."""
@@ -282,7 +287,7 @@ def rna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
 
 
 def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
-                  mesh: runtime.EmulatedMesh, max_log_lik: torch.Tensor
+                  mesh: runtime.Mesh, max_log_lik: torch.Tensor
                   ) -> tuple[ParticleEnsemble, dict]:
     """ARNA: RNA with a P_eff-adaptive exchange fraction (all shards
     tracking → ``q_min``, collapsed → ``q_max``) over a static
@@ -310,8 +315,9 @@ def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
                                mesh, shuffle=lost)
     ens = ens.replace(state=state, log_weights=lw)
     return ens, {
-        "exchanged": _shard0(m_valid, d), "p_eff": _shard0(p_eff, d),
-        "q": _shard0(q, d), "lost": _shard0(lost, d).to(torch.int32),
+        "exchanged": _replicated(m_valid, d),
+        "p_eff": _replicated(p_eff, d), "q": _replicated(q, d),
+        "lost": _replicated(lost, d).to(torch.int32),
         # P_eff gather + logZ gather + lost-mode pmax + the m_buf exchange
         # (ring and shuffle ship the same slab)
         **_comm_diag(12 + m_buf * (_per_particle_bytes(ens.state, d + 1)
@@ -319,7 +325,7 @@ def arna_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
 
 
 def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
-                 mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+                 mesh: runtime.Mesh) -> tuple[ParticleEnsemble, dict]:
     """RPA: proportional allocation of the N offspring over shards, local
     resampling in compressed form, DLB routing of the compressed
     particles, then a local materialize (paper §III–§V)."""
@@ -331,22 +337,24 @@ def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     _, gathered = _shard_log_z(particles.effective_log_weights(
         ensemble.log_weights, ensemble.counts), mesh)
     # every shard holds the same gathered vector: compute the allocation
-    # and the schedule once per member
-    alloc = dlb.proportional_allocation(_shard0(gathered, d), n_total,
+    # and the schedule once per member (for every shard), then take the
+    # entries of the shards this process holds
+    alloc = dlb.proportional_allocation(_replicated(gathered, d), n_total,
                                         cap_units)
     comp = particles.resample_compressed(
-        draws, ensemble, alloc, scheme=cfg.resampler, capacity=cap_units,
+        draws, ensemble, runtime.own_shards(alloc, mesh, -1),
+        scheme=cfg.resampler, capacity=cap_units,
         fill_log_weight=-log_f32(n_total))
     targets = dlb.balanced_targets(n_total, p).to(alloc.device)
     schedule = dlb.SCHEDULERS[cfg.scheduler](alloc, targets)  # (..., P, P)
-    route = dlb.route_compressed(comp, schedule, k_cap=cfg.k_cap,
-                                 mesh=bank_mesh)
+    route = dlb.route_compressed(comp, runtime.own_shards(schedule, mesh, -2),
+                                 k_cap=cfg.k_cap, mesh=bank_mesh)
     out = particles.materialize(dlb.merge_routed(comp, route), c)
     stats = dlb.schedule_stats(schedule)
     dev = ensemble.log_weights.device
     return out, {
-        "overflow": _shard0(runtime.psum(route.overflow_units, bank_mesh),
-                            d),
+        "overflow": _replicated(
+            runtime.psum(route.overflow_units, bank_mesh), d),
         **stats,
         # logZ gather + all_to_all of P×K (state, count, log-weight) triples
         **_comm_diag(4 + p * cfg.k_cap
@@ -356,7 +364,7 @@ def rpa_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
 
 
 def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
-                       mesh: runtime.EmulatedMesh
+                       mesh: runtime.Mesh
                        ) -> tuple[ParticleEnsemble, dict]:
     """Butterfly DRA: ``log2 P`` pairwise mix stages (stage ``s`` pairs
     shard ``i`` with ``i XOR 2^s``).  In a pair of aggregate weights
@@ -431,9 +439,10 @@ def butterfly_resample(draws, ensemble: ParticleEnsemble, cfg: DRAConfig,
     out = particles.materialize(
         ens.replace(log_weights=ens.log_weights - glz[..., None]), c)
     return out, {
-        "exchanged": _shard0(shipped_total, d),
-        "overflow": _shard0(runtime.psum(overflow_total, bank_mesh), d),
-        "truncated": _shard0(runtime.psum(truncated, bank_mesh), d), **comm}
+        "exchanged": runtime.shard0(shipped_total, bank_mesh),
+        "overflow": _replicated(runtime.psum(overflow_total, bank_mesh), d),
+        "truncated": _replicated(runtime.psum(truncated, bank_mesh), d),
+        **comm}
 
 
 DRAS = {"mpf": mpf_resample, "rna": rna_resample, "arna": arna_resample,

@@ -233,7 +233,7 @@ def pack_windows(ensemble: ParticleEnsemble, row_send: torch.Tensor, *,
 
 
 def route_compressed(ensemble: ParticleEnsemble, row_send: torch.Tensor, *,
-                     k_cap: int, mesh: runtime.EmulatedMesh) -> RouteResult:
+                     k_cap: int, mesh: runtime.Mesh) -> RouteResult:
     """Pack every shard's windows and deliver them with one
     ``all_to_all``; the per-replica log-weights travel with the
     particles."""

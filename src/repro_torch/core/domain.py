@@ -20,9 +20,11 @@ shard needs the whole observation:
   draw and resampling decision stays with the home shard and the domain
   filter follows the replicated-frame filter's trajectory exactly.
 
-As everywhere on the emulated mesh, every per-shard tensor carries a
-leading shard dim ``P``: an ensemble is ``(P, C, ...)``, ``my`` is
-``runtime.axis_index(mesh)`` and the collectives act on dim 0.
+As everywhere in the distributed filter, every per-shard tensor carries
+a leading shard dim: ``P`` on an emulated mesh, 1 on a process mesh (one
+tile a rank).  An ensemble is ``(P, C, ...)``, ``my`` is
+``runtime.axis_index(mesh)`` and the collectives act on dim 0; the
+schedule's columns and the windows are always the global ``P``.
 """
 from __future__ import annotations
 
@@ -223,7 +225,7 @@ def migration_plan(spec: DomainSpec, ensemble: ParticleEnsemble,
 
 
 def _migrate_route(spec: DomainSpec, ensemble: ParticleEnsemble,
-                   yx: torch.Tensor, mesh: runtime.EmulatedMesh):
+                   yx: torch.Tensor, mesh: runtime.Mesh):
     """Plan, permute, route (one ``all_to_all`` of (state, count,
     log-weight) windows) and merge: the sequence behind ``migrate`` and
     ``exchange_log_likelihood``.  Returns the plan, the route with its
@@ -247,7 +249,7 @@ def _migrate_route(spec: DomainSpec, ensemble: ParticleEnsemble,
 
 
 def migrate(spec: DomainSpec, ensemble: ParticleEnsemble, yx: torch.Tensor,
-            *, mesh: runtime.EmulatedMesh) -> tuple[ParticleEnsemble, dict]:
+            *, mesh: runtime.Mesh) -> tuple[ParticleEnsemble, dict]:
     """Move every particle to its owner: the compressed ``(P, C + P·K,
     ...)`` merged ensemble and the diagnostics.  Units beyond a window
     stay on the sender; logical size and per-replica log-weights are
@@ -288,19 +290,19 @@ def scatter_returned_ll(ll_local: torch.Tensor, ll_back: torch.Tensor,
 def exchange_log_likelihood(
         spec: DomainSpec, ensemble: ParticleEnsemble, yx: torch.Tensor,
         tile_ll_fn: Callable[[torch.Tensor], torch.Tensor], *,
-        mesh: runtime.EmulatedMesh) -> tuple[torch.Tensor, dict]:
+        mesh: runtime.Mesh) -> tuple[torch.Tensor, dict]:
     """The migrate-after-advance hook: particles migrate to their owners,
     ``tile_ll_fn`` evaluates every shard's merged (kept + received) slots
     against its own slab — one call for all shards, ``(P, C + P·K, ...)``
     states in, ``(P, C + P·K)`` out — and the values travel back to their
     home slots with one ``all_to_all``.  Returns ``(P, C)`` home-slot
     log-likelihoods and the diagnostics."""
-    p, c = ensemble.log_weights.shape
+    own, c = ensemble.log_weights.shape
     plan, route, merged, diag = _migrate_route(spec, ensemble, yx, mesh)
     ll_all = tile_ll_fn(merged.state)
     del merged
     ll_local = ll_all[:, :c]
-    ll_recv = ll_all[:, c:].reshape(p, p, -1)
+    ll_recv = ll_all[:, c:].reshape(own, runtime.axis_size(mesh), -1)
     # row j of ll_back is my window to shard j, evaluated by j
     ll_back = runtime.all_to_all(ll_recv, mesh)
     ll = scatter_returned_ll(ll_local, ll_back, route.send_slots,

@@ -22,7 +22,8 @@ default "low" Gumbel ``-log(-log(u))``, ``u`` uniform on
   its carry.  The distributed filter stacks one provider per shard the
   same way (``shard_draws``), where the reference folds the shard index
   into its key, and a bank over a mesh stacks those: ``(B, P)``
-  (``bank_shard_draws``).
+  (``bank_shard_draws``).  On a process mesh a rank stacks its own
+  shard's stream alone: ``(1,)``, ``(B, 1)``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import runtime
 
 
 # dtype of each draw kind (what a replay is cast to, and the zeros an
@@ -224,24 +227,31 @@ def shard_seed(seed: int, shard: int) -> int:
                .generate_state(1, np.uint64)[0] >> 1)
 
 
-def shard_draws(key, shards: int, device):
-    """Per-shard draws stacked on a leading ``P`` dim for the distributed
-    filter.  An int seed gives each shard a ``torch.Generator`` seeded
-    from ``shard_seed``; a provider whose ``batch_shape`` is ``(P,)``
-    passes through (the tests hand in one replay per shard)."""
+def shard_draws(key, shards, device):
+    """Per-shard draws stacked on a leading shard dim for the distributed
+    filter.  ``shards`` is a shard count or a mesh
+    (``repro_torch.core.runtime``): the shards this process holds, all
+    ``P`` or, on a process mesh, rank ``r`` alone.  An int seed gives
+    shard ``i`` a ``torch.Generator`` seeded from ``shard_seed(key, i)``;
+    a provider whose ``batch_shape`` is the held shard count passes
+    through (the tests hand in one replay per shard)."""
+    held = range(shards) if isinstance(shards, int) \
+        else runtime.shard_range(shards)
     if isinstance(key, (int, np.integer)):
         return BankDraws([TorchDraws.from_seed(shard_seed(key, i), device)
-                          for i in range(shards)])
-    if tuple(getattr(key, "batch_shape", ())) == (shards,):
+                          for i in held])
+    if tuple(getattr(key, "batch_shape", ())) == (len(held),):
         return key
     raise TypeError(f"distributed draws need an int seed or a provider "
-                    f"with batch_shape ({shards},), got {type(key).__name__}")
+                    f"with batch_shape ({len(held)},), got "
+                    f"{type(key).__name__}")
 
 
-def bank_shard_draws(keys, shards: int, device) -> BankDraws:
-    """The ``(B, P)`` draws of a bank over a ``shards``-shard mesh: member
-    ``i``'s shard ``s`` draws exactly the stream ``shard_draws(keys[i],
-    shards)`` gives shard ``s`` of a standalone distributed filter."""
+def bank_shard_draws(keys, shards, device) -> BankDraws:
+    """The ``(B, P)`` draws of a bank over ``shards`` (a shard count or a
+    mesh, as ``shard_draws``): member ``i``'s shard ``s`` draws exactly
+    the stream ``shard_draws(keys[i], shards)`` gives shard ``s`` of a
+    standalone distributed filter."""
     return BankDraws([shard_draws(k, shards, device) for k in keys])
 
 

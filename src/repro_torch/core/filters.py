@@ -5,7 +5,13 @@ on one device or — with ``mesh=EmulatedMesh(P)`` and a ``DRAConfig`` —
 as the paper's distributed filter: P shards of ``C = N / P`` slots held
 as one ``(P, C, ...)`` ensemble on the card, resampled by MPF, RNA,
 ARNA, RPA or butterfly through the emulated collectives of
-``repro_torch.core.runtime``; with ``domain=`` (a
+``repro_torch.core.runtime``.  With ``mesh=ProcessMesh`` (one process a
+shard over a ``torch.distributed`` group,
+``repro_torch.launch.mesh.init_process_mesh``) every rank runs the same
+program on its ``(1, C, ...)`` shard, returns the replicated outputs and
+its own shard as ``final``, and gets the bits the emulated mesh gives
+that shard (``runtime.gather_shards`` collects the ensemble); with
+``domain=`` (a
 ``repro_torch.core.domain.DomainSpec``) each shard holds only its halo
 slab of every frame and reweights its tile's particles against it.
 ``FilterBank`` runs B independent filters of one model as one batched
@@ -78,16 +84,16 @@ class ParallelParticleFilter:
     model: Any
     sir: smc.SIRConfig
     device: Any = None
-    mesh: runtime.EmulatedMesh | None = None
+    mesh: runtime.Mesh | None = None
     dra: dist.DRAConfig = dataclasses.field(default_factory=dist.DRAConfig)
     domain: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None and not isinstance(self.mesh,
-                                                    runtime.EmulatedMesh):
-            raise TypeError(f"mesh must be an EmulatedMesh, got "
-                            f"{type(self.mesh).__name__} (the torch."
-                            f"distributed backend waits for ROADMAP A8b)")
+        if self.mesh is not None and not isinstance(
+                self.mesh, (runtime.EmulatedMesh, runtime.ProcessMesh)):
+            raise TypeError(f"mesh must be an EmulatedMesh or a ProcessMesh, "
+                            f"got {type(self.mesh).__name__} (a grid of "
+                            f"processes waits for ROADMAP A8b's rest)")
         if not isinstance(self.dra, dist.DRAConfig):
             raise TypeError(f"dra must be a DRAConfig, got "
                             f"{type(self.dra).__name__}")
@@ -118,17 +124,19 @@ class ParallelParticleFilter:
                                       self.model, self.sir, obs)
         else:
             if self.domain is not None:
-                obs = _tiled_observations(self.domain, obs)
+                # the slabs of the shards this process holds
+                obs = runtime.own_shards(
+                    _tiled_observations(self.domain, obs), self.mesh, 1)
             carry, outs = self._run_sharded(key, obs)
         return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
                             outs.resampled, outs.ancestors, outs.diag,
                             carry.ensemble)
 
     def _run_sharded(self, key, obs):
-        p = self.mesh.shards
         n = self.sir.n_particles
-        carry = shard_carry(shard_draws(key, p, self.device), self.model,
-                            _shard_capacity(n, p), n)
+        carry = shard_carry(shard_draws(key, self.mesh, self.device),
+                            self.model, _shard_capacity(n, self.mesh.shards),
+                            n)
         step = smc.make_distributed_sir_step(self.model, self.sir, self.dra,
                                              self.mesh, domain=self.domain)
         outs = []
@@ -153,7 +161,9 @@ class FilterBank:
       ``runtime.make_mesh`` holding the ``axis_name`` axis) — every
       member's particles are sharded over ``axis_name``'s ``P`` shards:
       a ``(B, P, C, ...)`` ensemble, ``C = N / P``, and the DRA runs for
-      all members in one pass (one launch of each kernel a frame).
+      all members in one pass (one launch of each kernel a frame).  A
+      ``ProcessMesh`` spreads those shards over its ranks: every rank
+      holds all members' ``(B, 1, C, ...)`` shard.
     * ``bank_axis`` — the members are also sharded over that axis of the
       grid: ``B / P_b`` members a bank shard.  On one card that is a
       layout: the ensemble becomes ``(P_b, B / P_b, P, C, ...)`` and the
@@ -171,10 +181,17 @@ class FilterBank:
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(
-                self.mesh, (runtime.EmulatedMesh, runtime.EmulatedGrid)):
-            raise TypeError(f"mesh must be an EmulatedMesh or EmulatedGrid, "
-                            f"got {type(self.mesh).__name__} (the torch."
-                            f"distributed backend waits for ROADMAP A8b)")
+                self.mesh, (runtime.EmulatedMesh, runtime.EmulatedGrid,
+                            runtime.ProcessMesh)):
+            raise TypeError(f"mesh must be an EmulatedMesh, EmulatedGrid or "
+                            f"ProcessMesh, got {type(self.mesh).__name__} "
+                            f"(a grid of processes waits for ROADMAP A8b's "
+                            f"rest)")
+        if isinstance(self.mesh, runtime.ProcessMesh) \
+                and self.bank_axis is not None:
+            raise NotImplementedError(
+                "bank_axis over a ProcessMesh (members sharded over "
+                "processes) waits for ROADMAP A8b's rest")
         if not isinstance(self.dra, dist.DRAConfig):
             raise TypeError(f"dra must be a DRAConfig, got "
                             f"{type(self.dra).__name__}")
@@ -211,7 +228,8 @@ class FilterBank:
             raise ValueError(f"bank size {b} not divisible by {p_bank} "
                              f"bank shards")
         members = (p_bank, b // p_bank) if self.bank_axis else (b,)
-        draws = bank_shard_draws(keys, p, self.device)
+        draws = bank_shard_draws(keys, self.mesh.axis(self.axis_name),
+                                 self.device)
         if self.bank_axis:
             # one sub-bank a bank shard: draws (P_b, B / P_b, P)
             per = b // p_bank
@@ -254,7 +272,7 @@ def make_bank_step(model, sir: smc.SIRConfig):
 
 
 def make_sharded_bank_step(model, sir: smc.SIRConfig, dra: dist.DRAConfig,
-                           mesh: runtime.EmulatedMesh):
+                           mesh: runtime.Mesh):
     """The bank step over a mesh (the reference's per-shard bank step,
     its distributed SIR step ``vmap``ped over slots): ``step(carry,
     (observations (B, ...), active (B,)))`` on a ``(B, P, C, ...)``

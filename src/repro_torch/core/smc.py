@@ -279,12 +279,15 @@ def run_sir(draws, model, cfg: SIRConfig,
 # ---------------------------------------------------------------------------
 
 def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
-                              mesh: runtime.EmulatedMesh,
+                              mesh: runtime.Mesh,
                               domain: domain_mod.DomainSpec | None = None):
-    """The SIR step of the distributed filter over an emulated ``P``-shard
-    mesh.  ``cfg.n_particles`` is the GLOBAL count; the carry's ensemble
-    is ``(P, C, ...)`` with ``C = n_particles / P``, and its draws
-    provider has ``batch_shape (P,)`` (one stream per shard).  Every
+    """The SIR step of the distributed filter over a ``P``-shard mesh.
+    ``cfg.n_particles`` is the GLOBAL count; the carry's ensemble is
+    ``(P, C, ...)`` with ``C = n_particles / P`` on an emulated mesh, and
+    its draws provider has ``batch_shape (P,)`` (one stream per shard);
+    on a process mesh each rank's carry is its one shard, ``(1, C,
+    ...)`` with ``batch_shape (1,)``, and the step gives it that shard's
+    bits of the emulated run.  Every
     shard advances, reweights against the one shared frame, and the
     global log-normalizer, ESS and estimate come from collectives; the
     DRA always runs (its draws are always taken), and the global ESS
@@ -300,7 +303,7 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
     this step gives them.
 
     With ``domain``, the observation is the ``(P, sh, sw)`` stack of the
-    shards' halo slabs, and the reweight goes through
+    halo slabs of the shards this process holds, and the reweight goes through
     ``domain.exchange_log_likelihood``: particles travel to their tile
     owners, are reweighted against the owner's slab (one call of the
     model's ``tile_observation_log_prob`` for all shards) and the values
@@ -312,12 +315,14 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
     if domain is not None and tile_fn is None:
         raise ValueError("domain decomposition needs a model with "
                          "tile_observation_log_prob and positions hooks")
-    origins = None if domain is None else domain.slab_origins()
+    # the slab origins of the shards this process holds
+    origins = None if domain is None else tuple(
+        domain.slab_origins()[i] for i in runtime.shard_range(mesh))
     resample = dist.DRAS[dra.kind]
 
     def step(carry: SIRCarry, observation):
         draws, ens = carry
-        *lead, p, c = ens.log_weights.shape
+        *lead, _, c = ens.log_weights.shape         # the shards held here
         lead = tuple(lead)
         d = len(lead)                      # the shard dim
         bank_mesh = mesh.over(lead)
@@ -346,7 +351,7 @@ def make_distributed_sir_step(model, cfg: SIRConfig, dra: dist.DRAConfig,
         estimate = runtime.psum(particles.invariant_sum(
             _bcast(w.to(x.dtype), x) * x, d + 1), bank_mesh).select(d, 0)
         do_resample = torch.logical_or(
-            ess < cfg.ess_frac * (p * c),
+            ess < cfg.ess_frac * (runtime.axis_size(mesh) * c),
             torch.tensor(bool(cfg.always_resample), device=ess.device))
         if dra.kind == "arna":
             # each shard's best live log-likelihood: the lost-mode test

@@ -195,8 +195,8 @@ class ParticleSessionServer:
         ``bank_axis``: slots are sharded over that axis, each session
         wholly on one shard.  On one card that is a layout: the server
         runs one full-capacity program every tick (no tiers), as the
-        reference's mesh path does.  Any other mesh raises ``TypeError``
-        (the ``torch.distributed`` backend waits for ROADMAP A8b).
+        reference's mesh path does.  Any other mesh raises ``TypeError``:
+        a server over a ``ProcessMesh`` waits for ROADMAP A8b's rest.
       device: the card unless ``"cpu"`` is given (and raises without one).
 
     Occupancy tiers: on the single-device path each tick gathers the
@@ -216,8 +216,8 @@ class ParticleSessionServer:
                                      runtime.EmulatedGrid)):
                 raise TypeError(f"mesh must be an EmulatedMesh or "
                                 f"EmulatedGrid, got {type(mesh).__name__} "
-                                f"(the torch.distributed backend waits for "
-                                f"ROADMAP A8b)")
+                                f"(a server over a ProcessMesh waits for "
+                                f"ROADMAP A8b's rest)")
             if math.prod(mesh.shape.values()) > 1:
                 if bank_axis not in mesh.shape:
                     raise ValueError(f"bank_axis={bank_axis!r} not in mesh "

@@ -16,11 +16,18 @@
   falling back.
 * The config converters carry the reference's fields across, and refuse
   a forced ``fused_backend``, which the port does not honor.
+* The process-group slice (ROADMAP A8b): the scan covers
+  ``repro_torch.launch.mesh`` and ``.track``; importing them starts no
+  process group, no process and no CUDA context; a ``ProcessMesh`` is
+  not built without an initialized group.
 """
 import ast
 import dataclasses
 import importlib
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -32,7 +39,7 @@ from repro.models import tracking as jtracking
 from repro_torch import convert
 from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
 from repro_torch.core.distributed import DRAConfig
-from repro_torch.core.runtime import EmulatedMesh, make_mesh
+from repro_torch.core.runtime import EmulatedMesh, ProcessMesh, make_mesh
 from repro_torch.kernels import build
 from repro_torch.kernels import resample as resample_kernels
 from repro_torch.models.tracking import TrackingConfig, TrackingSSM
@@ -46,6 +53,8 @@ SERVING_MODULES = ("repro_torch.checkpoint.store", "repro_torch.serve.metrics",
                    "repro_torch.serve.fleet", "repro_torch.launch.registry",
                    "repro_torch.launch.serve", "repro_torch.serve.smc_decode",
                    "repro_torch.kernels.row_sum")
+# the process-group slice's modules (ROADMAP A8b)
+PROCESS_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.track")
 
 
 def _port_files():
@@ -351,3 +360,32 @@ def test_attention_kernel_refuses_what_it_does_not_take(case, error, match):
     with pytest.raises(error, match=match):
         flash_attention_kernel(q, k, v)
     assert not build._LIBS
+
+
+@pytest.mark.parametrize("module", PROCESS_MODULES)
+def test_process_modules_are_scanned(module):
+    """The AST scan above covers the process-group slice's modules, and
+    they import neither ``jax`` nor the reference."""
+    path = PORT.parent.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in _port_files()
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_importing_the_launchers_starts_nothing():
+    """A fresh interpreter that imports the launchers has no process
+    group, no child process and no CUDA context."""
+    code = ("import multiprocessing, torch, torch.distributed as d\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.track\n"
+            "print(d.is_initialized(), torch.cuda.is_initialized(), "
+            "len(multiprocessing.active_children()))")
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0"]
+
+
+def test_process_mesh_needs_an_initialized_group():
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        ProcessMesh("gloo")
