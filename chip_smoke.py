@@ -8,7 +8,18 @@
    per source, in parallel) into ``src/repro_torch/_build/``;
 2. holds each kernel against its plain torch version on the card, at the
    slice's shapes, and requires two runs of each kernel to give the same
-   bits; reads B6's prefill variant's SASS for unserialized wgmma.  B3
+   bits; reads B6's prefill variant's SASS for unserialized wgmma.  B6
+   also with a sliding window on every variant (gemma3's D = 128, window
+   1024 prefill on wgmma; recurrentgemma's D = 256, G = 10, window 2048
+   on mma.sync; windowed decodes on split at both head dims, whose keys
+   outside the window are then set to NaN: the output must stay finite
+   and bit for bit the same), at head dim 256 and on non-causal calls
+   over 1601 image keys (prefill and decode); and B6 at every call shape
+   phase 5j runs (``kinds_calls``, from ``KINDS`` and the configs, in the
+   layouts the model hands it: every prefill, and each decode step whose
+   split plan differs from the step before, with the first, middle and
+   last), against its plain version in bf16 and float32 within ATTN_TOL,
+   repeatable, the windowed decodes again with NaN outside the window.  B3
    (the separable kernel) also at R = 2, 6 and 9, in the Eq. 4 form and
    an Eq. 4 close fit, on converged clouds in no slot order (the staged
    window box, with outliers, too wide for the box), and on halo slabs
@@ -132,6 +143,24 @@
    bit for bit its standalone run);
    and two of 5d's prompts decoded as resident sessions with 5d's
    weights (bit for bit ``smc_decode``, B6's launches as in 5d);
+5j. serves the other layer kinds at full width with random bf16 weights
+   (``KINDS``): gemma3-27b (12 of 62 layers, two LLLLLG units, window
+   1024; 4 × 2048 prompts), recurrentgemma-2b (all 26 RRL layers, D =
+   256 over one KV head, window 2048; 4 × 2560), mamba2-1.3b (all 48 D
+   layers; 4 × 2048), llama-3.2-vision-11b (10 of 40 layers, two GGGGX
+   units; 4 × 1024 with 1601 × 1280 image embeddings from the seed) and
+   musicgen-medium (all 48 layers; 4 × 1024 × 4 codebooks): ``generate``
+   (32 greedy steps) twice, equal bit for bit, its decode logits against
+   prefill logits (mamba2's also beside ``ssm_witnesses``: its decode
+   with the SSM state in float32 within the arch's limit, one with its
+   conv windows handed over a slot late beyond it, one with the state
+   dropped recorded),
+   and for the first three ``smc_decode`` (K = 8, 32
+   steps, τ = 1.5) twice, equal bit for bit, sequences the genealogy's
+   paths, finite log Z, ESS in [1, K]; every attention layer through B6
+   with its launches by variant checked (the windowed prefills on wgmma
+   or, at D = 256, mma.sync; every decode on split), the comb scan once
+   a bank step, ``mha_ref`` never; each model freed before the next;
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -163,7 +192,10 @@
    (2^22, 5) beside its first design (``row_sum.first_design_kernel``)
    and torch's sum (its plain version and the library call) in turns,
    with its bound, registers and blocks an SM, failing unless its device
-   time beats the first design's at every shape.
+   time beats the first design's at every shape; and, recorded, B6 at
+   phase 5j's new attention shapes (the timed calls of ``kinds_calls``)
+   beside its bound (the bytes of the keys some query sees, 4·D FLOP a
+   visible pair), its plain version and SDPA with an explicit band mask.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -171,8 +203,8 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f, 5g, 5h and 5i (``launches_new_phases``; for the
-row sum, its launches a frame in each cell; for 5i, each rank's).
+launches in phases 5f, 5g, 5h, 5i and 5j (``launches_new_phases``; for
+the row sum, its launches a frame in each cell; for 5i, each rank's).
 """
 from __future__ import annotations
 
@@ -1302,6 +1334,7 @@ def attn_inputs(qshape, kvshape, dtype, seed, dev, lk=None):
 
 
 # label: q shape, k/v shape, dtype, soft-cap, view length (decode), causal
+# and, where given, the sliding window
 ATTN_CASES = {
     "prefill": ((4, 64, 1024, 128), (4, 8, 1024, 128), "bfloat16", 0.0,
                 None, True),
@@ -1321,7 +1354,7 @@ ATTN_CASES = {
 # every bf16 head dim the kernel is built for, ragged and soft-capped
 ATTN_CASES.update({
     f"d{d}": ((2, 8, 37, d), (2, 2, 100, d), "bfloat16", 30.0, None, True)
-    for d in (16, 32, 48, 64, 80, 96, 112, 128)})
+    for d in (16, 32, 48, 64, 80, 96, 112, 128, 256)})
 # the edges of the split (decode) and wgmma (prefill) variants
 ATTN_CASES.update({
     "generate-decode": ((4, 64, 1, 128), (4, 8, 1057, 128), "bfloat16", 0.0,
@@ -1350,6 +1383,39 @@ ATTN_CASES.update({
     "wgmma-full": ((2, 64, 200, 128), (2, 8, 333, 128), "bfloat16", 0.0,
                    None, False),
 })
+# the sliding window (gemma3's L layers: G = 2, D = 128, window 1024;
+# recurrentgemma's: G = 10 over one KV head, D = 256, window 2048) on
+# every variant, windows shorter and longer than the keys, and the
+# cross-attention of llama-3.2-vision's X layers (non-causal, 1601 image
+# keys) at prefill and decode
+ATTN_CASES.update({
+    "window-wgmma": ((2, 32, 2048, 128), (2, 16, 2048, 128), "bfloat16", 0.0,
+                     None, True, 1024),
+    "window-mma-d256": ((1, 10, 2560, 256), (1, 1, 2560, 256), "bfloat16",
+                        0.0, None, True, 2048),
+    "window-split": ((4, 32, 1, 128), (4, 16, 2200, 128), "bfloat16", 0.0,
+                     2100, True, 1024),
+    "window-split-d256": ((4, 10, 1, 256), (4, 1, 2700, 256), "bfloat16",
+                          0.0, 2600, True, 2048),
+    "window-split-lq8": ((2, 16, 8, 128), (2, 2, 1100, 128), "bfloat16",
+                         30.0, 1057, True, 300),
+    "window-mma-d80": ((2, 16, 300, 80), (2, 2, 300, 80), "bfloat16", 0.0,
+                       None, True, 100),
+    "window-long": ((2, 32, 500, 128), (2, 16, 500, 128), "bfloat16", 0.0,
+                    None, True, 1024),
+    "window-f32": ((2, 8, 37, 64), (2, 2, 1000, 64), "float32", 50.0, None,
+                   True, 77),
+    "xattn-prefill": ((2, 32, 1024, 128), (2, 8, 1601, 128), "bfloat16", 0.0,
+                      None, False),
+    "xattn-decode": ((4, 32, 1, 128), (4, 8, 1601, 128), "bfloat16", 0.0,
+                     None, False),
+    "xattn-d256": ((2, 10, 7, 256), (2, 1, 1601, 256), "bfloat16", 0.0,
+                   None, False),
+})
+# windowed cases run again with every key outside the window NaN in k
+# and v: the output must be finite and bit for bit the clean inputs', so
+# the kernel never reads those keys
+ATTN_NAN_CASES = ("window-split", "window-split-d256")
 
 
 def check_attention(dev) -> dict:
@@ -1357,21 +1423,24 @@ def check_attention(dev) -> dict:
     prefill and decode shapes (the decode on a strided cache view), a
     ragged soft-capped float32 case, the MHA (group 1) and MQA (group 48)
     groupings, non-causal calls and every bf16 head dim the kernel is
-    built for, and the edges of the split and wgmma variants: within
-    ATTN_TOL, and bit for bit on a second launch.  The float32 plain
-    version of the same bf16 inputs is reported too, and the variant
-    that served each case."""
+    built for, the edges of the split and wgmma variants, the sliding
+    window on every variant and the cross-attention shapes: within
+    ATTN_TOL, and bit for bit on a second launch (ATTN_NAN_CASES also with
+    NaN keys outside the window).  The float32 plain version of the same
+    bf16 inputs is reported too, and the variant that served each case."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      plan)
 
     worst = {}
-    for i, (label, (qs, ks, dt, cap, lk, causal)) in enumerate(
+    for i, (label, (qs, ks, dt, cap, lk, causal, *win)) in enumerate(
             ATTN_CASES.items()):
         dtype = getattr(torch, dt)
+        window = win[0] if win else 0
         q, k, v = attn_inputs(qs, ks, dtype, 50 + i, dev, lk)
-        kw = dict(causal=causal, scale=qs[-1] ** -0.5, logit_softcap=cap)
+        kw = dict(causal=causal, scale=qs[-1] ** -0.5, logit_softcap=cap,
+                  window=window)
         out = flash_attention_kernel(q, k, v, **kw)
         again = flash_attention_kernel(q, k, v, **kw)
         check(torch.equal(out, again), f"B6 {label} not repeatable")
@@ -1380,14 +1449,28 @@ def check_attention(dev) -> dict:
         err32 = float((out.float() - ref.mha_ref(
             q.float(), k.float(), v.float(), **kw)).abs().max())
         worst[label] = err
-        p = plan(tuple(q.shape), tuple(k.shape), dtype)
+        p = plan(tuple(q.shape), tuple(k.shape), dtype, window=window)
+        nan_note = ""
+        if label in ATTN_NAN_CASES:
+            # keys [0, first key the call sees) of the same views, NaN
+            hidden = p.key0
+            check(hidden > 0, f"B6 {label}: no key outside the window")
+            k[:, :, :hidden] = float("nan")
+            v[:, :, :hidden] = float("nan")
+            blind = flash_attention_kernel(q, k, v, **kw)
+            check(bool(torch.isfinite(blind).all())
+                  and torch.equal(blind, out),
+                  f"B6 {label}: keys outside the window change the output")
+            nan_note = (f"; {hidden} keys outside the window NaN: finite, "
+                        f"same bits")
         log(f"B6 {label} [{p.variant}"
-            f"{f' x{p.splits}' if p.variant == 'split' else ''}] "
+            f"{f' x{p.splits} from key {p.key0}' if p.variant == 'split' else ''}] "
             f"q{tuple(q.shape)} kv{tuple(k.shape)} {dt}"
             f"{' cap ' + str(cap) if cap else ''}"
+            f"{' window ' + str(window) if window else ''}"
             f"{'' if causal else ' non-causal'}: max_abs_err={err:.3g} "
             f"(rtol=atol={ATTN_TOL[str(dtype)]}; vs the float32 plain "
-            f"version {err32:.3g}), repeatable")
+            f"version {err32:.3g}), repeatable{nan_note}")
         del q, k, v, out, again, want
     return {"max_abs_err": max(worst.values()), "cases": worst}
 
@@ -1419,16 +1502,25 @@ def check_wgmma() -> dict:
     return counts
 
 
-def attention_bound(q, k) -> tuple[float, str]:
-    """Least time for causal GQA attention: read q, k, v and write o once
-    (the bytes), against 4·D FLOP per visible (query, key) pair on the
-    bf16 tensor cores (QK^T and PV; causal pairs of query i are
-    i + Lk - Lq + 1)."""
+def attention_bound(q, k, causal=True, window=0) -> tuple[float, str]:
+    """Least time for GQA attention: read q, the k and v rows some query
+    sees and write o once (the bytes), against 4·D FLOP per visible
+    (query, key) pair on the bf16 tensor cores (QK^T and PV; a causal
+    query i at position p = i + Lk - Lq sees p + 1 keys, at most
+    ``window`` of them; a non-causal one all Lk)."""
+    from repro_torch.kernels.flash_attention import first_key
     b, hq, lq, d = q.shape
     lk = k.shape[2]
-    pairs = lq * (lk - lq) + lq * (lq + 1) // 2
+    if causal:
+        seen = [p + 1 for p in range(lk - lq, lk)]
+        if window:
+            seen = [min(n, window) for n in seen]
+        pairs, key0 = sum(seen), first_key(lq, lk, window)
+    else:
+        pairs, key0 = lq * lk, 0
     flops = 4 * b * hq * d * pairs
-    bytes_ = (2 * q.numel() + 2 * b * k.shape[1] * lk * d) * q.element_size()
+    bytes_ = (2 * q.numel() + 2 * b * k.shape[1] * (lk - key0) * d) \
+        * q.element_size()
     t_b, t_o = bytes_ / PEAK_BYTES, flops / PEAK_BF16
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -1484,6 +1576,56 @@ def time_attention(dev) -> dict:
     return out
 
 
+def time_attention_kinds(dev) -> dict:
+    """B6 at the timed calls of ``kinds_calls`` (phase 5j's new attention
+    shapes, in their layouts) beside its bound, its plain version and
+    SDPA (the library yardstick, never on the port's path).  Where the
+    visible keys are not SDPA's own causal triangle (a window, a decode
+    offset) SDPA gets the explicit boolean band mask and K/V repeated to
+    the query heads outside the timing (its memory-efficient kernel
+    takes a mask, not grouped heads)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    out = {}
+    timed = {k: c for k, c in kinds_calls().items() if c["timed"]}
+    for i, (label, c) in enumerate(timed.items()):
+        q, k, v = kinds_inputs(c, 90 + i, dev)
+        lq, n, causal, window = q.shape[2], k.shape[2], c["causal"], \
+            c["window"]
+        kw = dict(causal=causal, window=window, scale=c["scale"],
+                  logit_softcap=c["softcap"])
+        p = fa.plan(tuple(q.shape), tuple(k.shape), q.dtype, window=window)
+        ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, **kw))
+        plain = cuda_ms(lambda: ref.mha_ref(q, k, v, **kw), reps=3)
+        if causal and (window or lq != n):
+            pos = torch.arange(lq, device=dev)[:, None] + n - lq
+            key = torch.arange(n, device=dev)[None, :]
+            mask = key <= pos
+            if window:
+                mask &= pos - key < window
+            g = q.shape[1] // k.shape[1]
+            kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, scale=c["scale"]))
+            del kk, vv, mask
+        else:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True, scale=c["scale"]))
+        bound, by = attention_bound(q, k, causal, window)
+        out[label] = {"q": list(q.shape), "k": list(k.shape),
+                      "window": window, "causal": causal,
+                      "variant": p.variant, "splits": p.splits,
+                      "key0": p.key0, "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def lm_prompts(cfg, dev):
     import torch
     g = torch.Generator(device=dev)
@@ -1492,44 +1634,79 @@ def lm_prompts(cfg, dev):
                          device=dev)
 
 
-def decode_vs_prefill(model, prompt, tokens) -> dict:
-    """Greedy decode step by step through the model's public functions,
-    keeping the logits of the steps in LM_CHECK_STEPS; the tokens must be
-    ``generate``'s, and prefilling prompt ⧺ tokens[:j] must give step j's
-    logits at its last position within LM_LOGIT_TOL, with the same argmax
-    wherever the top-2 gap exceeds the tolerance."""
+def decode_logits(model, prompt, tokens, img=None, handoff=None):
+    """Decode ``tokens`` step by step through the model's public functions
+    after the prompt's prefill, step j fed ``tokens[:, j - 1]``: the
+    logits of the steps in LM_CHECK_STEPS and every step's argmax (the
+    prefill's first).  ``handoff`` may edit the prefill's caches before
+    the first step; ``img`` goes to the prefill."""
     import torch
     from repro_torch.models.lm import model as M
 
     t0 = prompt.shape[1]
     with torch.inference_mode():
-        h, caches = M.forward_prefill(model, prompt, t0 + LM_STEPS + 1)
-        tok = M.unembed(model, h)[:, 0].float().argmax(-1).to(torch.int32)
-        seen, kept = [tok], {}
+        h, caches = M.forward_prefill(model, prompt, t0 + LM_STEPS + 1,
+                                      img=img)
+        if handoff is not None:
+            handoff(caches)
+        seen = [M.unembed(model, h)[:, 0].float().argmax(-1).to(torch.int32)]
+        kept = {}
         for j in range(1, LM_STEPS):
-            logits, caches = M.forward_decode(model, tok[:, None],
+            logits, caches = M.forward_decode(model, tokens[:, j - 1:j],
                                               t0 + j - 1, caches)
             logits = logits[:, 0].float()
             if j in LM_CHECK_STEPS:
                 kept[j] = logits
-            tok = logits.argmax(-1).to(torch.int32)
-            seen.append(tok)
+            seen.append(logits.argmax(-1).to(torch.int32))
         del caches
-        check(torch.equal(torch.stack(seen, 1), tokens),
-              "step-by-step greedy decode differs from generate")
-        worst, compared, agreed = 0.0, 0, 0
-        for j, want in kept.items():
+    return kept, torch.stack(seen, 1)
+
+
+def prefill_logits(model, prompt, tokens, img=None) -> dict:
+    """For each j in LM_CHECK_STEPS, the last position's logits of
+    prefilling prompt ⧺ tokens[:j]."""
+    import torch
+    from repro_torch.models.lm import model as M
+
+    out = {}
+    with torch.inference_mode():
+        for j in LM_CHECK_STEPS:
             seq = torch.cat([prompt, tokens[:, :j].long()], 1)
-            h, caches = M.forward_prefill(model, seq, seq.shape[1] + 1)
-            got = M.unembed(model, h)[:, 0].float()
+            h, caches = M.forward_prefill(model, seq, seq.shape[1] + 1,
+                                          img=img)
+            out[j] = M.unembed(model, h)[:, 0].float()
             del caches
-            worst = max(worst, float((got - want).abs().max()))
-            top2 = got.topk(2, -1).values
-            clear = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL
-            compared += int(clear.sum())
-            agreed += int((got.argmax(-1) == tokens[:, j])[clear].sum())
-    check(worst <= LM_LOGIT_TOL, f"decode vs prefill logits differ by "
-                                 f"{worst:.4g} (limit {LM_LOGIT_TOL})")
+    return out
+
+
+def logit_gap(kept, want) -> float:
+    """The largest |decode - prefill| logit over the checked steps."""
+    return max(float((want[j] - kept[j]).abs().max()) for j in kept)
+
+
+def decode_vs_prefill(model, prompt, tokens, tol=LM_LOGIT_TOL,
+                      img=None, want=None) -> dict:
+    """Greedy decode step by step (``decode_logits``): its tokens must be
+    ``generate``'s, and prefilling prompt ⧺ tokens[:j] (``want``, else
+    ``prefill_logits``) must give step j's logits at its last position
+    within ``tol``, with the same argmax wherever the top-2 gap exceeds
+    the tolerance.  With codebooks every codebook's logits are held so;
+    ``img`` goes to every prefill."""
+    import torch
+
+    kept, seen = decode_logits(model, prompt, tokens, img)
+    check(torch.equal(seen, tokens),
+          "step-by-step greedy decode differs from generate")
+    if want is None:
+        want = prefill_logits(model, prompt, tokens, img)
+    worst, compared, agreed = logit_gap(kept, want), 0, 0
+    for j, got in want.items():
+        top2 = got.topk(2, -1).values
+        clear = (top2[..., 0] - top2[..., 1]) > tol
+        compared += int(clear.sum())
+        agreed += int((got.argmax(-1) == tokens[:, j])[clear].sum())
+    check(worst <= tol, f"decode vs prefill logits differ by "
+                        f"{worst:.4g} (limit {tol})")
     check(agreed == compared, f"greedy tokens differ on {compared - agreed} "
                               f"of {compared} clear steps")
     return {"max_abs_logit_err": worst, "clear_steps": compared,
@@ -1684,6 +1861,418 @@ def run_lm(dev, all_k, reset, counts, name):
     del flat
     return {"arch": LM_ARCH, "layers": LM_LAYERS, "params": n_params,
             "generate": gen, "smc_decode": smc_rec}, model, prompt
+
+
+# phase 5j: the L, R, D and X layer kinds and the multi-codebook head at
+# full width, depth cut to fit the card and the run: arch -> (layers or
+# None for all, prompt length, whether smc_decode runs (the reference's
+# smc_decode cannot take image inputs or codebooks)).  gemma3 keeps two
+# LLLLLG units, llama-3.2-vision two GGGGX units; the prompts of the
+# windowed archs are longer than their windows (1024 and 2048)
+KINDS = {"gemma3-27b": (12, 2048, True),
+         "recurrentgemma-2b": (None, 2560, True),
+         "mamba2-1.3b": (None, 2048, True),
+         "llama-3.2-vision-11b": (10, 1024, False),
+         "musicgen-medium": (None, 1024, False)}
+KINDS_SEED = 5
+
+
+def kinds_config(arch):
+    """Phase 5j's config of ``arch``: full width, KINDS' depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = KINDS[arch][0]
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def kinds_tols(cfg) -> tuple[float, float]:
+    """Decode vs prefill logits in bf16: LM_LOGIT_TOL's random walk of
+    residual-stream roundings, scaled by the square root of the layers
+    against qwen3's 16 (the first, depth-only limit); an arch with D
+    layers gets √2 more (the second, its limit).  That margin is set from
+    readings, not derived: mamba2's sound decode reads over the depth
+    rule, and so does its decode with the SSM state and its read-out in
+    float32 and its decode with the state dropped (``ssm_witnesses``), so
+    the excess lies in the layers' other roundings, not in the state; a
+    broken decode reads far over the margin (PERF.md §6)."""
+    from repro_torch.models.lm import model as M
+    depth = LM_LOGIT_TOL * math.sqrt(max(1.0, cfg.n_layers / LM_LAYERS))
+    ssm = any(k == "D" for k, _ in M.make_plan(cfg).layers())
+    return depth, depth * (math.sqrt(2) if ssm else 1.0)
+
+
+def kinds_want(cfg, steps):
+    """B6's launches by variant of one prefill and ``steps - 1`` decode
+    steps: one a G, L or X layer and forward call; the prefill's variant
+    from the prompt's shapes (``plan``), every decode step's "split"."""
+    import torch
+    from repro_torch.kernels.flash_attention import plan
+    from repro_torch.models.lm import model as M
+    want = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0}
+    t = KINDS[cfg.name][1]
+    hd, b = cfg.resolved_head_dim, LM_BATCH
+    for kind, _ in M.make_plan(cfg).layers():
+        if kind not in ("G", "L", "X"):
+            continue
+        lk = cfg.n_image_tokens if kind == "X" else t
+        window = M._theta_window(cfg, kind)[1]
+        v = plan((b, cfg.n_heads, t, hd), (b, cfg.n_kv_heads, lk, hd),
+                 torch.bfloat16, window=window).variant
+        want[v] += 1
+        want["split"] += steps - 1
+    return want
+
+
+def kinds_calls() -> dict:
+    """Phase 5j's B6 calls, from KINDS, the configs and the LM_* constants:
+    label -> the call.  For each arch, attention kind (G, L, X) and run
+    (``generate`` at LM_BATCH rows; ``smc_decode`` at LM_BATCH·LM_K where
+    the arch runs it): the prefill, and the decode steps (views of ``t0 +
+    1 .. t0 + LM_STEPS - 1`` keys of a ``t0 + LM_STEPS + 1``-slot cache;
+    an X layer's the 1601 image keys) whose split plan differs from the
+    step before, with the first, the middle (``t0 + LM_STEPS // 2``) and
+    the last.  ``layout`` is how the model lays out q, k and v: "prefill"
+    transposes ``(B, L, H, D)`` projections, "decode" slices a ``(B, H,
+    slots, D)`` cache, "image" holds the image K/V contiguous (q is always
+    a transposed projection).  ``timed`` marks the calls phase 6 times:
+    each arch's L and X kinds (its G where it has no other), the prefill
+    at generate's rows and the middle decode at smc_decode's (else
+    generate's)."""
+    import torch
+    from repro_torch.kernels.flash_attention import plan
+    from repro_torch.models.lm import model as M
+    calls = {}
+    for arch, (_, t0, with_smc) in KINDS.items():
+        cfg = kinds_config(arch)
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        kinds = sorted({k for k, _ in M.make_plan(cfg).layers()}
+                       & {"G", "L", "X"})
+        new = [k for k in kinds if k != "G"] or ["G"]
+        runs = [("generate", LM_BATCH)]
+        if with_smc:
+            runs.append(("smc", LM_BATCH * LM_K))
+        slots, mid = t0 + LM_STEPS + 1, t0 + LM_STEPS // 2
+        for kind in kinds:
+            window = M._theta_window(cfg, kind)[1]
+            x = kind == "X"
+            n = cfg.n_image_tokens if x else t0
+            base = dict(causal=not x, window=window, scale=hd ** -0.5,
+                        softcap=0.0 if x else cfg.logit_softcap)
+            for run, rows in runs:
+                timed = kind in new
+                calls[f"{arch} {kind} {run} prefill"] = dict(
+                    base, q=(rows, hq, t0, hd), k=(rows, hkv, n, hd),
+                    slots=None, layout="image" if x else "prefill",
+                    timed=timed and run == "generate")
+                timed &= run == runs[-1][0]
+                if x:
+                    calls[f"{arch} {kind} {run} decode"] = dict(
+                        base, q=(rows, hq, 1, hd), k=(rows, hkv, n, hd),
+                        slots=None, layout="image", timed=timed)
+                    continue
+                keys, last = [], None
+                for lk in range(t0 + 1, t0 + LM_STEPS):
+                    p = plan((rows, hq, 1, hd), (rows, hkv, lk, hd),
+                             torch.bfloat16, window=window)
+                    cut = (p.variant, p.splits, p.split_keys)
+                    if cut != last or lk in (t0 + 1, mid, t0 + LM_STEPS - 1):
+                        keys.append(lk)
+                    last = cut
+                for lk in keys:
+                    calls[f"{arch} {kind} {run} decode {lk}"] = dict(
+                        base, q=(rows, hq, 1, hd), k=(rows, hkv, lk, hd),
+                        slots=slots, layout="decode",
+                        timed=timed and lk == mid)
+    return calls
+
+
+def kinds_inputs(call, seed, dev):
+    """Random bf16 q, k, v of a ``kinds_calls`` call, laid out as the
+    model hands them to B6."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dtype = torch.bfloat16
+
+    def heads_last(shape):          # (B, H, L, D) as a view of (B, L, H, D)
+        b, h, n, d = shape
+        return torch.randn((b, n, h, d), generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q = heads_last(call["q"])
+    if call["layout"] == "prefill":
+        return q, heads_last(call["k"]), heads_last(call["k"])
+    b, h, n, d = call["k"]
+    buf = (b, h, call["slots"] or n, d)
+    k, v = (torch.randn(buf, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k[:, :, :n], v[:, :, :n]
+
+
+def check_attention_kinds(dev) -> dict:
+    """B6 at every call of ``kinds_calls`` against its plain version on
+    the same bf16 inputs and on their float32 copies, both within the
+    bf16 ATTN_TOL (the plain versions in slices of 4 rows, which bounds
+    their memory), and bit for bit on a second launch; a windowed decode
+    whose first key is past 0 again with every key before it NaN in k
+    and v: finite, the same bits."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     plan)
+    tol = ATTN_TOL[str(torch.bfloat16)]
+    worst, worst32, cases = 0.0, 0.0, {}
+    for i, (label, c) in enumerate(kinds_calls().items()):
+        q, k, v = kinds_inputs(c, 200 + i, dev)
+        kw = dict(causal=c["causal"], scale=c["scale"],
+                  logit_softcap=c["softcap"], window=c["window"])
+        out = flash_attention_kernel(q, k, v, **kw)
+        check(torch.equal(out, flash_attention_kernel(q, k, v, **kw)),
+              f"B6 5j {label} not repeatable")
+        err = err32 = 0.0
+        for r in range(0, q.shape[0], 4):
+            rows = slice(r, r + 4)
+            qr, kr, vr = q[rows], k[rows], v[rows]
+            err = max(err, max_err(out[rows].float(), ref.mha_ref(
+                qr, kr, vr, **kw).float(), tol))
+            err32 = max(err32, max_err(out[rows].float(), ref.mha_ref(
+                qr.float(), kr.float(), vr.float(), **kw), tol))
+        p = plan(tuple(q.shape), tuple(k.shape), q.dtype, window=c["window"])
+        note = ""
+        if c["layout"] == "decode" and p.key0 > 0:
+            k[:, :, :p.key0] = float("nan")
+            v[:, :, :p.key0] = float("nan")
+            blind = flash_attention_kernel(q, k, v, **kw)
+            check(bool(torch.isfinite(blind).all())
+                  and torch.equal(blind, out),
+                  f"B6 5j {label}: keys outside the window change the "
+                  f"output")
+            note = f"; {p.key0} keys outside the window NaN: same bits"
+            del blind
+        worst, worst32 = max(worst, err), max(worst32, err32)
+        cases[label] = {"q": list(q.shape), "k": list(k.shape),
+                        "variant": p.variant, "splits": p.splits,
+                        "key0": p.key0, "max_abs_err": err,
+                        "max_abs_err_f32": err32}
+        log(f"B6 5j {label} [{p.variant}"
+            f"{f' x{p.splits} from key {p.key0}' if p.variant == 'split' else ''}]"
+            f" q{tuple(q.shape)} kv{tuple(k.shape)}"
+            f"{' window ' + str(c['window']) if c['window'] else ''}"
+            f"{'' if c['causal'] else ' non-causal'}: max_abs_err="
+            f"{err:.3g}, vs float32 {err32:.3g} (rtol=atol={tol}), "
+            f"repeatable{note}")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "max_abs_err_f32": worst32,
+            "calls": len(cases), "cases": cases}
+
+
+def ssm_witnesses(model, prompt, tokens, want, arch) -> dict:
+    """Readings of an arch with D layers beside its decode-vs-prefill gap
+    (``want``: ``prefill_logits``): the same decode with every SSM state
+    carried in float32 from the prefill's hand-over on (the state, its
+    read-out, the gated norm and the output projection in float32, the
+    reference's promotion), which must come within the arch's limit as
+    any sound decode; a broken decode, every conv window handed over one
+    slot late (its newest input lost, an off-by-one), which must exceed
+    it; and, recorded, every SSM state dropped at the hand-over (at random
+    weights its gap is the sound decode's, so this gate cannot see a lost
+    state: the CPU tests hold the state to the reference's)."""
+    import torch
+
+    def f32_state(caches):
+        for c in caches:
+            if "ssm" in c:
+                c["ssm"] = c["ssm"].float()
+
+    def conv_late(caches):
+        for c in caches:
+            if "ssm" in c:
+                w = c["conv"]
+                c["conv"] = torch.cat([torch.zeros_like(w[:, :1]),
+                                       w[:, :-1]], 1)
+
+    def state_dropped(caches):
+        for c in caches:
+            if "ssm" in c:
+                c["ssm"] = torch.zeros_like(c["ssm"])
+
+    tol = kinds_tols(model.cfg)[1]
+    out = {}
+    for label, hook in (("f32_state", f32_state), ("conv_late", conv_late),
+                        ("state_dropped", state_dropped)):
+        kept, _ = decode_logits(model, prompt, tokens, handoff=hook)
+        out[label] = logit_gap(kept, want)
+    check(out["f32_state"] <= tol,
+          f"5j {arch}: the float32-state decode differs from the prefill "
+          f"by {out['f32_state']:.4g} (limit {tol:.3g})")
+    check(out["conv_late"] > tol, f"5j {arch}: the broken decode's gap "
+                                  f"{out['conv_late']:.4g} is within the "
+                                  f"limit {tol:.3g}")
+    return out
+
+
+def run_kinds(dev, all_k, reset, counts, name) -> dict:
+    """Phase 5j: each arch of KINDS at full width, random bf16 weights:
+    ``generate`` (greedy, LM_STEPS) twice, equal bit for bit, its decode
+    logits against prefill logits (``decode_vs_prefill``) and, where the
+    arch decodes with SMC, ``smc_decode`` (K = LM_K, LM_STEPS steps, τ =
+    LM_TAU) twice, equal bit for bit, sequences the genealogy's paths,
+    finite log Z, ESS in [1, K].  Every attention layer goes through B6:
+    its launches by variant must be ``kinds_want``'s, the comb scan once
+    a bank step, no other kernel, and ``mha_ref`` never runs.  Each model
+    is freed before the next."""
+    import torch
+    from repro_torch.core import genealogy
+    from repro_torch.kernels import ref
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve import SMCDecodeConfig, generate, smc_decode
+
+    attn = all_k["flash_attention"]
+    out = {}
+    for i, arch in enumerate(KINDS):
+        cfg = kinds_config(arch)
+        _, t0, with_smc = KINDS[arch]
+        t_start = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()      # what earlier phases hold
+        model = M.init_params(cfg, KINDS_SEED + i, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(KINDS_SEED + 100 + i)
+        books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        prompt = torch.randint(cfg.vocab_size, (LM_BATCH, t0) + books,
+                               generator=g, device=dev)
+        img = None
+        if cfg.cross_attn_every:
+            img = torch.randn((LM_BATCH, cfg.n_image_tokens, cfg.d_image),
+                              generator=g, device=dev).to(model.dtype)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        rec = {"layers": cfg.n_layers, "params": n_params,
+               "kinds": "".join(k for k, _ in M.make_plan(cfg).layers()),
+               "prompt": list(prompt.shape),
+               "weights_gib": sum(p.numel() * p.element_size()
+                                  for p in model.parameters()) / 2 ** 30}
+        want = kinds_want(cfg, LM_STEPS)
+        n_attn = sum(want.values()) // LM_STEPS
+
+        def launches_ok(what, scans):
+            got = counts(all_k)
+            expect = {k: 0 for k in all_k}
+            expect["flash_attention"] = n_attn * LM_STEPS
+            expect["prefix_sum"] = scans
+            check(got == expect, f"5j {arch} {what} launches {got}, want "
+                                 f"{expect}")
+            check(attn.variants == want, f"5j {arch} {what} B6 variants "
+                  f"{attn.variants}, want {want}")
+            check(ref.mha_ref.calls == 0, f"5j {arch} {what} ran the plain "
+                                          f"attention")
+            return {"flash_attention": got["flash_attention"],
+                    "variants": dict(attn.variants),
+                    "prefix_sum": got["prefix_sum"]}
+
+        reset()
+        t = time.perf_counter()
+        tokens = generate(model, prompt, steps=LM_STEPS, img=img)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t
+        rec["generate_launches"] = launches_ok("generate", 0)
+        check(tokens.shape == (LM_BATCH, LM_STEPS) + books and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"5j {arch} generate tokens {tuple(tokens.shape)}")
+        t = time.perf_counter()
+        again = generate(model, prompt, steps=LM_STEPS, img=img)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t
+        check(torch.equal(tokens, again), f"5j {arch} generate not "
+                                          f"repeatable")
+        del again
+        rec["generate"] = {
+            "seconds": t_gen, "first_run_seconds": t_first,
+            "tokens_per_s": LM_BATCH * LM_STEPS / t_gen}
+        depth_tol, tol = kinds_tols(cfg)
+        rec["logit_limit"], rec["depth_logit_limit"] = tol, depth_tol
+        want_logits = prefill_logits(model, prompt, tokens, img)
+        rec["consistency"] = decode_vs_prefill(
+            model, prompt, tokens, tol=tol, img=img, want=want_logits)
+        if "D" in rec["kinds"]:
+            rec["ssm_witness"] = ssm_witnesses(model, prompt, tokens,
+                                               want_logits, arch)
+            log(f"5j {arch} decode vs prefill logits: sound "
+                f"{rec['consistency']['max_abs_logit_err']:.4g}, SSM state "
+                f"in float32 {rec['ssm_witness']['f32_state']:.4g} (limit "
+                f"{tol:.3g}; depth rule {depth_tol:.3g}); conv window one "
+                f"slot late {rec['ssm_witness']['conv_late']:.4g} (must "
+                f"exceed {tol:.3g}); SSM state dropped "
+                f"{rec['ssm_witness']['state_dropped']:.4g} (recorded)")
+        del want_logits
+        log(f"5j {arch} ({cfg.n_layers} layers {rec['kinds']}, "
+            f"{n_params / 1e9:.3f} B parameters, {rec['weights_gib']:.2f} "
+            f"GiB): generate {LM_BATCH} x {t0}"
+            f"{' x ' + str(books[0]) + ' codebooks' if books else ''}"
+            f"{' + image ' + str(tuple(img.shape[1:])) if img is not None else ''}"
+            f" + {LM_STEPS}: B6 {rec['generate_launches']}; {t_gen:.3f} s "
+            f"({t_first:.3f} s first), {rec['generate']['tokens_per_s']:.1f}"
+            f" tokens/s; decode vs prefill logits "
+            f"{rec['consistency']['max_abs_logit_err']:.4g} (limit "
+            f"{tol:.3g}), greedy agrees on all "
+            f"{rec['consistency']['clear_steps']} clear steps, repeatable "
+            f"[{name}]")
+        if with_smc:
+            smc = SMCDecodeConfig(n_particles=LM_K, steps=LM_STEPS,
+                                  proposal_temperature=LM_TAU)
+            reset()
+            t = time.perf_counter()
+            res = smc_decode(model, prompt, smc, key=KINDS_SEED + 200 + i)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t
+            rec["smc_launches"] = launches_ok("smc_decode", LM_STEPS - 1)
+            t = time.perf_counter()
+            res2 = smc_decode(model, prompt, smc, key=KINDS_SEED + 200 + i)
+            torch.cuda.synchronize()
+            t_smc = time.perf_counter() - t
+            for field in res._fields:
+                check(torch.equal(getattr(res, field), getattr(res2, field)),
+                      f"5j {arch} smc_decode {field} not repeatable")
+            del res2
+            for b in range(LM_BATCH):
+                paths = genealogy.reconstruct_trajectories(
+                    res.ancestors[:, b], res.emissions[:, b])
+                check(torch.equal(paths, res.sequences[b]),
+                      f"5j {arch} prompt {b}: sequences are not the "
+                      f"genealogy's paths")
+            check(bool(torch.isfinite(res.log_z).all()),
+                  f"5j {arch}: non-finite log Z")
+            check(bool(((res.ess >= 1 - 1e-3)
+                        & (res.ess <= LM_K * (1 + 1e-5))).all()),
+                  f"5j {arch}: ESS outside [1, {LM_K}]")
+            rec["smc_decode"] = {
+                "seconds": t_smc, "first_run_seconds": t_first,
+                "tokens_per_s": LM_BATCH * LM_K * LM_STEPS / t_smc,
+                "resample_events": int(res.resampled.sum()),
+                "log_z": res.log_z.tolist(), "mean_ess": float(res.ess.mean()),
+                "min_ess": float(res.ess.min())}
+            log(f"5j {arch} smc_decode {LM_BATCH} x {t0}, K={LM_K}, "
+                f"{LM_STEPS} steps, tau={LM_TAU}: B6 {rec['smc_launches']};"
+                f" {t_smc:.3f} s ({t_first:.3f} s first), "
+                f"{rec['smc_decode']['tokens_per_s']:.1f} hypothesis "
+                f"tokens/s; log Z "
+                f"{[round(x, 4) for x in rec['smc_decode']['log_z']]}, ESS "
+                f"mean {rec['smc_decode']['mean_ess']:.3f} min "
+                f"{rec['smc_decode']['min_ess']:.3f}, "
+                f"{rec['smc_decode']['resample_events']} resample events; "
+                f"sequences == genealogy paths, repeatable [{name}]")
+            del res
+        rec["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        rec["seconds"] = time.perf_counter() - t_start
+        log(f"5j {arch}: {rec['seconds']:.1f} s, peak {rec['peak_gib']:.2f}"
+            f" GiB above what earlier phases hold")
+        out[arch] = rec
+        del model, prompt, img, tokens
+        torch.cuda.empty_cache()
+    return out
 
 
 def dist_launches(kind, all_k, stages) -> dict:
@@ -3064,6 +3653,7 @@ def main() -> int:
     scan_check = check_scan(dev)
     chain_check = check_chains(dev)
     attn_check = check_attention(dev)
+    attn_check["kinds"] = check_attention_kinds(dev)
     attn_check["wgmma_sass"] = check_wgmma()
     ref.mha_ref.calls = 0        # from here on no path may run it
     all_k = {"patch_log_likelihood": patch_k, "fused_weight_step": fused_k,
@@ -3405,6 +3995,9 @@ def main() -> int:
                           counts, rsum_k, name)
     del lm_model, lm_prompt
     torch.cuda.empty_cache()
+
+    # -- phase 5j: the L, R, D, X kinds and the codebook head at full width --
+    kinds = run_kinds(dev, all_k, reset, counts, name)
     log(f"row-sum launches a frame by cell: "
         f"{ {k: v for k, v in row_sum_cells.items() if 'runs' not in k} }; "
         f"5e and 5g runs {row_sum_cells['5e runs']} / "
@@ -3571,6 +4164,15 @@ def main() -> int:
             f"{t['mma_ms']:.4f}, plain {t['plain_ms']:.4f}, sdpa "
             f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
             f"{t['bound_by']})")
+    attn_kinds = time_attention_kinds(dev)
+    for label, t in attn_kinds.items():
+        log(f"times [{name}]: B6 5j {label} [{t['variant']}"
+            f"{' x' + str(t['splits']) + ' from key ' + str(t['key0']) if t['variant'] == 'split' else ''}]"
+            f" q{tuple(t['q'])} kv{tuple(t['k'])}"
+            f"{' window ' + str(t['window']) if t['window'] else ''}"
+            f"{'' if t['causal'] else ' non-causal'}: {t['ms']:.4f} ms "
+            f"(plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} {t['bound_by']})")
     log(f"times [{name}]: patch {patch_ms:.4f} ms (plain {patch_plain_ms:.4f},"
         f" bound {p_bound:.4f} {p_by}), fused {fused_ms:.4f} ms (plain "
         f"{fused_plain_ms:.4f}, bound {f_bound:.4f} {f_by}) at N=2^22; "
@@ -3635,7 +4237,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
          "launches": lm["smc_decode"]["launches"],
-         "max_abs_err": attn_check["max_abs_err"],
+         "max_abs_err": max(attn_check["max_abs_err"],
+                            attn_check["kinds"]["max_abs_err"]),
          "ms": attn_times["smc_decode"]["ms"],
          "plain_ms": attn_times["smc_decode"]["plain_ms"],
          "bound_ms": attn_times["smc_decode"]["bound_ms"],
@@ -3684,6 +4287,14 @@ def main() -> int:
         serving["decode"]["launches"]["prefix_sum"]
     new_launches["flash_attention"] = {
         "5h decode sessions": serving["decode"]["launches"]["flash_attention"]}
+    for arch, r in kinds.items():
+        for run in ("generate", "smc"):
+            if f"{run}_launches" in r:
+                new_launches["flash_attention"][f"5j {arch} {run}"] = r[
+                    f"{run}_launches"]["flash_attention"]
+                if run == "smc":
+                    new_launches["prefix_sum"][f"5j {arch} smc"] = r[
+                        "smc_launches"]["prefix_sum"]
     new_launches["row_sum"] = {
         f"{k} (a frame)": v for k, v in row_sum_cells.items()
         if "runs" not in k}
@@ -3718,8 +4329,10 @@ def main() -> int:
                           "rejection": lane_ms[True]},
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
         "distributed": dist_runs, "domain": domain_runs, "lm": lm,
+        "kinds": kinds,
         "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
+        "attention_kinds": attn_kinds,
         "patch_inputs": patch_times, "patch_domain_times": patch_domain,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,
                     "fused_weight_step": fused_bank_ms},

@@ -8,8 +8,8 @@ vlm / audio), with the same fields and defaults, so
 reference's XLA/TPU lowering (``remat``, ``attn_chunk``,
 ``attn_scores_dtype``, ``seq_parallel``, ``scan_unroll``, the MoE
 ``dispatch``/``ep_reduce``) are kept as data and read by nothing here.
-``repro_torch/configs/<id>.py`` hold the G-only dense archs this slice
-runs, each as ``FULL`` and ``SMOKE``.
+``repro_torch/configs/<id>.py`` hold the archs the port runs, each as
+``FULL`` and ``SMOKE``.
 """
 from __future__ import annotations
 

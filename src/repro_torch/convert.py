@@ -203,24 +203,29 @@ def lm_params(params_np: dict, cfg: configs.ArchConfig, device="cpu",
     """The port's ``Decoder`` holding the reference's ``init_params``
     weights (a pytree of numpy arrays), cast once to ``dtype`` (default
     ``cfg.compute_dtype``) — what the reference's ``cast_params`` does on
-    every call."""
+    every call.  Every layer kind the port runs crosses, with its
+    leaves as the reference names them (head, scanned groups, tail, in
+    depth order); the ``M`` kind and MoE FFNs raise
+    ``NotImplementedError`` (ROADMAP A12)."""
+    lm.check_supported(cfg)
     dtype = dtype or lm.L.dtype_of(cfg.compute_dtype)
 
     def t(x):
+        if isinstance(x, dict):
+            return {k: t(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x, np.float32)).to(device=device,
                                                              dtype=dtype)
 
-    blocks = []
-    for layer in _layer_leaves(params_np):
-        if "attn" not in layer or "mlp" not in layer:
-            raise NotImplementedError(
-                f"layer with {sorted(layer)}: the port runs G layers with "
-                f"dense FFNs only (ROADMAP A12)")
-        blocks.append(lm.Block(
-            {k: t(v) for k, v in layer["attn"].items()},
-            {k: t(v) for k, v in layer["mlp"].items()},
-            t(layer["pre_norm"]), t(layer["ffn_norm"])))
+    plan = lm.make_plan(cfg).layers()
+    leaves = list(_layer_leaves(params_np))
+    if len(leaves) != len(plan):
+        raise ValueError(f"{len(leaves)} layers of weights for the "
+                         f"{len(plan)} layers of {cfg.name}")
+    blocks = [lm.Block(kind, ffn, t(layer))
+              for (kind, ffn), layer in zip(plan, leaves)]
     head = params_np.get("lm_head")
+    img = params_np.get("img_proj")
     return lm.Decoder(cfg, t(params_np["embed"]), blocks,
                       t(params_np["final_norm"]),
-                      None if head is None else t(head))
+                      None if head is None else t(head),
+                      None if img is None else t(img))

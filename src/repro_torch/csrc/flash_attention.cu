@@ -1,10 +1,11 @@
-// B6 on Hopper: causal GQA flash attention.
+// B6 on Hopper: causal (optionally sliding-window) GQA flash attention.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (_kernel l.33, pallas_call l.110).  Computes, for q (B, Hq, Lq, D) and
 // k, v (B, Hkv, Lk, D), o = softmax(scale * q k^T [soft-capped, causal]) v
-// with query head h reading KV head h / (Hq / Hkv), a causal query i seeing
-// keys j <= i + Lk - Lq (the decode offset), an online softmax (m, l, acc)
+// with query head h reading KV head h / (Hq / Hkv), a causal query i at
+// position p = i + Lk - Lq (the decode offset) seeing keys j <= p, and with
+// a window W the keys p - W < j <= p alone, an online softmax (m, l, acc)
 // in float32, and the output in q's dtype.  q, k and v are strided views
 // (a decode call passes the KV cache's [..., :pos+1, :] view as it lies in
 // memory); o is a contiguous (B, Hq, Lq, D) tensor.
@@ -22,8 +23,15 @@
 // K/V tiles of 64 keys are double-buffered with cp.async, zero-filled past
 // Lk.  Keys are walked in order from 0 and a causal block stops at the
 // last key its rows can see, so every tile it walks holds a visible key
-// for each row it owns; masked scores are -inf and add exactly 0.  No
-// split over keys and no float atomics: results repeat bit for bit.
+// for each row it owns; masked scores are -inf and add exactly 0.  With a
+// window a block starts at the tile of the first key its first row sees,
+// so a query tile walks about W + 64 / G keys, not its position: the
+// bounds are per block, uniform across its warps.  Only the edge tiles
+// (past Lk, across the diagonal, across the window's lower edge) are
+// masked.  At D = 256 the output accumulator takes 128 registers a
+// thread, so Q stays in shared memory and its fragments are read with
+// ldmatrix for each tile instead of being held in registers (64 more).
+// No split over keys and no float atomics: results repeat bit for bit.
 //
 // What bounds it: at prefill (Lq = Lk = 1024) the products, 4·Lq·Lk·D
 // FLOP per head halved by the causal mask, against 989 TFLOP/s of dense
@@ -34,8 +42,9 @@
 // instead (kernels/flash_attention.py's plan()): bf16 prefill at D = 64 and
 // 128 to its wgmma/TMA kernel, every call of at most 64 query rows per KV
 // head to its split-key kernel.  This kernel serves the rest of bf16: more
-// than 64 rows per KV head at D = 16, 32, 48, 80, 96 or 112, and K/V views
-// that step a dim by 0, which TMA cannot load.
+// than 64 rows per KV head at D = 16, 32, 48, 80, 96, 112 or 256 (the
+// prefill of recurrentgemma's local attention, 10 heads over one KV head),
+// and K/V views that step a dim by 0, which TMA cannot load.
 //
 // float32 (the tests' and the f32 models' path): one warp per query row,
 // one key per lane, plain FMA; same online softmax and key order.
@@ -63,6 +72,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
   constexpr int DN = D / 8;     // n-tiles of the output
   constexpr int SN = BN / 8;    // n-tiles of the scores
   constexpr int VEC = D / 8;    // 16-byte vectors per row
+  constexpr bool Q_REGS = D <= 128;   // Q's fragments held in registers
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sk = sq + BM * LD;       // 2 stages of BN x LD
@@ -92,12 +102,16 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
     cp_async16(sq + r * LD + c * 8, src, ok);
   }
 
+  // the keys the block's rows see: from the first row's first key to the
+  // last row's position
+  const int first_pos = row0 / a.group + off;
+  const int last_pos = (min(row0 + BM, n_rows) - 1) / a.group + off;
   int kend = a.lk;
-  if (a.causal) {
-    const int last = min(row0 + BM, n_rows) - 1;
-    kend = min(a.lk, last / a.group + off + 1);
-  }
+  if (a.causal) kend = min(a.lk, last_pos + 1);
+  const int kt0 = first_key(a, first_pos) / BN;
   const int n_kt = (kend + BN - 1) / BN;
+  // keys below this one are hidden from some row of the block
+  const int win_edge = first_key(a, last_pos);
 
   auto load_kv = [&](int stage, int kt) {
     __nv_bfloat16* dk = sk + stage * BN * LD;
@@ -111,8 +125,8 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
       cp_async16(dv + r * LD + c * 8, vg + vo, ok);
     }
   };
-  if (n_kt > 0) load_kv(0, 0);
-  cp_async_commit();                        // group 0: Q and key tile 0
+  if (kt0 < n_kt) load_kv(0, kt0);
+  cp_async_commit();                        // group 0: Q and the first tile
 
   const int r0 = row0 + warp * 16 + gr, r1 = r0 + 8;
   const int pos0 = r0 / a.group + off, pos1 = r1 / a.group + off;
@@ -122,28 +136,25 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
   for (int dn = 0; dn < DN; ++dn)
     o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  uint32_t qa[KC][4];
+  uint32_t qa[Q_REGS ? KC : 1][4];
+  const __nv_bfloat16* qw = sq + warp * 16 * LD;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) load_kv((kt + 1) & 1, kt + 1);
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int stage = (kt - kt0) & 1;
+    if (kt + 1 < n_kt) load_kv(stage ^ 1, kt + 1);
     cp_async_commit();
     cp_async_wait<1>();                     // tile kt (and Q) have landed
     __syncthreads();
     if (live) {
-      if (kt == 0) {
-        const __nv_bfloat16* qw = sq + warp * 16 * LD;
+      if constexpr (Q_REGS) {
+        if (kt == kt0) {
 #pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          const __nv_bfloat16* p0 = qw + gr * LD + kc * 16 + tq * 2;
-          const __nv_bfloat16* p1 = p0 + 8 * LD;
-          qa[kc][0] = *reinterpret_cast<const uint32_t*>(p0);
-          qa[kc][1] = *reinterpret_cast<const uint32_t*>(p1);
-          qa[kc][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-          qa[kc][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+          for (int kc = 0; kc < KC; ++kc)
+            ldmatrix_a(qa[kc], qw + kc * 16, LD, lane);
         }
       }
-      const __nv_bfloat16* ks = sk + (kt & 1) * BN * LD;
-      const __nv_bfloat16* vs = sv + (kt & 1) * BN * LD;
+      const __nv_bfloat16* ks = sk + stage * BN * LD;
+      const __nv_bfloat16* vs = sv + stage * BN * LD;
       float s[SN][4];
 #pragma unroll
       for (int n = 0; n < SN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -154,14 +165,26 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
           ks + ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qf[4];
+        if constexpr (Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[kc][e];
+        } else {
+          ldmatrix_a(qf, qw + kc * 16, LD, lane);
+        }
 #pragma unroll
         for (int n = 0; n < SN; n += 2) {
           uint32_t kb[4];
           ldmatrix_x4(kb, krow + n * 8 * LD + kc * 16);
-          mma_bf16(s[n], qa[kc], kb[0], kb[1]);
-          mma_bf16(s[n + 1], qa[kc], kb[2], kb[3]);
+          mma_bf16(s[n], qf, kb[0], kb[1]);
+          mma_bf16(s[n + 1], qf, kb[2], kb[3]);
         }
       }
+      // only a tile past Lk, across the diagonal or across the window's
+      // lower edge needs the mask (a block-uniform test)
+      const bool edge = kt * BN + BN > a.lk ||
+                        (a.causal && kt * BN + BN - 1 > first_pos) ||
+                        kt * BN < win_edge;
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int n = 0; n < SN; ++n) {
@@ -169,7 +192,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
         for (int e = 0; e < 4; ++e) {
           const int key = kt * BN + n * 8 + tq * 2 + (e & 1);
           const int pos = e < 2 ? pos0 : pos1;
-          const bool ok = key < a.lk && (!a.causal || key <= pos);
+          const bool ok = !edge || (key < a.lk && visible(a, key, pos));
           const float x = ok ? logit(s[n][e], a) : -INFINITY;
           s[n][e] = x;
           if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
@@ -271,10 +294,11 @@ __global__ void __launch_bounds__(F32_WARPS * 32) flash_f32(Args a, int d) {
   for (int t = lane; t < d; t += 32) sq[warp][t] = qp[t];
   __syncwarp();
   const int kend = a.causal ? min(a.lk, i + a.lk - a.lq + 1) : a.lk;
+  const int kbeg = first_key(a, i + a.lk - a.lq);
   float m = -INFINITY, l = 0.f, acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  for (int j0 = 0; j0 < kend; j0 += 32) {
+  for (int j0 = kbeg; j0 < kend; j0 += 32) {
     const int key = j0 + lane;
     float x = -INFINITY;
     if (key < kend) {
@@ -335,19 +359,20 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // o (B, Hq, Lq, D) contiguous; q, k, v strided (element strides, last
-// dim contiguous).  bf16 takes D = 16, 32, ..., 128 and 16-byte aligned
-// rows; float32 takes D <= 256.  Returns the CUDA
+// dim contiguous).  bf16 takes D = 16, 32, ..., 128 or 256 and 16-byte
+// aligned rows; float32 takes D <= 256.  window > 0 (causal calls only)
+// limits each query to its last `window` keys.  Returns the CUDA
 // error of the launch, or -1 for a head dim the kernel does not take.
 int ppf_flash_attention(const void* q, const void* k, const void* v, void* o,
                         long long q_sb, long long q_sh, long long q_sl,
                         long long k_sb, long long k_sh, long long k_sl,
                         long long v_sb, long long v_sh, long long v_sl,
                         int b, int hq, int hkv, int lq, int lk, int d,
-                        int is_bf16, int causal, float scale, float softcap,
-                        void* stream) {
+                        int is_bf16, int causal, int window, float scale,
+                        float softcap, void* stream) {
   Args a{q,    k,    v,    o,    q_sb, q_sh,   q_sl,  k_sb,  k_sh,
          k_sl, v_sb, v_sh, v_sl, b,    hq,     hkv,   lq,    lk,
-         hq / hkv, causal, scale, softcap};
+         hq / hkv, causal, causal ? window : 0, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16) {
     if (d < 1 || d > F32_MAX_D) return -1;
@@ -365,6 +390,7 @@ int ppf_flash_attention(const void* q, const void* k, const void* v, void* o,
     case 96: return launch_bf16<96>(a, st);
     case 112: return launch_bf16<112>(a, st);
     case 128: return launch_bf16<128>(a, st);
+    case 256: return launch_bf16<256>(a, st);
     default: return -1;
   }
 }

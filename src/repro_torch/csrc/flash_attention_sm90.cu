@@ -5,7 +5,8 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (l.84, pallas_call l.110), as flash_attention.cu does for the shapes
 // these variants do not take.  The function is the same: causal or full
-// GQA, the decode offset Lk - Lq, the optional tanh soft-cap, strided
+// GQA, the decode offset Lk - Lq, an optional sliding window (a causal query
+// at position p sees keys p - W < j <= p), the optional tanh soft-cap, strided
 // q/k/v views with 16-byte aligned rows, an online float32 softmax, P
 // rounded to bf16 unnormalized before P V.  kernels/flash_attention.py's
 // plan() chooses the variant from the shapes alone.
@@ -32,18 +33,29 @@
 // the next tile's turn.  A K/V tile serves 128 rows (16 positions at
 // G = 8), twice the mma.sync kernel's 64.  Every branch around a wgmma is
 // warpgroup-uniform in a way ptxas can see, and nothing divides: either
-// makes ptxas serialize the products.  Keys are walked in order from 0,
-// with no split and no atomics: results repeat bit for bit.
+// makes ptxas serialize the products.  Keys are walked in order, with no
+// split and no atomics: results repeat bit for bit.  With a window an item
+// walks the tiles from the one holding its first row's first key: the
+// producer and both consumers compute the same range from the item, so
+// the ring's turns stay in step, and a warpgroup skips (as a whole) a tile
+// its rows cannot see.  Only the edge tiles (past Lk, across the diagonal,
+// across the window's lower edge) are masked.
 //
 // Decode, flash_split<D> (G·Lq <= 64 rows per KV head, every bf16 D).
-// Bound: the bytes of the K/V view, read once, against 3.35 TB/s.  One
-// block of four warps per (split, KV head, batch row); a split is a
-// contiguous range of keys, and plan() picks the count from (B, Hkv, Lk)
-// so that the card holds about two blocks per SM.  The rows fill
+// Bound: the bytes of the K/V rows its queries see, read once, against
+// 3.35 TB/s.  One block of four warps per (split, KV head, batch row); a
+// split is a contiguous range of keys, and plan() picks the count from
+// (B, Hkv, the keys seen) so that the card holds about two blocks per SM.  The rows fill
 // ceil(G·Lq / 16) m16 tiles; the warps of a row tile take turns at the
 // split's 16-key tiles, each streaming its own two-stage cp.async ring
 // (mma.sync m16n8k16, ldmatrix fragments), so no warp idles on a decode
-// step.  They combine in the block in warp order.  Each split
+// step.  They combine in the block in warp order.  The splits cut the
+// keys from the first one a row of the call can see (key0, from the
+// window; 0 without one), so a windowed decode reads O(W) keys and never
+// loads one outside its rows' windows; as in the prefill, only edge
+// tiles are masked.  At D = 256 a warp keeps its Q rows
+// in shared memory (ldmatrix each tile) instead of 64 registers, which
+// the 128-register accumulator leaves no room for.  Each split
 // writes its rows' (m, l) and unnormalized f32 accumulator to scratch,
 // and flash_combine reduces the splits in split order (a split that sees
 // no key of a row adds exactly 0 to it) and writes o; a single split
@@ -55,7 +67,7 @@
 #include "tma.cuh"
 
 // One call of the C entry points below, as the wrapper packs it
-// (struct.Struct("@6Q9q9i2f")): one pointer crosses ctypes instead of 26
+// (struct.Struct("@6Q9q11i2f")): one pointer crosses ctypes instead of 26
 // arguments.  Outside the anonymous namespace: a C entry point's
 // parameter type must not have internal linkage.
 struct FlashCall {
@@ -67,6 +79,8 @@ struct FlashCall {
   void* stream;
   long long strides[9];   // q, k, v: batch, head, row (elements)
   int b, hq, hkv, lq, lk, d, causal, split_keys, n_split;
+  int window;        // > 0 on causal calls: a query sees its last window keys
+  int key0;          // the split variant's first key (the splits start there)
   float scale, softcap;
 };
 
@@ -281,7 +295,7 @@ constexpr int wgmma_smem() {
 // tiles of 128 rows longest first; block c takes items c, c + gridDim.x,
 // ..., so the blocks at work at any time share a few pairs' K/V in L2.
 struct WgItem {
-  int row0, hk, b, n_kt;
+  int row0, hk, b, kt0, n_kt;
 };
 
 __device__ __forceinline__ WgItem wg_item(const Args& a, int j, int n_rt) {
@@ -294,6 +308,8 @@ __device__ __forceinline__ WgItem wg_item(const Args& a, int j, int n_rt) {
   if (a.causal)
     kend = min(a.lk, (min(it.row0 + WG_BM, n_rows) - 1) / a.group + a.lk -
                          a.lq + 1);
+  // the tiles from the one holding the first row's first key
+  it.kt0 = first_key(a, it.row0 / a.group + a.lk - a.lq) / WG_BN;
   it.n_kt = (kend + WG_BN - 1) / WG_BN;
   return it;
 }
@@ -338,7 +354,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       int g = 0;                     // tiles issued, over all items
       for (int j = blockIdx.x; j < n_items; j += gridDim.x) {
         const WgItem it = wg_item(a, j, n_rt);
-        for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
+        for (int kt = it.kt0; kt < it.n_kt; ++kt, ++g) {
           const int s = g % WG_STAGES, round = g / WG_STAGES;
           if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
           mbar_expect_tx(&full[s], 2 * KV_BYTES);
@@ -428,17 +444,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const int r0 = wrow0 + warp * 16 + gr, r1 = r0 + 8;
       const int pos0 = r0 / a.group + off, pos1 = r1 / a.group + off;
       const int first_pos = wrow0 / a.group + off;
+      const int last_pos = (min(wrow0 + 64, n_rows) - 1) / a.group + off;
       int wend = a.lk;               // keys this warpgroup's rows can see
-      if (a.causal && live)
-        wend = min(a.lk, (min(wrow0 + 64, n_rows) - 1) / a.group + off + 1);
+      if (a.causal && live) wend = min(a.lk, last_pos + 1);
+      // the first key a row of this warpgroup sees, and the key below which
+      // some row is blind (the window's lower edges)
+      const int wbeg = first_key(a, first_pos);
+      const int win_edge = first_key(a, last_pos);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-      for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
+      for (int kt = it.kt0; kt < it.n_kt; ++kt, ++g) {
         const int s = g % WG_STAGES;
         const int k0 = kt * WG_BN;
-        const bool work = live && k0 < wend;        // warpgroup-uniform
+        // warpgroup-uniform
+        const bool work = live && k0 < wend && k0 + WG_BN > wbeg;
         mbar_wait(&full[s], (g / WG_STAGES) & 1);
         asm volatile("bar.sync %0, 256;\n" ::"r"(3 + cw) : "memory");
         fence_regs(sc);
@@ -474,13 +495,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         }
 
         to_log2_logits(sc, a);
-        // only a tile past Lk or across the diagonal needs the mask
-        if (k0 + WG_BN > a.lk || (a.causal && k0 + WG_BN - 1 > first_pos)) {
+        // only a tile past Lk, across the diagonal or across the window's
+        // lower edge needs the mask
+        if (k0 + WG_BN > a.lk || (a.causal && k0 + WG_BN - 1 > first_pos) ||
+            k0 < win_edge) {
 #pragma unroll
           for (int i = 0; i < 64; ++i) {
             const int key = k0 + (i >> 2) * 8 + tq * 2 + (i & 1);
             const int pos = (i & 2) ? pos1 : pos0;
-            if (key >= a.lk || (a.causal && key > pos)) sc[i] = -INFINITY;
+            if (key >= a.lk || !visible(a, key, pos)) sc[i] = -INFINITY;
           }
         }
         float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -571,9 +594,21 @@ constexpr int SP_KEYS = 16;         // keys per warp tile
 constexpr int SP_STAGES = 2;        // tiles in each warp's cp.async ring
 constexpr int SP_MAX_ROWS = 16 * SP_WARPS;
 
+// Q rows in shared memory instead of registers (each warp its 16 rows)
+template <int D>
+__host__ __device__ constexpr bool split_q_smem() {
+  return D > 128;
+}
+
+template <int D>
+__host__ __device__ constexpr int split_ring() {
+  return SP_WARPS * SP_STAGES * 2 * SP_KEYS * (D + 8) * 2;
+}
+
 template <int D>
 constexpr int split_smem() {
-  constexpr int ring = SP_WARPS * SP_STAGES * 2 * SP_KEYS * (D + 8) * 2;
+  constexpr int ring =
+      split_ring<D>() + (split_q_smem<D>() ? SP_WARPS * 16 * (D + 8) * 2 : 0);
   constexpr int red = SP_WARPS * (32 + 16 * D) * 4;
   return ring > red ? ring : red;
 }
@@ -583,8 +618,9 @@ constexpr int split_smem() {
 // record {m, l, acc[D]}: m in log2 units, acc unnormalized against m.
 template <int D>
 __global__ void __launch_bounds__(SP_WARPS * 32)
-    flash_split(Args a, int split_keys, int n_split, float* part) {
+    flash_split(Args a, int key0, int split_keys, int n_split, float* part) {
   constexpr int LD = D + 8;       // padded smem row (elements)
+  constexpr bool QS = split_q_smem<D>();
   constexpr int KC = D / 16, DN = D / 8, VEC = D / 8;
   constexpr int TILE = SP_KEYS * LD;
   constexpr int REC = 32 + 16 * D;    // a warp's m[16], l[16], acc[16][D]
@@ -595,9 +631,11 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
   const int n_rows = a.group * a.lq;
   const int n_rt = (n_rows + 15) / 16, n_kw = SP_WARPS / n_rt;
   const int rt = warp % n_rt, kw = warp / n_rt;   // row tile, key share
-  const int s0 = split * split_keys, s1 = min(a.lk, s0 + split_keys);
+  const int s0 = key0 + split * split_keys, s1 = min(a.lk, s0 + split_keys);
   const int n_tiles = (s1 - s0 + SP_KEYS - 1) / SP_KEYS;
-  const int off = a.lk - a.lq;
+  const int off = a.lk - a.lq;        // the first query's position
+  // keys below this one are hidden from the last query (its window)
+  const int win_edge = first_key(a, a.lk - 1);
 
   float o[DN][4];
 #pragma unroll
@@ -616,9 +654,9 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
     auto load = [&](int i) {
       bf16* dk = ring + (i % SP_STAGES) * 2 * TILE;
       bf16* dv = dk + TILE;
-      const int key0 = s0 + (kw + i * n_kw) * SP_KEYS;
+      const int tkey = s0 + (kw + i * n_kw) * SP_KEYS;
       for (int idx = lane; idx < SP_KEYS * VEC; idx += 32) {
-        const int r = idx / VEC, c = idx % VEC, key = key0 + r;
+        const int r = idx / VEC, c = idx % VEC, key = tkey + r;
         const bool ok = key < s1;
         cp_async16(dk + r * LD + c * 8, kg + (ok ? key * a.k_sl + c * 8 : 0),
                    ok);
@@ -647,14 +685,30 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
     auto ld32 = [](const bf16* p) {
       return p ? *reinterpret_cast<const uint32_t*>(p) : 0u;
     };
-    uint32_t qa[KC][4];
+    uint32_t qa[QS ? 1 : KC][4];
+    // at D > 128: the warp's 16 rows, row-major with LD, zeros past G·Lq
+    bf16* sq = reinterpret_cast<bf16*>(smem + split_ring<D>()) +
+               warp * 16 * LD;
+    if constexpr (QS) {
+      for (int idx = lane; idx < 16 * VEC; idx += 32) {
+        const int r = idx / VEC, c = idx % VEC, row = rt * 16 + r;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (row < n_rows)
+          val = *reinterpret_cast<const uint4*>(
+              qg + (hk * a.group + row % a.group) * a.q_sh +
+              (long long)(row / a.group) * a.q_sl + c * 8);
+        *reinterpret_cast<uint4*>(sq + r * LD + c * 8) = val;
+      }
+      __syncwarp();
+    } else {
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int c = kc * 16 + tq * 2;
-      qa[kc][0] = ld32(q0 ? q0 + c : nullptr);
-      qa[kc][1] = ld32(q1 ? q1 + c : nullptr);
-      qa[kc][2] = ld32(q0 ? q0 + c + 8 : nullptr);
-      qa[kc][3] = ld32(q1 ? q1 + c + 8 : nullptr);
+      for (int kc = 0; kc < KC; ++kc) {
+        const int c = kc * 16 + tq * 2;
+        qa[kc][0] = ld32(q0 ? q0 + c : nullptr);
+        qa[kc][1] = ld32(q1 ? q1 + c : nullptr);
+        qa[kc][2] = ld32(q0 ? q0 + c + 8 : nullptr);
+        qa[kc][3] = ld32(q1 ? q1 + c + 8 : nullptr);
+      }
     }
 
     for (int i = 0; i < my_n; ++i) {
@@ -664,8 +718,8 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
       __syncwarp();
       const bf16* ks = ring + (i % SP_STAGES) * 2 * TILE;
       const bf16* vs = ks + TILE;
-      const int key0 = s0 + (kw + i * n_kw) * SP_KEYS;
-      // scores of keys key0 + 8 n + 2 tq + (e & 1): s[4 n + e], rows r0
+      const int tkey = s0 + (kw + i * n_kw) * SP_KEYS;
+      // scores of keys tkey + 8 n + 2 tq + (e & 1): s[4 n + e], rows r0
       // (e < 2) and r1
       float s[8] = {};
       // K's B fragments of both 8-key n-tiles per ldmatrix
@@ -673,18 +727,29 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
           ks + ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qf[4];
+        if constexpr (QS) {
+          ldmatrix_a(qf, sq + kc * 16, LD, lane);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[kc][e];
+        }
         uint32_t kb[4];
         ldmatrix_x4(kb, krow + kc * 16);
-        mma_bf16(*reinterpret_cast<float(*)[4]>(s), qa[kc], kb[0], kb[1]);
-        mma_bf16(*reinterpret_cast<float(*)[4]>(s + 4), qa[kc], kb[2],
-                 kb[3]);
+        mma_bf16(*reinterpret_cast<float(*)[4]>(s), qf, kb[0], kb[1]);
+        mma_bf16(*reinterpret_cast<float(*)[4]>(s + 4), qf, kb[2], kb[3]);
       }
       to_log2_logits(s, a);
+      // only a tile past the split's end, across the diagonal or across
+      // the window's lower edge needs the mask (a warp-uniform test)
+      if (tkey + SP_KEYS > s1 || (a.causal && tkey + SP_KEYS - 1 > off) ||
+          tkey < win_edge) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int key = key0 + (i >> 2) * 8 + tq * 2 + (i & 1);
-        const int pos = (i & 2) ? pos1 : pos0;
-        if (key >= s1 || (a.causal && key > pos)) s[i] = -INFINITY;
+        for (int i = 0; i < 8; ++i) {
+          const int key = tkey + (i >> 2) * 8 + tq * 2 + (i & 1);
+          const int pos = (i & 2) ? pos1 : pos0;
+          if (key >= s1 || !visible(a, key, pos)) s[i] = -INFINITY;
+        }
       }
       const float mx0 = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5]));
       const float mx1 = fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7]));
@@ -783,7 +848,7 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
 // order: one warp per row, lane t taking columns t, t + 32, ...
 __global__ void __launch_bounds__(128)
     flash_combine(Args a, int d, int n_split, const float* part) {
-  constexpr int C = 128 / 32;               // d <= 128
+  constexpr int C = 256 / 32;               // d <= 256
   const int n_rows = a.group * a.lq;
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   if (row >= (long long)a.b * a.hkv * n_rows) return;        // warp-uniform
@@ -891,14 +956,14 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_split(const Args& a, int split_keys, int n_split, float* part,
-                 cudaStream_t stream) {
+int launch_split(const Args& a, int key0, int split_keys, int n_split,
+                 float* part, cudaStream_t stream) {
   constexpr int smem = split_smem<D>();
   static bool done[64];
   const cudaError_t attr = allow_smem(flash_split<D>, smem, done);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_split, a.hkv, a.b);
-  flash_split<D><<<grid, SP_WARPS * 32, smem, stream>>>(a, split_keys,
+  flash_split<D><<<grid, SP_WARPS * 32, smem, stream>>>(a, key0, split_keys,
                                                         n_split, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
@@ -913,7 +978,7 @@ Args args_of(const FlashCall& c) {
   return Args{c.q,  c.k,  c.v,  c.o,          s[0],     s[1],  s[2],
               s[3], s[4], s[5], s[6],         s[7],     s[8],  c.b,
               c.hq, c.hkv, c.lq, c.lk,        c.hq / c.hkv, c.causal,
-              c.scale, c.softcap};
+              c.causal ? c.window : 0,        c.scale,  c.softcap};
 }
 
 }  // namespace
@@ -937,27 +1002,30 @@ int ppf_flash_wgmma(const FlashCall* c) {
   }
 }
 
-// the decode variant: G·Lq <= 64 rows per KV head, D = 16, 32, ..., 128;
-// n_split splits of split_keys keys (a multiple of 16), each holding a
-// key; `part` holds B·Hkv·n_split·G·Lq·(D + 2) floats when n_split > 1
+// the decode variant: G·Lq <= 64 rows per KV head, D = 16, 32, ..., 128
+// or 256; n_split splits of split_keys keys (a multiple of 16) from key0,
+// each holding a key; `part` holds B·Hkv·n_split·G·Lq·(D + 2) floats when
+// n_split > 1
 int ppf_flash_split(const FlashCall* c) {
   const Args a = args_of(*c);
-  const int sk = c->split_keys, ns = c->n_split;
-  if (a.group * a.lq > SP_MAX_ROWS || sk % SP_KEYS || ns < 1 ||
-      (long long)(ns - 1) * sk >= a.lk || (long long)ns * sk < a.lk ||
+  const int sk = c->split_keys, ns = c->n_split, k0 = c->key0;
+  const long long keys = (long long)a.lk - k0;
+  if (a.group * a.lq > SP_MAX_ROWS || sk % SP_KEYS || ns < 1 || k0 < 0 ||
+      (long long)(ns - 1) * sk >= keys || (long long)ns * sk < keys ||
       (ns > 1 && c->part == nullptr))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
   float* p = static_cast<float*>(c->part);
   switch (c->d) {
-    case 16: return launch_split<16>(a, sk, ns, p, st);
-    case 32: return launch_split<32>(a, sk, ns, p, st);
-    case 48: return launch_split<48>(a, sk, ns, p, st);
-    case 64: return launch_split<64>(a, sk, ns, p, st);
-    case 80: return launch_split<80>(a, sk, ns, p, st);
-    case 96: return launch_split<96>(a, sk, ns, p, st);
-    case 112: return launch_split<112>(a, sk, ns, p, st);
-    case 128: return launch_split<128>(a, sk, ns, p, st);
+    case 16: return launch_split<16>(a, k0, sk, ns, p, st);
+    case 32: return launch_split<32>(a, k0, sk, ns, p, st);
+    case 48: return launch_split<48>(a, k0, sk, ns, p, st);
+    case 64: return launch_split<64>(a, k0, sk, ns, p, st);
+    case 80: return launch_split<80>(a, k0, sk, ns, p, st);
+    case 96: return launch_split<96>(a, k0, sk, ns, p, st);
+    case 112: return launch_split<112>(a, k0, sk, ns, p, st);
+    case 128: return launch_split<128>(a, k0, sk, ns, p, st);
+    case 256: return launch_split<256>(a, k0, sk, ns, p, st);
     default: return -1;
   }
 }

@@ -1,6 +1,7 @@
 // What B6's kernels share (flash_attention.cu and flash_attention_sm90.cu):
-// the call's arguments, cp.async, mma.sync and ldmatrix wrappers, and the
-// logit rule.  Everything is internal to the including translation unit.
+// the call's arguments, cp.async, mma.sync and ldmatrix wrappers, the
+// logit rule and the visibility rule of a causal, optionally windowed,
+// call.  Everything is internal to the including translation unit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +21,7 @@ struct Args {
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
   int b, hq, hkv, lq, lk, group, causal;
+  int window;         // > 0: a causal query sees its last `window` keys
   float scale, softcap;
 };
 
@@ -86,6 +88,28 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// a query at absolute position pos (its row's position plus Lk - Lq) sees
+// key j iff j <= pos and, with a window, pos - j < window; a non-causal
+// call sees every key (the host sets window only on causal calls)
+__device__ __forceinline__ bool visible(const Args& a, int key, int pos) {
+  return !a.causal || (key <= pos && (a.window <= 0 || pos - key < a.window));
+}
+
+// the first key a causal query at position pos sees
+__device__ __forceinline__ int first_key(const Args& a, int pos) {
+  return a.causal && a.window > 0 ? max(0, pos - a.window + 1) : 0;
+}
+
+// the m16n16 A fragment of rows 0..15, columns 0..15 of a row-major bf16
+// tile in shared memory with `ld` elements a row (ldmatrix: matrices
+// (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) are a0..a3)
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&r)[4],
+                                           const __nv_bfloat16* tile, int ld,
+                                           int lane) {
+  ldmatrix_x4(r, tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                     (lane >> 4) * 8);
 }
 
 __device__ __forceinline__ float logit(float s, const Args& a) {

@@ -1,8 +1,10 @@
 """Flash attention on the card (port of ``repro.kernels.flash_attention``).
 
-B6: causal GQA attention ``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` with an
-online float32 softmax, the decode offset ``Lk - Lq`` and an optional
-tanh soft-cap.  ``plan`` chooses one of four kernels from the shapes:
+B6: causal or full GQA attention ``(B, Hq, Lq, D) x (B, Hkv, Lk, D)``
+with an online float32 softmax, the decode offset ``Lk - Lq``, an
+optional sliding window (a causal query at position ``p = i + Lk - Lq``
+sees the keys ``p - window < j <= p``) and an optional tanh soft-cap.
+``plan`` chooses one of four kernels from the shapes:
 
 * ``"split"`` (``csrc/flash_attention_sm90.cu``): bfloat16 with at most
   ``SPLIT_ROWS`` query rows (``G·Lq``) per KV head, every decode step.
@@ -11,12 +13,16 @@ tanh soft-cap.  ``plan`` chooses one of four kernels from the shapes:
 * ``"wgmma"`` (the same source): bfloat16 prefill at head dims 64 and
   128, wgmma products on TMA-loaded K/V tiles;
 * ``"mma"`` (``csrc/flash_attention.cu``): every other bfloat16 call,
-  mma.sync products, head dims 16, 32, ..., 128;
+  mma.sync products, head dims 16, 32, ..., 128 and 256;
 * ``"f32"`` (the same source): float32 inputs, plain FMA, head dims up
   to 256.
 
 The wrapper takes strided views: a decode step hands it the KV cache's
-``[..., :pos+1, :]`` view as it lies in memory, never a copy.  The
+``[..., :pos+1, :]`` view as it lies in memory, never a copy.  With a
+window every variant walks only the key tiles its query tile can see: a
+windowed decode reads about ``window`` keys of the view, whatever its
+length (``plan`` cuts the split variant's keys from ``Plan.key0``, the
+first key a query of the call sees).  The
 plain version is ``ref.mha_ref``.  The reference's block sizes and its
 ``lq % block_q == 0``/``lk % block_k == 0`` rule have no counterpart:
 the kernels mask ragged tails at any length.
@@ -40,7 +46,7 @@ _c_i = ctypes.c_int
 _c_ll = ctypes.c_longlong
 _c_f = ctypes.c_float
 
-BF16_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+BF16_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256)
 F32_MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
 SPLIT_ROWS = 64          # query rows per KV head up to which "split" serves
@@ -55,7 +61,7 @@ SPLIT_BLOCKS = 2 * 132
 def _lib():
     lib = build.library("flash_attention")
     lib.ppf_flash_attention.argtypes = ([_c_p] * 4 + [_c_ll] * 9
-                                        + [_c_i] * 8 + [_c_f, _c_f, _c_p])
+                                        + [_c_i] * 9 + [_c_f, _c_f, _c_p])
     lib.ppf_flash_attention.restype = _c_i
     return lib
 
@@ -71,52 +77,66 @@ def _lib_sm90():
 
 # csrc/flash_attention_sm90.cu's `FlashCall`: q, k, v, o, scratch and stream
 # pointers; q, k, v strides; b, hq, hkv, lq, lk, d, causal, split_keys,
-# n_split; scale, softcap.  One packed pointer costs a fraction of the
-# host time of 26 ctypes arguments, and a decode step is host-bound.
-_CALL = struct.Struct("@6Q9q9i2f")
+# n_split, window, key0; scale, softcap.  One packed pointer costs a
+# fraction of the host time of 28 ctypes arguments, and a decode step is
+# host-bound.
+_CALL = struct.Struct("@6Q9q11i2f")
 
 
 class Plan(NamedTuple):
     """The kernel a call takes, and for ``"split"`` how its keys are cut:
-    ``splits`` ranges of ``split_keys`` keys (the last may be shorter),
-    each holding at least one key."""
+    ``splits`` ranges of ``split_keys`` keys from key ``key0`` (the last
+    may be shorter), each holding at least one key."""
     variant: str
     splits: int = 1
     split_keys: int = 0
+    key0: int = 0
 
 
-def _split(b: int, hkv: int, lk: int) -> Plan:
-    """As many splits per (batch row, KV head) pair as fill one wave of
-    SPLIT_BLOCKS blocks, at least one, none under MIN_SPLIT_KEYS keys;
-    split lengths a multiple of SPLIT_TILE."""
-    want = max(1, min(SPLIT_BLOCKS // (b * hkv), lk // MIN_SPLIT_KEYS))
-    keys = -(-(-(-lk // want)) // SPLIT_TILE) * SPLIT_TILE
-    return Plan("split", -(-lk // keys), keys)
+def _split(b: int, hkv: int, lk: int, key0: int = 0) -> Plan:
+    """As many splits per (batch row, KV head) pair of the keys ``key0 ..
+    lk - 1`` as fill one wave of SPLIT_BLOCKS blocks, at least one, none
+    under MIN_SPLIT_KEYS keys; split lengths a multiple of SPLIT_TILE."""
+    n = lk - key0
+    want = max(1, min(SPLIT_BLOCKS // (b * hkv), n // MIN_SPLIT_KEYS))
+    keys = -(-(-(-n // want)) // SPLIT_TILE) * SPLIT_TILE
+    return Plan("split", -(-n // keys), keys, key0)
 
 
-def plan(q_shape, k_shape, dtype, tma_strides: bool = True) -> Plan:
+def first_key(lq: int, lk: int, window: int) -> int:
+    """The first key a query of a causal call sees: its first query's
+    window's lower edge (0 without a window)."""
+    return max(0, lk - lq - window + 1) if window > 0 else 0
+
+
+def plan(q_shape, k_shape, dtype, tma_strides: bool = True,
+         window: int = 0) -> Plan:
     """The variant for q ``(B, Hq, Lq, D)`` against k/v ``(B, Hkv, Lk,
-    D)``, from the shapes alone: float32 takes ``"f32"``; bfloat16 with
-    ``G·Lq <= SPLIT_ROWS`` rows per KV head ``"split"``; a longer
-    bfloat16 call at a head dim in WGMMA_HEAD_DIMS ``"wgmma"``, unless
-    k or v steps a dim by 0 (``tma_strides=False``), which TMA cannot;
-    anything else ``"mma"``.  The 16-byte row alignment that every
-    bfloat16 kernel needs is ``_check``'s."""
+    D)``, from the shapes (and the window) alone: float32 takes
+    ``"f32"``; bfloat16 with ``G·Lq <= SPLIT_ROWS`` rows per KV head
+    ``"split"``, its splits cut from the first key a query sees; a
+    longer bfloat16 call at a head dim in WGMMA_HEAD_DIMS ``"wgmma"``,
+    unless k or v steps a dim by 0 (``tma_strides=False``), which TMA
+    cannot; anything else ``"mma"``.  The 16-byte row alignment that
+    every bfloat16 kernel needs is ``_check``'s."""
     b, hq, lq, d = q_shape
     hkv, lk = k_shape[1], k_shape[2]
     if dtype == torch.float32:
         return Plan("f32")
     if hq // hkv * lq <= SPLIT_ROWS:
-        return _split(b, hkv, lk)
+        return _split(b, hkv, lk, first_key(lq, lk, window))
     if d in WGMMA_HEAD_DIMS and tma_strides:
         return Plan("wgmma")
     return Plan("mma")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, window: int = 0) -> None:
     """Raise on anything the kernel does not take.  The device comes last,
     so the shape rules can be exercised on CPU tensors."""
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a window is a positive key "
+                         f"count on a causal call")
     qkv = (("q", q), ("k", k), ("v", v))
     for name, t in qkv:
         if t.dim() != 4:
@@ -157,7 +177,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, scale: float, softcap: float) -> torch.Tensor:
+            causal: bool, scale: float, softcap: float,
+            window: int = 0) -> torch.Tensor:
     """Run plan ``p``'s kernel on checked inputs; count nothing."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -176,7 +197,7 @@ def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             0 if part is None else part.data_ptr(), stream,
             qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
             b, hq, hkv, lq, lk, d, int(causal), p.split_keys, p.splits,
-            scale, softcap)
+            window, p.key0, scale, softcap)
         lib = _lib_sm90()
         fn = lib.ppf_flash_split if p.variant == "split" \
             else lib.ppf_flash_wgmma
@@ -185,7 +206,8 @@ def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _lib().ppf_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *qs[:3], *ks[:3], *vs[:3], b, hq, hkv, lq, lk, d,
-            int(p.variant == "mma"), int(causal), scale, softcap, stream)
+            int(p.variant == "mma"), int(causal), window, scale, softcap,
+            stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {p.variant} kernel launch "
                            f"failed: error {err}")
@@ -198,27 +220,31 @@ _CHECKED: dict = {}      # call signatures that passed _check -> their plan
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            scale: float | None = None,
-                           logit_softcap: float = 0.0) -> torch.Tensor:
+                           logit_softcap: float = 0.0,
+                           window: int = 0) -> torch.Tensor:
     """B6 on the card: ``(B, Hq, Lq, D)`` attention output, contiguous, in
     q's dtype, of CUDA ``q`` and ``k``/``v`` ``(B, Hkv, Lk, D)`` (strided
     views with a contiguous last dim), through the kernel ``plan``
-    chooses.  ``scale`` defaults to ``1/sqrt(D)``.
+    chooses.  ``scale`` defaults to ``1/sqrt(D)``; ``window > 0`` (causal
+    calls) limits each query to its last ``window`` keys.
 
     A decode step is host-bound, so a signature (shapes, strides, dtypes,
-    devices, causal) that passed the checks keeps its plan; only the
-    pointers' alignment is checked again."""
+    devices, causal, window) that passed the checks keeps its plan; only
+    the pointers' alignment is checked again."""
+    window = int(window)
     sig = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
-           q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, causal)
+           q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, causal,
+           window)
     p = _CHECKED.get(sig)
     if p is None or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
-        _check(q, k, v, causal)
+        _check(q, k, v, causal, window)
         p = plan(q.shape, k.shape, q.dtype,
-                 0 not in k.stride() and 0 not in v.stride())
+                 0 not in k.stride() and 0 not in v.stride(), window)
         if len(_CHECKED) >= 4096:
             _CHECKED.clear()
         _CHECKED[sig] = p
     scale = float(scale) if scale is not None else float(q.shape[-1] ** -0.5)
-    out = _launch(p, q, k, v, causal, scale, float(logit_softcap))
+    out = _launch(p, q, k, v, causal, scale, float(logit_softcap), window)
     flash_attention_kernel.launches += 1
     flash_attention_kernel.variants[p.variant] += 1
     return out

@@ -119,8 +119,10 @@ def rejection_ancestors(log_weights: torch.Tensor, proposals: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: float | None = None,
-              logit_softcap: float = 0.0) -> torch.Tensor:
-    """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` causal GQA attention (B6).
+              logit_softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` GQA attention (B6), causal
+    (with ``window > 0``: each query sees its last ``window`` keys) or
+    full.
 
     ``k``/``v`` may be strided views (a KV cache's ``[..., :pos+1, :]``).
     ``scale`` defaults to ``1/sqrt(D)`` as a Python float on both paths,
@@ -130,6 +132,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = float(q.shape[-1] ** -0.5)
     if on_cuda(q):
         return flash_attention.flash_attention_kernel(
-            q, k, v, causal=causal, scale=scale, logit_softcap=logit_softcap)
+            q, k, v, causal=causal, scale=scale, logit_softcap=logit_softcap,
+            window=window)
     return ref.mha_ref(q, k, v, causal=causal, scale=scale,
-                       logit_softcap=logit_softcap)
+                       logit_softcap=logit_softcap, window=window)

@@ -113,12 +113,14 @@ def systematic_ancestors_ref(log_weights: torch.Tensor, u: torch.Tensor,
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, scale: float | None = None,
-            logit_softcap: float = 0.0) -> torch.Tensor:
+            logit_softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` GQA attention with a float32
     softmax — the plain version of the flash-attention kernel (B6).
 
     Query head ``h`` reads KV head ``h // (Hq // Hkv)``; a causal query
-    ``i`` sees keys ``j <= i + Lk - Lq`` (the decode offset).  The
+    ``i`` at position ``p = i + Lk - Lq`` (the decode offset) sees keys
+    ``j <= p``, and with ``window > 0`` only those with ``p - j < window``
+    (the reference's sliding-window mask; a window needs ``causal``).  The
     arithmetic is the reference's: the logits are the product in the
     inputs' dtype, then float32 times ``scale`` (default ``1/sqrt(D)``
     rounded to the inputs' dtype), masked to ``-inf``; the normalized
@@ -127,6 +129,9 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attention never took the plain version.
     """
     mha_ref.calls += 1
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a window is a positive key "
+                         f"count on a causal call")
     d = q.shape[-1]
     group = q.shape[1] // k.shape[1]
     kk = k.repeat_interleave(group, dim=1)
@@ -140,7 +145,10 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lq, lk = q.shape[2], k.shape[2]
         qi = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
         ki = torch.arange(lk, device=q.device)[None, :]
-        logits = logits.masked_fill(ki > qi, -torch.inf)
+        hidden = ki > qi
+        if window > 0:
+            hidden = hidden | (qi - ki >= window)
+        logits = logits.masked_fill(hidden, -torch.inf)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), vv)
 

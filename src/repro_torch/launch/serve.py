@@ -94,8 +94,14 @@ def _serve_lm(args, device) -> None:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     model = M.init_params(cfg, 0, device=device)
-    prompt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)))
+    rng = np.random.default_rng(1)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len) + books))
+    img = None               # image embeddings of a cross-attending arch
+    if cfg.cross_attn_every:
+        img = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_image_tokens, cfg.d_image)).astype(np.float32))
     smc = SMCDecodeConfig(n_particles=args.particles, steps=args.steps)
     temp = 0.0 if args.mode == "greedy" else args.temperature
 
@@ -104,7 +110,7 @@ def _serve_lm(args, device) -> None:
             out = smc_decode(model, prompt, smc, key=seed, device=device)
         else:
             out = generate(model, prompt, steps=args.steps, temperature=temp,
-                           key=seed, device=device)
+                           key=seed, img=img, device=device)
         _sync(device)
         return out
 

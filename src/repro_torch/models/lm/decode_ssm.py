@@ -17,9 +17,13 @@ The reference vmaps its bank step over prompts; here every state leaf
 leads with ``(B, K)`` — B prompts (the bank's slot dim) by K particles —
 and ``transition_sample`` flattens them into ``B·K`` rows for one
 ``forward_decode`` call.  Each layer's KV cache is ``(B, K, Hkv, L, hd)``
-and is written in place at the decode position; ``gather_state``
+and is written in place at the decode position (a recurrent layer's
+state and conv leaves are replaced by the step's); ``gather_state``
 gathers every leaf within each prompt's K particles.  All rows decode at
-one position (the prompts share their length).
+one position (the prompts share their length).  Archs with
+cross-attention or K codebooks are refused (``check_decodable``): the
+reference's adapter prefills without image inputs and draws one token a
+particle.
 """
 from __future__ import annotations
 
@@ -53,6 +57,23 @@ class SMCDecodeConfig:
         return smc.SIRConfig(
             n_particles=self.n_particles, resampler=self.resampler,
             ess_frac=self.ess_frac, record_ancestry=True)
+
+
+def check_decodable(cfg) -> None:
+    """Raise ``ValueError`` for an arch SMC decoding does not take: the
+    reference's adapter prefills without image embeddings (an X layer
+    needs them) and draws one token per particle and step (a K-codebook
+    head emits K)."""
+    if cfg.cross_attn_every:
+        raise ValueError(f"{cfg.name}: SMC decoding prefills token prompts "
+                         f"alone, and this arch cross-attends to image "
+                         f"embeddings (the reference's smc_decode cannot "
+                         f"run it either)")
+    if cfg.n_codebooks > 1:
+        raise ValueError(f"{cfg.name}: SMC decoding draws one token a "
+                         f"particle, and this arch emits "
+                         f"{cfg.n_codebooks} codebooks a step (the "
+                         f"reference's smc_decode cannot run it either)")
 
 
 def _pick(log_probs: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
@@ -96,8 +117,9 @@ class LMDecodeSSM:
     """The LM-as-``StateSpaceModel`` adapter (B prompts × K particles).
 
     The particle state is a dict whose leaves lead with ``(B, K)``:
-    ``caches`` (per layer ``{"k", "v"}`` of ``(B, K, Hkv, max_len,
-    hd)``), ``token`` (last sampled), ``pos`` (decode position),
+    ``caches`` (per layer the model's cache dict with ``(B, K)`` leading
+    its leaves, e.g. ``{"k", "v"}`` of ``(B, K, Hkv, max_len, hd)``),
+    ``token`` (last sampled), ``pos`` (decode position),
     ``emitted`` (tokens so far), ``inc`` (the pending increment
     ``log p − log q``), ``logp`` (cumulative target log-probability) and
     ``tokens`` (``(B, K, steps)`` history).  ``reward`` optionally scores
@@ -143,21 +165,23 @@ class LMDecodeSSM:
 
     def transition_sample(self, draws, state: Any) -> Any:
         """One decode step: ``forward_decode`` on every particle's last
-        token (the caches gain the token's K/V in place), then a proposal
-        draw; the increment waits in ``state["inc"]``."""
+        token (the KV caches gain the token's K/V in place, the recurrent
+        leaves are new), then a proposal draw; the increment waits in
+        ``state["inc"]``."""
         lead = tuple(state["token"].shape)
         rows = math.prod(lead)
         pos = _position(draws, state["pos"])
         flat = tree_map(lambda c: c.view((rows,) + c.shape[len(lead):]),
                         state["caches"])
-        logits, _ = M.forward_decode(self.model,
-                                     state["token"].reshape(rows, 1), pos,
-                                     flat)
+        logits, flat = M.forward_decode(self.model,
+                                        state["token"].reshape(rows, 1),
+                                        pos, flat)
         logits = logits[:, 0].float().reshape(lead + (-1,))
         p_log, q_log, tok = _proposal(self, draws, logits)
         tokens = state["tokens"].scatter(
             -1, state["emitted"][..., None].long(), tok[..., None])
-        return {"caches": state["caches"], "token": tok,
+        caches = tree_map(lambda c: c.view(lead + c.shape[1:]), flat)
+        return {"caches": caches, "token": tok,
                 "pos": state["pos"] + 1, "emitted": state["emitted"] + 1,
                 "inc": _pick(p_log, tok) - _pick(q_log, tok),
                 "logp": state["logp"] + _pick(p_log, tok), "tokens": tokens}
@@ -212,6 +236,7 @@ def prefill_state(model: LMDecodeSSM, draws, prompts: torch.Tensor):
     its increment ``p₀ − q₀`` folds into the weights.  Returns
     ``(state, log_weights (B, K), log_z0 (B,))``.
     """
+    check_decodable(model.cfg)
     dec = model.decode
     k_part = dec.n_particles
     b, t0 = prompts.shape

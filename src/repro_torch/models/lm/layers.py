@@ -11,8 +11,9 @@ flash-attention kernel (B6) on the card, its plain version on the CPU.
 The reference's XLA path (query-chunked streaming softmax over grouped
 einsums, ``chunked_causal_attention``, and the full-cache masked
 ``decode_attention``) computes the same function; its mesh-sharding
-constraints have no counterpart on one card.  Sliding-window attention
-(the ``L`` layer) waits for ROADMAP A12.
+constraints have no counterpart on one card.  A sliding window (the
+``L`` layer) is the kernel's ``window``: a query at position ``p`` sees
+the keys ``p - window < j <= p``, the reference's mask.
 """
 from __future__ import annotations
 
@@ -62,22 +63,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # ---------------------------------------------------------------------------
 
-def _no_window(window: int) -> None:
-    if window > 0:
-        raise NotImplementedError("sliding-window attention (the L layer) "
-                                  "waits for ROADMAP A12")
-
-
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
                      scale: float | None = None) -> torch.Tensor:
     """Prefill attention: ``q`` ``(B, Hq, T, hd)`` against ``k``/``v``
-    ``(B, Hkv, T, hd)``, causal, GQA — the counterpart of the reference's
-    ``chunked_causal_attention`` (same function, one kernel call)."""
-    _no_window(window)
+    ``(B, Hkv, T, hd)``, causal (within ``window`` keys when it is > 0),
+    GQA — the counterpart of the reference's ``chunked_causal_attention``
+    (same function, one kernel call, which visits only the key tiles a
+    query tile can see)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return ops.attention(q, k, v, causal=True, scale=scale,
-                         logit_softcap=softcap)
+                         logit_softcap=softcap, window=window)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None) -> torch.Tensor:
+    """Full (non-causal) attention of ``q`` ``(B, Hq, T, hd)`` over every
+    key of ``k``/``v`` ``(B, Hkv, N, hd)`` — the reference's
+    ``chunked_causal_attention(causal=False)`` of an X layer over the
+    image tokens, at prefill and at decode."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return ops.attention(q, k, v, causal=False, scale=scale)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -85,13 +91,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      softcap: float = 0.0,
                      scale: float | None = None) -> torch.Tensor:
     """One-token attention ``q`` ``(B, Hq, 1, hd)`` against the caches
-    ``(B, Hkv, L, hd)`` up to and including slot ``pos``.  The kernel gets
-    the cache view ``[..., :pos+1, :]`` with its strides, so its causal
-    offset ``Lk - Lq`` is ``pos``; the cache is never copied."""
-    _no_window(window)
+    ``(B, Hkv, L, hd)`` up to and including slot ``pos`` (the last
+    ``window`` of them when it is > 0).  The kernel gets the cache view
+    ``[..., :pos+1, :]`` with its strides, so its causal offset ``Lk -
+    Lq`` is ``pos``, and the window: it reads only the window's keys (the
+    split variant's keys start at the window's first).  The cache is
+    never copied."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return ops.attention(q, k_cache[:, :, :pos + 1], v_cache[:, :, :pos + 1],
-                         causal=True, scale=scale, logit_softcap=softcap)
+                         causal=True, scale=scale, logit_softcap=softcap,
+                         window=window)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,31 @@
 """Decoder assembly on torch (port of ``repro.models.lm.model``).
 
-This slice runs the ``G`` layer kind (global causal attention) with a
-dense gated-MLP FFN, which is every layer of the G-only dense archs
-(qwen3-32b, stablelm-3b, granite-34b).  The other kinds (``L``
-sliding-window, ``M`` latent attention, ``X`` cross-attention, ``R``
-RG-LRU, ``D`` Mamba-2), MoE FFNs, multi-codebook audio heads and
-``forward_train`` wait for ROADMAP A12 and raise ``NotImplementedError``.
+Layer kinds, as the reference names them:
+
+  G — global causal attention            L — sliding-window attention
+  X — cross-attention to image tokens    R — RG-LRU recurrent block
+  D — Mamba-2 SSD block
+
+each with the reference's dense gated-MLP FFN (none after a ``D``
+layer), and the multi-codebook audio head (K summed codebook embeddings
+in, ``(B, T, K, V)`` logits out).  The ``M`` kind (latent attention),
+MoE FFNs and ``forward_train`` wait for ROADMAP A12 and raise
+``NotImplementedError``.
 
 The reference scans stacked parameters over layer groups and casts its
 float32 master weights to the compute dtype on every call
 (``cast_params``).  Here the decoder is an ``nn.Module`` (embedding,
-blocks, final norm, head) whose weights are held once in the compute
-dtype — the same numbers — and the scan is a loop over layers.  KV caches
-are a list with one ``{"k", "v"}`` dict of ``(B, Hkv, max_len, hd)``
-buffers per layer; ``forward_decode`` writes the new token's K/V into
-them in place (the reference's ``dynamic_update_slice`` returns a new
-cache), so a decode step never copies a cache.
+blocks, final norm, head, image projection) whose weights are held once
+in the compute dtype — the same numbers — and the scan is a loop over
+layers.  Caches are a list with one dict per layer: ``{"k", "v"}`` of
+``(B, Hkv, max_len, hd)`` (G, L), ``{"xk", "xv"}`` of ``(B, Hkv,
+n_image, hd)`` (X, filled at prefill), ``{"rec", "conv"}`` (R: the
+float32 ``(B, W)`` state and the last ``conv_width - 1`` inputs) and
+``{"ssm", "conv"}`` (D).  ``forward_decode`` writes the new token's K/V
+into the attention caches in place (the reference's
+``dynamic_update_slice`` returns a new cache), so a decode step never
+copies a KV cache; the recurrent leaves are replaced by the step's new
+tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +36,11 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as L
+from repro_torch.models.lm import rglru as RG
+from repro_torch.models.lm import ssm as SSM
+
+# the reference's name of each kind's mixer leaf in a layer's params
+MIXERS = {"G": "attn", "L": "attn", "X": "xattn", "R": "rglru", "D": "ssm"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,61 +81,81 @@ def make_plan(cfg: ArchConfig) -> LayerPlan:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A12 for anything but
-    G layers with dense FFNs and a single-codebook head."""
+    """Raise ``NotImplementedError`` naming ROADMAP A12 for the ``M``
+    kind and MoE FFNs."""
     for i, (kind, ffn) in enumerate(make_plan(cfg).layers()):
-        if kind != "G":
+        if kind not in MIXERS:
             raise NotImplementedError(
-                f"{cfg.name}: layer {i} is kind {kind!r}; the port runs G "
-                f"layers only (L, M, X, R, D wait for ROADMAP A12)")
-        if ffn != "dense":
+                f"{cfg.name}: layer {i} is kind {kind!r}; the port runs G, "
+                f"L, X, R and D layers (M waits for ROADMAP A12)")
+        if ffn == "moe":
             raise NotImplementedError(
-                f"{cfg.name}: layer {i} has a {ffn!r} FFN; MoE waits for "
+                f"{cfg.name}: layer {i} has a MoE FFN; MoE waits for "
                 f"ROADMAP A12")
-    if cfg.n_codebooks > 1 or cfg.cross_attn_every:
-        raise NotImplementedError(f"{cfg.name}: multi-codebook and image "
-                                  f"inputs wait for ROADMAP A12")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One ``G`` + dense decoder layer: pre-norm attention, then a
-    pre-norm gated MLP, both residual."""
+def _frozen_dict(d: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
 
-    def __init__(self, attn: dict, mlp: dict, pre_norm: torch.Tensor,
-                 ffn_norm: torch.Tensor):
+
+class Block(nn.Module):
+    """One decoder layer of kind ``kind`` with FFN ``ffn`` (``"dense"``
+    or ``"none"``), from the reference's per-layer leaves: ``pre_norm``,
+    the mixer's dict under its reference name (``attn``, ``xattn`` with
+    the scalar ``xattn_gate``, ``rglru`` or ``ssm``), and for a dense FFN
+    ``ffn_norm`` and ``mlp``.  The mixer's weights are an attribute of
+    that name (``block.attn``, ...)."""
+
+    def __init__(self, kind: str, ffn: str, leaves: dict):
         super().__init__()
-        self.pre_norm = _frozen(pre_norm)
-        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in attn.items()})
-        self.ffn_norm = _frozen(ffn_norm)
-        self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in mlp.items()})
+        self.kind, self.ffn = kind, ffn
+        name = MIXERS[kind]
+        if name not in leaves or (ffn == "dense") != ("mlp" in leaves):
+            raise ValueError(f"a {kind}/{ffn} layer with leaves "
+                             f"{sorted(leaves)}")
+        self.pre_norm = _frozen(leaves["pre_norm"])
+        setattr(self, name, _frozen_dict(leaves[name]))
+        if kind == "X":
+            self.xattn_gate = _frozen(leaves["xattn_gate"])
+        if ffn == "dense":
+            self.ffn_norm = _frozen(leaves["ffn_norm"])
+            self.mlp = _frozen_dict(leaves["mlp"])
 
 
 class Decoder(nn.Module):
-    """The decoder of one arch config: embedding, blocks, final norm and
-    (untied) LM head, all in the compute dtype.  Build it with
+    """The decoder of one arch config: embedding, blocks, final norm,
+    (untied) LM head and, with cross-attention, the image projection,
+    all in the compute dtype.  With K > 1 codebooks the embedding is
+    ``(K, V, D)`` and the head ``(K, D, V)``.  Build it with
     ``init_params`` (random weights from a seed) or
     ``repro_torch.convert.lm_params`` (the reference's weights)."""
 
     def __init__(self, cfg: ArchConfig, embed: torch.Tensor,
                  blocks: list[Block], final_norm: torch.Tensor,
-                 lm_head: torch.Tensor | None):
+                 lm_head: torch.Tensor | None,
+                 img_proj: torch.Tensor | None = None):
         super().__init__()
         check_supported(cfg)
-        if len(blocks) != cfg.n_layers:
-            raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} "
-                             f"layers")
+        plan = make_plan(cfg).layers()
+        if [(b.kind, b.ffn) for b in blocks] != list(plan):
+            raise ValueError(f"blocks {[(b.kind, b.ffn) for b in blocks]} "
+                             f"do not follow the plan {list(plan)}")
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError("lm_head must be given exactly when the "
                              "embeddings are untied")
+        if (img_proj is None) != (not cfg.cross_attn_every):
+            raise ValueError("img_proj must be given exactly when the arch "
+                             "cross-attends to image tokens")
         self.cfg = cfg
         self.embed = _frozen(embed)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = _frozen(final_norm)
         self.lm_head = None if lm_head is None else _frozen(lm_head)
+        self.img_proj = None if img_proj is None else _frozen(img_proj)
 
     @property
     def device(self) -> torch.device:
@@ -137,78 +172,201 @@ def init_params(cfg: ArchConfig, seed: int, *, device,
                 dtype: torch.dtype | None = None) -> Decoder:
     """A decoder with random weights drawn on ``device`` from a seeded
     ``torch.Generator``, with the reference's shapes and scales
-    (``N(0, 1/D)`` embedding and head, zero norm gains), in ``dtype``
-    (default ``cfg.compute_dtype``)."""
+    (``N(0, 1/D)`` embedding and head, zero norm gains, the recurrent
+    blocks' fixed decay inits), in ``dtype`` (default
+    ``cfg.compute_dtype``)."""
     check_supported(cfg)
     dtype = dtype or L.dtype_of(cfg.compute_dtype)
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    d, hd, v = cfg.d_model, cfg.resolved_head_dim, cfg.vocab_size
 
-    def zeros(n):
-        return torch.zeros(n, dtype=dtype, device=device)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    embed = L.normal_weight((cfg.vocab_size, d), d ** -0.5, g, dtype)
-    blocks = [Block(L.attn_params(g, d, cfg.n_heads, cfg.n_kv_heads, hd,
-                                  cfg.qk_norm, dtype),
-                    L.mlp_params(g, d, cfg.d_ff, dtype), zeros(d), zeros(d))
-              for _ in range(cfg.n_layers)]
+    def layer(kind: str, ffn: str) -> Block:
+        leaves = {"pre_norm": zeros(d)}
+        if kind in ("G", "L", "X"):
+            leaves[MIXERS[kind]] = L.attn_params(
+                g, d, cfg.n_heads, cfg.n_kv_heads, hd, cfg.qk_norm, dtype)
+        elif kind == "R":
+            leaves["rglru"] = RG.rglru_params(g, d, cfg.rglru, dtype)
+        else:
+            leaves["ssm"] = SSM.ssm_params(g, d, cfg.ssm, dtype)
+        if kind == "X":
+            leaves["xattn_gate"] = zeros()
+        if ffn == "dense":
+            leaves["ffn_norm"] = zeros(d)
+            leaves["mlp"] = L.mlp_params(g, d, cfg.d_ff, dtype)
+        return Block(kind, ffn, leaves)
+
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    embed = L.normal_weight(books + (v, d), d ** -0.5, g, dtype)
+    blocks = [layer(kind, ffn) for kind, ffn in make_plan(cfg).layers()]
     head = (None if cfg.tie_embeddings
-            else L.normal_weight((d, cfg.vocab_size), d ** -0.5, g, dtype))
-    return Decoder(cfg, embed, blocks, zeros(d), head)
+            else L.normal_weight(books + (d, v), d ** -0.5, g, dtype))
+    img = (L.normal_weight((cfg.d_image, d), cfg.d_image ** -0.5, g, dtype)
+           if cfg.cross_attn_every else None)
+    return Decoder(cfg, embed, blocks, zeros(d), head, img)
+
+
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                 device, dtype: torch.dtype) -> dict:
+    hd = cfg.resolved_head_dim
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if kind in ("G", "L"):
+        shape = (batch, cfg.n_kv_heads, max_len, hd)
+        return {"k": zeros(shape), "v": zeros(shape)}
+    if kind == "X":
+        shape = (batch, cfg.n_kv_heads, cfg.n_image_tokens, hd)
+        return {"xk": zeros(shape), "xv": zeros(shape)}
+    if kind == "R":
+        w = cfg.rglru.lru_width
+        return {"rec": zeros((batch, w), torch.float32),
+                "conv": zeros((batch, cfg.rglru.conv_width - 1, w))}
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    channels = d_inner + 2 * s.n_groups * s.state_dim
+    return {"ssm": zeros((batch, d_inner // s.head_dim, s.head_dim,
+                          s.state_dim)),
+            "conv": zeros((batch, s.conv_width - 1, channels))}
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device,
                 dtype: torch.dtype) -> list[dict]:
-    """Zeroed KV caches: per layer ``{"k", "v"}`` of
-    ``(batch, Hkv, max_len, hd)``."""
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+    """Zeroed caches, one dict per layer (the module docstring's layout);
+    the recurrent ``rec`` state is float32, every other leaf ``dtype``."""
+    return [_layer_cache(cfg, kind, batch, max_len, device, dtype)
+            for kind, _ in make_plan(cfg).layers()]
 
 
-def _theta(cfg: ArchConfig) -> float:
-    return cfg.rope_theta_global or cfg.rope_theta
+def _theta_window(cfg: ArchConfig, kind: str) -> tuple[float, int]:
+    """RoPE base and attention window of an attention layer: an ``L``
+    layer takes ``rope_theta`` and the window (``sliding_window``, else
+    the RG-LRU config's), any other ``rope_theta_global`` (else
+    ``rope_theta``) and no window."""
+    if kind == "L":
+        window = cfg.sliding_window or (cfg.rglru.attn_window if cfg.rglru
+                                        else 0)
+        return cfg.rope_theta, window
+    return cfg.rope_theta_global or cfg.rope_theta, 0
 
 
-def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                   cache: dict, positions: torch.Tensor,
-                   pos: int | None) -> torch.Tensor:
-    """One G + dense layer; fills (prefill) or extends (decode) ``cache``
-    in place.  Returns the new residual stream."""
-    eps, hd = cfg.norm_eps, cfg.resolved_head_dim
-    h = L.rms_norm(x, blk.pre_norm, eps)
+def _attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
+               cache: dict, positions: torch.Tensor,
+               pos: int | None) -> torch.Tensor:
+    """A G or L layer's attention output ``(B, T, Hq·hd)``; fills
+    (prefill) or extends (decode) its KV cache in place."""
+    hd = cfg.resolved_head_dim
+    theta, window = _theta_window(cfg, blk.kind)
     q, k, v = L.apply_qkv(blk.attn, h, cfg.n_heads, cfg.n_kv_heads, hd,
-                          positions, _theta(cfg), cfg.qk_norm, eps)
+                          positions, theta, cfg.qk_norm, cfg.norm_eps)
     if mode == "decode":
         # in place: the reference's dynamic_update_slice at pos
         cache["k"][:, :, pos] = k[:, :, 0]
         cache["v"][:, :, pos] = v[:, :, 0]
-        o = L.decode_attention(q, cache["k"], cache["v"], pos,
+        o = L.decode_attention(q, cache["k"], cache["v"], pos, window=window,
                                softcap=cfg.logit_softcap)
     else:
-        o = L.causal_attention(q, k, v, softcap=cfg.logit_softcap)
+        o = L.causal_attention(q, k, v, window=window,
+                               softcap=cfg.logit_softcap)
         t = k.shape[2]
         cache["k"][:, :, :t] = k
         cache["v"][:, :, :t] = v
-    b, t = x.shape[:2]
+    b, t = h.shape[:2]
+    return o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
+
+
+def _cross_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
+                     cache: dict, img: torch.Tensor | None) -> torch.Tensor:
+    """An X layer's gated cross-attention update: no RoPE and no qk-norm,
+    full attention over the image tokens' K/V (projected at prefill and
+    kept in the cache), gated by ``tanh(xattn_gate)`` (float32, cast)."""
+    hd, p = cfg.resolved_head_dim, blk.xattn
+    b, t = h.shape[:2]
+    q = (h @ p["wq"]).reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
+    if mode == "prefill":
+        if img is None:
+            raise ValueError(f"{cfg.name} cross-attends to image tokens: "
+                             f"prefill needs img (B, n_image, d_image)")
+        n = img.shape[1]
+        for name, w in (("xk", p["wk"]), ("xv", p["wv"])):
+            cache[name] = (img @ w).reshape(b, n, cfg.n_kv_heads, hd) \
+                .transpose(1, 2).contiguous()
+    o = L.cross_attention(q, cache["xk"], cache["xv"])
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
-    x = x + o @ blk.attn["wo"]
-    hf = L.rms_norm(x, blk.ffn_norm, eps)
-    return x + L.apply_mlp(blk.mlp, hf)
+    gate = torch.tanh(blk.xattn_gate.float()).to(h.dtype)
+    return gate * (o @ p["wo"])
+
+
+def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
+                   cache: dict, positions: torch.Tensor, pos: int | None,
+                   img: torch.Tensor | None) -> torch.Tensor:
+    """One layer; fills (prefill) or extends (decode) ``cache``.  Returns
+    the new residual stream."""
+    eps = cfg.norm_eps
+    h = L.rms_norm(x, blk.pre_norm, eps)
+    if blk.kind in ("G", "L"):
+        x = x + _attention(blk, h, cfg, mode, cache, positions, pos) \
+            @ blk.attn["wo"]
+    elif blk.kind == "X":
+        x = x + _cross_attention(blk, h, cfg, mode, cache, img)
+    elif blk.kind == "R":
+        if mode == "decode":
+            o, rec, conv = RG.rglru_decode_step(
+                blk.rglru, h, cfg.rglru, rec_state=cache["rec"],
+                conv_state=cache["conv"])
+        else:
+            o, rec, conv = RG.rglru_forward(blk.rglru, h, cfg.rglru,
+                                            return_state=True)
+        # own storage: a prefill's are slices of (B, T, W) activations
+        cache["rec"] = rec.contiguous()
+        cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
+        x = x + o.to(x.dtype)
+    else:
+        if mode == "decode":
+            o, state, conv = SSM.ssd_decode_step(
+                blk.ssm, h, cfg.ssm, cfg.d_model, eps,
+                ssm_state=cache["ssm"], conv_state=cache["conv"])
+        else:
+            o, state, conv = SSM.ssd_forward(blk.ssm, h, cfg.ssm,
+                                             cfg.d_model, eps,
+                                             return_state=True)
+        cache["ssm"] = state.to(cache["ssm"].dtype)
+        cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
+        x = x + o.to(x.dtype)
+    if blk.ffn == "dense":
+        hf = L.rms_norm(x, blk.ffn_norm, eps)
+        x = x + L.apply_mlp(blk.mlp, hf)
+    return x
 
 
 def _embed(model: Decoder, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens.long()]
+    """Token ids ``(B, T)`` (``(B, T, K)`` with K codebooks, whose
+    embeddings are summed) → ``(B, T, D)``."""
+    tokens = tokens.long()
+    if model.cfg.n_codebooks > 1:
+        x = model.embed[0][tokens[..., 0]]
+        for k in range(1, model.cfg.n_codebooks):
+            x = x + model.embed[k][tokens[..., k]]
+    else:
+        x = model.embed[tokens]
     if model.cfg.scale_embed:
         x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def unembed(model: Decoder, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states ``(B, T, D)`` → logits ``(B, T, V)``."""
+    """Hidden states ``(B, T, D)`` → logits ``(B, T, V)`` (``(B, T, K,
+    V)`` with K codebooks)."""
+    if model.cfg.n_codebooks > 1:
+        head = model.lm_head if model.lm_head is not None \
+            else model.embed.transpose(-1, -2)
+        return torch.einsum("btd,kdv->btkv", x, head)
     head = model.lm_head if model.lm_head is not None else model.embed.T
     return x @ head
 
@@ -220,33 +378,40 @@ def forward_train(model: Decoder, tokens: torch.Tensor, img=None):
                               "(ROADMAP A12)")
 
 
-def forward_prefill(model: Decoder, tokens: torch.Tensor,
-                    max_len: int) -> tuple[torch.Tensor, list[dict]]:
-    """``tokens`` ``(B, T)`` → the final-normed last hidden state
-    ``(B, 1, D)`` and KV caches of ``max_len`` slots holding positions
-    ``0..T-1``."""
+def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,
+                    img: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, list[dict]]:
+    """``tokens`` ``(B, T)`` (``(B, T, K)`` with K codebooks) → the
+    final-normed last hidden state ``(B, 1, D)`` and caches of ``max_len``
+    slots holding positions ``0..T-1``.  An arch with cross-attention
+    takes ``img``, ``(B, n_image, d_image)`` image embeddings."""
     cfg = model.cfg
-    b, t = tokens.shape
+    b, t = tokens.shape[:2]
     caches = init_caches(cfg, b, max_len, device=model.device,
                          dtype=model.dtype)
     x = _embed(model, tokens)
     positions = torch.arange(t, device=model.device)
+    if img is not None and model.img_proj is not None:
+        img = img.to(x.dtype) @ model.img_proj
     for blk, cache in zip(model.blocks, caches):
-        x = _block_forward(blk, x, cfg, "prefill", cache, positions, None)
+        x = _block_forward(blk, x, cfg, "prefill", cache, positions, None,
+                           img)
     x = L.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
     return x, caches
 
 
 def forward_decode(model: Decoder, tokens: torch.Tensor, pos: int,
                    caches: list[dict]) -> tuple[torch.Tensor, list[dict]]:
-    """``tokens`` ``(B, 1)`` at position ``pos`` against ``caches`` →
-    logits ``(B, 1, V)``; the caches gain slot ``pos`` in place and are
-    returned."""
+    """``tokens`` ``(B, 1)`` (``(B, 1, K)``) at position ``pos`` against
+    ``caches`` → logits ``(B, 1, V)`` (``(B, 1, K, V)``); the KV caches
+    gain slot ``pos`` in place, the recurrent leaves are replaced, and
+    the caches are returned."""
     cfg = model.cfg
     pos = int(pos)
     x = _embed(model, tokens)
     positions = torch.full((1,), pos, dtype=torch.int32, device=model.device)
     for blk, cache in zip(model.blocks, caches):
-        x = _block_forward(blk, x, cfg, "decode", cache, positions, pos)
+        x = _block_forward(blk, x, cfg, "decode", cache, positions, pos,
+                           None)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return unembed(model, x), caches

@@ -9,7 +9,10 @@ the same with one forward pass fewer.  Sampling is greedy
 (``temperature == 0``, argmax) or categorical at ``temperature``:
 ``argmax(logits / T + gumbel)``, with the Gumbel noise from a draws
 provider (``repro_torch.core.draws``): first the prefill token's, then
-one ``(B, V)`` draw per decode step.
+one ``(B, V)`` draw per decode step.  With K codebooks (musicgen) the
+logits are ``(B, K, V)`` and each codebook is sampled on its own, as the
+reference does (``(B, K, V)`` draws); an arch with cross-attention takes
+the prompts' image embeddings ``img`` at prefill.
 """
 from __future__ import annotations
 
@@ -39,22 +42,27 @@ def check_device(model: M.Decoder, device) -> torch.device:
 
 
 def generate(model: M.Decoder, prompt, *, steps: int = 32,
-             temperature: float = 0.0, key=None, device=None) -> torch.Tensor:
-    """``prompt`` ``(B, T0)`` token ids → generated ``(B, steps)`` int32.
+             temperature: float = 0.0, key=None, img=None,
+             device=None) -> torch.Tensor:
+    """``prompt`` ``(B, T0)`` token ids (``(B, T0, K)`` with K codebooks)
+    → generated ``(B, steps)`` (``(B, steps, K)``) int32.
 
     ``temperature == 0`` is greedy argmax decoding; ``temperature > 0``
     samples with noise from ``key`` (an int seed, a ``torch.Generator``
-    or a draws provider; default seed 0).  Runs on the CUDA device unless
-    ``device`` says otherwise.
+    or a draws provider; default seed 0).  ``img`` ``(B, n_image,
+    d_image)`` are the image embeddings of an arch with cross-attention.
+    Runs on the CUDA device unless ``device`` says otherwise.
     """
     device = check_device(model, device)
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
-    b, t0 = prompt.shape
+    t0 = prompt.shape[1]
+    if img is not None:
+        img = torch.as_tensor(img, device=device)
     draws = None if temperature <= 0 else as_draws(
         0 if key is None else key, device)
     with torch.inference_mode():
         h_last, caches = M.forward_prefill(model, prompt,
-                                           max_len=t0 + steps + 1)
+                                           max_len=t0 + steps + 1, img=img)
         tok = _sample(M.unembed(model, h_last)[:, 0].float(), temperature,
                       draws)
         out = [tok]

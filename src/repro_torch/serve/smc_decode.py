@@ -75,6 +75,7 @@ def smc_decode(model: Decoder, prompt,
     otherwise.
     """
     device = check_device(model, device)
+    decode_ssm.check_decodable(model.cfg)
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
     b, t0 = prompt.shape
     k_part = smc.n_particles

@@ -82,7 +82,11 @@ def test_arch_configs_carry_across():
         assert (dataclasses.asdict(convert.arch_config(dataclasses.asdict(
             cfg))) == dataclasses.asdict(cfg))
     assert tget("qwen3-32b").resolved_head_dim == 128
-    assert sorted(tlist()) == sorted(ARCHS)
+    # the port registers every arch whose layer kinds it runs
+    # (tests/test_torch_lm_kinds.py holds the other five)
+    assert sorted(tlist()) == sorted(ARCHS + [
+        "gemma3-27b", "llama-3.2-vision-11b", "mamba2-1.3b",
+        "musicgen-medium", "recurrentgemma-2b"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
