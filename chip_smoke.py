@@ -14,12 +14,15 @@
    on mma.sync; windowed decodes on split at both head dims, whose keys
    outside the window are then set to NaN: the output must stay finite
    and bit for bit the same), at head dim 256 and on non-causal calls
-   over 1601 image keys (prefill and decode); and B6 at every call shape
-   phase 5j runs (``kinds_calls``, from ``KINDS`` and the configs, in the
-   layouts the model hands it: every prefill, and each decode step whose
-   split plan differs from the step before, with the first, middle and
-   last), against its plain version in bf16 and float32 within ATTN_TOL,
-   repeatable, the windowed decodes again with NaN outside the window.  B3
+   over 1601 image keys (prefill and decode), at latent attention's q/k
+   and v head dims (192, 128) on mma.sync and f32 (ragged, grouped,
+   non-causal, a decode offset, one query row); and B6 at every call
+   shape phases 5j and 5k run (``kinds_calls``, from ``KINDS``, ``MOE``
+   and the configs, in the layouts the model hands it: every prefill, and
+   each decode step whose split plan differs from the step before, with
+   the first, middle and last), against its plain version in bf16 and
+   float32 within ATTN_TOL, repeatable, the windowed decodes again with
+   NaN outside the window, 5k's also through the float32 kernel.  B3
    (the separable kernel) also at R = 2, 6 and 9, in the Eq. 4 form and
    an Eq. 4 close fit, on converged clouds in no slot order (the staged
    window box, with outliers, too wide for the box), and on halo slabs
@@ -161,6 +164,18 @@
    with its launches by variant checked (the windowed prefills on wgmma
    or, at D = 256, mma.sync; every decode on split), the comb scan once
    a bank step, ``mha_ref`` never; each model freed before the next;
+5k. serves the M kind (latent attention) and MoE FFNs at full width the
+   same way (``MOE``): deepseek-v2-236b (4 of 60 layers, MMMM, FFNs
+   dense, moe, moe, moe: 160 experts of 1536, top 6, 2 shared; 24.8 GiB)
+   and moonshot-v1-16b-a3b (16 of 48 G layers, 1 dense + 15 MoE: 64
+   experts of 1408; 17.8 GiB), 4 × 1024 prompts: ``generate`` twice and
+   ``smc_decode`` (K = 8, its 32 rows at the full prompt) twice, bit for
+   bit; B6 by variant {"mma": 4} a deepseek run (the M prefill at (192,
+   128); the absorbed decode launches nothing) and {"wgmma": 16, "split":
+   16 × 31} a moonshot run, the comb scan once a bank step, ``mha_ref``
+   never; the MoE aux of a prefill at the configs' capacity factor 1.25,
+   printed; decode vs prefill logits at capacity factor E / k, where the
+   prefill drops nothing (checked), within ``kinds_tols``' limit;
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -193,9 +208,10 @@
    and torch's sum (its plain version and the library call) in turns,
    with its bound, registers and blocks an SM, failing unless its device
    time beats the first design's at every shape; and, recorded, B6 at
-   phase 5j's new attention shapes (the timed calls of ``kinds_calls``)
-   beside its bound (the bytes of the keys some query sees, 4·D FLOP a
-   visible pair), its plain version and SDPA with an explicit band mask.
+   phase 5j's and 5k's new attention shapes (the timed calls of
+   ``kinds_calls``) beside its bound (the bytes of the keys some query
+   sees, 2·(D + Dv) FLOP a visible pair), its plain version and SDPA
+   with an explicit band mask.
 
 The launch counters are set to 0 just before each main-path run and read
 just after; a kernel the run did not launch fails the script.  Any failed
@@ -203,7 +219,7 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f, 5g, 5h, 5i and 5j (``launches_new_phases``; for
+launches in phases 5f, 5g, 5h, 5i, 5j and 5k (``launches_new_phases``; for
 the row sum, its launches a frame in each cell; for 5i, each rank's).
 """
 from __future__ import annotations
@@ -1320,21 +1336,23 @@ def comm_formulas(kind, p, c, cfg, state_bytes, estimate_bytes):
     return dra[0] + 12 + estimate_bytes, dra[1] + 4
 
 
-def attn_inputs(qshape, kvshape, dtype, seed, dev, lk=None):
+def attn_inputs(qshape, kvshape, dtype, seed, dev, lk=None, dv=None):
     """Random q, k, v; with ``lk`` the k/v are the ``[..., :lk, :]`` views
-    of a longer cache (strides of the whole buffer, no copy)."""
+    of a longer cache (strides of the whole buffer, no copy); ``dv`` is
+    v's head dim (default k's)."""
     import torch
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    vshape = kvshape[:3] + (dv or kvshape[3],)
     q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
-               for s in (qshape, kvshape, kvshape))
+               for s in (qshape, kvshape, vshape))
     if lk is not None:
         k, v = k[:, :, :lk], v[:, :, :lk]
     return q, k, v
 
 
 # label: q shape, k/v shape, dtype, soft-cap, view length (decode), causal
-# and, where given, the sliding window
+# and, where given, the sliding window (0 for none) and v's head dim
 ATTN_CASES = {
     "prefill": ((4, 64, 1024, 128), (4, 8, 1024, 128), "bfloat16", 0.0,
                 None, True),
@@ -1412,6 +1430,23 @@ ATTN_CASES.update({
     "xattn-d256": ((2, 10, 7, 256), (2, 1, 1601, 256), "bfloat16", 0.0,
                    None, False),
 })
+# latent attention's (q/k, v) head dims (192, 128) on the mma.sync and f32
+# variants: ragged and soft-capped, grouped, non-causal, a decode offset
+# on a strided cache view and one query row (still mma.sync, never split)
+ATTN_CASES.update({
+    "mla-ragged": ((2, 8, 37, 192), (2, 2, 100, 192), "bfloat16", 30.0,
+                   None, True, 0, 128),
+    "mla-full": ((2, 8, 50, 192), (2, 8, 77, 192), "bfloat16", 0.0, None,
+                 False, 0, 128),
+    "mla-offset": ((2, 16, 70, 192), (2, 16, 300, 192), "bfloat16", 0.0,
+                   260, True, 0, 128),
+    "mla-one-row": ((4, 16, 1, 192), (4, 16, 300, 192), "bfloat16", 0.0,
+                    257, True, 0, 128),
+    "mla-f32": ((2, 8, 37, 192), (2, 2, 100, 192), "float32", 30.0, None,
+                True, 0, 128),
+    "mla-f32-offset": ((2, 16, 9, 192), (2, 16, 300, 192), "float32", 0.0,
+                       260, True, 0, 128),
+})
 # windowed cases run again with every key outside the window NaN in k
 # and v: the output must be finite and bit for bit the clean inputs', so
 # the kernel never reads those keys
@@ -1434,11 +1469,12 @@ def check_attention(dev) -> dict:
                                                      plan)
 
     worst = {}
-    for i, (label, (qs, ks, dt, cap, lk, causal, *win)) in enumerate(
+    for i, (label, (qs, ks, dt, cap, lk, causal, *extra)) in enumerate(
             ATTN_CASES.items()):
         dtype = getattr(torch, dt)
-        window = win[0] if win else 0
-        q, k, v = attn_inputs(qs, ks, dtype, 50 + i, dev, lk)
+        window = extra[0] if extra else 0
+        dv = extra[1] if len(extra) > 1 else ks[-1]
+        q, k, v = attn_inputs(qs, ks, dtype, 50 + i, dev, lk, dv)
         kw = dict(causal=causal, scale=qs[-1] ** -0.5, logit_softcap=cap,
                   window=window)
         out = flash_attention_kernel(q, k, v, **kw)
@@ -1449,7 +1485,11 @@ def check_attention(dev) -> dict:
         err32 = float((out.float() - ref.mha_ref(
             q.float(), k.float(), v.float(), **kw)).abs().max())
         worst[label] = err
-        p = plan(tuple(q.shape), tuple(k.shape), dtype, window=window)
+        p = plan(tuple(q.shape), tuple(k.shape), dtype, window=window, dv=dv)
+        check(out.shape == q.shape[:3] + (dv,), f"B6 {label} output "
+                                                f"{tuple(out.shape)}")
+        check(dv == ks[-1] or p.variant in ("mma", "f32"),
+              f"B6 {label}: ({ks[-1]}, {dv}) planned on {p.variant}")
         nan_note = ""
         if label in ATTN_NAN_CASES:
             # keys [0, first key the call sees) of the same views, NaN
@@ -1465,7 +1505,8 @@ def check_attention(dev) -> dict:
                         f"same bits")
         log(f"B6 {label} [{p.variant}"
             f"{f' x{p.splits} from key {p.key0}' if p.variant == 'split' else ''}] "
-            f"q{tuple(q.shape)} kv{tuple(k.shape)} {dt}"
+            f"q{tuple(q.shape)} kv{tuple(k.shape)}"
+            f"{f' v head dim {dv}' if dv != ks[-1] else ''} {dt}"
             f"{' cap ' + str(cap) if cap else ''}"
             f"{' window ' + str(window) if window else ''}"
             f"{'' if causal else ' non-causal'}: max_abs_err={err:.3g} "
@@ -1502,15 +1543,18 @@ def check_wgmma() -> dict:
     return counts
 
 
-def attention_bound(q, k, causal=True, window=0) -> tuple[float, str]:
+def attention_bound(q, k, causal=True, window=0,
+                    dv=None) -> tuple[float, str]:
     """Least time for GQA attention: read q, the k and v rows some query
-    sees and write o once (the bytes), against 4·D FLOP per visible
-    (query, key) pair on the bf16 tensor cores (QK^T and PV; a causal
-    query i at position p = i + Lk - Lq sees p + 1 keys, at most
-    ``window`` of them; a non-causal one all Lk)."""
+    sees and write o once (the bytes), against 2·(D + Dv) FLOP per
+    visible (query, key) pair on the bf16 tensor cores (QK^T at q/k head
+    dim D, PV at v head dim Dv, default D: 4·D; a causal query i at
+    position p = i + Lk - Lq sees p + 1 keys, at most ``window`` of them;
+    a non-causal one all Lk)."""
     from repro_torch.kernels.flash_attention import first_key
     b, hq, lq, d = q.shape
     lk = k.shape[2]
+    dv = dv or d
     if causal:
         seen = [p + 1 for p in range(lk - lq, lk)]
         if window:
@@ -1518,9 +1562,9 @@ def attention_bound(q, k, causal=True, window=0) -> tuple[float, str]:
         pairs, key0 = sum(seen), first_key(lq, lk, window)
     else:
         pairs, key0 = lq * lk, 0
-    flops = 4 * b * hq * d * pairs
-    bytes_ = (2 * q.numel() + 2 * b * k.shape[1] * (lk - key0) * d) \
-        * q.element_size()
+    flops = 2 * b * hq * (d + dv) * pairs
+    bytes_ = (q.numel() + b * hq * lq * dv
+              + b * k.shape[1] * (lk - key0) * (d + dv)) * q.element_size()
     t_b, t_o = bytes_ / PEAK_BYTES, flops / PEAK_BF16
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -1577,9 +1621,10 @@ def time_attention(dev) -> dict:
 
 
 def time_attention_kinds(dev) -> dict:
-    """B6 at the timed calls of ``kinds_calls`` (phase 5j's new attention
-    shapes, in their layouts) beside its bound, its plain version and
-    SDPA (the library yardstick, never on the port's path).  Where the
+    """B6 at the timed calls of ``kinds_calls`` (phase 5j's and 5k's new
+    attention shapes, in their layouts) beside its bound, its plain
+    version and SDPA (the library yardstick, never on the port's path; it
+    takes v's own head dim).  Where the
     visible keys are not SDPA's own causal triangle (a window, a decode
     offset) SDPA gets the explicit boolean band mask and K/V repeated to
     the query heads outside the timing (its memory-efficient kernel
@@ -1598,7 +1643,8 @@ def time_attention_kinds(dev) -> dict:
             c["window"]
         kw = dict(causal=causal, window=window, scale=c["scale"],
                   logit_softcap=c["softcap"])
-        p = fa.plan(tuple(q.shape), tuple(k.shape), q.dtype, window=window)
+        p = fa.plan(tuple(q.shape), tuple(k.shape), q.dtype, window=window,
+                    dv=c["dv"])
         ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, **kw))
         plain = cuda_ms(lambda: ref.mha_ref(q, k, v, **kw), reps=3)
         if causal and (window or lq != n):
@@ -1615,8 +1661,9 @@ def time_attention_kinds(dev) -> dict:
         else:
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True, scale=c["scale"]))
-        bound, by = attention_bound(q, k, causal, window)
+        bound, by = attention_bound(q, k, causal, window, c["dv"])
         out[label] = {"q": list(q.shape), "k": list(k.shape),
+                      "dv": c["dv"], "phase": c["phase"],
                       "window": window, "causal": causal,
                       "variant": p.variant, "splits": p.splits,
                       "key0": p.key0, "ms": ms, "plain_ms": plain,
@@ -1875,16 +1922,52 @@ KINDS = {"gemma3-27b": (12, 2048, True),
          "llama-3.2-vision-11b": (10, 1024, False),
          "musicgen-medium": (None, 1024, False)}
 KINDS_SEED = 5
+# phase 5k: the M kind (latent attention) and MoE FFNs at full width, in
+# KINDS' form.  deepseek-v2-236b keeps 4 of 60 layers (MMMM, FFNs dense,
+# moe, moe, moe: 24.8 GiB of bf16 weights, 7.5 GB a MoE layer),
+# moonshot-v1-16b-a3b 16 of 48 (G, 1 dense + 15 MoE: 17.8 GiB); LM_BATCH
+# x LM_PROMPT prompts, smc_decode's 32 rows at the full prompt
+MOE = {"deepseek-v2-236b": (4, LM_PROMPT, True),
+       "moonshot-v1-16b-a3b": (16, LM_PROMPT, True)}
+MOE_SEED = 7
+# decode vs prefill at full width takes every MoE layer past dropping
+# (capacity factor E / k: an expert's capacity is every token), but a
+# decode token whose k-th and (k+1)-th router probabilities tie within
+# bf16's rounding of the two shapes' products takes another expert than
+# at prefill: the router's logits are bf16, and exact ties at the k-th
+# place are common among 64 or 160 experts.  The limit is kinds_tols'
+# depth rule times this factor, set from readings, not derived (PR 25:
+# 0.5156 deepseek, 0.4766 moonshot, with 1 to 8 rows a step on another
+# expert set; 0.25 at a deepseek step with none), and a broken decode
+# (``moe_witnesses``: every cache a slot late) must read beyond it
+MOE_LOGIT_FACTOR = 4.0
+
+
+def run_shape(arch):
+    """``(layers or None, prompt length, smc_decode runs)`` of a 5j or 5k
+    arch."""
+    return KINDS[arch] if arch in KINDS else MOE[arch]
 
 
 def kinds_config(arch):
-    """Phase 5j's config of ``arch``: full width, KINDS' depth."""
+    """Phase 5j's or 5k's config of ``arch``: full width, KINDS' or MOE's
+    depth."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    layers = KINDS[arch][0]
+    layers = run_shape(arch)[0]
     return cfg if layers is None else dataclasses.replace(cfg,
                                                           n_layers=layers)
+
+
+def no_drop_config(cfg):
+    """``cfg`` with a MoE capacity factor of E / k (times 1 + 1e-6 against
+    the float product's rounding): each expert has a slot for every
+    token, so nothing drops."""
+    import dataclasses
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k * (1 + 1e-6)))
 
 
 def kinds_tols(cfg) -> tuple[float, float]:
@@ -1900,20 +1983,29 @@ def kinds_tols(cfg) -> tuple[float, float]:
     from repro_torch.models.lm import model as M
     depth = LM_LOGIT_TOL * math.sqrt(max(1.0, cfg.n_layers / LM_LAYERS))
     ssm = any(k == "D" for k, _ in M.make_plan(cfg).layers())
-    return depth, depth * (math.sqrt(2) if ssm else 1.0)
+    return depth, depth * (math.sqrt(2) if ssm else 1.0) * (
+        MOE_LOGIT_FACTOR if cfg.moe else 1.0)
 
 
 def kinds_want(cfg, steps):
     """B6's launches by variant of one prefill and ``steps - 1`` decode
-    steps: one a G, L or X layer and forward call; the prefill's variant
-    from the prompt's shapes (``plan``), every decode step's "split"."""
+    steps: one a G, L or X layer and forward call and one an M layer's
+    prefill; the prefill's variant from the prompt's shapes (``plan``),
+    every decode step's "split" (an M layer's absorbed decode launches no
+    kernel)."""
     import torch
     from repro_torch.kernels.flash_attention import plan
     from repro_torch.models.lm import model as M
     want = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0}
-    t = KINDS[cfg.name][1]
+    t = run_shape(cfg.name)[1]
     hd, b = cfg.resolved_head_dim, LM_BATCH
     for kind, _ in M.make_plan(cfg).layers():
+        if kind == "M":
+            m = cfg.mla
+            dqk = m.qk_nope_dim + m.qk_rope_dim
+            want[plan((b, cfg.n_heads, t, dqk), (b, cfg.n_heads, t, dqk),
+                      torch.bfloat16, dv=m.v_head_dim).variant] += 1
+            continue
         if kind not in ("G", "L", "X"):
             continue
         lk = cfg.n_image_tokens if kind == "X" else t
@@ -1926,29 +2018,32 @@ def kinds_want(cfg, steps):
 
 
 def kinds_calls() -> dict:
-    """Phase 5j's B6 calls, from KINDS, the configs and the LM_* constants:
-    label -> the call.  For each arch, attention kind (G, L, X) and run
-    (``generate`` at LM_BATCH rows; ``smc_decode`` at LM_BATCH·LM_K where
-    the arch runs it): the prefill, and the decode steps (views of ``t0 +
-    1 .. t0 + LM_STEPS - 1`` keys of a ``t0 + LM_STEPS + 1``-slot cache;
-    an X layer's the 1601 image keys) whose split plan differs from the
-    step before, with the first, the middle (``t0 + LM_STEPS // 2``) and
-    the last.  ``layout`` is how the model lays out q, k and v: "prefill"
-    transposes ``(B, L, H, D)`` projections, "decode" slices a ``(B, H,
-    slots, D)`` cache, "image" holds the image K/V contiguous (q is always
-    a transposed projection).  ``timed`` marks the calls phase 6 times:
-    each arch's L and X kinds (its G where it has no other), the prefill
-    at generate's rows and the middle decode at smc_decode's (else
-    generate's)."""
+    """Phase 5j's and 5k's B6 calls, from KINDS, MOE, the configs and the
+    LM_* constants: label -> the call.  For each arch, attention kind (G,
+    L, X, M) and run (``generate`` at LM_BATCH rows; ``smc_decode`` at
+    LM_BATCH·LM_K where the arch runs it): the prefill, and the decode
+    steps (views of ``t0 + 1 .. t0 + LM_STEPS - 1`` keys of a ``t0 +
+    LM_STEPS + 1``-slot cache; an X layer's the 1601 image keys; an M
+    layer's absorbed decode makes no B6 call) whose split plan differs
+    from the step before, with the first, the middle (``t0 + LM_STEPS //
+    2``) and the last.  An M layer's q and k have head dim ``qk_nope_dim
+    + qk_rope_dim`` and its v ``dv`` (v_head_dim), scale the q/k dim's.
+    ``layout`` is how the model lays out q, k and v: "prefill" transposes
+    ``(B, L, H, D)`` projections, "decode" slices a ``(B, H, slots, D)``
+    cache, "image" holds the image K/V contiguous (q is always a
+    transposed projection).  ``timed`` marks the calls phase 6 times:
+    each arch's L, X and M kinds (its G where it has no other), the
+    prefill at generate's rows and the middle decode at smc_decode's
+    (else generate's).  ``phase`` is "5j" or "5k"."""
     import torch
     from repro_torch.kernels.flash_attention import plan
     from repro_torch.models.lm import model as M
     calls = {}
-    for arch, (_, t0, with_smc) in KINDS.items():
+    for arch, (_, t0, with_smc) in {**KINDS, **MOE}.items():
         cfg = kinds_config(arch)
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         kinds = sorted({k for k, _ in M.make_plan(cfg).layers()}
-                       & {"G", "L", "X"})
+                       & {"G", "L", "X", "M"})
         new = [k for k in kinds if k != "G"] or ["G"]
         runs = [("generate", LM_BATCH)]
         if with_smc:
@@ -1958,14 +2053,21 @@ def kinds_calls() -> dict:
             window = M._theta_window(cfg, kind)[1]
             x = kind == "X"
             n = cfg.n_image_tokens if x else t0
-            base = dict(causal=not x, window=window, scale=hd ** -0.5,
-                        softcap=0.0 if x else cfg.logit_softcap)
+            dk, dv = hd, hd
+            if kind == "M":
+                dk = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+                dv, hkv = cfg.mla.v_head_dim, hq
+            base = dict(causal=not x, window=window, scale=dk ** -0.5,
+                        softcap=0.0 if x else cfg.logit_softcap, dv=dv,
+                        phase="5k" if arch in MOE else "5j")
             for run, rows in runs:
                 timed = kind in new
                 calls[f"{arch} {kind} {run} prefill"] = dict(
-                    base, q=(rows, hq, t0, hd), k=(rows, hkv, n, hd),
+                    base, q=(rows, hq, t0, dk), k=(rows, hkv, n, dk),
                     slots=None, layout="image" if x else "prefill",
                     timed=timed and run == "generate")
+                if kind == "M":
+                    continue
                 timed &= run == runs[-1][0]
                 if x:
                     calls[f"{arch} {kind} {run} decode"] = dict(
@@ -2002,12 +2104,12 @@ def kinds_inputs(call, seed, dev):
             dtype).transpose(1, 2)
 
     q = heads_last(call["q"])
+    vshape = call["k"][:3] + (call["dv"],)
     if call["layout"] == "prefill":
-        return q, heads_last(call["k"]), heads_last(call["k"])
+        return q, heads_last(call["k"]), heads_last(vshape)
     b, h, n, d = call["k"]
-    buf = (b, h, call["slots"] or n, d)
-    k, v = (torch.randn(buf, generator=g, device=dev).to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn((b, h, call["slots"] or n, dd), generator=g,
+                        device=dev).to(dtype) for dd in (d, call["dv"]))
     return q, k[:, :, :n], v[:, :, :n]
 
 
@@ -2017,29 +2119,45 @@ def check_attention_kinds(dev) -> dict:
     bf16 ATTN_TOL (the plain versions in slices of 4 rows, which bounds
     their memory), and bit for bit on a second launch; a windowed decode
     whose first key is past 0 again with every key before it NaN in k
-    and v: finite, the same bits."""
+    and v: finite, the same bits.  Phase 5k's calls also run the float32
+    kernel on the float32 copies, against the float32 plain version
+    within the float32 ATTN_TOL, twice with the same bits."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      plan)
     tol = ATTN_TOL[str(torch.bfloat16)]
-    worst, worst32, cases = 0.0, 0.0, {}
+    tol32 = ATTN_TOL[str(torch.float32)]
+    worst, worst32, worst_k32, cases = 0.0, 0.0, 0.0, {}
     for i, (label, c) in enumerate(kinds_calls().items()):
+        ph = c["phase"]
         q, k, v = kinds_inputs(c, 200 + i, dev)
         kw = dict(causal=c["causal"], scale=c["scale"],
                   logit_softcap=c["softcap"], window=c["window"])
         out = flash_attention_kernel(q, k, v, **kw)
         check(torch.equal(out, flash_attention_kernel(q, k, v, **kw)),
-              f"B6 5j {label} not repeatable")
-        err = err32 = 0.0
+              f"B6 {ph} {label} not repeatable")
+        err = err32 = k32 = 0.0
         for r in range(0, q.shape[0], 4):
             rows = slice(r, r + 4)
             qr, kr, vr = q[rows], k[rows], v[rows]
             err = max(err, max_err(out[rows].float(), ref.mha_ref(
                 qr, kr, vr, **kw).float(), tol))
-            err32 = max(err32, max_err(out[rows].float(), ref.mha_ref(
-                qr.float(), kr.float(), vr.float(), **kw), tol))
-        p = plan(tuple(q.shape), tuple(k.shape), q.dtype, window=c["window"])
+            want32 = ref.mha_ref(qr.float(), kr.float(), vr.float(), **kw)
+            err32 = max(err32, max_err(out[rows].float(), want32, tol))
+            if ph == "5k":
+                q32, k32_, v32 = qr.float(), kr.float(), vr.float()
+                got32 = flash_attention_kernel(q32, k32_, v32, **kw)
+                check(torch.equal(got32, flash_attention_kernel(
+                    q32, k32_, v32, **kw)), f"B6 5k {label} float32 kernel "
+                                            f"not repeatable")
+                k32 = max(k32, max_err(got32, want32, tol32))
+                del q32, k32_, v32, got32
+            del want32
+        p = plan(tuple(q.shape), tuple(k.shape), q.dtype, window=c["window"],
+                 dv=c["dv"])
+        check(out.shape == q.shape[:3] + (c["dv"],),
+              f"B6 {ph} {label} output {tuple(out.shape)}")
         note = ""
         if c["layout"] == "decode" and p.key0 > 0:
             k[:, :, :p.key0] = float("nan")
@@ -2047,18 +2165,24 @@ def check_attention_kinds(dev) -> dict:
             blind = flash_attention_kernel(q, k, v, **kw)
             check(bool(torch.isfinite(blind).all())
                   and torch.equal(blind, out),
-                  f"B6 5j {label}: keys outside the window change the "
+                  f"B6 {ph} {label}: keys outside the window change the "
                   f"output")
             note = f"; {p.key0} keys outside the window NaN: same bits"
             del blind
+        if ph == "5k":
+            note += (f"; float32 kernel {k32:.3g} (rtol=atol={tol32}), "
+                     f"repeatable")
         worst, worst32 = max(worst, err), max(worst32, err32)
+        worst_k32 = max(worst_k32, k32)
         cases[label] = {"q": list(q.shape), "k": list(k.shape),
-                        "variant": p.variant, "splits": p.splits,
-                        "key0": p.key0, "max_abs_err": err,
-                        "max_abs_err_f32": err32}
-        log(f"B6 5j {label} [{p.variant}"
+                        "dv": c["dv"], "variant": p.variant,
+                        "splits": p.splits, "key0": p.key0,
+                        "max_abs_err": err, "max_abs_err_f32": err32,
+                        "f32_kernel_max_abs_err": k32 if ph == "5k" else None}
+        vdim = f" v head dim {c['dv']}" if c["dv"] != k.shape[-1] else ""
+        log(f"B6 {ph} {label} [{p.variant}"
             f"{f' x{p.splits} from key {p.key0}' if p.variant == 'split' else ''}]"
-            f" q{tuple(q.shape)} kv{tuple(k.shape)}"
+            f" q{tuple(q.shape)} kv{tuple(k.shape)}{vdim}"
             f"{' window ' + str(c['window']) if c['window'] else ''}"
             f"{'' if c['causal'] else ' non-causal'}: max_abs_err="
             f"{err:.3g}, vs float32 {err32:.3g} (rtol=atol={tol}), "
@@ -2066,6 +2190,7 @@ def check_attention_kinds(dev) -> dict:
         del q, k, v, out
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, "max_abs_err_f32": worst32,
+            "f32_kernel_max_abs_err": worst_k32,
             "calls": len(cases), "cases": cases}
 
 
@@ -2114,33 +2239,141 @@ def ssm_witnesses(model, prompt, tokens, want, arch) -> dict:
     return out
 
 
-def run_kinds(dev, all_k, reset, counts, name) -> dict:
-    """Phase 5j: each arch of KINDS at full width, random bf16 weights:
-    ``generate`` (greedy, LM_STEPS) twice, equal bit for bit, its decode
-    logits against prefill logits (``decode_vs_prefill``) and, where the
-    arch decodes with SMC, ``smc_decode`` (K = LM_K, LM_STEPS steps, τ =
-    LM_TAU) twice, equal bit for bit, sequences the genealogy's paths,
-    finite log Z, ESS in [1, K].  Every attention layer goes through B6:
-    its launches by variant must be ``kinds_want``'s, the comb scan once
-    a bank step, no other kernel, and ``mha_ref`` never runs.  Each model
-    is freed before the next."""
+class RouteLog:
+    """While entered, every ``moe.apply_moe`` call records the sorted
+    top-k expert set of each row's last position and that row's margin
+    between its k-th and (k+1)-th router probability (the model's MoE
+    layers call the module's attribute, so the wrapper sees each)."""
+
+    def __init__(self, on: bool):
+        self.on, self.calls = on, []
+
+    def __enter__(self):
+        from repro_torch.models.lm import moe as MOE
+        self.real = MOE.apply_moe
+        if self.on:
+            MOE.apply_moe = self.apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.lm import moe as MOE
+        MOE.apply_moe = self.real
+
+    def apply(self, p, x, cfg, groups=1):
+        import torch
+        b, t, d = x.shape
+        # the whole call's product, as apply_moe forms it (the last rows'
+        # alone may round otherwise)
+        probs = torch.softmax((x.reshape(-1, d) @ p["router"]).float(), -1)
+        top = probs.view(b, t, -1)[:, -1].topk(cfg.top_k + 1, -1)
+        self.calls.append((top.indices[:, :cfg.top_k].sort(-1).values,
+                           top.values[:, -2] - top.values[:, -1]))
+        return self.real(p, x, cfg, groups)
+
+
+def moe_witnesses(model, prompt, tokens, want, routes, tol, arch) -> dict:
+    """Readings of an arch with MoE FFNs beside its decode-vs-prefill gap
+    (``want``: ``prefill_logits``; ``routes``: the RouteLog of that
+    prefill and the decode that followed it): at each checked step, the
+    rows whose top-k expert set at some MoE layer differs between decode
+    and prefill at the same position, and the smallest router margin at
+    that step's prefill (recorded); a broken decode, every cache written
+    a slot late at the hand-over (the newest prompt slot lost), which
+    must read beyond ``tol``; and for an arch with M layers the absorbed
+    decode computed in float32 (recorded)."""
+    import torch
+    from repro_torch.models.lm import mla as MLA
+    n_moe = sum(b.ffn == "moe" for b in model.blocks)
+    calls = routes.calls
+    pre = calls[:n_moe * len(LM_CHECK_STEPS)]
+    dec = calls[n_moe * len(LM_CHECK_STEPS):]
+    flips, margins = {}, {}
+    for n, j in enumerate(LM_CHECK_STEPS):
+        p_sets = pre[n * n_moe:(n + 1) * n_moe]
+        d_sets = dec[j * n_moe:(j + 1) * n_moe]     # after the prefill's
+        moved = torch.zeros_like(p_sets[0][1], dtype=torch.bool)
+        for (pe, _), (de, _) in zip(p_sets, d_sets):
+            moved |= (pe != de).any(-1)
+        flips[j] = int(moved.sum())
+        margins[j] = min(float(m.min()) for _, m in p_sets)
+
+    def late(caches):
+        for c in caches:
+            for name, axis in (("c", 1), ("pe", 1), ("k", 2), ("v", 2)):
+                if name in c:
+                    w = c[name]
+                    t0 = prompt.shape[1]
+                    w.narrow(axis, 1, t0 - 1).copy_(
+                        w.narrow(axis, 0, t0 - 1).clone())
+
+    out = {"rows_on_other_experts": flips, "min_router_margin": margins}
+    kept, _ = decode_logits(model, prompt, tokens, handoff=late)
+    out["caches_late"] = logit_gap(kept, want)
+    check(out["caches_late"] > tol, f"5k {arch}: the broken decode's gap "
+                                    f"{out['caches_late']:.4g} is within the "
+                                    f"limit {tol:.3g}")
+    if any(b.kind == "M" for b in model.blocks):
+        real = MLA.mla_decode_absorbed
+
+        def f32(p, x, n_heads, cfg, *, c_cache, pe_cache, pos, theta, eps):
+            return real({k: v.float() for k, v in p.items()}, x.float(),
+                        n_heads, cfg, c_cache=c_cache.float(),
+                        pe_cache=pe_cache.float(), pos=pos, theta=theta,
+                        eps=eps).to(x.dtype)
+        MLA.mla_decode_absorbed = f32
+        try:
+            kept, _ = decode_logits(model, prompt, tokens)
+        finally:
+            MLA.mla_decode_absorbed = real
+        out["absorbed_f32"] = logit_gap(kept, want)
+    return out
+
+
+def moe_aux(model, prompt, t0) -> dict:
+    """The MoE aux of one prefill of ``prompt`` into ``t0 + LM_STEPS + 1``
+    slots, summed over the MoE layers, as numbers."""
+    import torch
+    from repro_torch.models.lm import model as M
+    aux = {}
+    with torch.inference_mode():
+        M.forward_prefill(model, prompt, t0 + LM_STEPS + 1, aux=aux)
+    return {k: v.item() for k, v in aux.items()}
+
+
+def run_kinds(dev, all_k, reset, counts, name, archs=None, phase="5j",
+              seed=KINDS_SEED) -> dict:
+    """Phase 5j (``archs`` KINDS) or 5k (MOE): each arch at full width,
+    random bf16 weights: ``generate`` (greedy, LM_STEPS) twice, equal bit
+    for bit, its decode logits against prefill logits
+    (``decode_vs_prefill``) and, where the arch decodes with SMC,
+    ``smc_decode`` (K = LM_K, LM_STEPS steps, τ = LM_TAU) twice, equal
+    bit for bit, sequences the genealogy's paths, finite log Z, ESS in
+    [1, K].  Every attention layer goes through B6: its launches by
+    variant must be ``kinds_want``'s, the comb scan once a bank step, no
+    other kernel, and ``mha_ref`` never runs.  An arch with MoE FFNs also
+    reports the MoE aux of a prefill of the prompts at its config's
+    capacity factor, and holds decode against prefill at
+    ``no_drop_config``'s (the model's weights under that config, with
+    ``generate``'s tokens at it), where the prefill must drop nothing.
+    Each model is freed before the next."""
     import torch
     from repro_torch.core import genealogy
     from repro_torch.kernels import ref
     from repro_torch.models.lm import model as M
     from repro_torch.serve import SMCDecodeConfig, generate, smc_decode
 
+    archs = KINDS if archs is None else archs
     attn = all_k["flash_attention"]
     out = {}
-    for i, arch in enumerate(KINDS):
+    for i, arch in enumerate(archs):
         cfg = kinds_config(arch)
-        _, t0, with_smc = KINDS[arch]
+        _, t0, with_smc = archs[arch]
         t_start = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()      # what earlier phases hold
-        model = M.init_params(cfg, KINDS_SEED + i, device=dev)
+        model = M.init_params(cfg, seed + i, device=dev)
         g = torch.Generator(device=dev)
-        g.manual_seed(KINDS_SEED + 100 + i)
+        g.manual_seed(seed + 100 + i)
         books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
         prompt = torch.randint(cfg.vocab_size, (LM_BATCH, t0) + books,
                                generator=g, device=dev)
@@ -2156,19 +2389,18 @@ def run_kinds(dev, all_k, reset, counts, name) -> dict:
                "weights_gib": sum(p.numel() * p.element_size()
                                   for p in model.parameters()) / 2 ** 30}
         want = kinds_want(cfg, LM_STEPS)
-        n_attn = sum(want.values()) // LM_STEPS
 
         def launches_ok(what, scans):
             got = counts(all_k)
             expect = {k: 0 for k in all_k}
-            expect["flash_attention"] = n_attn * LM_STEPS
+            expect["flash_attention"] = sum(want.values())
             expect["prefix_sum"] = scans
-            check(got == expect, f"5j {arch} {what} launches {got}, want "
-                                 f"{expect}")
-            check(attn.variants == want, f"5j {arch} {what} B6 variants "
-                  f"{attn.variants}, want {want}")
-            check(ref.mha_ref.calls == 0, f"5j {arch} {what} ran the plain "
-                                          f"attention")
+            check(got == expect, f"{phase} {arch} {what} launches {got}, "
+                                 f"want {expect}")
+            check(attn.variants == want, f"{phase} {arch} {what} B6 "
+                  f"variants {attn.variants}, want {want}")
+            check(ref.mha_ref.calls == 0, f"{phase} {arch} {what} ran the "
+                                          f"plain attention")
             return {"flash_attention": got["flash_attention"],
                     "variants": dict(attn.variants),
                     "prefix_sum": got["prefix_sum"]}
@@ -2181,12 +2413,12 @@ def run_kinds(dev, all_k, reset, counts, name) -> dict:
         rec["generate_launches"] = launches_ok("generate", 0)
         check(tokens.shape == (LM_BATCH, LM_STEPS) + books and bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-            f"5j {arch} generate tokens {tuple(tokens.shape)}")
+            f"{phase} {arch} generate tokens {tuple(tokens.shape)}")
         t = time.perf_counter()
         again = generate(model, prompt, steps=LM_STEPS, img=img)
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t
-        check(torch.equal(tokens, again), f"5j {arch} generate not "
+        check(torch.equal(tokens, again), f"{phase} {arch} generate not "
                                           f"repeatable")
         del again
         rec["generate"] = {
@@ -2194,9 +2426,23 @@ def run_kinds(dev, all_k, reset, counts, name) -> dict:
             "tokens_per_s": LM_BATCH * LM_STEPS / t_gen}
         depth_tol, tol = kinds_tols(cfg)
         rec["logit_limit"], rec["depth_logit_limit"] = tol, depth_tol
-        want_logits = prefill_logits(model, prompt, tokens, img)
-        rec["consistency"] = decode_vs_prefill(
-            model, prompt, tokens, tol=tol, img=img, want=want_logits)
+        if cfg.moe:
+            rec["moe_aux"] = moe_aux(model, prompt, t0)
+            model.cfg = no_drop_config(cfg)
+            rec["no_drop_aux"] = moe_aux(model, prompt, t0)
+            check(abs(rec["no_drop_aux"]["moe_drop_frac"]) < 1e-6,
+                  f"{phase} {arch}: the prefill drops "
+                  f"{rec['no_drop_aux']['moe_drop_frac']} at capacity "
+                  f"factor {model.cfg.moe.capacity_factor}")
+            tokens = generate(model, prompt, steps=LM_STEPS)
+        with RouteLog(cfg.moe is not None) as routes:
+            want_logits = prefill_logits(model, prompt, tokens, img)
+            rec["consistency"] = decode_vs_prefill(
+                model, prompt, tokens, tol=tol, img=img, want=want_logits)
+        if cfg.moe:
+            rec["moe_witness"] = moe_witnesses(model, prompt, tokens,
+                                               want_logits, routes, tol, arch)
+        model.cfg = cfg
         if "D" in rec["kinds"]:
             rec["ssm_witness"] = ssm_witnesses(model, prompt, tokens,
                                                want_logits, arch)
@@ -2208,7 +2454,22 @@ def run_kinds(dev, all_k, reset, counts, name) -> dict:
                 f"exceed {tol:.3g}); SSM state dropped "
                 f"{rec['ssm_witness']['state_dropped']:.4g} (recorded)")
         del want_logits
-        log(f"5j {arch} ({cfg.n_layers} layers {rec['kinds']}, "
+        if cfg.moe:
+            w = rec["moe_witness"]
+            log(f"{phase} {arch} MoE aux of a {LM_BATCH} x {t0} prefill, "
+                f"summed over the MoE layers: at capacity factor "
+                f"{cfg.moe.capacity_factor} {rec['moe_aux']}; at "
+                f"{no_drop_config(cfg).moe.capacity_factor:.6g} (decode vs "
+                f"prefill) {rec['no_drop_aux']}")
+            log(f"{phase} {arch} decode vs prefill logits: sound "
+                f"{rec['consistency']['max_abs_logit_err']:.4g} (limit "
+                f"{tol:.3g}; depth rule {depth_tol:.3g}); rows on another "
+                f"expert set by step {w['rows_on_other_experts']}, least "
+                f"router margin {w['min_router_margin']}; every cache a slot"
+                f" late {w['caches_late']:.4g} (must exceed {tol:.3g})"
+                + (f"; absorbed decode in float32 {w['absorbed_f32']:.4g} "
+                   f"(recorded)" if "absorbed_f32" in w else ""))
+        log(f"{phase} {arch} ({cfg.n_layers} layers {rec['kinds']}, "
             f"{n_params / 1e9:.3f} B parameters, {rec['weights_gib']:.2f} "
             f"GiB): generate {LM_BATCH} x {t0}"
             f"{' x ' + str(books[0]) + ' codebooks' if books else ''}"
@@ -2225,36 +2486,36 @@ def run_kinds(dev, all_k, reset, counts, name) -> dict:
                                   proposal_temperature=LM_TAU)
             reset()
             t = time.perf_counter()
-            res = smc_decode(model, prompt, smc, key=KINDS_SEED + 200 + i)
+            res = smc_decode(model, prompt, smc, key=seed + 200 + i)
             torch.cuda.synchronize()
             t_first = time.perf_counter() - t
             rec["smc_launches"] = launches_ok("smc_decode", LM_STEPS - 1)
             t = time.perf_counter()
-            res2 = smc_decode(model, prompt, smc, key=KINDS_SEED + 200 + i)
+            res2 = smc_decode(model, prompt, smc, key=seed + 200 + i)
             torch.cuda.synchronize()
             t_smc = time.perf_counter() - t
             for field in res._fields:
                 check(torch.equal(getattr(res, field), getattr(res2, field)),
-                      f"5j {arch} smc_decode {field} not repeatable")
+                      f"{phase} {arch} smc_decode {field} not repeatable")
             del res2
             for b in range(LM_BATCH):
                 paths = genealogy.reconstruct_trajectories(
                     res.ancestors[:, b], res.emissions[:, b])
                 check(torch.equal(paths, res.sequences[b]),
-                      f"5j {arch} prompt {b}: sequences are not the "
+                      f"{phase} {arch} prompt {b}: sequences are not the "
                       f"genealogy's paths")
             check(bool(torch.isfinite(res.log_z).all()),
-                  f"5j {arch}: non-finite log Z")
+                  f"{phase} {arch}: non-finite log Z")
             check(bool(((res.ess >= 1 - 1e-3)
                         & (res.ess <= LM_K * (1 + 1e-5))).all()),
-                  f"5j {arch}: ESS outside [1, {LM_K}]")
+                  f"{phase} {arch}: ESS outside [1, {LM_K}]")
             rec["smc_decode"] = {
                 "seconds": t_smc, "first_run_seconds": t_first,
                 "tokens_per_s": LM_BATCH * LM_K * LM_STEPS / t_smc,
                 "resample_events": int(res.resampled.sum()),
                 "log_z": res.log_z.tolist(), "mean_ess": float(res.ess.mean()),
                 "min_ess": float(res.ess.min())}
-            log(f"5j {arch} smc_decode {LM_BATCH} x {t0}, K={LM_K}, "
+            log(f"{phase} {arch} smc_decode {LM_BATCH} x {t0}, K={LM_K}, "
                 f"{LM_STEPS} steps, tau={LM_TAU}: B6 {rec['smc_launches']};"
                 f" {t_smc:.3f} s ({t_first:.3f} s first), "
                 f"{rec['smc_decode']['tokens_per_s']:.1f} hypothesis "
@@ -2267,8 +2528,8 @@ def run_kinds(dev, all_k, reset, counts, name) -> dict:
             del res
         rec["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         rec["seconds"] = time.perf_counter() - t_start
-        log(f"5j {arch}: {rec['seconds']:.1f} s, peak {rec['peak_gib']:.2f}"
-            f" GiB above what earlier phases hold")
+        log(f"{phase} {arch}: {rec['seconds']:.1f} s, peak "
+            f"{rec['peak_gib']:.2f} GiB above what earlier phases hold")
         out[arch] = rec
         del model, prompt, img, tokens
         torch.cuda.empty_cache()
@@ -3998,6 +4259,9 @@ def main() -> int:
 
     # -- phase 5j: the L, R, D, X kinds and the codebook head at full width --
     kinds = run_kinds(dev, all_k, reset, counts, name)
+
+    # -- phase 5k: the M kind and MoE FFNs at full width ----------------------
+    moe = run_kinds(dev, all_k, reset, counts, name, MOE, "5k", MOE_SEED)
     log(f"row-sum launches a frame by cell: "
         f"{ {k: v for k, v in row_sum_cells.items() if 'runs' not in k} }; "
         f"5e and 5g runs {row_sum_cells['5e runs']} / "
@@ -4166,9 +4430,10 @@ def main() -> int:
             f"{t['bound_by']})")
     attn_kinds = time_attention_kinds(dev)
     for label, t in attn_kinds.items():
-        log(f"times [{name}]: B6 5j {label} [{t['variant']}"
+        log(f"times [{name}]: B6 {t['phase']} {label} [{t['variant']}"
             f"{' x' + str(t['splits']) + ' from key ' + str(t['key0']) if t['variant'] == 'split' else ''}]"
             f" q{tuple(t['q'])} kv{tuple(t['k'])}"
+            f"{' v head dim ' + str(t['dv']) if t['dv'] != t['k'][-1] else ''}"
             f"{' window ' + str(t['window']) if t['window'] else ''}"
             f"{'' if t['causal'] else ' non-causal'}: {t['ms']:.4f} ms "
             f"(plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
@@ -4287,14 +4552,15 @@ def main() -> int:
         serving["decode"]["launches"]["prefix_sum"]
     new_launches["flash_attention"] = {
         "5h decode sessions": serving["decode"]["launches"]["flash_attention"]}
-    for arch, r in kinds.items():
-        for run in ("generate", "smc"):
-            if f"{run}_launches" in r:
-                new_launches["flash_attention"][f"5j {arch} {run}"] = r[
-                    f"{run}_launches"]["flash_attention"]
-                if run == "smc":
-                    new_launches["prefix_sum"][f"5j {arch} smc"] = r[
-                        "smc_launches"]["prefix_sum"]
+    for ph, runs in (("5j", kinds), ("5k", moe)):
+        for arch, r in runs.items():
+            for run in ("generate", "smc"):
+                if f"{run}_launches" in r:
+                    new_launches["flash_attention"][f"{ph} {arch} {run}"] = \
+                        r[f"{run}_launches"]["flash_attention"]
+                    if run == "smc":
+                        new_launches["prefix_sum"][f"{ph} {arch} smc"] = r[
+                            "smc_launches"]["prefix_sum"]
     new_launches["row_sum"] = {
         f"{k} (a frame)": v for k, v in row_sum_cells.items()
         if "runs" not in k}
@@ -4329,7 +4595,7 @@ def main() -> int:
                           "rejection": lane_ms[True]},
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
         "distributed": dist_runs, "domain": domain_runs, "lm": lm,
-        "kinds": kinds,
+        "kinds": kinds, "moe": moe,
         "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
         "attention_kinds": attn_kinds,

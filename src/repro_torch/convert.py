@@ -203,10 +203,10 @@ def lm_params(params_np: dict, cfg: configs.ArchConfig, device="cpu",
     """The port's ``Decoder`` holding the reference's ``init_params``
     weights (a pytree of numpy arrays), cast once to ``dtype`` (default
     ``cfg.compute_dtype``) — what the reference's ``cast_params`` does on
-    every call.  Every layer kind the port runs crosses, with its
-    leaves as the reference names them (head, scanned groups, tail, in
-    depth order); the ``M`` kind and MoE FFNs raise
-    ``NotImplementedError`` (ROADMAP A12)."""
+    every call.  Every layer kind and FFN crosses, with its leaves as
+    the reference names them (head, scanned groups, tail, in depth
+    order; an M layer's ``mla``, a MoE layer's ``moe`` with its router,
+    ``we_gate``/``we_up``/``we_down`` and nested ``shared`` MLP)."""
     lm.check_supported(cfg)
     dtype = dtype or lm.L.dtype_of(cfg.compute_dtype)
 

@@ -1,14 +1,15 @@
 // B6 on Hopper: causal (optionally sliding-window) GQA flash attention.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (_kernel l.33, pallas_call l.110).  Computes, for q (B, Hq, Lq, D) and
-// k, v (B, Hkv, Lk, D), o = softmax(scale * q k^T [soft-capped, causal]) v
+// (_kernel l.33, pallas_call l.110).  Computes, for q (B, Hq, Lq, D), k
+// (B, Hkv, Lk, D) and v (B, Hkv, Lk, DV), DV = D but for latent attention
+// (below), o = softmax(scale * q k^T [soft-capped, causal]) v
 // with query head h reading KV head h / (Hq / Hkv), a causal query i at
 // position p = i + Lk - Lq (the decode offset) seeing keys j <= p, and with
 // a window W the keys p - W < j <= p alone, an online softmax (m, l, acc)
 // in float32, and the output in q's dtype.  q, k and v are strided views
 // (a decode call passes the KV cache's [..., :pos+1, :] view as it lies in
-// memory); o is a contiguous (B, Hq, Lq, D) tensor.
+// memory); o is a contiguous (B, Hq, Lq, DV) tensor.
 //
 // bf16 (the general path): one block of four warps per (batch row, KV head,
 // tile of 64 query rows).  The rows of a KV head are its G query heads at
@@ -46,6 +47,16 @@
 // prefill of recurrentgemma's local attention, 10 heads over one KV head),
 // and K/V views that step a dim by 0, which TMA cannot load.
 //
+// Latent attention (deepseek-v2's M layer) decompresses K to a head dim of
+// 192 (128 nope + 64 rope) beside a V head dim of 128, so both variants
+// here also take the pair (D, DV) = (192, 128): the output is (B, Hq, Lq,
+// DV).  The bf16 kernel's template splits the score's k-steps (DQK / 16)
+// from the output's n-tiles (DV / 8), keeps Q and K rows of DQK + 8 and V
+// rows of DV + 8 in shared memory (111,616 bytes at (192, 128), against
+// 139,264 at D = 256) and, as at D = 256, reads Q's fragments from shared
+// memory for each tile (DQK > 128).  Every (D, D) instantiation does the
+// same arithmetic in the same order as before the pair existed.
+//
 // float32 (the tests' and the f32 models' path): one warp per query row,
 // one key per lane, plain FMA; same online softmax and key order.
 
@@ -65,18 +76,21 @@ constexpr int F32_MAX_D = 256;
 //   A: a0 (gr, 2tq..+1), a1 (gr+8, 2tq..), a2 (gr, 2tq+8..), a3 (gr+8, 2tq+8..)
 //   B: b0 (k 2tq..+1, n gr), b1 (k 2tq+8..+9, n gr)
 //   C: c0, c1 (gr, 2tq..+1), c2, c3 (gr+8, 2tq..+1)
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
-  constexpr int LD = D + 8;     // padded smem row (elements): no bank conflicts
-  constexpr int KC = D / 16;    // k-steps of QK^T
-  constexpr int DN = D / 8;     // n-tiles of the output
+  static_assert(DV <= DQK, "V's rows are loaded beside K's");
+  constexpr int LD = DQK + 8;   // padded Q/K smem row (elements): no bank
+  constexpr int LDV = DV + 8;   // conflicts; V's padded row
+  constexpr int KC = DQK / 16;  // k-steps of QK^T
+  constexpr int DN = DV / 8;    // n-tiles of the output
   constexpr int SN = BN / 8;    // n-tiles of the scores
-  constexpr int VEC = D / 8;    // 16-byte vectors per row
-  constexpr bool Q_REGS = D <= 128;   // Q's fragments held in registers
+  constexpr int VEC = DQK / 8;  // 16-byte vectors per Q/K row
+  constexpr int VEC_V = DV / 8; // 16-byte vectors per V row
+  constexpr bool Q_REGS = DQK <= 128;   // Q's fragments held in registers
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sk = sq + BM * LD;       // 2 stages of BN x LD
-  __nv_bfloat16* sv = sk + 2 * BN * LD;   // 2 stages of BN x LD
+  __nv_bfloat16* sv = sk + 2 * BN * LD;   // 2 stages of BN x LDV
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tq = lane & 3;
@@ -115,14 +129,16 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
 
   auto load_kv = [&](int stage, int kt) {
     __nv_bfloat16* dk = sk + stage * BN * LD;
-    __nv_bfloat16* dv = sv + stage * BN * LD;
+    __nv_bfloat16* dv = sv + stage * BN * LDV;
     for (int idx = tid; idx < BN * VEC; idx += THREADS) {
       const int r = idx / VEC, c = idx % VEC, key = kt * BN + r;
       const bool ok = key < a.lk;
       const long long ko = ok ? key * a.k_sl + c * 8 : 0;
-      const long long vo = ok ? key * a.v_sl + c * 8 : 0;
       cp_async16(dk + r * LD + c * 8, kg + ko, ok);
-      cp_async16(dv + r * LD + c * 8, vg + vo, ok);
+      if (VEC_V == VEC || c < VEC_V) {     // V's row is the first VEC_V
+        const long long vo = ok ? key * a.v_sl + c * 8 : 0;
+        cp_async16(dv + r * LDV + c * 8, vg + vo, ok);
+      }
     }
   };
   if (kt0 < n_kt) load_kv(0, kt0);
@@ -154,7 +170,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
         }
       }
       const __nv_bfloat16* ks = sk + stage * BN * LD;
-      const __nv_bfloat16* vs = sv + stage * BN * LD;
+      const __nv_bfloat16* vs = sv + stage * BN * LDV;
       float s[SN][4];
 #pragma unroll
       for (int n = 0; n < SN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -238,7 +254,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
         // matrices (keys 16kc.., d 8dn..), (16kc+8.., 8dn..), (16kc..,
         // 8dn+8..), (16kc+8.., 8dn+8..)
         const __nv_bfloat16* vrow =
-            vs + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+            vs + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDV +
             (lane >> 4) * 8;
 #pragma unroll
         for (int dn = 0; dn < DN; dn += 2) {
@@ -259,7 +275,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
   if (r0 < n_rows) {
     const int head = hk * a.group + r0 % a.group;
     __nv_bfloat16* orow =
-        og + (((long long)b * a.hq + head) * a.lq + r0 / a.group) * D;
+        og + (((long long)b * a.hq + head) * a.lq + r0 / a.group) * DV;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn)
       *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + tq * 2) =
@@ -268,7 +284,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
   if (r1 < n_rows) {
     const int head = hk * a.group + r1 % a.group;
     __nv_bfloat16* orow =
-        og + (((long long)b * a.hq + head) * a.lq + r1 / a.group) * D;
+        og + (((long long)b * a.hq + head) * a.lq + r1 / a.group) * DV;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn)
       *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + tq * 2) =
@@ -276,8 +292,10 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(Args a) {
   }
 }
 
-// float32: one warp per query row (b, head, i), one key per lane
-__global__ void __launch_bounds__(F32_WARPS * 32) flash_f32(Args a, int d) {
+// float32: one warp per query row (b, head, i), one key per lane; q and k
+// rows of d, v and o rows of dv <= d
+__global__ void __launch_bounds__(F32_WARPS * 32) flash_f32(Args a, int d,
+                                                            int dv) {
   constexpr int C = F32_MAX_D / 32;
   __shared__ float sq[F32_WARPS][F32_MAX_D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -329,28 +347,29 @@ __global__ void __launch_bounds__(F32_WARPS * 32) flash_f32(Args a, int d) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int t = lane + 32 * c;
-        if (t < d) acc[c] = fmaf(pj, vr[t], acc[c]);
+        if (t < dv) acc[c] = fmaf(pj, vr[t], acc[c]);
       }
     }
   }
   const float den = fmaxf(l, 1e-30f);
   float* orow = static_cast<float*>(a.o) +
-                (((long long)b * a.hq + head) * a.lq + i) * d;
+                (((long long)b * a.hq + head) * a.lq + i) * dv;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int t = lane + 32 * c;
-    if (t < d) orow[t] = acc[c] / den;
+    if (t < dv) orow[t] = acc[c] / den;
   }
 }
 
-template <int D>
+template <int DQK, int DV = DQK>
 int launch_bf16(const Args& a, cudaStream_t stream) {
-  const int smem = (BM + 4 * BN) * (D + 8) * (int)sizeof(__nv_bfloat16);
+  const int smem = ((BM + 2 * BN) * (DQK + 8) + 2 * BN * (DV + 8)) *
+                   (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bf16<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.group * a.lq + BM - 1) / BM, a.hkv, a.b);
-  flash_bf16<D><<<grid, THREADS, smem, stream>>>(a);
+  flash_bf16<DQK, DV><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -358,29 +377,33 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// o (B, Hq, Lq, D) contiguous; q, k, v strided (element strides, last
-// dim contiguous).  bf16 takes D = 16, 32, ..., 128 or 256 and 16-byte
-// aligned rows; float32 takes D <= 256.  window > 0 (causal calls only)
-// limits each query to its last `window` keys.  Returns the CUDA
-// error of the launch, or -1 for a head dim the kernel does not take.
+// o (B, Hq, Lq, DV) contiguous; q, k (.., D) and v (.., DV) strided
+// (element strides, last dim contiguous).  bf16 takes D = DV = 16, 32,
+// ..., 128 or 256, or (D, DV) = (192, 128), and 16-byte aligned rows;
+// float32 takes D = DV <= 256 or (192, 128).  window > 0 (causal calls
+// only) limits each query to its last `window` keys.  Returns the CUDA
+// error of the launch, or -1 for head dims the kernel does not take.
 int ppf_flash_attention(const void* q, const void* k, const void* v, void* o,
                         long long q_sb, long long q_sh, long long q_sl,
                         long long k_sb, long long k_sh, long long k_sl,
                         long long v_sb, long long v_sh, long long v_sl,
                         int b, int hq, int hkv, int lq, int lk, int d,
-                        int is_bf16, int causal, int window, float scale,
-                        float softcap, void* stream) {
+                        int dv, int is_bf16, int causal, int window,
+                        float scale, float softcap, void* stream) {
   Args a{q,    k,    v,    o,    q_sb, q_sh,   q_sl,  k_sb,  k_sh,
          k_sl, v_sb, v_sh, v_sl, b,    hq,     hkv,   lq,    lk,
          hq / hkv, causal, causal ? window : 0, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool mla = d == 192 && dv == 128;   // latent attention's pair
+  if (dv != d && !mla) return -1;
   if (!is_bf16) {
     if (d < 1 || d > F32_MAX_D) return -1;
     const long long rows = (long long)b * hq * lq;
     const unsigned blocks = (unsigned)((rows + F32_WARPS - 1) / F32_WARPS);
-    flash_f32<<<blocks, F32_WARPS * 32, 0, st>>>(a, d);
+    flash_f32<<<blocks, F32_WARPS * 32, 0, st>>>(a, d, dv);
     return cudaGetLastError();
   }
+  if (mla) return launch_bf16<192, 128>(a, st);
   switch (d) {
     case 16: return launch_bf16<16>(a, st);
     case 32: return launch_bf16<32>(a, st);

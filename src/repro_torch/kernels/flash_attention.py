@@ -17,6 +17,11 @@ sees the keys ``p - window < j <= p``) and an optional tanh soft-cap.
 * ``"f32"`` (the same source): float32 inputs, plain FMA, head dims up
   to 256.
 
+V's head dim equals q and k's, except for the pairs in
+``UNEQUAL_HEAD_DIMS``: latent attention's (192, 128) (deepseek-v2's M
+layer: 128 nope + 64 rope dims of q and k, 128 of v), which the mma and
+f32 variants serve; the output takes V's head dim.
+
 The wrapper takes strided views: a decode step hands it the KV cache's
 ``[..., :pos+1, :]`` view as it lies in memory, never a copy.  With a
 window every variant walks only the key tiles its query tile can see: a
@@ -47,6 +52,8 @@ _c_ll = ctypes.c_longlong
 _c_f = ctypes.c_float
 
 BF16_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256)
+# (q/k head dim, v head dim) pairs with Dv != Dqk, on "mma" and "f32" only
+UNEQUAL_HEAD_DIMS = ((192, 128),)
 F32_MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
 SPLIT_ROWS = 64          # query rows per KV head up to which "split" serves
@@ -61,7 +68,7 @@ SPLIT_BLOCKS = 2 * 132
 def _lib():
     lib = build.library("flash_attention")
     lib.ppf_flash_attention.argtypes = ([_c_p] * 4 + [_c_ll] * 9
-                                        + [_c_i] * 9 + [_c_f, _c_f, _c_p])
+                                        + [_c_i] * 10 + [_c_f, _c_f, _c_p])
     lib.ppf_flash_attention.restype = _c_i
     return lib
 
@@ -110,11 +117,12 @@ def first_key(lq: int, lk: int, window: int) -> int:
 
 
 def plan(q_shape, k_shape, dtype, tma_strides: bool = True,
-         window: int = 0) -> Plan:
-    """The variant for q ``(B, Hq, Lq, D)`` against k/v ``(B, Hkv, Lk,
-    D)``, from the shapes (and the window) alone: float32 takes
-    ``"f32"``; bfloat16 with ``G·Lq <= SPLIT_ROWS`` rows per KV head
-    ``"split"``, its splits cut from the first key a query sees; a
+         window: int = 0, dv: int | None = None) -> Plan:
+    """The variant for q ``(B, Hq, Lq, D)`` against k ``(B, Hkv, Lk, D)``
+    and v ``(B, Hkv, Lk, dv)`` (``dv`` defaults to D), from the shapes
+    (and the window) alone: float32 takes ``"f32"``; bfloat16 with ``dv
+    != D`` ``"mma"``; bfloat16 with ``G·Lq <= SPLIT_ROWS`` rows per KV
+    head ``"split"``, its splits cut from the first key a query sees; a
     longer bfloat16 call at a head dim in WGMMA_HEAD_DIMS ``"wgmma"``,
     unless k or v steps a dim by 0 (``tma_strides=False``), which TMA
     cannot; anything else ``"mma"``.  The 16-byte row alignment that
@@ -123,6 +131,8 @@ def plan(q_shape, k_shape, dtype, tma_strides: bool = True,
     hkv, lk = k_shape[1], k_shape[2]
     if dtype == torch.float32:
         return Plan("f32")
+    if dv is not None and dv != d:
+        return Plan("mma")
     if hq // hkv * lq <= SPLIT_ROWS:
         return _split(b, hkv, lk, first_key(lq, lk, window))
     if d in WGMMA_HEAD_DIMS and tma_strides:
@@ -150,9 +160,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
-    if k.shape != (b, hkv, lk, d) or v.shape != k.shape:
+    dv = v.shape[-1]
+    if k.shape != (b, hkv, lk, d) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
+    if dv != d and (d, dv) not in UNEQUAL_HEAD_DIMS:
+        raise ValueError(f"q/k head dim {d} with v head dim {dv}: the "
+                         f"kernels take equal head dims or the pairs "
+                         f"{UNEQUAL_HEAD_DIMS}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
     if lq < 1 or lk < 1 or (causal and lk < lq):
@@ -161,7 +176,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b > 65535 or hkv > 65535:
         raise ValueError(f"batch {b} x {hkv} KV heads is beyond the grid")
     if q.dtype == torch.bfloat16:
-        if d not in BF16_HEAD_DIMS:
+        if dv == d and d not in BF16_HEAD_DIMS:
             raise ValueError(f"bf16 head dim {d} not in {BF16_HEAD_DIMS}")
         for name, t in qkv:
             st = t.stride()
@@ -181,8 +196,11 @@ def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             window: int = 0) -> torch.Tensor:
     """Run plan ``p``'s kernel on checked inputs; count nothing."""
     b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
-    out = q.new_empty((b, hq, lq, d))
+    hkv, lk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if dv != d and p.variant not in ("mma", "f32"):
+        raise ValueError(f"the {p.variant} variant takes equal head dims, "
+                         f"not ({d}, {dv})")
+    out = q.new_empty((b, hq, lq, dv))
     # the raw handle of torch's current stream (what torch's own Triton
     # launcher reads: a fraction of current_stream()'s host time)
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
@@ -205,7 +223,7 @@ def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         err = _lib().ppf_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *qs[:3], *ks[:3], *vs[:3], b, hq, hkv, lq, lk, d,
+            *qs[:3], *ks[:3], *vs[:3], b, hq, hkv, lq, lk, d, dv,
             int(p.variant == "mma"), int(causal), window, scale, softcap,
             stream)
     if err != 0:
@@ -222,10 +240,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            scale: float | None = None,
                            logit_softcap: float = 0.0,
                            window: int = 0) -> torch.Tensor:
-    """B6 on the card: ``(B, Hq, Lq, D)`` attention output, contiguous, in
-    q's dtype, of CUDA ``q`` and ``k``/``v`` ``(B, Hkv, Lk, D)`` (strided
-    views with a contiguous last dim), through the kernel ``plan``
-    chooses.  ``scale`` defaults to ``1/sqrt(D)``; ``window > 0`` (causal
+    """B6 on the card: ``(B, Hq, Lq, Dv)`` attention output, contiguous,
+    in q's dtype, of CUDA ``q`` ``(B, Hq, Lq, D)``, ``k`` ``(B, Hkv, Lk,
+    D)`` and ``v`` ``(B, Hkv, Lk, Dv)`` (strided views with a contiguous
+    last dim; ``Dv`` is D or, for a pair in UNEQUAL_HEAD_DIMS, v's own),
+    through the kernel ``plan`` chooses.  ``scale`` defaults to ``1/sqrt(D)``; ``window > 0`` (causal
     calls) limits each query to its last ``window`` keys.
 
     A decode step is host-bound, so a signature (shapes, strides, dtypes,
@@ -239,7 +258,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if p is None or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         _check(q, k, v, causal, window)
         p = plan(q.shape, k.shape, q.dtype,
-                 0 not in k.stride() and 0 not in v.stride(), window)
+                 0 not in k.stride() and 0 not in v.stride(), window,
+                 v.shape[-1])
         if len(_CHECKED) >= 4096:
             _CHECKED.clear()
         _CHECKED[sig] = p

@@ -122,7 +122,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               logit_softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` GQA attention (B6), causal
     (with ``window > 0``: each query sees its last ``window`` keys) or
-    full.
+    full.  ``v`` is ``(B, Hkv, Lk, Dv)`` and the output ``(B, Hq, Lq,
+    Dv)``: Dv = D, or latent attention's (D, Dv) = (192, 128), which the
+    kernel takes (``flash_attention.UNEQUAL_HEAD_DIMS``).
 
     ``k``/``v`` may be strided views (a KV cache's ``[..., :pos+1, :]``).
     ``scale`` defaults to ``1/sqrt(D)`` as a Python float on both paths,

@@ -115,7 +115,10 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, scale: float | None = None,
             logit_softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """``(B, Hq, Lq, D) x (B, Hkv, Lk, D)`` GQA attention with a float32
-    softmax — the plain version of the flash-attention kernel (B6).
+    softmax — the plain version of the flash-attention kernel (B6).  ``v``
+    is ``(B, Hkv, Lk, Dv)`` with its own head dim (latent attention's
+    ``Dv <= D``, the reference's ``chunked_causal_attention`` of an M
+    layer) and the output ``(B, Hq, Lq, Dv)``.
 
     Query head ``h`` reads KV head ``h // (Hq // Hkv)``; a causal query
     ``i`` at position ``p = i + Lk - Lq`` (the decode offset) sees keys

@@ -20,7 +20,10 @@ and ``transition_sample`` flattens them into ``B·K`` rows for one
 and is written in place at the decode position (a recurrent layer's
 state and conv leaves are replaced by the step's); ``gather_state``
 gathers every leaf within each prompt's K particles.  All rows decode at
-one position (the prompts share their length).  Archs with
+one position (the prompts share their length).  A MoE layer routes each
+prompt's K rows on their own (``route_groups``, a group a prompt), as
+the reference's step, vmapped over prompts, does: the prompts of one
+call do not compete for an expert's capacity.  Archs with
 cross-attention or K codebooks are refused (``check_decodable``): the
 reference's adapter prefills without image inputs and draws one token a
 particle.
@@ -175,7 +178,8 @@ class LMDecodeSSM:
                         state["caches"])
         logits, flat = M.forward_decode(self.model,
                                         state["token"].reshape(rows, 1),
-                                        pos, flat)
+                                        pos, flat,
+                                        route_groups=rows // lead[-1])
         logits = logits[:, 0].float().reshape(lead + (-1,))
         p_log, q_log, tok = _proposal(self, draws, logits)
         tokens = state["tokens"].scatter(
@@ -231,7 +235,8 @@ def prefill_state(model: LMDecodeSSM, draws, prompts: torch.Tensor):
     first token.
 
     Every prompt is replicated over its K rows and the ``B·K`` rows are
-    prefilled in one call; the first token is drawn from the τ-flattened
+    prefilled in one call (a MoE layer routing each prompt's K rows on
+    their own, as the reference prefills a prompt at a time); the first token is drawn from the τ-flattened
     next-token distribution (one ``(K, V)`` Gumbel draw per prompt) and
     its increment ``p₀ − q₀`` folds into the weights.  Returns
     ``(state, log_weights (B, K), log_z0 (B,))``.
@@ -242,7 +247,8 @@ def prefill_state(model: LMDecodeSSM, draws, prompts: torch.Tensor):
     b, t0 = prompts.shape
     rep = prompts[:, None, :].expand(b, k_part, t0).reshape(b * k_part, t0)
     h_last, caches = M.forward_prefill(model.model, rep,
-                                       max_len=model.max_len)
+                                       max_len=model.max_len,
+                                       route_groups=b)
     logits = M.unembed(model.model, h_last)[:, 0].float()
     p_log, q_log, first = _proposal(model, draws,
                                     logits.reshape(b, k_part, -1))

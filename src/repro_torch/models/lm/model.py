@@ -3,14 +3,14 @@
 Layer kinds, as the reference names them:
 
   G — global causal attention            L — sliding-window attention
-  X — cross-attention to image tokens    R — RG-LRU recurrent block
-  D — Mamba-2 SSD block
+  M — multi-head latent attention        R — RG-LRU recurrent block
+  X — cross-attention to image tokens    D — Mamba-2 SSD block
 
-each with the reference's dense gated-MLP FFN (none after a ``D``
-layer), and the multi-codebook audio head (K summed codebook embeddings
-in, ``(B, T, K, V)`` logits out).  The ``M`` kind (latent attention),
-MoE FFNs and ``forward_train`` wait for ROADMAP A12 and raise
-``NotImplementedError``.
+each with the reference's FFN: the dense gated MLP, a mixture of
+experts (``moe``, past an arch's ``first_dense_layers``) or none (after
+a ``D`` layer); and the multi-codebook audio head (K summed codebook
+embeddings in, ``(B, T, K, V)`` logits out).  ``forward_train`` waits
+for the training slice (ROADMAP A12) and raises ``NotImplementedError``.
 
 The reference scans stacked parameters over layer groups and casts its
 float32 master weights to the compute dtype on every call
@@ -19,13 +19,22 @@ blocks, final norm, head, image projection) whose weights are held once
 in the compute dtype — the same numbers — and the scan is a loop over
 layers.  Caches are a list with one dict per layer: ``{"k", "v"}`` of
 ``(B, Hkv, max_len, hd)`` (G, L), ``{"xk", "xv"}`` of ``(B, Hkv,
-n_image, hd)`` (X, filled at prefill), ``{"rec", "conv"}`` (R: the
-float32 ``(B, W)`` state and the last ``conv_width - 1`` inputs) and
-``{"ssm", "conv"}`` (D).  ``forward_decode`` writes the new token's K/V
-into the attention caches in place (the reference's
+n_image, hd)`` (X, filled at prefill), ``{"c", "pe"}`` of ``(B, max_len,
+kv_lora_rank)`` and ``(B, max_len, qk_rope_dim)`` (M: the latent and the
+shared rotary key), ``{"rec", "conv"}`` (R: the float32 ``(B, W)`` state
+and the last ``conv_width - 1`` inputs) and ``{"ssm", "conv"}`` (D).
+``forward_decode`` writes the new token's K/V (M: its latent and rotary
+key) into the attention caches in place (the reference's
 ``dynamic_update_slice`` returns a new cache), so a decode step never
 copies a KV cache; the recurrent leaves are replaced by the step's new
 tensors.
+
+A MoE layer's aux diagnostics (load-balance loss, dropped fraction,
+largest expert load) are summed over the layers, as the reference's
+``_run_blocks`` sums them, into an ``aux`` dict the caller may pass to
+``forward_prefill`` or ``forward_decode``; their returns stay as they
+are.  ``route_groups`` splits the rows into equal groups that each
+route to the experts on their own (``moe.apply_moe``'s ``groups``).
 """
 from __future__ import annotations
 
@@ -36,11 +45,16 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as L
+from repro_torch.models.lm import mla as MLA
+from repro_torch.models.lm import moe as MOE
 from repro_torch.models.lm import rglru as RG
 from repro_torch.models.lm import ssm as SSM
 
-# the reference's name of each kind's mixer leaf in a layer's params
-MIXERS = {"G": "attn", "L": "attn", "X": "xattn", "R": "rglru", "D": "ssm"}
+# the reference's name of each kind's mixer leaf and each FFN's leaf in a
+# layer's params
+MIXERS = {"G": "attn", "L": "attn", "M": "mla", "X": "xattn", "R": "rglru",
+          "D": "ssm"}
+FFNS = {"dense": "mlp", "moe": "moe", "none": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,17 +95,13 @@ def make_plan(cfg: ArchConfig) -> LayerPlan:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A12 for the ``M``
-    kind and MoE FFNs."""
+    """Raise ``ValueError`` for a layer kind or FFN the reference does not
+    define (every one it defines is ported)."""
     for i, (kind, ffn) in enumerate(make_plan(cfg).layers()):
-        if kind not in MIXERS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is kind {kind!r}; the port runs G, "
-                f"L, X, R and D layers (M waits for ROADMAP A12)")
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} has a MoE FFN; MoE waits for "
-                f"ROADMAP A12")
+        if kind not in MIXERS or ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: layer {i} is a {kind!r} layer "
+                             f"with FFN {ffn!r}; the kinds are "
+                             f"{sorted(MIXERS)}, the FFNs {sorted(FFNS)}")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -99,31 +109,39 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 def _frozen_dict(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
+    """The reference's leaf dict as frozen parameters, a nested dict (a
+    MoE layer's ``shared`` MLP) as a nested ``ParameterDict``."""
+    return nn.ParameterDict({
+        k: _frozen_dict(v) if isinstance(v, dict) else _frozen(v)
+        for k, v in d.items()})
 
 
 class Block(nn.Module):
-    """One decoder layer of kind ``kind`` with FFN ``ffn`` (``"dense"``
-    or ``"none"``), from the reference's per-layer leaves: ``pre_norm``,
-    the mixer's dict under its reference name (``attn``, ``xattn`` with
-    the scalar ``xattn_gate``, ``rglru`` or ``ssm``), and for a dense FFN
-    ``ffn_norm`` and ``mlp``.  The mixer's weights are an attribute of
-    that name (``block.attn``, ...)."""
+    """One decoder layer of kind ``kind`` with FFN ``ffn`` (``"dense"``,
+    ``"moe"`` or ``"none"``), from the reference's per-layer leaves:
+    ``pre_norm``, the mixer's dict under its reference name (``attn``,
+    ``mla``, ``xattn`` with the scalar ``xattn_gate``, ``rglru`` or
+    ``ssm``), and for a dense or MoE FFN ``ffn_norm`` and ``mlp`` or
+    ``moe`` (the router, the experts' ``we_gate``/``we_up``/``we_down``
+    and, with shared experts, the ``shared`` MLP).  The mixer's and the
+    FFN's weights are attributes of those names (``block.attn``,
+    ``block.moe``, ...)."""
 
     def __init__(self, kind: str, ffn: str, leaves: dict):
         super().__init__()
         self.kind, self.ffn = kind, ffn
-        name = MIXERS[kind]
-        if name not in leaves or (ffn == "dense") != ("mlp" in leaves):
+        name, ffn_name = MIXERS[kind], FFNS[ffn]
+        if name not in leaves or any(
+                (f in leaves) != (f == ffn_name) for f in ("mlp", "moe")):
             raise ValueError(f"a {kind}/{ffn} layer with leaves "
                              f"{sorted(leaves)}")
         self.pre_norm = _frozen(leaves["pre_norm"])
         setattr(self, name, _frozen_dict(leaves[name]))
         if kind == "X":
             self.xattn_gate = _frozen(leaves["xattn_gate"])
-        if ffn == "dense":
+        if ffn_name is not None:
             self.ffn_norm = _frozen(leaves["ffn_norm"])
-            self.mlp = _frozen_dict(leaves["mlp"])
+            setattr(self, ffn_name, _frozen_dict(leaves[ffn_name]))
 
 
 class Decoder(nn.Module):
@@ -190,6 +208,8 @@ def init_params(cfg: ArchConfig, seed: int, *, device,
         if kind in ("G", "L", "X"):
             leaves[MIXERS[kind]] = L.attn_params(
                 g, d, cfg.n_heads, cfg.n_kv_heads, hd, cfg.qk_norm, dtype)
+        elif kind == "M":
+            leaves["mla"] = MLA.mla_params(g, d, cfg.n_heads, cfg.mla, dtype)
         elif kind == "R":
             leaves["rglru"] = RG.rglru_params(g, d, cfg.rglru, dtype)
         else:
@@ -199,6 +219,9 @@ def init_params(cfg: ArchConfig, seed: int, *, device,
         if ffn == "dense":
             leaves["ffn_norm"] = zeros(d)
             leaves["mlp"] = L.mlp_params(g, d, cfg.d_ff, dtype)
+        elif ffn == "moe":
+            leaves["ffn_norm"] = zeros(d)
+            leaves["moe"] = MOE.moe_params(g, d, cfg.moe, dtype)
         return Block(kind, ffn, leaves)
 
     books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
@@ -221,6 +244,9 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     if kind in ("G", "L"):
         shape = (batch, cfg.n_kv_heads, max_len, hd)
         return {"k": zeros(shape), "v": zeros(shape)}
+    if kind == "M":
+        return {"c": zeros((batch, max_len, cfg.mla.kv_lora_rank)),
+                "pe": zeros((batch, max_len, cfg.mla.qk_rope_dim))}
     if kind == "X":
         shape = (batch, cfg.n_kv_heads, cfg.n_image_tokens, hd)
         return {"xk": zeros(shape), "xv": zeros(shape)}
@@ -303,16 +329,52 @@ def _cross_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
     return gate * (o @ p["wo"])
 
 
+def _latent_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig,
+                      mode: str, cache: dict, positions: torch.Tensor,
+                      pos: int | None) -> torch.Tensor:
+    """An M layer's update: at prefill the decompressed attention (B6),
+    filling the latent cache; at decode the token's latent and rotary
+    key written at slot ``pos`` in place, then the absorbed decode."""
+    theta, eps = cfg.rope_theta, cfg.norm_eps
+    if mode != "decode":
+        return MLA.mla_attention(blk.mla, h, cfg.n_heads, cfg.mla,
+                                 positions=positions, theta=theta, eps=eps,
+                                 cache=cache)
+    c_new, pe_new = MLA.mla_compress(blk.mla, h, positions, theta, eps)
+    cache["c"][:, pos] = c_new[:, 0]
+    cache["pe"][:, pos] = pe_new[:, 0]
+    return MLA.mla_decode_absorbed(blk.mla, h, cfg.n_heads, cfg.mla,
+                                   c_cache=cache["c"], pe_cache=cache["pe"],
+                                   pos=pos, theta=theta, eps=eps)
+
+
+def _moe(blk: Block, h: torch.Tensor, cfg: ArchConfig, aux: dict | None,
+         groups: int) -> torch.Tensor:
+    """A MoE FFN's output; its aux values are added into ``aux``.  The
+    reference's ``dispatch="ep_shardmap"`` runs ``apply_moe`` on one
+    device (``repro/models/lm/moe.py:148-149``), and so does every
+    dispatch here."""
+    out, layer_aux = MOE.apply_moe(blk.moe, h, cfg.moe, groups)
+    if aux is not None:
+        for name, v in layer_aux.items():
+            aux[name] = aux[name] + v if name in aux else v
+    return out
+
+
 def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
                    cache: dict, positions: torch.Tensor, pos: int | None,
-                   img: torch.Tensor | None) -> torch.Tensor:
-    """One layer; fills (prefill) or extends (decode) ``cache``.  Returns
-    the new residual stream."""
+                   img: torch.Tensor | None, aux: dict | None = None,
+                   groups: int = 1) -> torch.Tensor:
+    """One layer; fills (prefill) or extends (decode) ``cache`` and adds a
+    MoE FFN's aux values into ``aux``.  Returns the new residual
+    stream."""
     eps = cfg.norm_eps
     h = L.rms_norm(x, blk.pre_norm, eps)
     if blk.kind in ("G", "L"):
         x = x + _attention(blk, h, cfg, mode, cache, positions, pos) \
             @ blk.attn["wo"]
+    elif blk.kind == "M":
+        x = x + _latent_attention(blk, h, cfg, mode, cache, positions, pos)
     elif blk.kind == "X":
         x = x + _cross_attention(blk, h, cfg, mode, cache, img)
     elif blk.kind == "R":
@@ -342,6 +404,9 @@ def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
     if blk.ffn == "dense":
         hf = L.rms_norm(x, blk.ffn_norm, eps)
         x = x + L.apply_mlp(blk.mlp, hf)
+    elif blk.ffn == "moe":
+        hf = L.rms_norm(x, blk.ffn_norm, eps)
+        x = x + _moe(blk, hf, cfg, aux, groups)
     return x
 
 
@@ -379,12 +444,17 @@ def forward_train(model: Decoder, tokens: torch.Tensor, img=None):
 
 
 def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,
-                    img: torch.Tensor | None = None
+                    img: torch.Tensor | None = None, *,
+                    aux: dict | None = None, route_groups: int = 1
                     ) -> tuple[torch.Tensor, list[dict]]:
     """``tokens`` ``(B, T)`` (``(B, T, K)`` with K codebooks) → the
     final-normed last hidden state ``(B, 1, D)`` and caches of ``max_len``
     slots holding positions ``0..T-1``.  An arch with cross-attention
-    takes ``img``, ``(B, n_image, d_image)`` image embeddings."""
+    takes ``img``, ``(B, n_image, d_image)`` image embeddings.  The MoE
+    layers' aux values, summed over the layers, are added into ``aux``;
+    with ``route_groups`` > 1 the B rows form that many equal groups,
+    each routed to the experts on its own (the aux values then
+    ``(route_groups,)``)."""
     cfg = model.cfg
     b, t = tokens.shape[:2]
     caches = init_caches(cfg, b, max_len, device=model.device,
@@ -395,23 +465,25 @@ def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,
         img = img.to(x.dtype) @ model.img_proj
     for blk, cache in zip(model.blocks, caches):
         x = _block_forward(blk, x, cfg, "prefill", cache, positions, None,
-                           img)
+                           img, aux, route_groups)
     x = L.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
     return x, caches
 
 
 def forward_decode(model: Decoder, tokens: torch.Tensor, pos: int,
-                   caches: list[dict]) -> tuple[torch.Tensor, list[dict]]:
+                   caches: list[dict], *, aux: dict | None = None,
+                   route_groups: int = 1) -> tuple[torch.Tensor, list[dict]]:
     """``tokens`` ``(B, 1)`` (``(B, 1, K)``) at position ``pos`` against
-    ``caches`` → logits ``(B, 1, V)`` (``(B, 1, K, V)``); the KV caches
-    gain slot ``pos`` in place, the recurrent leaves are replaced, and
-    the caches are returned."""
+    ``caches`` → logits ``(B, 1, V)`` (``(B, 1, K, V)``); the KV and
+    latent caches gain slot ``pos`` in place, the recurrent leaves are
+    replaced, and the caches are returned.  ``aux`` and ``route_groups``
+    are ``forward_prefill``'s."""
     cfg = model.cfg
     pos = int(pos)
     x = _embed(model, tokens)
     positions = torch.full((1,), pos, dtype=torch.int32, device=model.device)
     for blk, cache in zip(model.blocks, caches):
         x = _block_forward(blk, x, cfg, "decode", cache, positions, pos,
-                           None)
+                           None, aux, route_groups)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return unembed(model, x), caches

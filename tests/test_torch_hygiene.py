@@ -244,17 +244,27 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "moonshot-v1-16b-a3b"])
 def test_unported_layer_kinds_raise(arch):
-    """The archs with an M layer or a MoE FFN raise, naming the ROADMAP
-    item, from both ways of building a decoder."""
+    """The archs with an M layer or a MoE FFN (refused until the latent
+    attention and MoE slice; the test keeps its name) now build from both
+    ways of building a decoder, with their M/MoE leaves; what still
+    raises, naming the ROADMAP item, is ``forward_train``."""
+    import jax
     from repro.configs import get_config as ref_config
+    from repro.models.lm import model as ref_model
     from repro_torch.models.lm import model as lm
-    cfg = convert.arch_config(dataclasses.asdict(ref_config(arch, smoke=True)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        lm.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        convert.lm_params({"embed": np.zeros((2, 2)), "blocks": {
-            "l0_M_moe": {"pre_norm": np.zeros((1, 2))}},
-            "final_norm": np.zeros(2)}, cfg)
+    ref_cfg = ref_config(arch, smoke=True)
+    cfg = convert.arch_config(dataclasses.asdict(ref_cfg))
+    params = jax.tree_util.tree_map(
+        np.asarray, ref_model.init_params(jax.random.key(0), ref_cfg))
+    for model in (lm.init_params(cfg, 0, device="cpu"),
+                  convert.lm_params(params, cfg)):
+        assert [(b.kind, b.ffn) for b in model.blocks] == list(
+            lm.make_plan(cfg).layers())
+        assert all(hasattr(b, "moe") for b in model.blocks[1:])
+        assert all(hasattr(b, "mla") == (arch == "deepseek-v2-236b")
+                   for b in model.blocks)
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            lm.forward_train(model, torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_sliding_window_training_and_sessions_raise():
@@ -336,10 +346,15 @@ def _qkv(b=1, hq=4, hkv=2, lq=3, lk=5, d=16, dtype=torch.bfloat16):
     ("misaligned", ValueError, "16-byte aligned"),
     ("strided_last", ValueError, "last dim"),
     ("cpu", ValueError, "CUDA"),
+    ("v_wider", ValueError, "v head dim 32"),
+    ("unserved_pair", ValueError, "v head dim 64"),
 ])
 def test_attention_kernel_refuses_what_it_does_not_take(case, error, match):
     """The flash-attention wrapper checks its arguments before it loads
-    anything, and the device last: every refusal shows on CPU tensors."""
+    anything, and the device last: every refusal shows on CPU tensors.
+    A v head dim other than q's is taken only for the pairs the kernels
+    serve (latent attention's (192, 128)): not wider than q's, and not
+    (128, 64)."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     q, k, v = _qkv()
     if case == "dtype":
@@ -358,6 +373,11 @@ def test_attention_kernel_refuses_what_it_does_not_take(case, error, match):
         k = torch.zeros(1, 2, 5, 17, dtype=torch.bfloat16)[..., 1:]
     elif case == "strided_last":
         q = q.transpose(2, 3)
+    elif case == "v_wider":
+        v = _qkv(d=32)[2]
+    elif case == "unserved_pair":
+        q, k, _ = _qkv(d=128)
+        v = _qkv(d=64)[2]
     with pytest.raises(error, match=match):
         flash_attention_kernel(q, k, v)
     assert not build._LIBS

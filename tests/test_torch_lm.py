@@ -83,10 +83,12 @@ def test_arch_configs_carry_across():
             cfg))) == dataclasses.asdict(cfg))
     assert tget("qwen3-32b").resolved_head_dim == 128
     # the port registers every arch whose layer kinds it runs
-    # (tests/test_torch_lm_kinds.py holds the other five)
+    # (tests/test_torch_lm_kinds.py holds the other five,
+    # tests/test_torch_lm_moe.py the latent-attention and MoE two)
     assert sorted(tlist()) == sorted(ARCHS + [
         "gemma3-27b", "llama-3.2-vision-11b", "mamba2-1.3b",
-        "musicgen-medium", "recurrentgemma-2b"])
+        "musicgen-medium", "recurrentgemma-2b", "deepseek-v2-236b",
+        "moonshot-v1-16b-a3b"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -15,9 +15,12 @@ show in the top kernels), the FilterBank of 4 members × 2^25 over the
 same mesh (``bank-mesh-rna``, ``bank-mesh-rpa``: 2^27 particles, the
 transition's ``cat`` and the gathers the rows to watch), ASIR on a
 256 × 256 × 4 lattice at N = 2^22 (``asir``, fused), all on 512×512
-frames, and the LM serving cells at
+frames, the LM serving cells at
 qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
-chip_smoke.py's sizes) — it runs the path once to warm up, then once
+chip_smoke.py's sizes) and phase 5k's (``moe-deepseek-*`` and
+``moe-moonshot-*``: 4 and 16 layers at full width, one decoder held at
+a time; each also splits its device time by region: the M layers'
+prefill and absorbed decode and the MoE FFNs, ``REGIONS``) — it runs the path once to warm up, then once
 under ``torch.profiler`` (``--frames`` frames of a filter; one whole
 call of an LM cell) and prints the wall time per frame or call, the
 device busy share (the sum of kernel times over the wall time: one
@@ -41,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -82,6 +86,15 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _device_total_us(evt) -> float:
+    """A range's device time, its children's kernels included."""
+    for name in ("device_time_total", "cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
 def lm_runs(dev) -> dict:
     """The LM cells at chip_smoke.py's sizes, sharing one decoder that is
     drawn when the first of them runs."""
@@ -109,6 +122,82 @@ def lm_runs(dev) -> dict:
 
     return {"lm-generate": (gen, 1, "call"),
             "lm-smc-decode": (smc, 1, "call")}
+
+
+# phase 5k's regions: (module, function) -> the profiler range its calls
+# are recorded under, so a MoE cell's device time splits by layer part
+REGIONS = {("mla", "mla_attention"): "mla prefill",
+           ("mla", "mla_decode_absorbed"): "mla absorbed decode",
+           ("moe", "apply_moe"): "moe ffn"}
+
+
+def moe_runs(dev) -> dict:
+    """Phase 5k's cells at chip_smoke.py's sizes and seeds (``MOE``):
+    ``generate`` and ``smc_decode`` of each arch, one decoder held at a
+    time (the previous one freed first)."""
+    import chip_smoke as cs
+    import torch
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve import SMCDecodeConfig, generate, smc_decode
+    held = {}
+
+    def setup(arch):
+        if held.get("arch") != arch:
+            held.clear()
+            torch.cuda.empty_cache()
+            i = list(cs.MOE).index(arch)
+            cfg = cs.kinds_config(arch)
+            g = torch.Generator(device=dev)
+            g.manual_seed(cs.MOE_SEED + 100 + i)
+            held.update(arch=arch, key=cs.MOE_SEED + 200 + i,
+                        model=M.init_params(cfg, cs.MOE_SEED + i, device=dev))
+            held["prompt"] = torch.randint(
+                cfg.vocab_size, (cs.LM_BATCH, cs.MOE[arch][1]), generator=g,
+                device=dev)
+        return held["model"], held["prompt"]
+
+    runs = {}
+    for arch in cs.MOE:
+        short = arch.split("-")[0]
+
+        def gen(arch=arch):
+            model, prompt = setup(arch)
+            return lambda: generate(model, prompt, steps=cs.LM_STEPS)
+
+        def smc(arch=arch):
+            model, prompt = setup(arch)
+            knobs = SMCDecodeConfig(n_particles=cs.LM_K, steps=cs.LM_STEPS,
+                                    proposal_temperature=cs.LM_TAU)
+            return lambda: smc_decode(model, prompt, knobs, key=held["key"])
+
+        runs[f"moe-{short}-generate"] = (gen, 1, "call")
+        runs[f"moe-{short}-smc-decode"] = (smc, 1, "call")
+    return runs
+
+
+class Regions:
+    """While entered, the ``REGIONS`` functions run inside profiler
+    ranges of their names (the model calls them through their modules'
+    attributes, so the wrappers see every call)."""
+
+    def __enter__(self):
+        import importlib
+        from torch.profiler import record_function
+        self.saved = []
+        for (mod, fn), label in REGIONS.items():
+            m = importlib.import_module(f"repro_torch.models.lm.{mod}")
+            real = getattr(m, fn)
+
+            def wrapped(*a, _real=real, _label=label, **kw):
+                with record_function(_label):
+                    return _real(*a, **kw)
+            self.saved.append((m, fn, real))
+            setattr(m, fn, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, real in self.saved:
+            setattr(m, fn, real)
 
 
 PASS_CALLS = 10
@@ -244,6 +333,7 @@ def main() -> int:
         return lambda: pf.run(1, frames)
     runs["asir"] = (asir, args.frames, "frame")
     runs.update(lm_runs(dev))
+    runs.update(moe_runs(dev))
     runs.update(pass_runs(dev))
     record = {"card": name, "frames": args.frames, "paths": {}}
     for label, (make, per, unit) in runs.items():
@@ -252,15 +342,20 @@ def main() -> int:
         fn = make()
         fn()                                           # warm-up (and build)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with Regions() if label.startswith("moe-") else nullcontext(), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        # device events, less the ranges of ``Regions`` (the profiler also
+        # records each as a device-side annotation spanning its kernels)
         kernels = [e for e in prof.key_averages()
                    if e.device_type is not None
-                   and "CUDA" in str(e.device_type) and _device_us(e) > 0]
+                   and "CUDA" in str(e.device_type) and _device_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.key not in REGIONS.values()]
         busy_us = sum(_device_us(e) for e in kernels)
         top = sorted(kernels, key=_device_us, reverse=True)[:12]
         groups, launches = {}, {}
@@ -270,7 +365,14 @@ def main() -> int:
                 groups[g] = groups.get(g, 0.0) + _device_us(e) / 1e3 / per
                 launches[g] = launches.get(g, 0) + e.count
         ms_frame = wall * 1e3 / per
-        rec = {"unit": unit, "ms_per_unit": ms_frame,
+        # a region's host-side range: the kernels launched inside it
+        regions = {e.key: {"calls": e.count,
+                           "device_ms_per_unit": _device_total_us(e) / 1e3
+                           / per}
+                   for e in prof.key_averages()
+                   if e.key in REGIONS.values()
+                   and "CPU" in str(e.device_type)}
+        rec = {"unit": unit, "ms_per_unit": ms_frame, "regions": regions,
                "device_busy_ms_per_unit": busy_us / 1e3 / per,
                "device_busy_share": busy_us / 1e6 / wall,
                "top": [{"kernel": e.key[:90], "calls": e.count,
@@ -288,6 +390,9 @@ def main() -> int:
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"    port kernel {g}: {ms:.4f} ms/{unit} "
                   f"({launches[g]} launches)")
+        for r, v in regions.items():
+            print(f"    region {r}: {v['device_ms_per_unit']:.4f} ms/{unit}"
+                  f" of device time ({v['calls']} calls) [{name}]")
         if unit == "frame":
             b3, cs = "B3 (patch_likelihood.cu)", "comb scan (comb_scan.cu)"
             b1, rs = "B1 (resample.cu)", "row sum (row_sum.cu)"
