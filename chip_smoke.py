@@ -105,10 +105,27 @@
    shard and the ensemble gathered from the rank files bit for bit 5c's
    runs; each rank launches B3 and B1 (RNA) or the comb scan (RPA) once a
    frame and the row sum as often a frame as 5c (5f for the bank).  Then
-   the nccl transport at world size 1 (``launch.mesh.spawn``): every verb
-   bit for bit ``EmulatedMesh(1)``'s.  Frames/s (contention of 8
-   processes on one card), staged bytes a frame and the phase's seconds
-   are printed, not gated; a failed rank fails the script;
+   proc-grid-bank-rna: the 8 ranks as a (2, 4) (bank, data) grid
+   (``--grid 2x4``) running a 4-member RNA bank at 4 x 2^22 particles a
+   member with ``bank_axis`` (2 members x 2^22 a rank; member 0 on 5c's
+   seed) and RNA alone on the data axis: every rank's outputs, diag and
+   final shard bit for bit an in-process ``make_mesh((2, 4))`` run of the
+   bank on the card, that run bit for bit the bank on ``EmulatedMesh(4)``
+   (5f's rule), the filter on the data axis bit for bit member 0; each
+   rank launches B3 and B1 once a frame and the row sum as often as 5f's
+   bank-mesh-rna (5c's RNA for the filter).  Then the nccl transport at
+   world size 1 (``launch.mesh.spawn``): every verb bit for bit
+   ``EmulatedMesh(1)``'s, and every verb on both axes of a (1, 1) process
+   grid's sub-groups too.  After 5h, proc-sessions: 4 gloo ranks
+   (``launch.mesh.spawn``) on the bank axis serve 5h's 12 tracking
+   sessions of 2^22 at capacity 8 (2 slots a rank) under 5h's churn,
+   composed: every session bit for bit its standalone filter of 5h on
+   every rank, session 5 suspended on the ranks at tick 30 and finished
+   on an in-process single-device server bit for bit, one B3 and one comb
+   scan a tick on every rank.  Frames/s and ticks/s (contention of the
+   ranks on one card, not a multi-card rate), staged bytes a frame and
+   the phase's seconds are printed, not gated; a failed rank fails the
+   script;
 5g. runs the rest of the filter layer: ASIR on a 256 x 256 x 4 lattice
    (one B3 launch over its 262,144 rows and one B2 launch a frame, RMSE
    within 2.5 px of phase 3's exact filter for each of its 8 seeds);
@@ -2810,6 +2827,15 @@ def run_bank_mesh(dev, model, movie, dras, replicated, all_k, reset, counts,
 
 # 5c's mesh as processes: 8 ranks of 2^22 particles on the one card
 PROC_P, PROC_C = 8, 2 ** 22
+# proc-grid-bank-rna: the 8 ranks as a (bank, data) grid, GRID_B members of
+# GRID_SHAPE[1] x 2^22 particles each (2 members x 2^22 a rank); the
+# emulated reference holds GRID_B x 2^24 = 2^26 particles, half of 5f's
+GRID_SHAPE, GRID_B = (2, 4), 4
+GRID_N = GRID_SHAPE[1] * PROC_C
+# proc-sessions: 5h's sessions on SESS_RANKS ranks of the bank axis;
+# session SESS_OUT leaves the ranks (suspended) at tick SESS_OUT_AT and
+# finishes on a single-device server
+SESS_RANKS, SESS_OUT, SESS_OUT_AT = 4, 5, 30
 
 def run_group(cmd, env, timeout: float, log_path: str) -> None:
     """Run ``cmd`` (``torchrun`` and its ranks) in a session of its own,
@@ -2855,6 +2881,7 @@ def run_processes(dev, movie, replicated, row_sum_cells, name) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.runtime import EmulatedMesh
+    from repro_torch.launch import grid as launch_grid
     from repro_torch.launch import mesh as launch_mesh
     t_phase = time.perf_counter()
     p, particles = PROC_P, PROC_P * PROC_C
@@ -2958,11 +2985,278 @@ def run_processes(dev, movie, replicated, row_sum_cells, name) -> dict:
                                      f"EmulatedMesh(1)")
     log(f"5i nccl transport, world size 1: {len(want)} verb results "
         f"bitwise == EmulatedMesh(1) [{name}]")
+    # the same on a (1, 1) process grid: each axis's sub-group
+    grid_inputs = {"bank": [inputs], "data": [launch_mesh.verb_inputs(1, 1)]}
+    got = launch_mesh.spawn(launch_grid.grid_checks, 1, ({
+        "axis_shapes": (1, 1), "axis_names": ("bank", "data"),
+        "verbs": grid_inputs}, "cuda"), transport="nccl", deadline=300)[0]
+    for axis, ins in grid_inputs.items():
+        want_g = launch_mesh.verbs(EmulatedMesh(1), ins[0], dev)
+        check(set(got["verbs"][axis]) == set(want_g),
+              f"5i nccl grid verbs on {axis}: {sorted(got['verbs'][axis])}")
+        for k, v in want_g.items():
+            check(same_bits(got["verbs"][axis][k], v),
+                  f"5i nccl grid verb {k} on {axis} differs from "
+                  f"EmulatedMesh(1)")
+    log(f"5i nccl transport, a (1, 1) process grid: {len(want)} verbs on "
+        f"each axis's sub-group bitwise == EmulatedMesh(1) [{name}]")
+    t0 = time.perf_counter()
+    grid = run_proc_grid(dev, movie, row_sum_cells, tmp, env, name)
+    runs.update(grid.pop("runs"))
     seconds = time.perf_counter() - t_phase
-    log(f"5i: torchrun {t_run:.1f} s, phase {seconds:.1f} s [{name}]")
+    log(f"5i: torchrun {t_run:.1f} s, grid {time.perf_counter() - t0:.1f} "
+        f"s, phase {seconds:.1f} s [{name}]")
     return {"p": p, "particles": particles, "runs": runs,
             "torchrun_seconds": t_run, "seconds": seconds,
-            "nccl_verbs": sorted(want)}
+            "nccl_verbs": sorted(want), "grid": grid}
+
+
+def run_proc_grid(dev, movie, row_sum_cells, tmp, env, name) -> dict:
+    """5i's proc-grid-bank-rna: ``launch.track --grid 2x4`` on 8 gloo
+    ranks, a GRID_B-member RNA bank with ``bank_axis`` and RNA alone on the
+    data axis, held to the same bank on an emulated (2, 4) grid in this
+    process (itself held to the bank on ``EmulatedMesh(4)``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.runtime import EmulatedMesh, make_mesh
+    from repro_torch.launch import track as launch_track
+    p = math.prod(GRID_SHAPE)
+    per = GRID_B // GRID_SHAPE[0]
+    seeds = [1 + i for i in range(GRID_B)]
+    frames = movie.frames.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = launch_track.run(make_mesh(GRID_SHAPE, ("bank", "data")), frames,
+                            "rna", GRID_N, bank=seeds, bank_axis="bank",
+                            device=dev)
+    flat = launch_track.run(EmulatedMesh(GRID_SHAPE[1]), frames, "rna",
+                            GRID_N, bank=seeds, device=dev)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    t_ref = time.perf_counter() - t0
+    for f in ("estimates", "ess", "log_marginal", "resampled"):
+        check(same_bits(flat[f], want[f]), f"5i grid: emulated grid bank {f} "
+                                           f"differs from EmulatedMesh(4)'s")
+    for k, v in want["diag"].items():
+        check(same_bits(flat["diag"][k], v), f"5i grid: emulated grid bank "
+                                             f"diag {k} differs")
+    for f, v in want["final"].items():
+        check(same_bits(flat["final"][f], v), f"5i grid: emulated grid bank "
+                                              f"final {f} differs")
+    check(want["launches"]["patch_log_likelihood"] == FRAMES
+          and want["launches"]["systematic_ancestors"] == FRAMES,
+          f"5i grid: emulated launches {want['launches']}")
+    del flat
+    movie_path = os.path.join(tmp, "grid-movie.npy")
+    np.save(movie_path, frames)
+    out_dir = os.path.join(tmp, "grid-out")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(p), "-m", "repro_torch.launch.track",
+           "--transport", "gloo", "--device", dev.type, "--dra", "rna",
+           "--bank", str(GRID_B), "--grid",
+           "x".join(map(str, GRID_SHAPE)), "--particles", str(GRID_N),
+           "--frames", str(FRAMES), "--seed", "1", "--movie", movie_path,
+           "--out", out_dir]
+    t0 = time.perf_counter()
+    try:
+        run_group(cmd, env, 900, os.path.join(tmp, "torchrun-grid.log"))
+        t_run = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(p)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.remove(movie_path)
+    want_launch = {
+        "grid-rna": {"patch_log_likelihood": FRAMES,
+                     "systematic_ancestors": FRAMES, "prefix_sum": 0,
+                     "row_sum": round(row_sum_cells["rna"] * FRAMES)},
+        "grid-bank-rna": {"patch_log_likelihood": FRAMES,
+                          "systematic_ancestors": FRAMES, "prefix_sum": 0,
+                          "row_sum": round(row_sum_cells["bank-mesh-rna"]
+                                           * FRAMES)}}
+    runs = {}
+    for label, launches in want_launch.items():
+        bank = label == "grid-bank-rna"
+        member = (lambda x: x) if bank else (lambda x: x[0])
+        for r, rec in enumerate(ranks):
+            b, d = divmod(r, GRID_SHAPE[1])
+            check((rec["rank"], rec["world"], rec["transport"])
+                  == (r, p, "gloo"), f"5i grid rank file {r}")
+            got = rec["runs"]["bank-rna" if bank else "rna"]
+            for f in ("estimates", "ess", "log_marginal", "resampled"):
+                check(same_bits(got[f], member(want[f])),
+                      f"5i {label} rank {r}: {f} differs from the emulated "
+                      f"grid")
+            check(set(got["diag"]) == set(want["diag"]),
+                  f"5i {label} rank {r}: diag keys {sorted(got['diag'])}")
+            for k, v in want["diag"].items():
+                check(same_bits(got["diag"][k], member(v)),
+                      f"5i {label} rank {r}: diag {k} differs")
+            for f, v in want["final"].items():
+                # (B, P, C, ...): the rank's members (member 0 for the
+                # filter) on its data shard
+                mine = v[b * per:(b + 1) * per, d:d + 1] if bank \
+                    else v[0, d:d + 1]
+                check(same_bits(got["final"][f], mine),
+                      f"5i {label} rank {r}: final {f} differs")
+            check(got["launches"] == launches,
+                  f"5i {label} rank {r}: launches {got['launches']}, want "
+                  f"{launches}")
+        key = "bank-rna" if bank else "rna"
+        secs = [rec["runs"][key]["seconds"] for rec in ranks]
+        staged = [rec["runs"][key]["staged_bytes"] for rec in ranks]
+        runs[label] = {
+            "launches_per_rank": launches, "frames_per_s": FRAMES / max(secs),
+            "rank_seconds": secs,
+            "staged_bytes_per_frame_per_rank": [x / FRAMES for x in staged],
+            "staged_bytes_per_frame": sum(staged) / FRAMES}
+        log(f"5i proc-{label} on a {GRID_SHAPE} (bank, data) grid of {p} "
+            f"gloo ranks on one card, "
+            f"{'2 members x ' if bank else ''}2^22 particles a rank: every "
+            f"rank bitwise == the emulated grid"
+            f"{'' if bank else ' bank member 0'}, launches a rank "
+            f"{launches}, {FRAMES / max(secs):.3f} frames/s (contention of "
+            f"{p} processes on one card), staged "
+            f"{sum(staged) / FRAMES:.0f} B a frame in all [{name}]")
+    log(f"5i grid: emulated references (grid and EmulatedMesh(4), "
+        f"{GRID_B} x 2^{GRID_N.bit_length() - 1}) {t_ref:.1f} s, peak "
+        f"{peak:.2f} GiB above the script's own; torchrun {t_run:.1f} s "
+        f"[{name}]")
+    return {"runs": runs, "reference_seconds": t_ref, "reference_peak_gib":
+            peak, "torchrun_seconds": t_run}
+
+
+def proc_session_ops() -> list:
+    """5h's churn as a ``launch.grid.serve_ops`` script for the process
+    server: the sessions attach at SERVE_STARTS (seeds 900 + i), session
+    2 is suspended at tick 20 and resumed on the same server at 26 (5h's
+    schedule), session SESS_OUT is suspended at tick SESS_OUT_AT and
+    leaves; each finished session's result is kept, then it detaches."""
+    ops, fed, live, left = [], {}, set(), set(range(len(SERVE_STARTS)))
+    left.discard(SESS_OUT)
+    tick = 0
+    while left:
+        for i, start in enumerate(SERVE_STARTS):
+            if tick == start:
+                ops.append(("attach", i, 900 + i))
+                live.add(i)
+                fed[i] = 0
+        if tick == SERVE_SUSPEND[2][0]:
+            ops.append(("suspend", 2))
+            live.discard(2)
+        if tick == SERVE_SUSPEND[2][1]:
+            ops.append(("resume", 2, None))
+            live.add(2)
+        if tick == SESS_OUT_AT:
+            ops.append(("suspend", SESS_OUT))
+            live.discard(SESS_OUT)
+        for i in sorted(live):
+            ops.append(("submit", i, fed[i]))
+            fed[i] += 1
+        ops.append(("step",))
+        for i in sorted(live):
+            if fed[i] == FRAMES:
+                ops.append(("result", i))
+                live.discard(i)
+                left.discard(i)
+        tick += 1
+    return ops
+
+
+def run_proc_sessions(dev, model, solo, name) -> dict:
+    """5i's proc-sessions (run after 5h, whose composed standalone filters
+    it is held to): ``ParticleSessionServer`` over SESS_RANKS spawned gloo
+    ranks on the bank axis, capacity SERVE_CAP (2 slots a rank), 5h's 12
+    tracking sessions of SERVE_N particles, composed, under 5h's churn.
+    Every session on every rank bit for bit its standalone filter (the
+    final ensemble by digest); session SESS_OUT, suspended on the ranks
+    (the same bits on each), finishes on a single-device server in this
+    process bit for bit; each rank launches one B3 and one comb scan a
+    tick."""
+    import torch
+    from repro_torch.core import SIRConfig
+    from repro_torch.launch import grid as launch_grid
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.serve import ParticleSessionServer
+    t_phase = time.perf_counter()
+    sir = {"n_particles": SERVE_N, "ess_frac": 0.5,
+           "step_backend": "composed"}
+    case = {"tracking": {}, "n_frames": FRAMES,
+            "movies": {i: 50 + i for i in range(len(SERVE_STARTS))},
+            "sir": sir, "capacity": SERVE_CAP, "bank_axis": "bank",
+            "ops": proc_session_ops(), "digest": True}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ranks = launch_mesh.spawn(launch_grid.grid_checks, SESS_RANKS, ({
+        "axis_shapes": (SESS_RANKS,), "axis_names": ("bank",),
+        "sessions": [case]}, dev.type), transport="gloo", deadline=600,
+        timeout=300)
+    outs = [rank["sessions"][0] for rank in ranks]
+    ticks = outs[0]["ticks"]
+    want_launch = {"patch_log_likelihood": ticks,
+                   "systematic_ancestors": 0, "prefix_sum": ticks}
+    for r, got in enumerate(outs):
+        check(got["ticks"] == ticks and got["step_traces"] == 1
+              and got["tiers"] == (SERVE_CAP,),
+              f"5i proc-sessions rank {r}: ticks {got['ticks']}, step "
+              f"programs {got['step_traces']}, tiers {got['tiers']}")
+        check(set(got["results"]) == set(solo) - {SESS_OUT},
+              f"5i proc-sessions rank {r}: results {sorted(got['results'])}")
+        for i, res in got["results"].items():
+            for f in ("estimates", "ess", "log_marginal", "resampled"):
+                check(same_bits(res[f], solo[i][f]),
+                      f"5i proc-sessions rank {r}: session {i} {f} differs "
+                      f"from its standalone filter")
+            check(res["final"] == solo[i]["final"],
+                  f"5i proc-sessions rank {r}: session {i} final ensemble "
+                  f"differs from its standalone filter")
+        launches = {k: got["launches"][k] for k in want_launch}
+        check(launches == want_launch,
+              f"5i proc-sessions rank {r}: launches {launches}, want "
+              f"{want_launch} (one a tick)")
+        check(got["suspended_digest"] == outs[0]["suspended_digest"],
+              f"5i proc-sessions rank {r}: suspended session differs from "
+              f"rank 0's")
+    # session SESS_OUT, suspended on the ranks, finishes on one device
+    sus = outs[0]["suspended"][SESS_OUT]
+    movie = make_movie(50 + SESS_OUT, model.cfg, dev)
+    srv = ParticleSessionServer(model, SIRConfig(**sir), capacity=1)
+    h = srv.resume(sus)
+    for k in range(sus.frames_done, FRAMES):
+        srv.submit(h, movie.frames[k])
+    res = srv.result(h)
+    for f in ("estimates", "ess", "log_marginal", "resampled"):
+        check(same_bits(getattr(res, f), solo[SESS_OUT][f]),
+              f"5i proc-sessions: session {SESS_OUT} resumed on one device: "
+              f"{f} differs from its standalone filter")
+    check(launch_grid.digest({f: getattr(res.final, f) for f in (
+        "state", "log_weights", "counts")}) == solo[SESS_OUT]["final"],
+          f"5i proc-sessions: session {SESS_OUT} resumed on one device: "
+          f"final ensemble differs")
+    del srv, res, movie, sus
+    secs = [got["seconds"] for got in outs]
+    staged = [rank["staged_bytes"] for rank in ranks]
+    frames_done = sum(op[0] == "submit" for op in case["ops"])
+    rec = {"ranks": SESS_RANKS, "ticks": ticks,
+           "launches_per_rank": want_launch, "rank_seconds": secs,
+           "ticks_per_s": ticks / max(secs),
+           "session_frames_per_s": frames_done / max(secs),
+           "staged_bytes_per_tick": sum(staged) / ticks,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"5i proc-sessions: {len(solo)} x 2^{SERVE_N.bit_length() - 1} "
+        f"sessions on {SESS_RANKS} gloo ranks of the bank axis (capacity "
+        f"{SERVE_CAP}, 2 slots a rank), 5h's churn: every session on every "
+        f"rank bitwise == its standalone filter, session {SESS_OUT} "
+        f"suspended on the ranks at tick {SESS_OUT_AT} and finished on one "
+        f"device bitwise; {ticks} ticks, launches a rank {want_launch}; "
+        f"{rec['ticks_per_s']:.2f} ticks/s, {rec['session_frames_per_s']:.2f}"
+        f" session frames/s (contention of {SESS_RANKS} processes on one "
+        f"card), staged {rec['staged_bytes_per_tick']:.0f} B a tick in all, "
+        f"phase {rec['seconds']:.1f} s [{name}]")
+    return rec
 
 
 def stepwise(model, sir, seed, zs, dev):
@@ -3442,6 +3736,7 @@ def serve_sessions(model, backend, movies, all_k, reset, counts, rsum_k,
     or comb scan (composed) a tick for the whole tier."""
     import torch
     from repro_torch.core import ParallelParticleFilter, SIRConfig
+    from repro_torch.launch import grid as launch_grid
     from repro_torch.serve import ParticleSessionServer
     sir = SIRConfig(n_particles=SERVE_N, ess_frac=0.5, step_backend=backend)
     seeds = [900 + i for i in range(len(SERVE_STARTS))]
@@ -3496,9 +3791,15 @@ def serve_sessions(model, backend, movies, all_k, reset, counts, rsum_k,
               f"sessions {backend}: {server_i.step_traces} step programs "
               f"for tiers {server_i.tiers}")
     tracks = []
+    kept = {}          # the composed standalone runs, for 5i proc-sessions
     for i, seed in enumerate(seeds):
         solo = ParallelParticleFilter(model=model, sir=sir).run(
             seed, movies[i].frames)
+        if backend == "composed":
+            kept[i] = {f: getattr(solo, f).cpu() for f in (
+                "estimates", "ess", "log_marginal", "resampled")}
+            kept[i]["final"] = launch_grid.digest({f: getattr(
+                solo.final, f) for f in ("state", "log_weights", "counts")})
         res = done[i]
         for f in ("estimates", "ess", "log_marginal", "resampled"):
             check(same_bits(getattr(res, f), getattr(solo, f).cpu()),
@@ -3510,6 +3811,7 @@ def serve_sessions(model, backend, movies, all_k, reset, counts, rsum_k,
         tracks.append(track(solo, movies[i]))
     gate_tracks(tracks, f"sessions {backend}")
     rec = {"ticks": ticks, "launches": got, "row_sums": row_sums,
+           "solo": kept,
            "tier_hits": {"capacity 8": dict(srv.tier_hits),
                          "capacity 4": dict(small.tier_hits)},
            "step_traces": [srv.step_traces, small.step_traces],
@@ -4256,6 +4558,12 @@ def main() -> int:
                           counts, rsum_k, name)
     del lm_model, lm_prompt
     torch.cuda.empty_cache()
+    solo = serving["composed"].pop("solo")
+    serving["fused"].pop("solo")
+
+    # -- phase 5i (continued): proc-sessions, held to 5h's standalone runs ---
+    processes["sessions"] = run_proc_sessions(dev, model, solo, name)
+    del solo
 
     # -- phase 5j: the L, R, D, X kinds and the codebook head at full width --
     kinds = run_kinds(dev, all_k, reset, counts, name)
@@ -4570,6 +4878,10 @@ def main() -> int:
             if n:
                 new_launches[kname][f"5i {label} (each of "
                                     f"{processes['p']} ranks)"] = n
+    for kname, n in processes["sessions"]["launches_per_rank"].items():
+        if n:
+            new_launches[kname][f"5i proc-sessions (each of "
+                                f"{processes['sessions']['ranks']} ranks)"] = n
     for k in kernels:
         k["launches_new_phases"] = new_launches.get(k["name"], {})
     record = {

@@ -19,14 +19,14 @@ from repro_torch.core.particles import (ParticleEnsemble, advance,
                                         normalized_weights, permute,
                                         resample_compressed, reweight,
                                         weighted_mean)
-from repro_torch.core.runtime import (EmulatedGrid, EmulatedMesh, ProcessMesh,
-                                     make_mesh)
+from repro_torch.core.runtime import (EmulatedGrid, EmulatedMesh, ProcessGrid,
+                                     ProcessMesh, make_mesh)
 from repro_torch.core.smc import (SIRCarry, SIRConfig, StateSpaceModel,
                                   ess_resample, make_sir_step, run_sir)
 
 __all__ = [
-    "DRAConfig", "DomainSpec", "EmulatedGrid", "EmulatedMesh", "ProcessMesh",
-    "make_mesh",
+    "DRAConfig", "DomainSpec", "EmulatedGrid", "EmulatedMesh", "ProcessGrid",
+    "ProcessMesh", "make_mesh",
     "BankDraws", "ReplayDraws", "TorchDraws", "as_draws",
     "FilterBank", "FilterResult", "ParallelParticleFilter",
     "make_bank_step", "make_sharded_bank_step", "member_carry",

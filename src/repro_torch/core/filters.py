@@ -10,8 +10,10 @@ shard over a ``torch.distributed`` group,
 ``repro_torch.launch.mesh.init_process_mesh``) every rank runs the same
 program on its ``(1, C, ...)`` shard, returns the replicated outputs and
 its own shard as ``final``, and gets the bits the emulated mesh gives
-that shard (``runtime.gather_shards`` collects the ensemble); with
-``domain=`` (a
+that shard (``runtime.gather_shards`` collects the ensemble).  On a grid
+(``EmulatedGrid`` or ``ProcessGrid``) the particles are sharded over
+``axis_name`` and replicated over the other axes, as the reference's
+specs name only that axis.  With ``domain=`` (a
 ``repro_torch.core.domain.DomainSpec``) each shard holds only its halo
 slab of every frame and reweights its tile's particles against it.
 ``FilterBank`` runs B independent filters of one model as one batched
@@ -84,16 +86,16 @@ class ParallelParticleFilter:
     model: Any
     sir: smc.SIRConfig
     device: Any = None
-    mesh: runtime.Mesh | None = None
+    mesh: Any = None
     dra: dist.DRAConfig = dataclasses.field(default_factory=dist.DRAConfig)
     domain: Any = None
+    axis_name: str = "data"
 
     def __post_init__(self):
-        if self.mesh is not None and not isinstance(
-                self.mesh, (runtime.EmulatedMesh, runtime.ProcessMesh)):
-            raise TypeError(f"mesh must be an EmulatedMesh or a ProcessMesh, "
-                            f"got {type(self.mesh).__name__} (a grid of "
-                            f"processes waits for ROADMAP A8b's rest)")
+        _check_mesh(self.mesh)
+        # the 1-D mesh of the particle axis (raises if the mesh lacks it)
+        self._axis = None if self.mesh is None \
+            else self.mesh.axis(self.axis_name)
         if not isinstance(self.dra, dist.DRAConfig):
             raise TypeError(f"dra must be a DRAConfig, got "
                             f"{type(self.dra).__name__}")
@@ -106,10 +108,11 @@ class ParallelParticleFilter:
                                  "tile grid maps onto the mesh's shards "
                                  "(pass mesh=, or drop domain= for the "
                                  "single-device path)")
-            if self.domain.tiles != self.mesh.shards:
+            if self.domain.tiles != self._axis.shards:
                 raise ValueError(f"domain grid {self.domain.grid} has "
-                                 f"{self.domain.tiles} tiles but the mesh "
-                                 f"has {self.mesh.shards} shards")
+                                 f"{self.domain.tiles} tiles but mesh axis "
+                                 f"{self.axis_name!r} has "
+                                 f"{self._axis.shards} shards")
         self.device = resolve_device(self.device)
 
     def run(self, key, observations) -> FilterResult:
@@ -118,7 +121,7 @@ class ParallelParticleFilter:
         int seed or a provider with ``batch_shape (P,)`` (one stream per
         shard)."""
         obs = _to_device(observations, self.device)
-        if self.mesh is None or (self.mesh.shards == 1
+        if self.mesh is None or (_mesh_size(self.mesh) == 1
                                  and self.domain is None):
             carry, outs = smc.run_sir(as_draws(key, self.device),
                                       self.model, self.sir, obs)
@@ -126,7 +129,7 @@ class ParallelParticleFilter:
             if self.domain is not None:
                 # the slabs of the shards this process holds
                 obs = runtime.own_shards(
-                    _tiled_observations(self.domain, obs), self.mesh, 1)
+                    _tiled_observations(self.domain, obs), self._axis, 1)
             carry, outs = self._run_sharded(key, obs)
         return FilterResult(outs.estimate, outs.ess, outs.log_marginal,
                             outs.resampled, outs.ancestors, outs.diag,
@@ -134,11 +137,11 @@ class ParallelParticleFilter:
 
     def _run_sharded(self, key, obs):
         n = self.sir.n_particles
-        carry = shard_carry(shard_draws(key, self.mesh, self.device),
-                            self.model, _shard_capacity(n, self.mesh.shards),
-                            n)
+        mesh = self._axis
+        carry = shard_carry(shard_draws(key, mesh, self.device),
+                            self.model, _shard_capacity(n, mesh.shards), n)
         step = smc.make_distributed_sir_step(self.model, self.sir, self.dra,
-                                             self.mesh, domain=self.domain)
+                                             mesh, domain=self.domain)
         outs = []
         for k in range(obs.shape[0]):
             carry, out = step(carry, obs[k])
@@ -162,13 +165,21 @@ class FilterBank:
       member's particles are sharded over ``axis_name``'s ``P`` shards:
       a ``(B, P, C, ...)`` ensemble, ``C = N / P``, and the DRA runs for
       all members in one pass (one launch of each kernel a frame).  A
-      ``ProcessMesh`` spreads those shards over its ranks: every rank
-      holds all members' ``(B, 1, C, ...)`` shard.
+      ``ProcessMesh`` (or a ``ProcessGrid``'s ``axis_name`` line) spreads
+      those shards over its ranks: every rank holds all members' ``(B,
+      1, C, ...)`` shard.
     * ``bank_axis`` — the members are also sharded over that axis of the
-      grid: ``B / P_b`` members a bank shard.  On one card that is a
-      layout: the ensemble becomes ``(P_b, B / P_b, P, C, ...)`` and the
-      collectives act behind both member dims; the bits are those of the
-      bank without it, and the results come back as ``(B, ...)``.
+      grid: ``B / P_b`` members a bank shard, bank shard ``b`` holding
+      members ``[b·B/P_b, (b+1)·B/P_b)`` (the reference's ``P(bank)``).
+      On one card that is a layout: the ensemble becomes ``(P_b, B /
+      P_b, P, C, ...)`` and the collectives act behind both member dims;
+      the bits are those of the bank without it, and the results come
+      back as ``(B, ...)``.  On a ``ProcessGrid`` a rank steps only its
+      bank shard's members, ``(B / P_b, 1, C, ...)``, the DRA running on
+      its ``axis_name`` line; the outputs are gathered over its
+      ``bank_axis`` line in member order, so every rank returns all ``(B,
+      ...)``, and ``final`` is the rank's own shard.  Each member draws
+      from its own streams wherever it is held.
     """
 
     model: Any
@@ -180,18 +191,7 @@ class FilterBank:
     bank_axis: str | None = None
 
     def __post_init__(self):
-        if self.mesh is not None and not isinstance(
-                self.mesh, (runtime.EmulatedMesh, runtime.EmulatedGrid,
-                            runtime.ProcessMesh)):
-            raise TypeError(f"mesh must be an EmulatedMesh, EmulatedGrid or "
-                            f"ProcessMesh, got {type(self.mesh).__name__} "
-                            f"(a grid of processes waits for ROADMAP A8b's "
-                            f"rest)")
-        if isinstance(self.mesh, runtime.ProcessMesh) \
-                and self.bank_axis is not None:
-            raise NotImplementedError(
-                "bank_axis over a ProcessMesh (members sharded over "
-                "processes) waits for ROADMAP A8b's rest")
+        _check_mesh(self.mesh)
         if not isinstance(self.dra, dist.DRAConfig):
             raise TypeError(f"dra must be a DRAConfig, got "
                             f"{type(self.dra).__name__}")
@@ -208,7 +208,7 @@ class FilterBank:
         provider with ``batch_shape (P,)``); ``observations`` is ``(B, K,
         ...)``.  Every result field has a leading bank dim."""
         obs = _to_device(observations, self.device)
-        if self.mesh is None or math.prod(self.mesh.shape.values()) == 1:
+        if self.mesh is None or _mesh_size(self.mesh) == 1:
             return self._run_local(keys, obs)
         return self._run_sharded(keys, obs)
 
@@ -227,19 +227,55 @@ class FilterBank:
         if b % p_bank:
             raise ValueError(f"bank size {b} not divisible by {p_bank} "
                              f"bank shards")
-        members = (p_bank, b // p_bank) if self.bank_axis else (b,)
-        draws = bank_shard_draws(keys, self.mesh.axis(self.axis_name),
-                                 self.device)
+        data = self.mesh.axis(self.axis_name)
+        step = make_sharded_bank_step(self.model, self.sir, self.dra, data)
+        per = b // p_bank
+        if self.bank_axis and isinstance(self.mesh, runtime.ProcessGrid):
+            # this rank's bank shard: members [lo, lo + B / P_b)
+            line = self.mesh.axis(self.bank_axis)
+            lo = line.rank * per
+            carry = shard_carry(bank_shard_draws(keys[lo:lo + per], data,
+                                                 self.device),
+                                self.model, c, n)
+            res = _run_bank(step, carry, obs[lo:lo + per], (per,))
+            return _gather_members(res, line)
+        members = (p_bank, per) if self.bank_axis else (b,)
+        draws = bank_shard_draws(keys, data, self.device)
         if self.bank_axis:
             # one sub-bank a bank shard: draws (P_b, B / P_b, P)
-            per = b // p_bank
             draws = BankDraws([BankDraws(draws.members[j * per:(j + 1) * per])
                                for j in range(p_bank)])
-        step = make_sharded_bank_step(self.model, self.sir, self.dra,
-                                      self.mesh.axis(self.axis_name))
         carry = shard_carry(draws, self.model, c, n)
         return _run_bank(step, carry, obs.reshape(members + obs.shape[1:]),
                          members)
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, runtime.MESHES):
+        raise TypeError(f"mesh must be an EmulatedMesh, EmulatedGrid, "
+                        f"ProcessMesh or ProcessGrid, got "
+                        f"{type(mesh).__name__}")
+
+
+def _mesh_size(mesh) -> int:
+    """Shards of every axis together (the reference's
+    ``mesh.devices.size``)."""
+    return math.prod(mesh.shape.values())
+
+
+def _gather_members(res: FilterResult, line: runtime.ProcessMesh
+                    ) -> FilterResult:
+    """A bank shard's ``(B / P_b, ...)`` outputs and diag gathered over
+    its bank line in member order, ``(B, ...)`` on every rank; ``final``
+    stays the rank's own."""
+    def gather(x):
+        every = runtime.gather_shards(x.unsqueeze(0), line)
+        return every.reshape((line.shards * x.shape[0],)
+                             + tuple(x.shape[1:]))
+
+    return res._replace(**{f: particles.tree_map(gather, getattr(res, f))
+                           for f in ("estimates", "ess", "log_marginal",
+                                     "resampled", "ancestors", "diag")})
 
 
 def _run_bank(step, carry: smc.SIRCarry, obs: torch.Tensor,

@@ -38,6 +38,12 @@ through host memory around each verb, counting the bytes
 (``ProcessMesh.staged``).  The backend never changes transport or
 device on its own.
 
+A ``ProcessGrid`` lays the ranks out on a grid of named axes, row-major
+(the reference's ``make_mesh``); ``axis(name)`` is the ``ProcessMesh`` of
+this rank's line along that axis, whose verbs run on the line's own
+process group, with the line's size as ``P`` and the rank's place on the
+line as its shard.
+
 Each collective gives a member the bits it gives the same values without
 the bank.  ``make_mesh`` builds an emulated mesh of named axes (the
 bank's 2-D ``(bank, data)`` layout); ``butterfly_schedule`` gives the
@@ -100,21 +106,29 @@ class Staged:
         self.bytes = 0
 
 
+def _need_group(what: str) -> None:
+    if not (tdist.is_available() and tdist.is_initialized()):
+        raise RuntimeError(f"a {what} needs an initialized process group "
+                           f"(repro_torch.launch.mesh.init_process_mesh)")
+
+
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
-    """One mesh axis over the ranks of the initialized default
-    ``torch.distributed`` process group, one shard a rank: ``shards`` is
-    the world size and ``rank`` this process's shard.
-    Every per-shard tensor of a rank keeps a shard dim of size 1 behind
-    the member dims ``lead``.  ``transport`` is the group's backend,
-    ``"nccl"`` (CUDA tensors, one card a rank) or ``"gloo"`` (host
-    tensors; a CUDA tensor is staged through host memory)."""
+    """One mesh axis over the ranks of a ``torch.distributed`` process
+    group, one shard a rank: ``group=None`` is the initialized default
+    group, else a sub-group of it (a ``ProcessGrid``'s line).  ``shards``
+    is the group's size and ``rank`` this process's rank in it (its
+    shard).  Every per-shard tensor of a rank keeps a shard dim of size 1
+    behind the member dims ``lead``.  ``transport`` is the group's
+    backend, ``"nccl"`` (CUDA tensors, one card a rank) or ``"gloo"``
+    (host tensors; a CUDA tensor is staged through host memory)."""
 
     transport: str
     axis_name: str = "data"
     lead: tuple[int, ...] = ()
     staged: Staged = dataclasses.field(default_factory=Staged, compare=False,
                                        repr=False)
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
     shards: int = dataclasses.field(init=False)
     rank: int = dataclasses.field(init=False)
 
@@ -122,16 +136,13 @@ class ProcessMesh:
         if self.transport not in TRANSPORTS:
             raise ValueError(f"unknown transport {self.transport!r} "
                              f"({TRANSPORTS})")
-        if not (tdist.is_available() and tdist.is_initialized()):
-            raise RuntimeError("a ProcessMesh needs an initialized process "
-                               "group (repro_torch.launch.mesh."
-                               "init_process_mesh)")
-        backend = str(tdist.get_backend())
+        _need_group("ProcessMesh")
+        backend = str(tdist.get_backend(self.group))
         if backend != self.transport:
             raise ValueError(f"transport {self.transport!r} but the process "
                              f"group's backend is {backend!r}")
-        object.__setattr__(self, "shards", tdist.get_world_size())
-        object.__setattr__(self, "rank", tdist.get_rank())
+        object.__setattr__(self, "shards", tdist.get_world_size(self.group))
+        object.__setattr__(self, "rank", tdist.get_rank(self.group))
 
     @property
     def shape(self) -> dict[str, int]:
@@ -152,6 +163,13 @@ class ProcessMesh:
 
 
 Mesh = EmulatedMesh | ProcessMesh
+
+
+def _global_rank(mesh: ProcessMesh, shard: int) -> int:
+    """The world rank of shard ``shard`` of ``mesh``'s group."""
+    if mesh.group is None:
+        return shard
+    return tdist.get_global_rank(mesh.group, shard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +205,93 @@ class EmulatedGrid:
         return EmulatedMesh(self.shape[name], name)
 
 
+@dataclasses.dataclass(frozen=True)
+class ProcessGrid:
+    """The ranks of the initialized default process group on a grid of
+    named axes, the process counterpart of ``EmulatedGrid``: rank ``r``
+    sits at ``np.unravel_index(r, axis_shapes)`` (row-major, as the
+    reference's ``make_mesh`` reshapes its devices), so
+    ``prod(axis_shapes)`` must be the world size.  ``axis(name)`` is the
+    ``ProcessMesh`` of this rank's line along ``name``: the ranks that
+    share every other coordinate, in order along the axis, on a process
+    group of their own.  Every line's group is built here, by every rank,
+    in one order (axes in order, lines row-major), as
+    ``torch.distributed.new_group`` requires.  All the views share one
+    staged-byte count."""
+
+    transport: str
+    axis_shapes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+    staged: Staged = dataclasses.field(default_factory=Staged, compare=False,
+                                       repr=False)
+    rank: int = dataclasses.field(init=False)
+    coords: tuple[int, ...] = dataclasses.field(init=False)
+    lines: dict = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        shapes = tuple(int(v) for v in self.axis_shapes)
+        names = tuple(self.axis_names)
+        object.__setattr__(self, "axis_shapes", shapes)
+        object.__setattr__(self, "axis_names", names)
+        EmulatedGrid(shapes, names)                   # the same validation
+        if self.transport not in TRANSPORTS:
+            raise ValueError(f"unknown transport {self.transport!r} "
+                             f"({TRANSPORTS})")
+        _need_group("ProcessGrid")
+        world = tdist.get_world_size()
+        if math.prod(shapes) != world:
+            raise ValueError(f"grid {dict(zip(names, shapes))} holds "
+                             f"{math.prod(shapes)} ranks but the world has "
+                             f"{world}")
+        rank = tdist.get_rank()
+        lines = {}
+        for a, name in enumerate(names):
+            rest = shapes[:a] + shapes[a + 1:]
+            for line in range(math.prod(rest)):
+                other = _unravel(line, rest)
+                ranks = [_ravel(other[:a] + (i,) + other[a:], shapes)
+                         for i in range(shapes[a])]
+                group = tdist.new_group(ranks)
+                if rank in ranks:
+                    lines[name] = ProcessMesh(self.transport, name,
+                                              staged=self.staged, group=group)
+        object.__setattr__(self, "rank", rank)
+        object.__setattr__(self, "coords", _unravel(rank, shapes))
+        object.__setattr__(self, "lines", lines)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name to size, as the reference's ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_shapes))
+
+    def axis(self, name: str) -> ProcessMesh:
+        """The ``ProcessMesh`` of this rank's line along axis ``name``."""
+        if name not in self.lines:
+            raise ValueError(f"axis {name!r} not in mesh axes "
+                             f"{self.axis_names}")
+        return self.lines[name]
+
+
+# every mesh type the entry points take
+MESHES = (EmulatedMesh, EmulatedGrid, ProcessMesh, ProcessGrid)
+
+
+def _unravel(i: int, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """Row-major coordinates of flat index ``i`` in ``shape``."""
+    out = []
+    for n in reversed(shape):
+        out.append(i % n)
+        i //= n
+    return tuple(reversed(out))
+
+
+def _ravel(coords: tuple[int, ...], shape: tuple[int, ...]) -> int:
+    i = 0
+    for c, n in zip(coords, shape):
+        i = i * n + c
+    return i
+
+
 def make_mesh(axis_shapes, axis_names) -> EmulatedGrid:
     """An emulated mesh of ``axis_shapes`` shards over ``axis_names``
     (the reference's ``make_mesh``)."""
@@ -201,13 +306,14 @@ def host_mesh(n: int | None = None, axis: str = "data") -> EmulatedMesh:
 
 
 def axis_size(mesh: Mesh) -> int:
-    """Number of shards ``P`` (the world size on a ``ProcessMesh``)."""
+    """Number of shards ``P`` (the group's size on a ``ProcessMesh``)."""
     return mesh.shards
 
 
 def shard_range(mesh: Mesh) -> range:
-    """The global indices of the shards this process holds: every shard
-    of an emulated mesh, ``[rank]`` on a process mesh."""
+    """The indices on the axis of the shards this process holds: every
+    shard of an emulated mesh, ``[rank]`` (the rank in the axis's group)
+    on a process mesh."""
     if isinstance(mesh, ProcessMesh):
         return range(mesh.rank, mesh.rank + 1)
     return range(mesh.shards)
@@ -256,13 +362,15 @@ def _wire_device(x: torch.Tensor, mesh: ProcessMesh) -> torch.device:
     return torch.device("cpu")
 
 
-def _wire(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
-    """``x`` as the transport carries it, contiguous: a CUDA tensor on
-    gloo is staged to host memory (counted in ``mesh.staged``)."""
+def _wire(x: torch.Tensor, mesh: ProcessMesh,
+          copy: bool = False) -> torch.Tensor:
+    """``x`` as the transport carries it, contiguous (a copy with
+    ``copy``): a CUDA tensor on gloo is staged to host memory (counted in
+    ``mesh.staged``)."""
     dev = _wire_device(x, mesh)
     if x.device != dev:
         mesh.staged.bytes += x.numel() * x.element_size()
-    return x.to(dev).contiguous()
+    return x.to(dev, copy=copy).contiguous()
 
 
 def _unwire(y: torch.Tensor, like: torch.Tensor,
@@ -281,7 +389,7 @@ def _gathered(x: torch.Tensor, mesh: ProcessMesh, d: int) -> torch.Tensor:
     own = x.select(d, 0)
     wire = _wire(own, mesh).reshape(-1)
     out = wire.new_empty((mesh.shards * wire.numel(),))
-    tdist.all_gather_into_tensor(out, wire)
+    tdist.all_gather_into_tensor(out, wire, group=mesh.group)
     out = _unwire(out, x, mesh).reshape((mesh.shards,) + tuple(own.shape))
     return out.movedim(0, d)
 
@@ -295,10 +403,27 @@ def gather_shards(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x
 
 
+def from_shard(x: torch.Tensor, mesh: Mesh, src: int) -> torch.Tensor:
+    """Shard ``src``'s value of a per-shard ``(lead..., P, ...)`` tensor,
+    on every shard (``(lead..., ...)``): one broadcast from shard ``src``
+    on a process mesh."""
+    d = _check(x, mesh)
+    if not isinstance(mesh, ProcessMesh):
+        return x.select(d, src)
+    own = x.select(d, 0)
+    if mesh.rank == src:
+        buf = _wire(own, mesh, copy=True)
+    else:
+        buf = torch.empty(own.shape, dtype=own.dtype,
+                          device=_wire_device(own, mesh))
+    tdist.broadcast(buf, src=_global_rank(mesh, src), group=mesh.group)
+    return _unwire(buf, own, mesh)
+
+
 def shard0(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Shard 0's value of a per-shard ``(lead..., P, ...)`` tensor, on
     every shard (``(lead..., ...)``)."""
-    return gather_shards(x, mesh).select(len(mesh.lead), 0)
+    return from_shard(x, mesh, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -349,13 +474,17 @@ def ppermute(x: torch.Tensor, mesh: Mesh,
     recv = [src for src, dst in perm if dst == r]
     if send == [r]:                       # to itself: no message
         return x.clone()
+    # the peers are shards of the axis: the messages go to their world
+    # ranks, on the axis's group
     ops, buf = [], None
     if send:
-        ops.append(tdist.P2POp(tdist.isend, _wire(x, mesh), send[0]))
+        ops.append(tdist.P2POp(tdist.isend, _wire(x, mesh),
+                               _global_rank(mesh, send[0]), mesh.group))
     if recv:
         buf = torch.empty(x.shape, dtype=x.dtype,
                           device=_wire_device(x, mesh))
-        ops.append(tdist.P2POp(tdist.irecv, buf, recv[0]))
+        ops.append(tdist.P2POp(tdist.irecv, buf,
+                               _global_rank(mesh, recv[0]), mesh.group))
     for req in tdist.batch_isend_irecv(ops):
         req.wait()
     return out if buf is None else _unwire(buf, x, mesh)
@@ -402,7 +531,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     # from rank i
     blocks = _wire(x.select(d, 0).movedim(d, 0), mesh)
     got = torch.empty_like(blocks)
-    tdist.all_to_all_single(got, blocks)
+    tdist.all_to_all_single(got, blocks, group=mesh.group)
     return _unwire(got, x, mesh).movedim(0, d).unsqueeze(d).contiguous()
 
 

@@ -6,7 +6,8 @@ shard over a ``torch.distributed`` group.
 * ``init_process_mesh(transport)`` — joins the process group and returns
   the ``ProcessMesh`` of its ranks, from ``torchrun``'s environment
   (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``)
-  or from an explicit rank, world size and init method.
+  or from an explicit rank, world size and init method; with
+  ``axis_shapes`` and ``axis_names``, the ``ProcessGrid`` of its ranks.
 * ``spawn(fn, world)`` — starts ``world`` ranks on this host with the
   ``spawn`` start method (a parent that has touched CUDA cannot
   ``fork``), runs ``fn(mesh, *args)`` on each and returns the ranks'
@@ -58,10 +59,13 @@ def make_host_mesh(n: int | None = None, axis: str = "data"
 def init_process_mesh(transport: str, *, rank: int | None = None,
                       world: int | None = None,
                       init_method: str | None = None,
-                      timeout: float = GROUP_TIMEOUT
-                      ) -> runtime.ProcessMesh:
+                      timeout: float = GROUP_TIMEOUT,
+                      axis_shapes=None, axis_names=None
+                      ) -> runtime.ProcessMesh | runtime.ProcessGrid:
     """Join the default process group and return its ``ProcessMesh``
-    (axis ``"data"``).
+    (axis ``"data"``), or with ``axis_shapes`` and ``axis_names`` its
+    ``ProcessGrid`` (whose ranks must number the world size, or it
+    raises).
 
     Without ``rank`` the rank, world size and local rank come from
     ``torchrun``'s environment (``init_method`` ``env://``); with it, the
@@ -89,6 +93,9 @@ def init_process_mesh(transport: str, *, rank: int | None = None,
     torch.distributed.init_process_group(
         transport, init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
+    if axis_shapes is not None:
+        return runtime.ProcessGrid(transport, tuple(axis_shapes),
+                                   tuple(axis_names))
     return runtime.ProcessMesh(transport)
 
 
@@ -200,7 +207,8 @@ def verbs(mesh: runtime.Mesh, inputs: dict, device=None) -> dict:
     stage that leaves shard 1 with nothing, ``all_to_all`` of float and
     int blocks,
     ``grouped_ppermute`` of a tuple and a dict, the collectives behind a
-    member dim, ``shard0``, ``axis_index`` and ``gather_shards``.
+    member dim, ``shard0``, ``from_shard`` of the last shard,
+    ``axis_index`` and ``gather_shards``.
     ``device=None`` is the card, and raises without one.  Returns host
     tensors, each with the held shards' dim first."""
     device = resolve_device(device)
@@ -227,6 +235,8 @@ def verbs(mesh: runtime.Mesh, inputs: dict, device=None) -> dict:
         "all_to_all": runtime.all_to_all(own("blocks"), mesh),
         "all_to_all_int": runtime.all_to_all(own("iblocks"), mesh),
         "shard0": runtime.shard0(xi, mesh)[None].expand(len(held), 4),
+        "from_shard": runtime.from_shard(x, mesh, p - 1)[None].expand(
+            len(held), 3, 2),
         "axis_index": runtime.axis_index(mesh, device),
         "gather_shards": runtime.gather_shards(xi, mesh)[None].expand(
             len(held), p, 4),
@@ -269,12 +279,15 @@ def outputs(res) -> dict:
 def filter_run(mesh: runtime.Mesh, case: dict, device=None) -> dict:
     """One tracking-filter run on ``mesh``, described by ``case``:
 
-    * ``frames`` — ``(K, H, W)`` numpy frames; ``cfg`` — further
+    * ``frames`` — ``(K, H, W)`` numpy frames (a bank's may be ``(B, K,
+      H, W)``, one movie a member); ``cfg`` — further
       ``TrackingConfig`` fields (``img_size`` is the frames');
     * ``dra`` — ``DRAConfig`` fields; ``particles`` — the global ``N``;
     * ``key`` — an int seed, or every shard's replayed draws (one list of
-      ``(kind, array)`` draws a shard); or ``bank`` — one int seed a
-      member, for a ``FilterBank`` over the mesh;
+      ``(kind, array)`` draws a shard); or ``bank`` — one such key a
+      member, for a ``FilterBank`` over the mesh (``bank_axis``: its
+      members sharded over that axis of a grid);
+    * ``axis_name`` — the particle axis of a grid (default ``"data"``);
     * ``domain`` — decompose the frame into one tile a shard.
 
     ``device=None`` is the card, and raises without one.  Returns host
@@ -288,31 +301,48 @@ def filter_run(mesh: runtime.Mesh, case: dict, device=None) -> dict:
     sir = SIRConfig(n_particles=int(case["particles"]))
     dra = DRAConfig(**case["dra"])
     device = resolve_device(device)
-    staged = mesh.staged.bytes if isinstance(mesh, runtime.ProcessMesh) \
-        else 0
-    left = 0
+    processes = isinstance(mesh, (runtime.ProcessMesh, runtime.ProcessGrid))
+    staged = mesh.staged.bytes if processes else 0
+    name = case.get("axis_name", "data")
+    axis = mesh.axis(name)
+
+    def replayed(key):
+        # every held shard's replayed draws
+        return BankDraws([ReplayDraws(key[i])
+                          for i in runtime.shard_range(axis)])
+
     if case.get("bank") is not None:
-        keys = list(case["bank"])
-        res = FilterBank(model, sir, device=device, mesh=mesh, dra=dra).run(
-            keys, torch.from_numpy(frames).expand((len(keys),)
-                                                  + frames.shape))
+        keys = [k if isinstance(k, (int, np.integer)) else replayed(k)
+                for k in case["bank"]]
+        obs = torch.from_numpy(frames)
+        if obs.dim() == 3:                   # one movie for every member
+            obs = obs.expand((len(keys),) + tuple(obs.shape))
+        res = FilterBank(model, sir, device=device, mesh=mesh, dra=dra,
+                         axis_name=name,
+                         bank_axis=case.get("bank_axis")).run(keys, obs)
+        held = [k for k in keys if isinstance(k, BankDraws)]
+        if held and case.get("bank_axis") and processes:
+            # the members this rank's bank shard holds
+            line = mesh.axis(case["bank_axis"])
+            per = len(keys) // line.shards
+            held = held[line.rank * per:(line.rank + 1) * per]
+        left = sum(m.remaining for k in held for m in k.members)
     else:
-        domain = make_domain_spec(cfg, mesh.shards) if case.get("domain") \
+        domain = make_domain_spec(cfg, axis.shards) if case.get("domain") \
             else None
         key = case["key"]
         if not isinstance(key, (int, np.integer)):
-            key = BankDraws([ReplayDraws(key[i])
-                             for i in runtime.shard_range(mesh)])
+            key = replayed(key)
         res = ParallelParticleFilter(model, sir, device=device, mesh=mesh,
-                                     dra=dra, domain=domain).run(key, frames)
-        if isinstance(key, BankDraws):
-            left = sum(m.remaining for m in key.members)
+                                     dra=dra, domain=domain,
+                                     axis_name=name).run(key, frames)
+        left = sum(m.remaining for m in key.members) \
+            if isinstance(key, BankDraws) else 0
     out = outputs(res)
-    over = mesh.over(res.final.log_weights.shape[:-2])
+    over = axis.over(res.final.log_weights.shape[:-2])
     out["gathered"] = {f: runtime.gather_shards(v, over)
                        for f, v in out["final"].items()}
-    out["staged_bytes"] = (mesh.staged.bytes - staged
-                           if isinstance(mesh, runtime.ProcessMesh) else 0)
+    out["staged_bytes"] = mesh.staged.bytes - staged if processes else 0
     out["replay_left"] = left
     return to_host(out)
 

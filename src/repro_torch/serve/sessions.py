@@ -38,6 +38,18 @@ The kernel wrappers keep host-side scratch per device and stream, so
 every server of a process launches its device work under one lock
 (``DEVICE_LOCK``): the fleet steps its banks from one worker thread
 each, all on the one card.
+
+Over processes (a ``ProcessMesh`` or a ``ProcessGrid`` holding
+``bank_axis``) the server is SPMD: every rank makes the same calls in the
+same order, and every host-side choice (slot, tier, routing) is the same
+on every rank.  A rank holds the ``capacity / P_b`` slots of its place on
+the bank axis (slot ``s`` lives on bank shard ``s // (capacity / P_b)``,
+the reference's ``P(bank)`` layout; the ranks of its line along any other
+axis hold the same slots) and steps them with the one full-capacity
+program every tick; each tick's outputs are gathered over the bank line,
+and a slot's ensemble and generator state go out from its owner, so
+``latest``, ``result`` and ``suspend`` return the same bits on every
+rank.
 """
 from __future__ import annotations
 
@@ -191,12 +203,14 @@ class ParticleSessionServer:
       sir: per-session ``SIRConfig`` (``n_particles`` per slot);
         ``step_backend="fused"`` serves every slot with the fused step.
       capacity: the static slot count of the resident bank.
-      mesh: ``None``, or an ``EmulatedMesh``/``EmulatedGrid`` holding
-        ``bank_axis``: slots are sharded over that axis, each session
-        wholly on one shard.  On one card that is a layout: the server
-        runs one full-capacity program every tick (no tiers), as the
-        reference's mesh path does.  Any other mesh raises ``TypeError``:
-        a server over a ``ProcessMesh`` waits for ROADMAP A8b's rest.
+      mesh: ``None``, or an ``EmulatedMesh``/``EmulatedGrid`` or a
+        ``ProcessMesh``/``ProcessGrid`` holding ``bank_axis``: slots are
+        sharded over that axis, each session wholly on one shard.  On one
+        card that is a layout: the server runs one full-capacity program
+        every tick (no tiers), as the reference's mesh path does.  Over
+        processes each rank holds and steps its shard's slots (see the
+        module's notes).  A mesh of one shard is the single-device
+        server; any other mesh type raises ``TypeError``.
       device: the card unless ``"cpu"`` is given (and raises without one).
 
     Occupancy tiers: on the single-device path each tick gathers the
@@ -212,12 +226,10 @@ class ParticleSessionServer:
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if mesh is not None:
-            if not isinstance(mesh, (runtime.EmulatedMesh,
-                                     runtime.EmulatedGrid)):
-                raise TypeError(f"mesh must be an EmulatedMesh or "
-                                f"EmulatedGrid, got {type(mesh).__name__} "
-                                f"(a server over a ProcessMesh waits for "
-                                f"ROADMAP A8b's rest)")
+            if not isinstance(mesh, runtime.MESHES):
+                raise TypeError(f"mesh must be an EmulatedMesh, "
+                                f"EmulatedGrid, ProcessMesh or ProcessGrid, "
+                                f"got {type(mesh).__name__}")
             if math.prod(mesh.shape.values()) > 1:
                 if bank_axis not in mesh.shape:
                     raise ValueError(f"bank_axis={bank_axis!r} not in mesh "
@@ -234,6 +246,14 @@ class ParticleSessionServer:
         self.mesh = mesh
         self.bank_axis = bank_axis
         self.device = filters.resolve_device(device)
+        # over processes: the bank line, and the slots [lo, lo + local)
+        # this rank holds
+        self._line = None
+        self._lo, self._local = 0, capacity
+        if isinstance(mesh, (runtime.ProcessMesh, runtime.ProcessGrid)):
+            self._line = mesh.axis(bank_axis)
+            self._local = capacity // self._line.shards
+            self._lo = self._line.rank * self._local
         self._uids = itertools.count()
         self._free: list[int] = list(range(capacity))   # min-heap of slots
         self._sessions: dict[int, _Session] = {}
@@ -247,12 +267,14 @@ class ParticleSessionServer:
         # device-resident (rows, active) per recurring ready set
         self._route_cache: dict[tuple, tuple] = {}
         self._event = None
-        # every slot starts detached: placeholder carries, masked off
+        # every slot starts detached: placeholder carries, masked off (a
+        # rank's resident bank holds its own slots only)
         self._providers: list = [TorchDraws.from_seed(0, self.device)
                                  for _ in range(capacity)]
         with DEVICE_LOCK:
-            self._ensemble = filters.member_carry(self._providers, model,
-                                                  sir).ensemble
+            self._ensemble = filters.member_carry(
+                self._providers[self._lo:self._lo + self._local], model,
+                sir).ensemble
 
     # -- introspection ------------------------------------------------------
     @property
@@ -280,10 +302,11 @@ class ParticleSessionServer:
         for bit.  Raises ``RuntimeError`` when the bank is full."""
         provider = as_draws(key, self.device)
         slot = self._take_slot()
-        with DEVICE_LOCK:
-            fresh = filters.member_carry([provider], self.model,
-                                         self.sir).ensemble
-            self._write_slot(slot, _ens_map(lambda x: x[0], fresh))
+        if self._holds(slot):
+            with DEVICE_LOCK:
+                fresh = filters.member_carry([provider], self.model,
+                                             self.sir).ensemble
+                self._write_slot(slot, _ens_map(lambda x: x[0], fresh))
         self._providers[slot] = provider
         return self._register(slot)
 
@@ -348,20 +371,57 @@ class ParticleSessionServer:
 
     def _step_full(self, ready: list[_Session]) -> None:
         """One full-capacity step: slots stay in place, idleness is the
-        mask (the mesh path)."""
-        frames = torch.zeros((self.capacity,) + self._frame_shape,
+        mask (the mesh path).  Over processes a rank steps its own slots
+        and the outputs are gathered over the bank line."""
+        lo, local = self._lo, self._local
+        frames = torch.zeros((local,) + self._frame_shape,
                              device=self.device)
+        active = torch.zeros(local, dtype=torch.bool)
         for sess in ready:
-            frames[sess.slot] = sess.queue.pop(0)
-        slots = [s.slot for s in ready]
-        active = torch.zeros(self.capacity, dtype=torch.bool)
-        active[slots] = True
+            frame = sess.queue.pop(0)
+            if self._holds(sess.slot):
+                frames[sess.slot - lo] = frame
+                active[sess.slot - lo] = True
         self.tier_hits[self.capacity] += 1
         carry, outs = self._program(self.capacity)(
-            smc.SIRCarry(BankDraws(self._providers), self._ensemble),
-            (frames, active.to(self.device)))
+            smc.SIRCarry(BankDraws(self._providers[lo:lo + local]),
+                         self._ensemble), (frames, active.to(self.device)))
         self._ensemble = carry.ensemble
-        self._record_outputs(ready, slots, outs)
+        if self._line is not None:
+            outs = outs._replace(**{f: tree_map(self._gather_slots,
+                                                getattr(outs, f))
+                                    for f in _OUT_FIELDS})
+        self._record_outputs(ready, [s.slot for s in ready], outs)
+
+    def _gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``(capacity / P_b, ...)`` rows gathered over the
+        bank line: ``(capacity, ...)`` in slot order."""
+        every = runtime.gather_shards(x.unsqueeze(0), self._line)
+        return every.reshape((self.capacity,) + tuple(x.shape[1:]))
+
+    def _holds(self, slot: int) -> bool:
+        """Whether this process holds ``slot``'s carry."""
+        return self._lo <= slot < self._lo + self._local
+
+    def _slot_ensemble(self, slot: int) -> ParticleEnsemble:
+        """A copy of ``slot``'s ensemble on the server's device; over
+        processes the owner's rows go out over the bank line, so every
+        rank gets the same bits (every rank calls it, as SPMD)."""
+        if self._line is None:
+            return _ens_map(lambda c: c[slot].clone(), self._ensemble)
+        owner, row = divmod(slot, self._local)
+        return _ens_map(lambda c: runtime.from_shard(
+            c[row].unsqueeze(0), self._line, owner), self._ensemble)
+
+    def _generator_state(self, slot: int, provider: TorchDraws
+                         ) -> np.ndarray:
+        """The slot's generator state (uint8); over processes the
+        owner's, on every rank."""
+        state = provider.generator.get_state()
+        if self._line is not None:
+            state = runtime.from_shard(state.to(self.device).unsqueeze(0),
+                                       self._line, slot // self._local).cpu()
+        return state.numpy().copy()
 
     def _step_tiered(self, ready: list[_Session]) -> None:
         """Gather the ready rows into the smallest covering tier, step,
@@ -429,21 +489,22 @@ class ParticleSessionServer:
             raise ValueError(f"frame {shape} does not match the server's "
                              f"{self._frame_shape}")
         with DEVICE_LOCK:
-            if self._free:
+            if self._free and self._holds(self._free[0]):
                 slot = self._free[0]
                 fresh = filters.member_carry(
                     [TorchDraws.from_seed(0, self.device)], self.model,
                     self.sir).ensemble
                 self._write_slot(slot, _ens_map(lambda x: x[0], fresh))
             for tier in self.tiers:
-                rows = list(range(tier))
-                sub = _ens_map(lambda c: c[:tier].clone(), self._ensemble)
+                # the rows this process holds (a tier is at most them)
+                k = min(tier, self._local)
+                rows = range(self._lo, self._lo + k)
+                sub = _ens_map(lambda c: c[:k].clone(), self._ensemble)
                 _, outs = self._program(tier)(
                     smc.SIRCarry(BankDraws([self._providers[r]
                                             for r in rows]), sub),
-                    (torch.zeros((tier,) + shape, device=self.device),
-                     torch.zeros(tier, dtype=torch.bool,
-                                 device=self.device)))
+                    (torch.zeros((k,) + shape, device=self.device),
+                     torch.zeros(k, dtype=torch.bool, device=self.device)))
                 _Outs(outs).row(0)
             self.synchronize()
 
@@ -469,7 +530,7 @@ class ParticleSessionServer:
             raise ValueError("session has no filtered frames yet")
         hist = tree_map(torch.from_numpy, stacked)
         with DEVICE_LOCK:
-            final = _ens_map(lambda c: c[sess.slot].clone(), self._ensemble)
+            final = self._slot_ensemble(sess.slot)
         return filters.FilterResult(
             estimates=hist["estimates"], ess=hist["ess"],
             log_marginal=hist["log_marginal"], resampled=hist["resampled"],
@@ -492,8 +553,8 @@ class ParticleSessionServer:
         while sess.queue:
             self.step()
         with DEVICE_LOCK:
-            ens = _ens_map(lambda c: host(c[sess.slot]), self._ensemble)
-            gen = provider.generator.get_state().numpy().copy()
+            ens = _ens_map(host, self._slot_ensemble(sess.slot))
+            gen = self._generator_state(sess.slot, provider)
         stacked = self._stack_rows(sess)
         if stacked is None:
             blank = self.blank_suspended()
@@ -522,9 +583,10 @@ class ParticleSessionServer:
         gen.set_state(torch.from_numpy(
             np.asarray(suspended.generator_state, np.uint8).copy()))
         slot = self._take_slot()
-        with DEVICE_LOCK:
-            self._write_slot(slot, _ens_map(
-                lambda x: _tensor(x, self.device), suspended))
+        if self._holds(slot):
+            with DEVICE_LOCK:
+                self._write_slot(slot, _ens_map(
+                    lambda x: _tensor(x, self.device), suspended))
         self._providers[slot] = TorchDraws(gen)
         handle = self._register(slot)
         sess = self._sessions[handle.uid]
@@ -572,8 +634,9 @@ class ParticleSessionServer:
     # -- internals ----------------------------------------------------------
     def _write_slot(self, slot: int, ens: ParticleEnsemble) -> None:
         """Write one slot's ensemble (no slot dim) into the resident bank,
-        in place."""
-        _ens_map(lambda c, x: c[slot].copy_(x), self._ensemble, ens)
+        in place (a slot this process holds)."""
+        _ens_map(lambda c, x: c[slot - self._lo].copy_(x), self._ensemble,
+                 ens)
 
     def _take_slot(self) -> int:
         if not self._free:

@@ -17,9 +17,10 @@
 * The config converters carry the reference's fields across, and refuse
   a forced ``fused_backend``, which the port does not honor.
 * The process-group slice (ROADMAP A8b): the scan covers
-  ``repro_torch.launch.mesh`` and ``.track``; importing them starts no
-  process group, no process and no CUDA context; a ``ProcessMesh`` is
-  not built without an initialized group.
+  ``repro_torch.launch.mesh``, ``.track`` and ``.grid``, the runtime and
+  the session server; importing the launchers starts no process group,
+  no process and no CUDA context; neither a ``ProcessMesh`` nor a
+  ``ProcessGrid`` is built without an initialized group.
 """
 import ast
 import dataclasses
@@ -39,7 +40,8 @@ from repro.models import tracking as jtracking
 from repro_torch import convert
 from repro_torch.core import FilterBank, ParallelParticleFilter, SIRConfig
 from repro_torch.core.distributed import DRAConfig
-from repro_torch.core.runtime import EmulatedMesh, ProcessMesh, make_mesh
+from repro_torch.core.runtime import (EmulatedMesh, ProcessGrid, ProcessMesh,
+                                     make_mesh)
 from repro_torch.kernels import build
 from repro_torch.kernels import resample as resample_kernels
 from repro_torch.models.tracking import TrackingConfig, TrackingSSM
@@ -54,7 +56,9 @@ SERVING_MODULES = ("repro_torch.checkpoint.store", "repro_torch.serve.metrics",
                    "repro_torch.launch.serve", "repro_torch.serve.smc_decode",
                    "repro_torch.kernels.row_sum")
 # the process-group slice's modules (ROADMAP A8b)
-PROCESS_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.track")
+PROCESS_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.track",
+                   "repro_torch.launch.grid", "repro_torch.core.runtime",
+                   "repro_torch.serve.sessions")
 
 
 def _port_files():
@@ -398,6 +402,7 @@ def test_importing_the_launchers_starts_nothing():
     group, no child process and no CUDA context."""
     code = ("import multiprocessing, torch, torch.distributed as d\n"
             "import repro_torch.launch.mesh, repro_torch.launch.track\n"
+            "import repro_torch.launch.grid\n"
             "print(d.is_initialized(), torch.cuda.is_initialized(), "
             "len(multiprocessing.active_children()))")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
@@ -410,3 +415,5 @@ def test_process_mesh_needs_an_initialized_group():
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="initialized process group"):
         ProcessMesh("gloo")
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        ProcessGrid("gloo", (1, 1), ("bank", "data"))

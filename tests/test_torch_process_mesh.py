@@ -13,8 +13,9 @@ port's entry points, take the card otherwise (checked below).  Rank ``r``'s resu
 * The verbs — float and int ``psum``, ``pmax``, ``all_gather``,
   ``ppermute`` along the ring and along a butterfly stage that leaves a
   rank with nothing, ``all_to_all``, ``grouped_ppermute``, the
-  collectives behind a member dim, ``shard0``, ``axis_index`` and
-  ``gather_shards`` — bit for bit the emulated mesh's, and against the
+  collectives behind a member dim, ``shard0``, ``from_shard``,
+  ``axis_index`` and ``gather_shards`` — bit for bit the emulated mesh's,
+  and against the
   reference's collectives under ``jax.vmap`` (``tests/emesh.py``) at
   ``test_torch_distributed.py``'s tolerances: ints exactly, floats at
   rtol = atol = 1e-6.
@@ -33,12 +34,15 @@ port's entry points, take the card otherwise (checked below).  Rank ``r``'s resu
 * ``spawn`` fails within its deadline when a rank raises (the others,
   blocked in a collective, are killed) and when the deadline passes; a
   world-size-1 group in this process: the verbs equal
-  ``EmulatedMesh(1)``'s (each rank's ppermute to itself copies),
-  ``bank_axis`` over processes raises naming A8b's rest, and a
-  transport other than the group's backend is refused.
+  ``EmulatedMesh(1)``'s (each rank's ppermute to itself copies), a bank
+  with ``bank_axis`` over a ``(1, 1)`` process grid runs bit for bit the
+  single-device bank, and a transport other than the group's backend is
+  refused.  (The grid over several ranks is
+  ``tests/test_torch_process_grid.py``'s.)
 * ``python -m torch.distributed.run ... -m repro_torch.launch.track``
   (the CLI under torchrun, 2 ranks) writes rank files bit for bit the
-  emulated run.
+  emulated run, and with ``--grid 2x1`` bit for bit the emulated ``(2,
+  1)`` grid's (the bank's members sharded over the bank axis).
 * Without a device, ``track.run``, its CLI and the checks' workers take
   the card and raise without one: none falls back to the host.
 """
@@ -153,7 +157,8 @@ def assert_same(got, want, what):
 
 VERBS = ("psum", "psum_int", "pmax", "all_gather", "ppermute_ring",
          "ppermute_partial", "all_to_all", "all_to_all_int", "shard0",
-         "axis_index", "gather_shards", "grouped_0", "grouped_1",
+         "from_shard", "axis_index", "gather_shards", "grouped_0",
+         "grouped_1",
          "grouped_a", "grouped_b", "bank_psum", "bank_all_gather",
          "bank_ppermute")
 
@@ -272,11 +277,12 @@ def test_filter_matches_the_reference(ranks, kind):
 # ---------------------------------------------------------------------------
 
 def test_a_failed_rank_fails_spawn_before_its_peers_time_out():
-    """Ranks 2 and 3 raise on inputs too short for them; ranks 0 and 1
-    block in the first collective until ``spawn`` kills them, well
-    inside the group's 60 s timeout."""
+    """Rank 3 raises on inputs too short for it; ranks 0 to 2 block in
+    the first collective until ``spawn`` kills them, well inside the
+    group's 60 s timeout.  (One failing rank: with two, either one's
+    traceback may be the oldest, and torch words their errors apart.)"""
     inputs = launch_mesh.verb_inputs(P)
-    inputs["x"] = inputs["x"][:2]
+    inputs["x"] = inputs["x"][:3]
     start = time.monotonic()
     # the first failure's traceback: the rank's own error, not a peer's
     # closed connection
@@ -316,10 +322,19 @@ def test_world_one_verbs_match_the_one_shard_mesh(world1):
 
 
 def test_bank_axis_and_other_transports_are_refused(world1):
+    """A bank with ``bank_axis`` over a world-size-1 process grid runs the
+    single-device bank bit for bit; other transports are refused."""
     model = TrackingSSM(TrackingConfig(img_size=(16, 16)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b's rest"):
-        FilterBank(model, SIRConfig(n_particles=8), device="cpu",
-                   mesh=world1, bank_axis="data")
+    sir = SIRConfig(n_particles=8)
+    frames = torch.from_numpy(_frames()[:3, :16, :16]).expand(2, 3, 16, 16)
+    grid = runtime.ProcessGrid("gloo", (1, 1), ("bank", "data"))
+    got = FilterBank(model, sir, device="cpu", mesh=grid,
+                     bank_axis="bank").run([5, 6], frames)
+    want = FilterBank(model, sir, device="cpu").run([5, 6], frames)
+    for f in ("estimates", "ess", "log_marginal", "resampled"):
+        assert_same(getattr(got, f), getattr(want, f), f)
+    for f in ("state", "log_weights", "counts"):
+        assert_same(getattr(got.final, f), getattr(want.final, f), f)
     with pytest.raises(ValueError, match="backend is 'gloo'"):
         ProcessMesh("nccl")
     with pytest.raises(ValueError, match="unknown transport"):
@@ -362,6 +377,44 @@ def test_track_cli_under_torchrun(tmp_path):
             d = 1 if label.startswith("bank") else 0
             for f, v in w["final"].items():
                 assert_same(got["final"][f], v.narrow(d, r, 1),
+                            f"{label} final {f}")
+
+
+def test_track_cli_on_a_grid_under_torchrun(tmp_path):
+    """``--grid 2x1`` on 2 gloo ranks: each rank file bit for bit the same
+    runs on the emulated ``(2, 1)`` grid, the bank's members sharded over
+    the bank axis (rank ``b`` holds member ``b``'s final shard)."""
+    frames = _frames()[:3]
+    np.save(tmp_path / "movie.npy", frames)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.track",
+           "--transport", "gloo", "--device", "cpu", "--dra", "rna", "rpa",
+           "--bank", "2", "--grid", "2x1", "--particles", "512", "--seed",
+           "3", "--movie", str(tmp_path / "movie.npy"),
+           "--out", str(tmp_path / "out")]
+    subprocess.run(cmd, env=env, check=True, timeout=180,
+                   capture_output=True)
+    grid = runtime.make_mesh((2, 1), ("bank", "data"))
+    want = {k: track.run(grid, frames, k, 512, seed=3, device="cpu")
+            for k in ("rna", "rpa")}
+    want["bank-rna"] = track.run(grid, frames, "rna", 512, bank=[3, 4],
+                                 bank_axis="bank", device="cpu")
+    for r in range(2):
+        rec = torch.load(tmp_path / "out" / f"rank{r}.pt",
+                         weights_only=False)
+        assert (rec["rank"], rec["world"], rec["transport"]) == (r, 2, "gloo")
+        assert set(rec["runs"]) == set(want)
+        for label, w in want.items():
+            got = rec["runs"][label]
+            for f in ("estimates", "ess", "log_marginal", "resampled"):
+                assert_same(got[f], w[f], f"{label} {f}")
+            for k, v in w["diag"].items():
+                assert_same(got["diag"][k], v, f"{label} diag {k}")
+            bank = label.startswith("bank")
+            for f, v in w["final"].items():
+                assert_same(got["final"][f], v[r:r + 1] if bank else v,
                             f"{label} final {f}")
 
 

@@ -15,6 +15,10 @@ written for the port, on the reference's 1-D linear-Gaussian model
 * the host-side payload, a wrong N rejected, the masked step freezing its
   carry and its draws, a step with nothing pending, the allocator, the
   buffer copy, a frame shape mismatch, tiers and their step programs;
+* a server over a world-size-1 gloo group (a ``ProcessMesh`` and a ``(1,
+  1)`` ``ProcessGrid``) is the single-device server, bit for bit under
+  churn, suspend and resume (the server over several ranks is
+  ``tests/test_torch_process_grid.py``'s);
 * against the reference: a port session fed ``ReplayDraws`` from the JAX
   key stream (``test_torch_draws``'s streams) against the reference's
   ``ParticleSessionServer`` on the same frames, fused and composed,
@@ -38,7 +42,9 @@ from repro.serve import ParticleSessionServer as RefServer
 from repro_torch.core import ParallelParticleFilter, SIRConfig
 from repro_torch.core import filters, smc
 from repro_torch.core.draws import ReplayDraws, TorchDraws
-from repro_torch.core.runtime import EmulatedMesh, make_mesh
+from repro_torch.core.runtime import (EmulatedMesh, ProcessGrid, ProcessMesh,
+                                     make_mesh)
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch.serve import lg_demo_model
 from repro_torch.serve import ParticleSessionServer, SuspendedSession
 
@@ -404,7 +410,7 @@ def test_suspend_needs_a_generator():
 
 
 def test_meshes_and_capacity_validated():
-    with pytest.raises(TypeError, match="ROADMAP A8b"):
+    with pytest.raises(TypeError, match="ProcessMesh or ProcessGrid"):
         server(2, mesh=object())
     with pytest.raises(ValueError, match="not in mesh"):
         server(2, mesh=EmulatedMesh(2, "data"))
@@ -413,6 +419,36 @@ def test_meshes_and_capacity_validated():
     with pytest.raises(ValueError, match="capacity"):
         server(0)
     assert server(2, mesh=EmulatedMesh(1, "bank")).tiers == (1, 2)
+
+
+def test_world_one_process_server_matches_single_device(tmp_path):
+    """A server over a world-size-1 gloo group (a ``ProcessMesh`` on the
+    bank axis, and a ``(1, 1)`` ``ProcessGrid``) is the single-device
+    server: the same tiers, and under churn with a suspend and a resume
+    the same bits as the standalone filter."""
+    zs = frames(21, 10)
+    ref = standalone(31, zs)
+    mesh = launch_mesh.init_process_mesh(
+        "gloo", rank=0, world=1, init_method=f"file://{tmp_path}/rdv")
+    try:
+        grid = ProcessGrid("gloo", (1, 1), ("bank", "data"))
+        for m in (ProcessMesh("gloo", "bank"), grid):
+            srv = server(4, mesh=m)
+            assert srv.mesh is None and srv.tiers == server(4).tiers
+            h = srv.attach(31)
+            other = srv.attach(7)
+            for t in range(5):
+                srv.submit(h, zs[t])
+                srv.submit(other, np.float32(0.2))
+                srv.step()
+            srv.detach(other)
+            h = srv.resume(srv.suspend(h))
+            for t in range(5, 10):
+                srv.submit(h, zs[t])
+            assert_bitwise(srv.result(h), ref)
+        assert mesh.shards == 1
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
