@@ -193,6 +193,19 @@
    never; the MoE aux of a prefill at the configs' capacity factor 1.25,
    printed; decode vs prefill logits at capacity factor E / k, where the
    prefill drops nothing (checked), within ``kinds_tols``' limit;
+5l. (run right after phase 2, while the card is empty) trains
+   stablelm-3b whole (32 layers at full width, 2.80 B float32 master
+   weights drawn on the card, bf16 compute, remat, AdamW, batches of 8 x
+   1024 from ``make_batch`` in 2 microbatches, loss chunks of 512) for 20
+   steps through ``repro_torch.train``, which runs no kernel of the port
+   (the reference trains outside its Pallas kernel): the loss falls by
+   TRAIN_FALL; the step-0 gradient in bf16 within TRAIN_GRAD_TOL of the
+   float32-compute one, leaf by leaf, none zero; 1 against 2 microbatches
+   in float32 at the reference's tolerances (16 layers); two 3-step runs
+   and a checkpoint resume at step 2 (2 layers) bit for bit; no kernel
+   launched and ``mha_ref`` never run, and B6 refusing a CUDA input that
+   requires grad; step ms, tokens/s, the bf16 share and peak memory
+   printed;
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -236,7 +249,7 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f, 5g, 5h, 5i, 5j and 5k (``launches_new_phases``; for
+launches in phases 5f, 5g, 5h, 5i, 5j, 5k and 5l (``launches_new_phases``; for
 the row sum, its launches a frame in each cell; for 5i, each rank's).
 """
 from __future__ import annotations
@@ -2553,6 +2566,325 @@ def run_kinds(dev, all_k, reset, counts, name, archs=None, phase="5j",
     return out
 
 
+# phase 5l: training stablelm-3b whole (32 G layers, d_model 2560, 2.80 B
+# parameters) on the card: float32 master weights, bf16 compute, remat,
+# AdamW, batch 8 x 1024 in 2 microbatches, loss chunks of 512
+TRAIN_ARCH, TRAIN_SEED, TRAIN_STEPS = "stablelm-3b", 11, 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_XENT = 8, 1024, 2, 512
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS)
+TRAIN_FALL = 0.3          # nat, step 1 to step 20 (tests/test_train.py)
+# gate b: a bf16 step's gradient against the float32-compute one, each
+# leaf's relative L2 error.  A bf16 rounding is 2^-9 relative; a layer's
+# forward and backward add ~10 of them and 32 layers compound them as a
+# random walk, sqrt(640) x 2^-9 ≈ 0.05; twice that
+TRAIN_GRAD_TOL = 0.1
+# gate c: the reference's test (tests/test_train.py:37-57): its optimizer
+# and tolerances, float32 compute, 1 against 2 microbatches, from the
+# seed's weights, at full width and 16 of the 32 layers: the float32 step
+# of the whole batch at full depth does not fit the card (74.4 GiB
+# allocated on an H100 80GB HBM3 when it ran out)
+TRAIN_ACC_OPT = dict(lr=1e-3, warmup_steps=0)
+TRAIN_ACC_LOSS, TRAIN_ACC_RTOL, TRAIN_ACC_ATOL = 1e-4, 2e-3, 2e-5
+TRAIN_ACC_LAYERS = 16
+# ... on every element whose two float32 gradients agree within 5%.  Adam's
+# first step moves an element by lr·x/(|x| + eps), x its clipped
+# gradient: a relative disagreement r in x moves it by at most lr·r/4,
+# 1.25e-5 at 5%, inside atol; an element whose float32 gradient is
+# rounding noise (x near eps = 1e-8, summed in another order) moves by up
+# to 2·lr.  At full width such elements exist by chance (on an H100
+# 80GB HBM3, 41 beyond the tolerance of 1.53e9 at the seed's weights, 424
+# of 2.80e9 after 20 steps), so they are counted and their excess
+# printed, not gated; the gradients themselves must agree within
+# TRAIN_ACC_GRAD relative L2 a leaf (float32 sums over 8192 tokens in two
+# orders: 4.3e-6 at the seed's weights, 6.3e-5 after 20 steps, at worst)
+TRAIN_ACC_RESOLVED, TRAIN_ACC_GRAD = 0.05, 1e-3
+# gate e at 2 of the 32 layers: a checkpoint of the whole model's weights
+# and moments is 33.6 GB of disk, of 2 layers 5.0 GB
+TRAIN_RESUME_LAYERS = 2
+
+
+def digest(tensors) -> list:
+    """Two exact integer sums of every tensor's raw bits (the sum and the
+    wrapped sum of squares of its int32 words): equal bits give equal
+    digests, in any order of summation."""
+    import torch
+    out = []
+    for t in tensors:
+        b = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        out.append((int(b.sum()), int((b * b).sum())))
+    return out
+
+
+def train_digest(model, state) -> list:
+    return digest([p for _, p in sorted(model.named_parameters())]
+                  + [state[k][n] for k in ("m", "v")
+                     for n in sorted(state[k])])
+
+
+def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
+    """Phase 5l: stablelm-3b trained whole at full width on the card
+    (``repro_torch.train``; no kernel of the port on its path).  Gates: a.
+    20 steps with finite losses and gradient norms, the loss falling by
+    TRAIN_FALL; b. at step 0 the bf16 step's gradient held to the
+    float32-compute one, leaf by leaf within TRAIN_GRAD_TOL, every leaf
+    non-zero and finite; c. 1 against 2 microbatches in float32 from the
+    seed's weights (at TRAIN_ACC_LAYERS layers): the loss and the
+    weights at the reference's tolerances, the latter on every element
+    whose float32 gradient the two runs resolve (TRAIN_ACC_RESOLVED),
+    and every leaf's gradient within TRAIN_ACC_GRAD; d. two 3-step runs
+    from the seed, the same bits (losses and a digest of every master
+    tensor and moment); e. a
+    checkpoint at step 2 reloaded into fresh tensors, step 3 the
+    uninterrupted run's bits (at TRAIN_RESUME_LAYERS layers); f. no
+    kernel launch and no plain attention in the phase, and B6 refuses
+    CUDA inputs that require grad.  Prints step ms (median of steps
+    5-20), tokens/s, the share of 989 TFLOP/s that 6·N·tokens a step
+    makes, and peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import restore_state, save_state
+    from repro_torch.models.lm import model as M
+    from repro_torch.optim import OptConfig, adamw_update, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.step import accumulate_grads
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat and cfg.attn_chunk == 512 and cfg.n_layers == 32,
+          f"5l config {cfg}")
+    tc = TrainConfig(num_microbatches=TRAIN_MICRO, xent_chunk=TRAIN_XENT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ref.mha_ref.calls = 0
+    rec = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO, "xent_chunk": TRAIN_XENT,
+           "base_gib": base / 2 ** 30}
+
+    def batch(s, c=cfg):
+        return make_batch(TRAIN_SEED, s, c, TRAIN_BATCH, TRAIN_SEQ,
+                          device=dev)
+
+    def fresh(c=cfg, seed=TRAIN_SEED):
+        model = M.init_train_params(c, seed, device=dev)
+        return model, init_opt_state(model)
+
+    model, state = fresh()
+    n = sum(p.numel() for p in model.parameters())
+    rec["params"] = n
+    check(abs(n - 2.80e9) < 0.01e9, f"5l: {n} parameters, not 2.80 B")
+    log(f"5l {TRAIN_ARCH} whole: {n / 1e9:.4f} B parameters float32 "
+        f"({(torch.cuda.memory_allocated() - base) / 2 ** 30:.2f} GiB), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_MICRO} "
+        f"microbatches [{name}]")
+
+    # -- b: the step-0 gradient, bf16 against float32 compute ------------
+    t_gate = time.perf_counter()
+    b0 = batch(0)
+    accumulate_grads(model, cfg, tc, b0)
+    g16 = {k: p.grad for k, p in model.named_parameters()}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    accumulate_grads(model, cfg32, tc, b0)
+    errs = {}
+    for k, p in model.named_parameters():
+        g32 = p.grad
+        check(bool(torch.isfinite(g16[k]).all() and
+                   torch.isfinite(g32).all()), f"5l b: {k} not finite")
+        norm = float(torch.linalg.vector_norm(g32))
+        check(norm > 0 and float(torch.linalg.vector_norm(g16[k])) > 0,
+              f"5l b: {k}'s gradient is zero")
+        errs[k] = float(torch.linalg.vector_norm(g16[k] - g32)) / norm
+        p.grad = None
+    del g16
+    worst = max(errs, key=errs.get)
+    rec["grad_rel_l2"] = {"max": errs[worst], "leaf": worst,
+                          "attn": {w: max(v for k, v in errs.items()
+                                          if k.endswith(f"attn.{w}"))
+                                   for w in ("wq", "wk", "wv", "wo")}}
+    rec["gate_s"] = {"b": time.perf_counter() - t_gate}
+    log(f"5l b: bf16 vs float32 gradient, relative L2 a leaf: max "
+        f"{errs[worst]:.4f} ({worst}), attention "
+        f"{ {w: round(v, 4) for w, v in rec['grad_rel_l2']['attn'].items()} }"
+        f" (limit {TRAIN_GRAD_TOL}); {rec['gate_s']['b']:.1f} s [{name}]")
+    check(errs[worst] <= TRAIN_GRAD_TOL,
+          f"5l b: {worst} relative L2 {errs[worst]:.4f} > {TRAIN_GRAD_TOL}")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # -- c: 1 against 2 microbatches, float32 compute, from the seed's
+    # weights as the reference's test starts from its init (each run from
+    # its own draw of them: the seed gives the same bits, gate d).  A
+    # train step is accumulate_grads then adamw_update; they run apart
+    # here so the two gradients can be compared too -------------------
+    t_gate = time.perf_counter()
+    acc_opt = OptConfig(**TRAIN_ACC_OPT)
+    cfg_c = dataclasses.replace(cfg32, n_layers=TRAIN_ACC_LAYERS)
+    runs = {}
+    for m_ in (1, TRAIN_MICRO):
+        model, state = fresh(cfg_c)
+        met = accumulate_grads(model, cfg_c, TrainConfig(
+            num_microbatches=m_, xent_chunk=TRAIN_XENT), b0)
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        adamw_update(grads, state, model, acc_opt)
+        runs[m_] = (float(met["loss"]), model, grads)
+        del state, model, grads
+    (loss1, want_m, g1), (loss2, got_m, g2) = runs[1], runs[TRAIN_MICRO]
+    loss_gap = abs(loss1 - loss2)
+    worst_c = worst_u = -math.inf
+    grad_l2, bad, unresolved = 0.0, {}, 0
+    for (k, want), got in zip(want_m.named_parameters(),
+                              got_m.parameters()):
+        grad_l2 = max(grad_l2, float(torch.linalg.vector_norm(g2[k] - g1[k])
+                                     / torch.linalg.vector_norm(g1[k])))
+        excess = (got - want).detach().abs() - (
+            TRAIN_ACC_ATOL + TRAIN_ACC_RTOL * want.detach().abs())
+        loose = (g2[k] - g1[k]).abs() > TRAIN_ACC_RESOLVED * g1[k].abs()
+        unresolved += int(loose.sum())
+        if bool(loose.any()):
+            worst_u = max(worst_u, float(excess[loose].max()))
+        excess = excess[~loose]
+        if excess.numel():
+            worst_c = max(worst_c, float(excess.max()))
+            if int((excess > 0).sum()):
+                bad[k] = int((excess > 0).sum())
+    del runs, want_m, got_m, g1, g2
+    torch.cuda.empty_cache()
+    rec["microbatch"] = {"loss_gap": loss_gap, "grad_rel_l2": grad_l2,
+                         "excess": worst_c, "violations": bad,
+                         "unresolved": unresolved,
+                         "unresolved_excess": worst_u}
+    rec["gate_s"]["c"] = time.perf_counter() - t_gate
+    log(f"5l c: float32 1 vs {TRAIN_MICRO} microbatches from the seed's "
+        f"weights, {TRAIN_ACC_LAYERS} layers: loss gap {loss_gap:.3g} (limit "
+        f"{TRAIN_ACC_LOSS}), gradients {grad_l2:.3g} relative L2 at worst "
+        f"(limit {TRAIN_ACC_GRAD}); weights over rtol {TRAIN_ACC_RTOL} atol "
+        f"{TRAIN_ACC_ATOL}: worst excess {worst_c:.3g}, beyond it {bad}; "
+        f"{unresolved} elements whose two gradients differ by more than "
+        f"{TRAIN_ACC_RESOLVED:.0%} left out (their worst excess "
+        f"{worst_u:.3g}); {rec['gate_s']['c']:.1f} s [{name}]")
+    check(loss_gap < TRAIN_ACC_LOSS and grad_l2 <= TRAIN_ACC_GRAD
+          and worst_c <= 0, f"5l c: microbatching changed the update "
+                            f"({loss_gap}, {grad_l2}, {worst_c}, {bad})")
+
+    # -- a: 20 steps (the first 3 are gate d's first run) ----------------
+    t_gate = time.perf_counter()
+    model, state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, OptConfig(**TRAIN_OPT), tc)
+    losses, gnorms, times = [], [], []
+    for s in range(TRAIN_STEPS):
+        b = batch(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met = step(model, state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(met["loss"].clone())
+        gnorms.append(float(met["grad_norm"]))
+        if s == 2:
+            want3 = train_digest(model, state)
+    losses_f = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses_f + gnorms),
+          f"5l a: non-finite loss or grad norm {losses_f} {gnorms}")
+    fall = losses_f[0] - losses_f[-1]
+    rec.update(losses=losses_f, grad_norms=gnorms, fall=fall,
+               step_s=times)
+    med = statistics.median(times[4:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec.update(step_ms=med * 1e3, tokens_per_s=tokens / med,
+               flop_share=6 * n * tokens / med / PEAK_BF16,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, state
+    torch.cuda.empty_cache()
+    rec["gate_s"]["a"] = time.perf_counter() - t_gate
+    log(f"5l a: loss {losses_f[0]:.4f} -> {losses_f[-1]:.4f} (fall "
+        f"{fall:.4f}, needs {TRAIN_FALL}); grad norm {gnorms[0]:.3f} -> "
+        f"{gnorms[-1]:.3f}; {rec['gate_s']['a']:.1f} s [{name}]")
+    check(fall >= TRAIN_FALL, f"5l a: the loss fell {fall:.4f} in "
+                              f"{TRAIN_STEPS} steps, not {TRAIN_FALL}")
+    log(f"5l times [{name}]: step {rec['step_ms']:.1f} ms (median of steps "
+        f"5-{TRAIN_STEPS}; first {times[0] * 1e3:.1f}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, 6·N·tokens at "
+        f"{100 * rec['flop_share']:.2f}% of 989 TFLOP/s, peak "
+        f"{rec['peak_gib']:.2f} GiB allocated ({rec['base_gib']:.2f} before "
+        f"the phase)")
+
+    # -- d: a second 3-step run from the seed, the same bits -------------
+    t_gate = time.perf_counter()
+    model, state = fresh()
+    for s in range(3):
+        _, _, met = step(model, state, batch(s))
+        check(same_bits(met["loss"], losses[s]),
+              f"5l d: step {s + 1} loss differs between two runs")
+    check(train_digest(model, state) == want3,
+          "5l d: two 3-step runs differ in the bits of a master tensor or "
+          "moment")
+    del model, state
+    torch.cuda.empty_cache()
+    rec["gate_s"]["d"] = time.perf_counter() - t_gate
+
+    # -- e: checkpoint at step 2, reload, step 3 (2 layers) --------------
+    t_gate = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
+    sstep = make_train_step(small, OptConfig(**TRAIN_OPT), tc)
+    model, state = fresh(small)
+    for s in range(3):
+        _, _, met = sstep(model, state, batch(s, small))
+    want_loss, want_e = met["loss"], train_digest(model, state)
+    model, state = fresh(small)
+    for s in range(2):
+        sstep(model, state, batch(s, small))
+    tmp = os.path.join(ROOT, ".chip_scratch", "train")
+    shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_state(tmp, 2, model, state)
+    t_save = time.perf_counter() - t0
+    model, state = fresh(small, TRAIN_SEED + 1)
+    t0 = time.perf_counter()
+    restore_state(tmp, 2, model, state)
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    _, _, met = sstep(model, state, batch(2, small))
+    check(same_bits(met["loss"], want_loss) and
+          train_digest(model, state) == want_e,
+          "5l e: step 3 after the checkpoint is not the uninterrupted "
+          "run's")
+    rec["resume"] = {"layers": TRAIN_RESUME_LAYERS, "save_s": t_save,
+                     "load_s": t_load}
+    del model, state
+    torch.cuda.empty_cache()
+    rec["gate_s"]["e"] = time.perf_counter() - t_gate
+
+    # -- f: no kernel, no plain attention; B6 refuses grads on the card ---
+    got = counts(all_k)
+    got["row_sum"] = rsum_k.launches
+    check(all(v == 0 for v in got.values()), f"5l launched kernels {got}")
+    check(ref.mha_ref.calls == 0, f"5l ran the plain attention "
+                                  f"{ref.mha_ref.calls} times")
+    q = torch.randn((1, 4, 16, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        ops.attention(q, q[:, :2].detach(), q[:, :2].detach())
+    except RuntimeError as e:
+        check("no backward" in str(e), f"5l f: B6 raised {e}")
+    else:
+        raise AssertionError("5l f: B6 took a CUDA input that requires grad")
+    check(all_k["flash_attention"].launches == 0, "5l f: B6 launched")
+    rec["launches"] = got
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"5l: gates a-f passed; d/e: two 3-step runs and a resume at step "
+        f"2 bit for bit (checkpoint of {TRAIN_RESUME_LAYERS} layers saved "
+        f"{t_save:.1f} s, loaded {t_load:.1f} s); gates "
+        f"{ {k: round(v, 1) for k, v in rec['gate_s'].items()} } s, phase "
+        f"{rec['seconds']:.1f} s [{name}]")
+    return rec
+
+
 def dist_launches(kind, all_k, stages) -> dict:
     """The kernel launches of a 40-frame distributed run: B3 once a frame;
     MPF, RNA and ARNA comb on B1; RPA's per-shard comb scans its CDF once
@@ -4240,6 +4572,9 @@ def main() -> int:
         row_sum_seen.append(rsum_k.launches)
         return {n: all_k[n].launches for n in names}
 
+    # -- phase 5l: training stablelm-3b whole (runs while the card is empty)
+    train = run_train(dev, all_k, reset, counts, rsum_k, name)
+
     # -- phase 3: single filter at the paper's §VII.C frame ------------------
     cfg = TrackingConfig()
     model = TrackingSSM(cfg)
@@ -4884,6 +5219,7 @@ def main() -> int:
                                 f"{processes['sessions']['ranks']} ranks)"] = n
     for k in kernels:
         k["launches_new_phases"] = new_launches.get(k["name"], {})
+        k["launches_new_phases"]["5l train"] = train["launches"][k["name"]]
     record = {
         "card": name, "kernels": kernels,
         "bank_mesh": bank_mesh, "processes": processes, "asir": asir_run,
@@ -4907,7 +5243,7 @@ def main() -> int:
                           "rejection": lane_ms[True]},
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
         "distributed": dist_runs, "domain": domain_runs, "lm": lm,
-        "kinds": kinds, "moe": moe,
+        "kinds": kinds, "moe": moe, "train": train,
         "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
         "attention_kinds": attn_kinds,

@@ -229,3 +229,107 @@ def lm_params(params_np: dict, cfg: configs.ArchConfig, device="cpu",
                       t(params_np["final_norm"]),
                       None if head is None else t(head),
                       None if img is None else t(img))
+
+
+# ---------------------------------------------------------------------------
+# Training: trainable weights and optimizer state, both ways
+# ---------------------------------------------------------------------------
+
+def _named_leaves(tree: dict, prefix: str):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_named(params_np: dict) -> dict:
+    """The reference's params pytree (numpy, stacked groups) as numpy
+    arrays by the port's weight names (``Decoder.named_parameters``:
+    ``embed``, ``blocks.<layer>.<leaf path>``, ``final_norm``,
+    ``lm_head``, ``img_proj``)."""
+    out = {}
+    for i, layer in enumerate(_layer_leaves(params_np)):
+        out.update(_named_leaves(layer, f"blocks.{i}."))
+    for name in ("embed", "final_norm", "lm_head", "img_proj"):
+        if name in params_np:
+            out[name] = np.asarray(params_np[name])
+    return out
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def lm_tree(cfg: configs.ArchConfig, named: dict) -> dict:
+    """Tensors (or arrays) by the port's weight names as the reference's
+    params pytree of numpy arrays: the unrolled ``head_blocks`` and
+    ``tail_blocks`` lists, each scanned group's layers stacked on a
+    leading group axis under ``blocks["l<i>_<kind>_<ffn>"]``."""
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    layers: dict[int, dict] = {}
+    out = {}
+    for name, x in named.items():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            out[name] = host(x)
+            continue
+        leaf = layers.setdefault(int(parts[1]), {})
+        for k in parts[2:-1]:
+            leaf = leaf.setdefault(k, {})
+        leaf[parts[-1]] = host(x)
+    plan = lm.make_plan(cfg)
+    if sorted(layers) != list(range(len(plan.layers()))):
+        raise ValueError(f"{len(layers)} layers of weights for the "
+                         f"{len(plan.layers())} layers of {cfg.name}")
+    lo, unit, hi = len(plan.head), len(plan.unit), plan.scanned().stop
+    if plan.head:
+        out["head_blocks"] = [layers[i] for i in range(lo)]
+    if plan.n_groups:
+        out["blocks"] = {
+            f"l{j}_{kind}_{ffn}": _stack([layers[lo + g * unit + j]
+                                          for g in range(plan.n_groups)])
+            for j, (kind, ffn) in enumerate(plan.unit)}
+    if plan.tail:
+        out["tail_blocks"] = [layers[i] for i in range(hi, len(layers))]
+    return out
+
+
+def train_params(params_np: dict, cfg: configs.ArchConfig,
+                 device="cpu") -> lm.Decoder:
+    """A trainable decoder (float32 master weights with ``requires_grad``)
+    holding the reference's ``init_params`` weights (numpy pytree)."""
+    return lm.trainable(lm_params(params_np, cfg, device, torch.float32))
+
+
+def opt_state(state_np: dict, cfg: configs.ArchConfig,
+              device="cpu") -> dict:
+    """The reference's ``init_opt_state``/``adamw_update`` state (numpy
+    pytrees ``m``, ``v`` and the int32 ``step``) as the port's: moments by
+    weight name in their dtype (float32 or bfloat16, which crosses as
+    float32 numpy and is cast back by ``moment_dtype``)."""
+    def t(x):
+        arr = np.asarray(x)
+        dtype = torch.bfloat16 if arr.dtype.name == "bfloat16" \
+            else torch.float32
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device,
+                                                           dtype=dtype)
+
+    return {k: {n: t(x) for n, x in lm_named(state_np[k]).items()}
+            for k in ("m", "v")} | {
+        "step": torch.tensor(int(np.asarray(state_np["step"])),
+                             dtype=torch.int32, device=device)}
+
+
+def opt_state_to_numpy(state: dict, cfg: configs.ArchConfig) -> dict:
+    """The port's optimizer state as the reference's: ``m`` and ``v`` as
+    params pytrees (float32 numpy; bfloat16 moments upcast exactly) and
+    ``step``."""
+    return {k: lm_tree(cfg, {n: x.float() for n, x in state[k].items()})
+            for k in ("m", "v")} | {
+        "step": np.asarray(int(state["step"]), np.int32)}

@@ -32,7 +32,8 @@ plain version is ``ref.mha_ref``.  The reference's block sizes and its
 ``lq % block_q == 0``/``lk % block_k == 0`` rule have no counterpart:
 the kernels mask ragged tails at any length.
 
-The kernel wrapper takes CUDA tensors only and raises on anything else;
+The kernel wrapper takes CUDA tensors only and raises on anything else,
+and refuses inputs that require grad (it has no backward);
 ``repro_torch.kernels.ops.attention`` dispatches on the device.
 """
 from __future__ import annotations
@@ -249,7 +250,17 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 
     A decode step is host-bound, so a signature (shapes, strides, dtypes,
     devices, causal, window) that passed the checks keeps its plan; only
-    the pointers' alignment is checked again."""
+    the pointers' alignment is checked again.
+
+    The kernel has no backward (nor has the reference's Pallas kernel),
+    and its output would carry no ``grad_fn``: with grad enabled and any
+    of q, k, v requiring grad it raises ``RuntimeError`` before anything
+    else.  Training attends through ``layers.chunked_causal_attention``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention (B6) has no backward: inputs "
+                           "that require grad would get no gradient; "
+                           "training runs chunked_causal_attention")
     window = int(window)
     sig = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
            q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, causal,

@@ -14,6 +14,10 @@ einsums, ``chunked_causal_attention``, and the full-cache masked
 constraints have no counterpart on one card.  A sliding window (the
 ``L`` layer) is the kernel's ``window``: a query at position ``p`` sees
 the keys ``p - window < j <= p``, the reference's mask.
+
+Training runs ``chunked_causal_attention``, the reference's XLA path in
+differentiable torch ops: the flash kernel has no backward (neither has
+the reference's Pallas kernel) and refuses tensors that require grad.
 """
 from __future__ import annotations
 
@@ -74,6 +78,78 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return ops.attention(q, k, v, causal=True, scale=scale,
                          logit_softcap=softcap, window=window)
+
+
+NEG_INF_MASK = -1e30
+
+
+def _masked_softmax(s: torch.Tensor, mask: torch.Tensor | None,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The reference's softmax: masked scores set to -1e30 (not -inf),
+    ``exp(s - max)`` in the scores' dtype, a float32 denominator whose
+    reciprocal is cast to that dtype, the product cast to ``out_dtype``."""
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF_MASK)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True, dtype=torch.float32)
+    return (p * (1.0 / denom).to(p.dtype)).to(out_dtype)
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int = 0,
+                             chunk: int = 512, softcap: float = 0.0,
+                             scale: float | None = None, causal: bool = True,
+                             scores_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """Training attention, the reference's ``chunked_causal_attention``
+    (``repro/models/lm/layers.py:112-185``) in differentiable torch ops:
+    ``q`` ``(B, Hq, T, hd)`` against ``k``/``v`` ``(B, Hkv, Tk, hd)``,
+    GQA as grouped products (KV heads never repeated), one query chunk of
+    ``chunk`` rows at a time (``T % chunk == 0``, the reference's
+    contract).  A window > 0 masks ``q_pos - k_pos >= window`` and, where
+    ``window + chunk < Tk``, gives each chunk only its ``window + chunk``
+    keys (the reference's clipped slice).  ``causal=False`` attends to
+    every key.
+
+    The scores are a ``scores_dtype`` product of the operands (exact
+    float32 products of bf16 values: the reference's einsum with
+    ``preferred_element_type``), times ``scale`` in that dtype, soft-capped
+    ``softcap · tanh(s / softcap)``; the softmax is ``_masked_softmax``'s,
+    its probabilities in ``v``'s dtype.  This, and not the flash kernel
+    (B6, forward only), is what training runs."""
+    b, hq, t, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else hd ** -0.5
+    chunk = min(chunk, t)
+    if t % chunk:
+        raise ValueError(f"T={t} is not a multiple of the chunk {chunk}")
+    qg = q.reshape(b, hkv, g, t, hd)
+    use_slice = causal and window > 0 and (window + chunk) < tk
+    kv_len = window + chunk if use_slice else tk
+    scale_t = torch.tensor(scale, dtype=scores_dtype)
+    outs = []
+    for i in range(t // chunk):
+        start = (min(max(i * chunk + chunk - kv_len, 0), tk - kv_len)
+                 if use_slice else 0)
+        k_c = k[:, :, start:start + kv_len].to(scores_dtype)
+        v_c = v[:, :, start:start + kv_len]
+        q_c = qg[:, :, :, i * chunk:(i + 1) * chunk].to(scores_dtype)
+        s = (q_c.reshape(b, hkv, g * chunk, hd) @ k_c.transpose(-1, -2)
+             ).view(b, hkv, g, chunk, kv_len) * scale_t
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = None
+        if causal:
+            q_pos = i * chunk + torch.arange(chunk, device=q.device)
+            k_pos = start + torch.arange(kv_len, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        p = _masked_softmax(s, mask, v.dtype)
+        o = p.view(b, hkv, g * chunk, kv_len) @ v_c
+        outs.append(o.view(b, hkv, g, chunk, v.shape[-1]))
+    return torch.cat(outs, dim=3).reshape(b, hq, t, v.shape[-1])
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

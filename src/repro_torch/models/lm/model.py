@@ -9,8 +9,16 @@ Layer kinds, as the reference names them:
 each with the reference's FFN: the dense gated MLP, a mixture of
 experts (``moe``, past an arch's ``first_dense_layers``) or none (after
 a ``D`` layer); and the multi-codebook audio head (K summed codebook
-embeddings in, ``(B, T, K, V)`` logits out).  ``forward_train`` waits
-for the training slice (ROADMAP A12) and raises ``NotImplementedError``.
+embeddings in, ``(B, T, K, V)`` logits out).
+
+Training (``forward_train``) runs the G and L kinds with a dense FFN on a
+trainable decoder (``trainable``, ``init_train_params``): float32 master
+weights with ``requires_grad``, cast to the compute dtype inside the
+graph on every call (``cast_params``, the reference's), so the gradients
+arrive in float32.  Its attention is ``layers.chunked_causal_attention``;
+with ``cfg.remat`` each layer of a scanned group runs under
+``torch.utils.checkpoint``.  The other kinds, MoE FFNs and codebook heads
+raise ``NotImplementedError`` (ROADMAP A12 training part b).
 
 The reference scans stacked parameters over layer groups and casts its
 float32 master weights to the compute dtype on every call
@@ -42,6 +50,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as L
@@ -70,6 +79,12 @@ class LayerPlan:
     def layers(self) -> tuple[tuple[str, str], ...]:
         """Every layer's ``(kind, ffn)`` in depth order."""
         return self.head + self.unit * self.n_groups + self.tail
+
+    def scanned(self) -> range:
+        """The depth indices of the layers the reference scans in groups
+        (their leaves stacked on a leading group axis)."""
+        lo = len(self.head)
+        return range(lo, lo + len(self.unit) * self.n_groups)
 
 
 def make_plan(cfg: ArchConfig) -> LayerPlan:
@@ -182,8 +197,20 @@ class Decoder(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype the weights are held in."""
+        """The dtype the weights are held in."""
         return self.embed.dtype
+
+    def reference_ndims(self) -> dict[str, int]:
+        """Each weight's rank in the reference's params pytree, by name:
+        a layer of a scanned group is stacked there on a leading group
+        axis (``init_params``' vmap), one rank more than here."""
+        scanned = make_plan(self.cfg).scanned()
+        out = {}
+        for name, p in self.named_parameters():
+            parts = name.split(".")
+            stacked = parts[0] == "blocks" and int(parts[1]) in scanned
+            out[name] = p.dim() + stacked
+        return out
 
 
 def init_params(cfg: ArchConfig, seed: int, *, device,
@@ -232,6 +259,22 @@ def init_params(cfg: ArchConfig, seed: int, *, device,
     img = (L.normal_weight((cfg.d_image, d), cfg.d_image ** -0.5, g, dtype)
            if cfg.cross_attn_every else None)
     return Decoder(cfg, embed, blocks, zeros(d), head, img)
+
+
+def trainable(model: Decoder) -> Decoder:
+    """``model`` (float32 weights) as training's master weights: every
+    weight gets ``requires_grad``, in place."""
+    if model.dtype != torch.float32:
+        raise TypeError(f"master weights are float32, got {model.dtype}")
+    return model.requires_grad_(True)
+
+
+def init_train_params(cfg: ArchConfig, seed: int, *, device) -> Decoder:
+    """A trainable decoder: ``init_params``' random weights in float32
+    (the reference's ``param_dtype``), drawn on ``device``, with
+    ``requires_grad``."""
+    return trainable(init_params(cfg, seed, device=device,
+                                 dtype=L.dtype_of(cfg.param_dtype)))
 
 
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
@@ -286,12 +329,18 @@ def _attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
                cache: dict, positions: torch.Tensor,
                pos: int | None) -> torch.Tensor:
     """A G or L layer's attention output ``(B, T, Hq·hd)``; fills
-    (prefill) or extends (decode) its KV cache in place."""
+    (prefill) or extends (decode) its KV cache in place, or (train) runs
+    the chunked attention with no cache."""
     hd = cfg.resolved_head_dim
     theta, window = _theta_window(cfg, blk.kind)
     q, k, v = L.apply_qkv(blk.attn, h, cfg.n_heads, cfg.n_kv_heads, hd,
                           positions, theta, cfg.qk_norm, cfg.norm_eps)
-    if mode == "decode":
+    if mode == "train":
+        o = L.chunked_causal_attention(
+            q, k, v, window=window, chunk=cfg.attn_chunk,
+            softcap=cfg.logit_softcap,
+            scores_dtype=L.dtype_of(cfg.attn_scores_dtype))
+    elif mode == "decode":
         # in place: the reference's dynamic_update_slice at pos
         cache["k"][:, :, pos] = k[:, :, 0]
         cache["v"][:, :, pos] = v[:, :, 0]
@@ -410,16 +459,37 @@ def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
     return x
 
 
+class _Lookup(torch.autograd.Function):
+    """``weight[ids]`` whose backward sums each id's rows in a fixed order:
+    the one-hot product ``onehot(ids)ᵀ @ grad`` (a cuBLAS product, which
+    repeats bit for bit), where torch's own index backward accumulates
+    with float atomics on CUDA and would not repeat."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return weight[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        flat = ids.reshape(-1, 1)
+        onehot = grad.new_zeros((flat.shape[0], ctx.rows)).scatter_(
+            1, flat, 1.0)
+        return onehot.T @ grad.reshape(flat.shape[0], -1), None
+
+
 def _embed(model: Decoder, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids ``(B, T)`` (``(B, T, K)`` with K codebooks, whose
     embeddings are summed) → ``(B, T, D)``."""
     tokens = tokens.long()
     if model.cfg.n_codebooks > 1:
-        x = model.embed[0][tokens[..., 0]]
+        x = _Lookup.apply(model.embed[0], tokens[..., 0])
         for k in range(1, model.cfg.n_codebooks):
-            x = x + model.embed[k][tokens[..., k]]
+            x = x + _Lookup.apply(model.embed[k], tokens[..., k])
     else:
-        x = model.embed[tokens]
+        x = _Lookup.apply(model.embed, tokens)
     if model.cfg.scale_embed:
         x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -436,11 +506,103 @@ def unembed(model: Decoder, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
-def forward_train(model: Decoder, tokens: torch.Tensor, img=None):
-    """The training forward (hidden states for the chunked loss) waits for
-    the training slice, ROADMAP A12."""
-    raise NotImplementedError("forward_train waits for the training slice "
-                              "(ROADMAP A12)")
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is a G
+    or L layer with a dense FFN and the head has one codebook: the rest
+    is ROADMAP A12 training part b."""
+    for i, (kind, ffn) in enumerate(make_plan(cfg).layers()):
+        if kind not in ("G", "L") or ffn != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: training a {kind} layer with FFN {ffn!r} "
+                f"(layer {i}) waits for ROADMAP A12 training part b; "
+                f"training runs the G and L kinds with a dense FFN")
+    if cfg.n_codebooks > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: training a {cfg.n_codebooks}-codebook head waits "
+            f"for ROADMAP A12 training part b")
+
+
+class CastDecoder:
+    """A decoder's weights cast to a config's compute dtype inside the
+    graph (``cast_params``): the attributes the forward passes read
+    (``cfg``, ``embed``, ``blocks`` with each layer's ``kind``, ``ffn``
+    and leaves, ``final_norm``, ``lm_head``, ``img_proj``, ``device``,
+    ``dtype``), the mixer's and FFN's leaves as plain dicts.  A weight
+    already in that dtype is the weight itself."""
+
+    def __init__(self, **attrs):
+        self.__dict__.update(attrs)
+
+
+def _cast(x, dtype: torch.dtype):
+    if isinstance(x, (dict, nn.ParameterDict)):
+        return {k: _cast(v, dtype) for k, v in x.items()}
+    return None if x is None else x.to(dtype)
+
+
+def cast_params(model, cfg: ArchConfig | None = None) -> CastDecoder:
+    """The reference's ``cast_params``: ``model``'s weights in the compute
+    dtype of ``cfg`` (default the model's), as differentiable casts of the
+    master weights, so their gradients arrive in the masters' float32.
+    ``cfg`` may differ from the model's in its numeric and execution
+    fields (compute dtype, remat, chunks), not in its layers.  A
+    ``CastDecoder`` with that config is returned as it is."""
+    cfg = cfg or model.cfg
+    if isinstance(model, CastDecoder):
+        if model.cfg != cfg:
+            raise ValueError("a CastDecoder runs its own config")
+        return model
+    if make_plan(cfg).layers() != make_plan(model.cfg).layers():
+        raise ValueError(f"{cfg.name}'s layers are not the model's "
+                         f"({model.cfg.name})")
+    ct = L.dtype_of(cfg.compute_dtype)
+    blocks = []
+    for blk in model.blocks:
+        leaves = {n: _cast(p, ct) for n, p in
+                  blk.named_parameters(recurse=False)}
+        leaves.update({n: _cast(d, ct) for n, d in blk.named_children()})
+        blocks.append(CastDecoder(kind=blk.kind, ffn=blk.ffn, **leaves))
+    return CastDecoder(cfg=cfg, embed=_cast(model.embed, ct), blocks=blocks,
+                       final_norm=_cast(model.final_norm, ct),
+                       lm_head=_cast(model.lm_head, ct),
+                       img_proj=_cast(model.img_proj, ct),
+                       device=model.device, dtype=ct)
+
+
+def forward_train(model, tokens: torch.Tensor,
+                  img: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, dict]:
+    """The training forward, the reference's (``model.py:473-486``):
+    ``tokens`` ``(B, T)`` → final-normed hidden states ``(B, T, D)`` (the
+    chunked loss unembeds them) and the aux dict (empty: no MoE layer
+    trains yet).  ``model`` is a decoder (cast here by ``cast_params``)
+    or a ``CastDecoder``, whose config the forward runs.  Every layer
+    runs in "train" mode: no caches, ``chunked_causal_attention``; with
+    ``cfg.remat`` each layer of a scanned group runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scan body, nothing saved), the unrolled head and tail layers do not.
+    Raises ``NotImplementedError`` before any compute for what
+    ``check_trainable`` refuses."""
+    cfg = model.cfg
+    check_trainable(cfg)
+    if img is not None:
+        raise ValueError(f"{cfg.name} does not cross-attend: no img")
+    view = cast_params(model)
+    x = _embed(view, tokens)
+    positions = torch.arange(tokens.shape[1], device=view.device)
+    scanned = make_plan(cfg).scanned()
+
+    def layer(x, blk):
+        return _block_forward(blk, x, cfg, "train", None, positions, None,
+                              None)
+
+    for i, blk in enumerate(view.blocks):
+        if cfg.remat and i in scanned:
+            x = checkpoint(layer, x, blk, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, blk)
+    return L.rms_norm(x, view.final_norm, cfg.norm_eps), {}
 
 
 def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,

@@ -4,10 +4,12 @@
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Importing the port builds nothing and loads no CUDA library.
 * Entry points run on the CUDA device by default and raise without one
-  (the filters, ``generate``, ``smc_decode``, the session server and
-  the serve launcher); the options of later slices (the LM layer kinds
-  L/M/X/R/D, MoE FFNs, multi-codebook heads, sliding windows, training)
-  raise ``NotImplementedError``; the serving slice's modules exist and
+  (the filters, ``generate``, ``smc_decode``, the session server, the
+  serve and train launchers); ``forward_train`` runs the G and L kinds
+  with a dense FFN and raises ``NotImplementedError`` (ROADMAP A12
+  training part b) for the M, X, R and D kinds, MoE FFNs and codebook
+  heads; the flash-attention kernel refuses inputs that require grad
+  before it plans anything; the serving slice's modules exist and
   import neither ``jax`` nor the reference; ARNA, butterfly,
   ``domain=``, a bank over a mesh and ``bank_axis`` build and run, and
   an unknown ``bank_axis`` raises ``ValueError``.
@@ -21,6 +23,8 @@
   the session server; importing the launchers starts no process group,
   no process and no CUDA context; neither a ``ProcessMesh`` nor a
   ``ProcessGrid`` is built without an initialized group.
+* The training slice's modules (ROADMAP A12 training part a) are in the
+  scan and import neither ``jax`` nor the reference.
 """
 import ast
 import dataclasses
@@ -59,6 +63,10 @@ SERVING_MODULES = ("repro_torch.checkpoint.store", "repro_torch.serve.metrics",
 PROCESS_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.track",
                    "repro_torch.launch.grid", "repro_torch.core.runtime",
                    "repro_torch.serve.sessions")
+# the training slice's modules (ROADMAP A12 training part a)
+TRAINING_MODULES = ("repro_torch.optim.adamw", "repro_torch.data.tokens",
+                    "repro_torch.train.step", "repro_torch.launch.train",
+                    "repro_torch.models.lm.model", "repro_torch.convert")
 
 
 def _port_files():
@@ -251,7 +259,8 @@ def test_unported_layer_kinds_raise(arch):
     """The archs with an M layer or a MoE FFN (refused until the latent
     attention and MoE slice; the test keeps its name) now build from both
     ways of building a decoder, with their M/MoE leaves; what still
-    raises, naming the ROADMAP item, is ``forward_train``."""
+    raises, naming the ROADMAP item (A12 training part b), is
+    ``forward_train``, as a trainable decoder too."""
     import jax
     from repro.configs import get_config as ref_config
     from repro.models.lm import model as ref_model
@@ -269,6 +278,9 @@ def test_unported_layer_kinds_raise(arch):
                    for b in model.blocks)
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             lm.forward_train(model, torch.zeros((1, 4), dtype=torch.int64))
+    trainable = lm.init_train_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12 training"):
+        lm.forward_train(trainable, torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_sliding_window_training_and_sessions_raise():
@@ -276,7 +288,11 @@ def test_sliding_window_training_and_sessions_raise():
     take it: with a one-key window every query sees only its own key, so
     the output is ``v`` (the window's agreement with the reference's
     mask is tests/test_torch_attention_window.py's).  ``forward_train``
-    still raises."""
+    (refused until the training slice; the test keeps its name) runs the
+    G smoke model, frozen or trainable, and with a one-key window the
+    training attention returns ``v`` too; it raises ``NotImplementedError``
+    naming ROADMAP A12 training part b for the M, X, R and D kinds, MoE
+    FFNs and codebook heads, before any compute."""
     from repro_torch.models.lm import decode_ssm, layers
     from repro_torch.serve.smc_decode import suspended_decode_session
     g = torch.Generator().manual_seed(0)
@@ -284,9 +300,27 @@ def test_sliding_window_training_and_sessions_raise():
     assert torch.equal(layers.causal_attention(q, k, v, window=1), v)
     assert torch.equal(layers.decode_attention(q[:, :, :1], k, v, 1,
                                                window=1), v[:, :, 1:2])
+    assert torch.equal(layers.chunked_causal_attention(
+        q, k, v, window=1, chunk=3), v)
+    from repro_torch.configs import get_config
     from repro_torch.models.lm import model as lm
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        lm.forward_train(_smoke_lm(), torch.zeros((1, 4), dtype=torch.int64))
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for model in (_smoke_lm("stablelm-3b"), lm.init_train_params(
+            get_config("stablelm-3b", smoke=True), 0, device="cpu")):
+        hidden, aux = lm.forward_train(model, tokens)
+        assert hidden.shape == (1, 4, model.cfg.d_model) and aux == {}
+        assert torch.isfinite(hidden).all()
+        assert hidden.requires_grad == model.embed.requires_grad
+    for arch in ("deepseek-v2-236b", "moonshot-v1-16b-a3b",
+                 "llama-3.2-vision-11b", "recurrentgemma-2b", "mamba2-1.3b",
+                 "musicgen-medium"):
+        cfg = get_config(arch, smoke=True)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A12 training part b"):
+            lm.check_trainable(cfg)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A12 training part b"):
+            lm.forward_train(_smoke_lm(arch), tokens)
     # session-hosted decoding is ported (ROADMAP A11): its module and the
     # other serving modules exist and import neither jax nor the reference
     assert callable(suspended_decode_session)
@@ -332,6 +366,53 @@ def test_attention_kernel_refuses_cpu_tensors_before_planning(shape):
     assert fa._CHECKED == checked
     assert fa.flash_attention_kernel.variants == variants
     assert not build._LIBS
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_attention_kernel_refuses_grad_before_planning(which):
+    """B6 has no backward: with grad enabled, an input that requires grad
+    is refused (``RuntimeError``) before the device check, the plan, the
+    build or the count; without grad, or on the CPU through
+    ``ops.attention``'s plain version, the same tensors run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q, k, v = _qkv()
+    t = {"q": q, "k": k, "v": v}
+    t[which] = t[which].requires_grad_()
+    checked = dict(fa._CHECKED)
+    launches = fa.flash_attention_kernel.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_kernel(t["q"], t["k"], t["v"])
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_kernel(t["q"], t["k"], t["v"])
+    assert fa._CHECKED == checked
+    assert fa.flash_attention_kernel.launches == launches
+    assert not build._LIBS
+    out = ops.attention(t["q"], t["k"], t["v"])
+    out.float().sum().backward()
+    assert t[which].grad is not None
+
+
+def test_train_launcher_defaults_to_cuda(monkeypatch):
+    """The train launcher runs on the card unless told ``cpu``, and fails
+    without one; a mesh of devices waits for ROADMAP A13."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(SystemExit, match="ROADMAP A13"):
+        train.main(["--smoke", "--devices", "2", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_scanned(module):
+    """The AST scan covers the training slice's modules, and they import
+    neither ``jax`` nor the reference."""
+    path = PORT.parent.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in _port_files()
+    importlib.import_module(module)
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"
 
 
 def _qkv(b=1, hq=4, hkv=2, lq=3, lk=5, d=16, dtype=torch.bfloat16):

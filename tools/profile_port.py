@@ -20,9 +20,14 @@ qwen3-32b width with 16 layers (``generate`` and ``smc_decode``, at
 chip_smoke.py's sizes) and phase 5k's (``moe-deepseek-*`` and
 ``moe-moonshot-*``: 4 and 16 layers at full width, one decoder held at
 a time; each also splits its device time by region: the M layers'
-prefill and absorbed decode and the MoE FFNs, ``REGIONS``) — it runs the path once to warm up, then once
+prefill and absorbed decode and the MoE FFNs, ``REGIONS``), and phase
+5l's train step (``train-stablelm-3b``: regions for the chunked
+attention and loss forwards and the optimizer, then the attention alone
+at the step's shape, forward and backward, ``attention_alone``) — it
+runs the path once to warm up, then once
 under ``torch.profiler`` (``--frames`` frames of a filter; one whole
-call of an LM cell) and prints the wall time per frame or call, the
+call of an LM cell, one train step) and prints the wall time per frame,
+call or step, the
 device busy share (the sum of kernel times over the wall time: one
 stream, so kernels do not overlap), the kernels that take the most
 device time, the time of each of the port's own kernels, grouped by
@@ -124,11 +129,73 @@ def lm_runs(dev) -> dict:
             "lm-smc-decode": (smc, 1, "call")}
 
 
-# phase 5k's regions: (module, function) -> the profiler range its calls
-# are recorded under, so a MoE cell's device time splits by layer part
-REGIONS = {("mla", "mla_attention"): "mla prefill",
-           ("mla", "mla_decode_absorbed"): "mla absorbed decode",
-           ("moe", "apply_moe"): "moe ffn"}
+# phase 5k's and 5l's regions: (module, function) -> the profiler range
+# its calls are recorded under, so a cell's device time splits by part
+# (a training region holds the forward and the remat recompute; the
+# backward's kernels run outside every region)
+REGIONS = {("models.lm.mla", "mla_attention"): "mla prefill",
+           ("models.lm.mla", "mla_decode_absorbed"): "mla absorbed decode",
+           ("models.lm.moe", "apply_moe"): "moe ffn",
+           ("models.lm.layers", "chunked_causal_attention"):
+               "chunked attention (forward, recompute)",
+           ("train.step", "chunked_xent"): "chunked xent (forward)",
+           ("train.step", "adamw_update"): "adamw update"}
+
+
+def train_runs(dev) -> dict:
+    """Phase 5l's train step at chip_smoke.py's sizes: stablelm-3b whole,
+    float32 masters, bf16 compute, remat, 8 x 1024 tokens in 2
+    microbatches; the weights and optimizer state drawn when it runs."""
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models.lm import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    def make():
+        cfg = get_config(cs.TRAIN_ARCH)
+        model = M.init_train_params(cfg, cs.TRAIN_SEED, device=dev)
+        state = init_opt_state(model)
+        step = make_train_step(cfg, OptConfig(**cs.TRAIN_OPT), TrainConfig(
+            num_microbatches=cs.TRAIN_MICRO, xent_chunk=cs.TRAIN_XENT))
+        batch = make_batch(cs.TRAIN_SEED, 0, cfg, cs.TRAIN_BATCH,
+                           cs.TRAIN_SEQ, device=dev)
+        return lambda: step(model, state, batch)
+    return {"train-stablelm-3b": (make, 1, "step")}
+
+
+def attention_alone(dev) -> dict:
+    """The training attention alone at a 5l microbatch's shape (q, k, v
+    of (4, 32, 1024, 80) bf16, chunk 512): device ms of a forward and of
+    a forward + backward, and what a step's 64 of each (2 microbatches x
+    32 layers) plus 64 remat forwards add up to."""
+    import chip_smoke as cs
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import layers as L
+    cfg = get_config(cs.TRAIN_ARCH)
+    shape = (cs.TRAIN_BATCH // cs.TRAIN_MICRO, cfg.n_heads, cs.TRAIN_SEQ,
+             cfg.resolved_head_dim)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    grad = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            L.chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
+
+    def fwd_bwd():
+        L.chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk).backward(
+            grad)
+
+    f, fb = cs.cuda_ms(fwd), cs.cuda_ms(fwd_bwd)
+    per_step = 2 * cfg.n_layers * (fb + f)
+    return {"shape": list(shape), "fwd_ms": f, "fwd_bwd_ms": fb,
+            "per_step_ms": per_step}
 
 
 def moe_runs(dev) -> dict:
@@ -185,7 +252,7 @@ class Regions:
         from torch.profiler import record_function
         self.saved = []
         for (mod, fn), label in REGIONS.items():
-            m = importlib.import_module(f"repro_torch.models.lm.{mod}")
+            m = importlib.import_module(f"repro_torch.{mod}")
             real = getattr(m, fn)
 
             def wrapped(*a, _real=real, _label=label, **kw):
@@ -334,6 +401,7 @@ def main() -> int:
     runs["asir"] = (asir, args.frames, "frame")
     runs.update(lm_runs(dev))
     runs.update(moe_runs(dev))
+    runs.update(train_runs(dev))
     runs.update(pass_runs(dev))
     record = {"card": name, "frames": args.frames, "paths": {}}
     for label, (make, per, unit) in runs.items():
@@ -342,7 +410,8 @@ def main() -> int:
         fn = make()
         fn()                                           # warm-up (and build)
         torch.cuda.synchronize()
-        with Regions() if label.startswith("moe-") else nullcontext(), \
+        with Regions() if label.startswith(("moe-", "train-")) \
+                else nullcontext(), \
                 profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -404,6 +473,13 @@ def main() -> int:
                   f"({launches.get(cs, 0)} launches), row sum "
                   f"{groups.get(rs, 0.0):.4f} ms/frame "
                   f"({launches.get(rs, 0)} launches) [{name}]")
+        if unit == "step":
+            rec["attention_alone"] = a = attention_alone(dev)
+            print(f"    chunked attention alone {tuple(a['shape'])}: "
+                  f"forward {a['fwd_ms']:.3f} ms, forward + backward "
+                  f"{a['fwd_bwd_ms']:.3f} ms; a step's 64 of each "
+                  f"{a['per_step_ms']:.1f} ms of {ms_frame:.1f} "
+                  f"({a['per_step_ms'] / ms_frame:.1%}) [{name}]")
         del fn
         torch.cuda.empty_cache()
     if args.out:
