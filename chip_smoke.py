@@ -206,6 +206,23 @@
    launched and ``mha_ref`` never run, and B6 refusing a CUDA input that
    requires grad; step ms, tokens/s, the bf16 share and peak memory
    printed;
+5m. (right after 5l) trains the other layer kinds, MoE FFNs and the
+   codebook head at full width, one arch at a time, each freed before
+   the next (``TRAIN_KINDS``): recurrentgemma-2b whole (R, L), mamba2-1.3b
+   whole (D), musicgen-medium whole (4 codebooks), llama-3.2-vision-11b
+   10 of 40 layers (G, X over 1601 image tokens of 1280), moonshot-v1-16b-
+   a3b 4 of 48 (a dense layer and 3 MoE: 64 experts of 1408, top 6, 2
+   shared), deepseek-v2-236b 1 of 60 (its dense first M layer at (192,
+   128), 128 heads); 5l's batches, optimizer and precision: a. 10 steps,
+   the loss falling by TRAIN_FALL; b. the seed's bf16 gradient against
+   the float32-compute one, leaf by leaf within TRAIN_GRAD_TOL (MoE
+   router and experts within TRAIN_MOE_GRAD_TOL, set from a reckoning of
+   bf16 routing flips), none zero, except llama's X-gated leaves, exactly
+   zero while tanh(xattn_gate) = 0 and held again after one step; c.
+   moonshot's aux loss and dropped fraction finite, printed; d. two
+   2-step runs the same bits; f. no kernel launched, B6's count 0
+   through the M and X layers, ``mha_ref`` never; step ms, tokens/s,
+   6·N·tokens over 989 TFLOP/s (N active) and peak memory printed;
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -249,7 +266,7 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f, 5g, 5h, 5i, 5j, 5k and 5l (``launches_new_phases``; for
+launches in phases 5f-5m (``launches_new_phases``; for
 the row sum, its launches a frame in each cell; for 5i, each rank's).
 """
 from __future__ import annotations
@@ -2885,6 +2902,337 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
     return rec
 
 
+# phase 5m: training the M, X, R and D kinds, MoE FFNs and the codebook
+# head at full width, each arch after the last is freed, right after 5l
+# while the card is empty: 5l's batches (8 x 1024 from make_batch in 2
+# microbatches), loss chunks, bf16 compute, remat and AdamW.  Widths,
+# expert counts, vocabularies and image tokens are never cut; depth only
+# where 16 B a parameter (float32 master, gradient, two moments) would
+# not fit 80 GB: llama-vision two GGGGX units (3.2 B), moonshot its dense
+# layer and 3 MoE layers (2.5 B; 64 experts of 1408, top 6), deepseek its
+# dense first layer (1.4 B; one MoE layer holds 3.77 B parameters, 60 GB
+# at 16 B before anything else)
+TRAIN_KINDS = {"recurrentgemma-2b": None, "mamba2-1.3b": None,
+               "musicgen-medium": None, "llama-3.2-vision-11b": 10,
+               "moonshot-v1-16b-a3b": 4, "deepseek-v2-236b": 1}
+TRAIN_KINDS_STEPS, TRAIN_KINDS_SEED = 10, 13
+TRAIN_KINDS_DIGEST_STEPS = 2      # gate d: two runs of this many steps
+# gate b for a MoE arch's router and expert leaves, set from a reckoning
+# before any run on the card, never from a reading: top-k comes from the bf16
+# router product, so a token whose 6th and 7th router logits (~N(0, 1)
+# at init; 64 experts: mean gap ~0.095) lie closer than the two runs'
+# logit difference (sigma ~0.008: bf16 inputs, weights and output
+# rounding, and the drift of the hidden states) takes another expert:
+# ~0.4 x 0.008 / 0.095, 3-6% of tokens, ~280 of a microbatch's 4096 a
+# layer.  A flip moves 2 of a token's 6 expert contributions, so an
+# expert leaf's relative L2 is ~sqrt(2p / 6) = 0.11-0.14, up to ~0.2 if
+# every flip also shifts a capacity drop; the limit is 0.25.  Every
+# other leaf keeps TRAIN_GRAD_TOL
+TRAIN_MOE_GRAD_TOL = 0.25
+MOE_LEAVES = ("moe.router", "moe.we_gate", "moe.we_up", "moe.we_down")
+# gate b for the D kind (mamba2-1.3b's 48 SSD layers), by leaf.  The
+# depth-scaled reckoning above does not hold there: the card's first
+# reading failed TRAIN_GRAD_TOL (ssm.a_log 0.2043 at layer 39, every
+# other leaf lower), and the reference's own bf16 gradient lies as far
+# from its float32 one at that depth.  tests/bf16_grad_noise.py (48 D
+# layers, d_model 256, 2 x 1024 tokens, seed 1, on the CPU) reads, for
+# the largest layer of each leaf, reference / port: a_log 0.4103 /
+# 0.3538, dt_bias 0.3639 / 0.3231, d_skip 0.2393 / 0.2057, pre_norm
+# 0.1222 / 0.1132, out_norm 0.1214 / 0.1164, conv_b 0.1154 / 0.1086,
+# conv_w 0.1141 / 0.1052, w_in 0.1102 / 0.1018, w_out 0.1097 / 0.1011,
+# embed 0.1085 / 0.1000 (the per-head a_log and dt_bias enter
+# exponentials of chunk-long sums).  Each D-arch leaf is held to the
+# larger of TRAIN_GRAD_TOL and the reference's own reading
+TRAIN_D_GRAD_TOL = {"ssm.a_log": 0.4103, "ssm.dt_bias": 0.3639,
+                    "ssm.d_skip": 0.2393, "pre_norm": 0.1222,
+                    "ssm.out_norm": 0.1214, "ssm.conv_b": 0.1154,
+                    "ssm.conv_w": 0.1141, "ssm.w_in": 0.1102,
+                    "ssm.w_out": 0.1097, "embed": 0.1085}
+
+
+def grad_limit(name: str, kinds, moe_leaves) -> tuple[str, float]:
+    """Gate b's group and limit for weight ``name``: a MoE router or
+    expert leaf TRAIN_MOE_GRAD_TOL, a D arch's leaf its TRAIN_D_GRAD_TOL
+    entry (at least TRAIN_GRAD_TOL), an X-gated leaf and the rest
+    TRAIN_GRAD_TOL."""
+    if name in moe_leaves:
+        return "moe", TRAIN_MOE_GRAD_TOL
+    if x_leaf(name, kinds):
+        return "x", TRAIN_GRAD_TOL
+    if "D" in kinds:
+        leaf = name.split(".", 2)[-1] if name.startswith("blocks.") \
+            else name
+        return "d", max(TRAIN_GRAD_TOL, TRAIN_D_GRAD_TOL.get(leaf, 0.0))
+    return "other", TRAIN_GRAD_TOL
+
+
+def active_params(model, cfg) -> tuple[int, int]:
+    """``(total, active)`` parameters: the active count keeps top_k of
+    n_experts of each MoE layer's routed experts (their ``we_gate``,
+    ``we_up``, ``we_down``) and every other weight, the shared experts,
+    the router, attention and the embeddings and head included."""
+    total = sum(p.numel() for p in model.parameters())
+    routed = sum(p.numel() for n, p in model.named_parameters()
+                 if ".moe.we_" in n)
+    frac = cfg.moe.top_k / cfg.moe.n_experts if cfg.moe else 1.0
+    return total, total - routed + int(routed * frac)
+
+
+def x_leaf(name: str, kinds) -> bool:
+    """Whether weight ``name`` reaches the loss only through an X layer's
+    ``tanh(xattn_gate)`` gate (``img_proj``, the X layers' ``xattn``
+    projections and their ``pre_norm``, which feeds only the query), so
+    that its gradient is exactly zero while the gate is 0."""
+    if name == "img_proj":
+        return True
+    parts = name.split(".")
+    return (parts[0] == "blocks" and kinds[int(parts[1])] == "X"
+            and parts[2] in ("xattn", "pre_norm"))
+
+
+def grad_gate(model, cfg, cfg32, tc, b0, zero_x, kinds):
+    """Gate b at ``model``'s weights: the bf16-compute gradient against
+    the float32-compute one, each leaf's relative L2.  With ``zero_x``
+    the X kind's gated leaves must be exactly zero in both (and are left
+    out of the errors); every other leaf must be finite and non-zero.
+    Returns ``(errors by leaf, bf16 gradients, step-0 metrics)``."""
+    import torch
+    from repro_torch.train.step import accumulate_grads
+    met = accumulate_grads(model, cfg, tc, b0)
+    g16 = {k: p.grad for k, p in model.named_parameters()}
+    accumulate_grads(model, cfg32, tc, b0)
+    errs, zeros = {}, []
+    for k, p in model.named_parameters():
+        g32, p.grad = p.grad, None
+        check(bool(torch.isfinite(g16[k]).all() and
+                   torch.isfinite(g32).all()), f"5m b: {k} not finite")
+        if zero_x and x_leaf(k, kinds):
+            check(not bool(g16[k].any()) and not bool(g32.any()),
+                  f"5m b: {k} has a gradient while tanh(xattn_gate) = 0")
+            zeros.append(k)
+            continue
+        norm = float(torch.linalg.vector_norm(g32))
+        check(norm > 0 and float(torch.linalg.vector_norm(g16[k])) > 0,
+              f"5m b: {k}'s gradient is zero")
+        errs[k] = float(torch.linalg.vector_norm(g16[k] - g32)) / norm
+    if zero_x:
+        check(len(zeros) > 0, "5m b: no X-gated leaf found")
+    return errs, g16, met
+
+
+def freed(label: str) -> float:
+    """Empty torch's cache and return the GiB still allocated (a freed
+    arch must leave none), logged under ``label``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"{label}: {held:.2f} GiB allocated")
+    return held
+
+
+def run_train_kinds(dev, all_k, reset, counts, rsum_k, name) -> dict:
+    """Phase 5m: each arch of TRAIN_KINDS trained at full width on the
+    card through ``repro_torch.train`` (no kernel of the port on its
+    path).  Gates, each arch: a. TRAIN_KINDS_STEPS steps with finite
+    losses and gradient norms, the loss falling by TRAIN_FALL; b. at the
+    seed's weights the bf16 step's gradient held to the float32-compute
+    one leaf by leaf within TRAIN_GRAD_TOL (a MoE arch's router and
+    expert leaves within TRAIN_MOE_GRAD_TOL), no leaf zero or
+    non-finite, except that for the X kind ``img_proj`` and the X
+    layers' projections must be exactly zero (``tanh(0)`` gates them);
+    there all leaves are held again after one bf16 AdamW step, where the
+    gate has moved; c. a MoE arch's ``moe_aux_loss`` and
+    ``moe_drop_frac`` finite, the dropped fraction a MoE layer in [0,
+    1); d. two TRAIN_KINDS_DIGEST_STEPS-step runs from the seed, the same
+    bits (losses, the MoE metrics, ``train_digest``); f. no kernel
+    launched and no plain attention run in the phase.  Prints step ms
+    (median of steps 3-10), tokens/s, the share of 989 TFLOP/s that
+    6·N·tokens makes (N: ``active_params``), peak memory and the loss
+    before and after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import ref
+    from repro_torch.models.lm import model as M
+    from repro_torch.optim import OptConfig, adamw_update, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    tc = TrainConfig(num_microbatches=TRAIN_MICRO, xent_chunk=TRAIN_XENT)
+    opt = OptConfig(**TRAIN_OPT)
+    reset()
+    ref.mha_ref.calls = 0
+    out = {}
+    for arch, layers in TRAIN_KINDS.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        plan = M.make_plan(cfg).layers()
+        kinds = [k for k, _ in plan]
+        moe_layers = sum(f == "moe" for _, f in plan)
+        check(cfg.remat and cfg.compute_dtype == "bfloat16",
+              f"5m {arch} config {cfg}")
+        base = freed(f"5m {arch} start") * 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"layers": cfg.n_layers, "plan": "".join(kinds),
+               "moe_layers": moe_layers, "base_gib": base / 2 ** 30}
+
+        def batch(s):
+            return make_batch(TRAIN_KINDS_SEED, s, cfg, TRAIN_BATCH,
+                              TRAIN_SEQ, device=dev)
+
+        # -- b: the seed's gradients, bf16 against float32 compute -------
+        t_gate = time.perf_counter()
+        model = M.init_train_params(cfg, TRAIN_KINDS_SEED, device=dev)
+        n, n_active = active_params(model, cfg)
+        rec.update(params=n, active_params=n_active)
+        log(f"5m {arch} x {cfg.n_layers} layers ({rec['plan']}): "
+            f"{n / 1e9:.4f} B parameters float32, {n_active / 1e9:.4f} B "
+            f"active [{name}]")
+        b0 = batch(0)
+        has_x = "X" in kinds
+        moe_leaves = [k for k, _ in model.named_parameters()
+                      if any(f".{w}" in k for w in MOE_LEAVES)]
+        errs, g16, met0 = grad_gate(model, cfg, cfg32, tc, b0, has_x,
+                                    kinds)
+        rounds = [errs]
+        if has_x:
+            # one bf16 AdamW step from the seed moves xattn_gate off 0
+            state = init_opt_state(model)
+            adamw_update(g16, state, model, opt)
+            del state, g16
+            gate = [float(p.detach()) for k, p in model.named_parameters()
+                    if k.endswith("xattn_gate")]
+            check(all(g != 0.0 for g in gate), f"5m b: gates {gate}")
+            rec["xattn_gate_after_step"] = gate
+            errs, g16, _ = grad_gate(model, cfg, cfg32, tc, b0, False,
+                                     kinds)
+            rounds.append(errs)
+        del g16
+        worst, over = {}, []
+        for i, e in enumerate(rounds):
+            for k, err in e.items():
+                group, limit = grad_limit(k, kinds, moe_leaves)
+                key = f"{group}{i}"
+                if key not in worst or err > worst[key][1]:
+                    worst[key] = (k, err)
+                if err > limit:
+                    over.append(f"{k} {err:.4f} > {limit}")
+        rec["grad_rel_l2_top"] = sorted(rounds[0].items(),
+                                        key=lambda kv: -kv[1])[:8]
+        rec["grad_rel_l2"] = {k: {"leaf": w, "err": v}
+                              for k, (w, v) in worst.items()}
+        if moe_layers:
+            rec["step0_moe"] = {k: float(met0[k]) for k in
+                                ("moe_aux_loss", "moe_drop_frac")}
+        gate_b = time.perf_counter() - t_gate
+        log(f"5m b {arch}: bf16 vs float32 gradient, worst relative L2 "
+            f"{ {k: (w, round(v, 4)) for k, (w, v) in worst.items()} } "
+            f"(limits {TRAIN_GRAD_TOL}, MoE leaves {TRAIN_MOE_GRAD_TOL}, "
+            f"D leaves TRAIN_D_GRAD_TOL; "
+            f"0: the seed's weights" + (", X leaves exactly 0; 1: after "
+                                        "one step" if has_x else "")
+            + f"); {gate_b:.1f} s [{name}]")
+        check(not over, f"5m b {arch}: relative L2 over the limit: {over}")
+        del model
+        rec["held_gib"] = {"after b": freed(f"5m {arch} after b")}
+
+        # -- a: TRAIN_KINDS_STEPS steps (the first 2 are gate d's first
+        # run), c: the MoE metrics ------------------------------------
+        t_gate = time.perf_counter()
+        model = M.init_train_params(cfg, TRAIN_KINDS_SEED, device=dev)
+        state = init_opt_state(model)
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, opt, tc)
+        mets, times = [], []
+        for s in range(TRAIN_KINDS_STEPS):
+            b = batch(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # no name on the returned state, so that del frees it
+            met = step(model, state, b)[2]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: v.clone() for k, v in met.items()})
+            if s + 1 == TRAIN_KINDS_DIGEST_STEPS:
+                want_d = train_digest(model, state)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, state
+        rec["held_gib"]["after a"] = freed(f"5m {arch} after a")
+        losses = [float(m["loss"]) for m in mets]
+        gnorms = [float(m["grad_norm"]) for m in mets]
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"5m a {arch}: non-finite loss or grad norm {losses} {gnorms}")
+        fall = losses[0] - losses[-1]
+        med = statistics.median(times[2:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        rec.update(losses=losses, grad_norms=gnorms, fall=fall,
+                   step_s=times, step_ms=med * 1e3,
+                   tokens_per_s=tokens / med,
+                   flop_share=6 * n_active * tokens / med / PEAK_BF16)
+        if moe_layers:
+            aux = [float(m["moe_aux_loss"]) for m in mets]
+            drop = [float(m["moe_drop_frac"]) for m in mets]
+            rec.update(moe_aux_loss=aux, moe_drop_frac=drop)
+            # -3e-8 is "none dropped": 1 - kept · fl(1 / (n·k)), rounded
+            # once, as XLA compiles the reference's 1 - mean
+            check(all(math.isfinite(x) for x in aux + drop)
+                  and all(-1e-6 <= d / moe_layers < 1.0 for d in drop),
+                  f"5m c {arch}: aux {aux}, dropped fraction {drop}")
+            log(f"5m c {arch}: moe_aux_loss {aux[0]:.6f} -> {aux[-1]:.6f}, "
+                f"moe_drop_frac (summed over {moe_layers} MoE layers) "
+                f"{drop[0]:.6f} -> {drop[-1]:.6f} [{name}]")
+        gate_a = time.perf_counter() - t_gate
+        log(f"5m a {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (fall "
+            f"{fall:.4f}, needs {TRAIN_FALL}); grad norm {gnorms[0]:.3f} -> "
+            f"{gnorms[-1]:.3f}; {gate_a:.1f} s [{name}]")
+        check(fall >= TRAIN_FALL, f"5m a {arch}: the loss fell {fall:.4f} "
+                                  f"in {TRAIN_KINDS_STEPS} steps")
+        log(f"5m times {arch} [{name}]: step {rec['step_ms']:.1f} ms "
+            f"(median of steps 3-{TRAIN_KINDS_STEPS}; first "
+            f"{times[0] * 1e3:.1f}), {rec['tokens_per_s']:.0f} tokens/s, "
+            f"6·N·tokens at {100 * rec['flop_share']:.2f}% of 989 TFLOP/s "
+            f"(N = {n_active / 1e9:.4f} B active), peak "
+            f"{rec['peak_gib']:.2f} GiB allocated ({rec['base_gib']:.2f} "
+            f"before the arch)")
+
+        # -- d: a second run from the seed, the same bits ---------------
+        t_gate = time.perf_counter()
+        model = M.init_train_params(cfg, TRAIN_KINDS_SEED, device=dev)
+        state = init_opt_state(model)
+        for s in range(TRAIN_KINDS_DIGEST_STEPS):
+            met = step(model, state, batch(s))[2]
+            for k, v in met.items():
+                check(same_bits(v, mets[s][k]),
+                      f"5m d {arch}: step {s + 1} {k} differs between "
+                      f"two runs")
+        check(train_digest(model, state) == want_d,
+              f"5m d {arch}: two {TRAIN_KINDS_DIGEST_STEPS}-step runs "
+              f"differ in the bits of a master tensor or moment")
+        del model, state
+        rec["gate_s"] = {"b": gate_b, "a": gate_a,
+                         "d": time.perf_counter() - t_gate}
+        rec["seconds"] = time.perf_counter() - t_arch
+        log(f"5m {arch}: gates a-d passed, {rec['seconds']:.1f} s")
+        out[arch] = rec
+
+    # -- f: no kernel, no plain attention --------------------------------
+    got = counts(all_k)
+    got["row_sum"] = rsum_k.launches
+    check(all(v == 0 for v in got.values()), f"5m launched kernels {got}")
+    check(all_k["flash_attention"].launches == 0, "5m f: B6 launched")
+    check(ref.mha_ref.calls == 0, f"5m ran the plain attention "
+                                  f"{ref.mha_ref.calls} times")
+    seconds = time.perf_counter() - t_phase
+    log(f"5m: gates a-d and f passed for {len(out)} archs in "
+        f"{seconds:.1f} s [{name}]")
+    return {"archs": out, "launches": got, "seconds": seconds}
+
+
 def dist_launches(kind, all_k, stages) -> dict:
     """The kernel launches of a 40-frame distributed run: B3 once a frame;
     MPF, RNA and ARNA comb on B1; RPA's per-shard comb scans its CDF once
@@ -4574,6 +4922,8 @@ def main() -> int:
 
     # -- phase 5l: training stablelm-3b whole (runs while the card is empty)
     train = run_train(dev, all_k, reset, counts, rsum_k, name)
+    # -- phase 5m: the other kinds, MoE and the codebook head in training
+    train_kinds = run_train_kinds(dev, all_k, reset, counts, rsum_k, name)
 
     # -- phase 3: single filter at the paper's §VII.C frame ------------------
     cfg = TrackingConfig()
@@ -5220,6 +5570,8 @@ def main() -> int:
     for k in kernels:
         k["launches_new_phases"] = new_launches.get(k["name"], {})
         k["launches_new_phases"]["5l train"] = train["launches"][k["name"]]
+        k["launches_new_phases"]["5m train"] = \
+            train_kinds["launches"][k["name"]]
     record = {
         "card": name, "kernels": kernels,
         "bank_mesh": bank_mesh, "processes": processes, "asir": asir_run,
@@ -5244,6 +5596,7 @@ def main() -> int:
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
         "distributed": dist_runs, "domain": domain_runs, "lm": lm,
         "kinds": kinds, "moe": moe, "train": train,
+        "train_kinds": train_kinds,
         "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
         "attention_kinds": attn_kinds,

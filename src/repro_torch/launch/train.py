@@ -14,8 +14,10 @@ Fault-tolerance contract, as the reference's:
 It trains on one device: the card unless ``--device cpu`` is given, and
 without a card and without it the launcher fails rather than run
 elsewhere.  ``--devices N > 1`` (the reference's host-device mesh and
-``launch.sharding``) waits for ROADMAP A13.  Only the G and L kinds with
-a dense FFN train (ROADMAP A12 training part b has the rest).
+``launch.sharding``) waits for ROADMAP A13.  Every registered arch
+trains: ``make_batch`` draws a cross-attending arch's image embeddings,
+and a MoE arch's step also prints its load-balance loss and dropped
+fraction.
 
     python -m repro_torch.launch.train --arch stablelm-3b --smoke \\
         --steps 50 --batch 8 --seq 128 [--device cpu]
@@ -119,10 +121,12 @@ def main(argv=None) -> None:
                 slow_steps += 1
                 print(f"[straggler] step {s} took {dt:.2f}s "
                       f"(median {med:.2f}s)")
-        if (s + 1) % 10 == 0:
+        if (s + 1) % 10 == 0 or s + 1 == args.steps:
+            moe = "".join(f"  {k} {float(m[k]):.4g}" for k in
+                          ("moe_aux_loss", "moe_drop_frac") if k in m)
             print(f"step {s + 1:4d}  loss {loss:.4f}  "
-                  f"gnorm {float(m['grad_norm']):.3f}  {dt * 1e3:.0f} ms",
-                  flush=True)
+                  f"gnorm {float(m['grad_norm']):.3f}{moe}  "
+                  f"{dt * 1e3:.0f} ms", flush=True)
         if args.ckpt_dir and (s + 1) % args.ckpt_every == 0:
             save_state(args.ckpt_dir, s + 1, params, opt_state)
     print(f"finished {args.steps - start} steps; "

@@ -5,10 +5,13 @@ K and V are compressed to a ``kv_lora_rank`` latent plus one shared
 ``qk_rope_dim`` rotary key, so the cache is ``{"c": (B, L, r), "pe":
 (B, L, drope)}`` whatever the head count.  Two paths, as the reference's:
 
-* ``mla_attention`` (prefill): decompress K and V per head and make one
-  ``ops.attention`` call, B6 on the card at q/k head dim ``qk_nope_dim +
+* ``mla_attention`` (prefill and training): decompress K and V per head
+  and make one attention call at q/k head dim ``qk_nope_dim +
   qk_rope_dim`` and v head dim ``v_head_dim`` (192 and 128 at full
-  width), with the explicit scale ``(dqk + drope)^-0.5``;
+  width), with the explicit scale ``(dqk + drope)^-0.5``: at prefill
+  ``ops.attention`` (B6 on the card), in training the reference's
+  ``chunked_causal_attention`` in differentiable torch ops (B6 has no
+  backward);
 * ``mla_decode_absorbed`` (decode): the absorbed form, W^UK folded into
   the query and W^UV applied after the latent sum, so decode never
   builds per-head K/V.  It stays torch products and a float32 softmax,
@@ -24,7 +27,8 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels import ops
-from repro_torch.models.lm.layers import normal_weight, rms_norm, rope
+from repro_torch.models.lm.layers import (chunked_causal_attention,
+                                          normal_weight, rms_norm, rope)
 
 
 def mla_params(generator: torch.Generator, d_model: int, n_heads: int,
@@ -76,13 +80,17 @@ def _queries(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig,
 
 def mla_attention(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig, *,
                   positions: torch.Tensor, theta: float, eps: float,
-                  cache: dict | None = None) -> torch.Tensor:
-    """Prefill: ``x`` ``(B, T, D)`` -> ``(B, T, D)``.  K and V are
-    decompressed per head, q and k are the nope and rope parts side by
-    side (``cat``: contiguous, 16-byte aligned rows), and one causal
-    ``ops.attention`` call at scale ``(dqk + drope)^-0.5`` handles both
-    terms.  With ``cache`` (``{"c", "pe"}`` of ``max_len`` slots) the
-    latent and rotary key fill its first T slots in place."""
+                  cache: dict | None = None, chunk: int | None = None,
+                  scores_dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+    """Prefill or training: ``x`` ``(B, T, D)`` -> ``(B, T, D)``.  K and
+    V are decompressed per head, q and k are the nope and rope parts side
+    by side (``cat``: contiguous, 16-byte aligned rows), and one causal
+    attention call at scale ``(dqk + drope)^-0.5`` handles both terms:
+    ``ops.attention``, or with ``chunk`` (training, the reference's
+    ``mla.py:76-102``) ``chunked_causal_attention`` at that query chunk
+    and ``scores_dtype``.  With ``cache`` (``{"c", "pe"}`` of ``max_len``
+    slots) the latent and rotary key fill its first T slots in place."""
     b, t, _ = x.shape
     dqk, drope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_pe = _queries(p, x, n_heads, cfg, positions, theta, eps)
@@ -95,8 +103,12 @@ def mla_attention(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig, *,
     q = torch.cat([q_nope, q_pe], -1).transpose(1, 2)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, t, n_heads, drope)],
                   -1).transpose(1, 2)
-    o = ops.attention(q, k, v.transpose(1, 2), causal=True,
-                      scale=(dqk + drope) ** -0.5)
+    scale = (dqk + drope) ** -0.5
+    if chunk is None:
+        o = ops.attention(q, k, v.transpose(1, 2), causal=True, scale=scale)
+    else:
+        o = chunked_causal_attention(q, k, v.transpose(1, 2), chunk=chunk,
+                                     scale=scale, scores_dtype=scores_dtype)
     return o.transpose(1, 2).reshape(b, t, n_heads * dv) @ p["wo"]
 
 

@@ -11,14 +11,16 @@ experts (``moe``, past an arch's ``first_dense_layers``) or none (after
 a ``D`` layer); and the multi-codebook audio head (K summed codebook
 embeddings in, ``(B, T, K, V)`` logits out).
 
-Training (``forward_train``) runs the G and L kinds with a dense FFN on a
+Training (``forward_train``) runs every kind, FFN and head on a
 trainable decoder (``trainable``, ``init_train_params``): float32 master
 weights with ``requires_grad``, cast to the compute dtype inside the
 graph on every call (``cast_params``, the reference's), so the gradients
-arrive in float32.  Its attention is ``layers.chunked_causal_attention``;
-with ``cfg.remat`` each layer of a scanned group runs under
-``torch.utils.checkpoint``.  The other kinds, MoE FFNs and codebook heads
-raise ``NotImplementedError`` (ROADMAP A12 training part b).
+arrive in float32.  Its attention (G, L, the M kind's decompressed
+heads, the X kind's image tokens) is ``layers.chunked_causal_attention``,
+never the flash kernel; the R and D kinds differentiate their scans; a
+MoE FFN's aux values come back summed over the layers.  With
+``cfg.remat`` each layer of a scanned group runs under
+``torch.utils.checkpoint``.
 
 The reference scans stacked parameters over layer groups and casts its
 float32 master weights to the compute dtype on every call
@@ -360,19 +362,27 @@ def _cross_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
                      cache: dict, img: torch.Tensor | None) -> torch.Tensor:
     """An X layer's gated cross-attention update: no RoPE and no qk-norm,
     full attention over the image tokens' K/V (projected at prefill and
-    kept in the cache), gated by ``tanh(xattn_gate)`` (float32, cast)."""
+    kept in the cache; in training projected with no cache and attended
+    by ``chunked_causal_attention(causal=False)``, the reference's
+    ``model.py:276-292``), gated by ``tanh(xattn_gate)`` (float32,
+    cast)."""
     hd, p = cfg.resolved_head_dim, blk.xattn
     b, t = h.shape[:2]
     q = (h @ p["wq"]).reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
-    if mode == "prefill":
+    if mode != "decode":
         if img is None:
             raise ValueError(f"{cfg.name} cross-attends to image tokens: "
-                             f"prefill needs img (B, n_image, d_image)")
+                             f"{mode} needs img (B, n_image, d_image)")
         n = img.shape[1]
-        for name, w in (("xk", p["wk"]), ("xv", p["wv"])):
-            cache[name] = (img @ w).reshape(b, n, cfg.n_kv_heads, hd) \
-                .transpose(1, 2).contiguous()
-    o = L.cross_attention(q, cache["xk"], cache["xv"])
+        xk, xv = ((img @ w).reshape(b, n, cfg.n_kv_heads, hd).transpose(1, 2)
+                  for w in (p["wk"], p["wv"]))
+        if mode == "train":
+            o = L.chunked_causal_attention(q, xk, xv, chunk=cfg.attn_chunk,
+                                           causal=False)
+        else:
+            cache["xk"], cache["xv"] = xk.contiguous(), xv.contiguous()
+    if mode != "train":
+        o = L.cross_attention(q, cache["xk"], cache["xv"])
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
     gate = torch.tanh(blk.xattn_gate.float()).to(h.dtype)
     return gate * (o @ p["wo"])
@@ -382,10 +392,17 @@ def _latent_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig,
                       mode: str, cache: dict, positions: torch.Tensor,
                       pos: int | None) -> torch.Tensor:
     """An M layer's update: at prefill the decompressed attention (B6),
-    filling the latent cache; at decode the token's latent and rotary
-    key written at slot ``pos`` in place, then the absorbed decode."""
+    filling the latent cache; in training the same heads through the
+    chunked attention, with no cache; at decode the token's latent and
+    rotary key written at slot ``pos`` in place, then the absorbed
+    decode."""
     theta, eps = cfg.rope_theta, cfg.norm_eps
-    if mode != "decode":
+    if mode == "train":
+        return MLA.mla_attention(
+            blk.mla, h, cfg.n_heads, cfg.mla, positions=positions,
+            theta=theta, eps=eps, chunk=cfg.attn_chunk,
+            scores_dtype=L.dtype_of(cfg.attn_scores_dtype))
+    if mode == "prefill":
         return MLA.mla_attention(blk.mla, h, cfg.n_heads, cfg.mla,
                                  positions=positions, theta=theta, eps=eps,
                                  cache=cache)
@@ -414,9 +431,9 @@ def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
                    cache: dict, positions: torch.Tensor, pos: int | None,
                    img: torch.Tensor | None, aux: dict | None = None,
                    groups: int = 1) -> torch.Tensor:
-    """One layer; fills (prefill) or extends (decode) ``cache`` and adds a
-    MoE FFN's aux values into ``aux``.  Returns the new residual
-    stream."""
+    """One layer; fills (prefill) or extends (decode) ``cache`` (none in
+    training) and adds a MoE FFN's aux values into ``aux``.  Returns the
+    new residual stream."""
     eps = cfg.norm_eps
     h = L.rms_norm(x, blk.pre_norm, eps)
     if blk.kind in ("G", "L"):
@@ -427,28 +444,34 @@ def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
     elif blk.kind == "X":
         x = x + _cross_attention(blk, h, cfg, mode, cache, img)
     elif blk.kind == "R":
-        if mode == "decode":
-            o, rec, conv = RG.rglru_decode_step(
-                blk.rglru, h, cfg.rglru, rec_state=cache["rec"],
-                conv_state=cache["conv"])
+        if mode == "train":
+            o = RG.rglru_forward(blk.rglru, h, cfg.rglru)
         else:
-            o, rec, conv = RG.rglru_forward(blk.rglru, h, cfg.rglru,
-                                            return_state=True)
-        # own storage: a prefill's are slices of (B, T, W) activations
-        cache["rec"] = rec.contiguous()
-        cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
+            if mode == "decode":
+                o, rec, conv = RG.rglru_decode_step(
+                    blk.rglru, h, cfg.rglru, rec_state=cache["rec"],
+                    conv_state=cache["conv"])
+            else:
+                o, rec, conv = RG.rglru_forward(blk.rglru, h, cfg.rglru,
+                                                return_state=True)
+            # own storage: a prefill's are slices of (B, T, W) activations
+            cache["rec"] = rec.contiguous()
+            cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
         x = x + o.to(x.dtype)
     else:
-        if mode == "decode":
-            o, state, conv = SSM.ssd_decode_step(
-                blk.ssm, h, cfg.ssm, cfg.d_model, eps,
-                ssm_state=cache["ssm"], conv_state=cache["conv"])
+        if mode == "train":
+            o = SSM.ssd_forward(blk.ssm, h, cfg.ssm, cfg.d_model, eps)
         else:
-            o, state, conv = SSM.ssd_forward(blk.ssm, h, cfg.ssm,
-                                             cfg.d_model, eps,
-                                             return_state=True)
-        cache["ssm"] = state.to(cache["ssm"].dtype)
-        cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
+            if mode == "decode":
+                o, state, conv = SSM.ssd_decode_step(
+                    blk.ssm, h, cfg.ssm, cfg.d_model, eps,
+                    ssm_state=cache["ssm"], conv_state=cache["conv"])
+            else:
+                o, state, conv = SSM.ssd_forward(blk.ssm, h, cfg.ssm,
+                                                 cfg.d_model, eps,
+                                                 return_state=True)
+            cache["ssm"] = state.to(cache["ssm"].dtype)
+            cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
         x = x + o.to(x.dtype)
     if blk.ffn == "dense":
         hf = L.rms_norm(x, blk.ffn_norm, eps)
@@ -506,22 +529,6 @@ def unembed(model: Decoder, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is a G
-    or L layer with a dense FFN and the head has one codebook: the rest
-    is ROADMAP A12 training part b."""
-    for i, (kind, ffn) in enumerate(make_plan(cfg).layers()):
-        if kind not in ("G", "L") or ffn != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: training a {kind} layer with FFN {ffn!r} "
-                f"(layer {i}) waits for ROADMAP A12 training part b; "
-                f"training runs the G and L kinds with a dense FFN")
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: training a {cfg.n_codebooks}-codebook head waits "
-            f"for ROADMAP A12 training part b")
-
-
 class CastDecoder:
     """A decoder's weights cast to a config's compute dtype inside the
     graph (``cast_params``): the attributes the forward passes read
@@ -573,36 +580,50 @@ def forward_train(model, tokens: torch.Tensor,
                   img: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, dict]:
     """The training forward, the reference's (``model.py:473-486``):
-    ``tokens`` ``(B, T)`` → final-normed hidden states ``(B, T, D)`` (the
-    chunked loss unembeds them) and the aux dict (empty: no MoE layer
-    trains yet).  ``model`` is a decoder (cast here by ``cast_params``)
-    or a ``CastDecoder``, whose config the forward runs.  Every layer
-    runs in "train" mode: no caches, ``chunked_causal_attention``; with
-    ``cfg.remat`` each layer of a scanned group runs under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
-    scan body, nothing saved), the unrolled head and tail layers do not.
-    Raises ``NotImplementedError`` before any compute for what
-    ``check_trainable`` refuses."""
+    ``tokens`` ``(B, T)`` (``(B, T, K)`` with K codebooks) →
+    final-normed hidden states ``(B, T, D)`` (the chunked loss unembeds
+    them) and the aux dict: a MoE arch's ``moe_aux_loss``,
+    ``moe_drop_frac`` and ``moe_max_load`` summed over its MoE layers, in
+    depth order (the reference's ``acc0`` sum), else empty.  An arch with
+    cross-attention takes ``img``, ``(B, n_image, d_image)`` image
+    embeddings, projected by ``img_proj``; without it, or with ``img``
+    for another arch, it raises ``ValueError``.  ``model`` is a decoder
+    (cast here by ``cast_params``) or a ``CastDecoder``, whose config the
+    forward runs.  Every layer runs in "train" mode: no caches,
+    ``chunked_causal_attention``; with ``cfg.remat`` each layer of a
+    scanned group runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of its scan body, nothing saved; the layer's aux
+    values are outputs of the checkpointed call, so the recompute adds
+    nothing twice), the unrolled head and tail layers do not."""
     cfg = model.cfg
-    check_trainable(cfg)
-    if img is not None:
+    if cfg.cross_attn_every and img is None:
+        raise ValueError(f"{cfg.name} cross-attends to image tokens: "
+                         f"training needs img (B, n_image, d_image)")
+    if img is not None and not cfg.cross_attn_every:
         raise ValueError(f"{cfg.name} does not cross-attend: no img")
     view = cast_params(model)
     x = _embed(view, tokens)
     positions = torch.arange(tokens.shape[1], device=view.device)
+    if img is not None:
+        img = img.to(x.dtype) @ view.img_proj
     scanned = make_plan(cfg).scanned()
 
     def layer(x, blk):
-        return _block_forward(blk, x, cfg, "train", None, positions, None,
-                              None)
+        layer_aux = {}
+        x = _block_forward(blk, x, cfg, "train", None, positions, None,
+                           img, layer_aux)
+        return x, layer_aux
 
+    aux = {}
     for i, blk in enumerate(view.blocks):
         if cfg.remat and i in scanned:
-            x = checkpoint(layer, x, blk, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, layer_aux = checkpoint(layer, x, blk, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
-            x = layer(x, blk)
-    return L.rms_norm(x, view.final_norm, cfg.norm_eps), {}
+            x, layer_aux = layer(x, blk)
+        for name, v in layer_aux.items():
+            aux[name] = aux[name] + v if name in aux else v
+    return L.rms_norm(x, view.final_norm, cfg.norm_eps), aux
 
 
 def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,

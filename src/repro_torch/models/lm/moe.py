@@ -18,6 +18,18 @@ in the compute dtype, with no float atomics, so a run repeats bit for
 bit on the card.  The products are plain torch products, as the
 reference leaves them to XLA outside any Pallas kernel.
 
+The backward has no float atomics either (torch's CUDA backward of an
+index accumulates with them).  The dispatch and the combine are
+``torch.autograd.Function``s whose backwards are gathers: a kept slot
+holds exactly one (token, k) entry, so the combine's backward reads each
+slot's gradient from its entry (zero for an empty slot), and the
+dispatch's backward sums each token's k slot gradients in slot order
+(zero for a dropped entry), the forward's own combine loop.  The
+router's ``topk`` backward writes unique indices.  The load-balance
+loss is differentiable through the mean router probability only: the
+top-1 counts are integers, as the reference's ``.at[].add(1.0)`` gives
+them no gradient either.
+
 ``groups`` splits the rows into equal groups that route on their own
 (capacity, ranks, drops and aux per group): the reference's
 ``smc_decode`` vmaps its step over prompts, so each prompt's K rows
@@ -76,6 +88,60 @@ def _rank_within_expert(key: torch.Tensor, n_buckets: int):
     return rank, order, start, end
 
 
+def _entries(y: torch.Tensor, at: torch.Tensor,
+             keep: torch.Tensor) -> torch.Tensor:
+    """Each (token, k) entry's slot row of ``y`` (row ``at``), zero for a
+    dropped entry."""
+    return torch.where(keep[:, None], y[at.clamp(max=y.shape[0] - 1)], 0.0)
+
+
+def _sum_slots(parts: torch.Tensor, k: int) -> torch.Tensor:
+    """``(N·k, D)`` entry rows -> ``(N, D)``: each token's k rows summed
+    in slot order."""
+    parts = parts.view(-1, k, parts.shape[-1])
+    out = parts[:, 0]
+    for j in range(1, k):
+        out = out + parts[:, j]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``xf`` ``(N, D)`` -> the expert slots' rows ``(S, D)``: slot ``s``
+    reads token ``tok[s]`` (``N``: a zero row).  Backward: each token's k
+    slot gradients, gathered through ``at`` (zero for a dropped entry)
+    and summed in slot order, so no two writes meet."""
+
+    @staticmethod
+    def forward(ctx, xf, tok, at, keep, k):
+        ctx.save_for_backward(at, keep)
+        ctx.k = k
+        return torch.cat([xf, xf.new_zeros((1, xf.shape[1]))])[tok]
+
+    @staticmethod
+    def backward(ctx, grad):
+        at, keep = ctx.saved_tensors
+        return (_sum_slots(_entries(grad, at, keep), ctx.k), None, None,
+                None, None)
+
+
+class _Combine(torch.autograd.Function):
+    """The experts' slot rows ``y`` ``(S, D)`` -> each (token, k) entry's
+    row ``(N·k, D)`` (``_entries``).  Backward: slot ``s`` takes the
+    gradient of its one entry ``ent[s]`` (``N·k``: an empty slot, zero),
+    a gather."""
+
+    @staticmethod
+    def forward(ctx, y, at, keep, ent):
+        ctx.save_for_backward(ent)
+        return _entries(y, at, keep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ent, = ctx.saved_tensors
+        pad = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        return pad[ent], None, None, None
+
+
 def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
               groups: int = 1) -> tuple[torch.Tensor, dict]:
     """``x`` ``(B, T, D)`` -> ``(B, T, D)`` and the aux dict
@@ -109,9 +175,11 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
                    + torch.arange(e, device=dev)[:, None, None])  # (E, G, 1)
     src = start[slot_bucket] + torch.arange(cap, device=dev)    # (E, G, C)
     filled = src < end[slot_bucket]
-    tok = torch.where(filled, order[src.clamp(max=n * k - 1)] // k, n)
-    rows = torch.cat([xf, xf.new_zeros((1, d))])                # a zero row
-    buf = rows[tok.reshape(-1)].view(e, groups * cap, d)
+    ent = torch.where(filled, order[src.clamp(max=n * k - 1)],
+                      n * k).reshape(-1)                         # (E·G·C,)
+    tok = torch.where(ent < n * k, ent // k, n)                  # n: zero row
+    at = flat_e * (groups * cap) + entry_group * cap + rank
+    buf = _Dispatch.apply(xf, tok, at, keep, k).view(e, groups * cap, d)
 
     # ---- the experts' gated MLPs, one batched product per weight --------
     h = torch.bmm(buf, p["we_gate"])
@@ -119,12 +187,8 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
     y = torch.bmm(F.silu(h) * u, p["we_down"]).view(-1, d)     # (E·G·C, D)
 
     # ---- combine: each token's k slots, weighted, summed in slot order ---
-    at = flat_e * (groups * cap) + entry_group * cap + rank
-    got = torch.where(keep[:, None], y[at.clamp(max=y.shape[0] - 1)], 0.0)
-    parts = (got * gate.reshape(-1, 1).to(got.dtype)).view(n, k, d)
-    out = parts[:, 0]
-    for j in range(1, k):
-        out = out + parts[:, j]
+    got = _Combine.apply(y, at, keep, ent)
+    out = _sum_slots(got * gate.reshape(-1, 1).to(got.dtype), k)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], xf)
 

@@ -5,7 +5,9 @@ The recurrence ``h_t = a_t ⊙ h_{t-1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)`` is
 first-order linear recurrence.  The reference runs it as a
 ``jax.lax.associative_scan`` over T; here prefill runs the same
 log-depth scan (Hillis–Steele: ``ceil(log2 T)`` passes of torch ops on
-the whole ``(B, T, W)`` float32 state), and decode is one update.  The
+the whole ``(B, T, W)`` float32 state, each out of place, so autograd
+differentiates it and training runs the same scan), and decode is one
+update.  The
 reference's arithmetic is kept: the gates in float32 from the
 compute-dtype conv output, the causal conv as a sum of shifted taps in
 the compute dtype, ``gelu`` with the tanh approximation (JAX's default).
@@ -72,12 +74,14 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` (``h_{-1} = 0``) along dim 1: the
     Hillis–Steele scan of the reference's ``associative_scan`` combine
     ``(a1, b1), (a2, b2) -> (a1 a2, b1 a2 + b2)``, in ``ceil(log2 T)``
-    passes."""
-    a, h = a.clone(), b.clone()
+    passes.  Each pass builds new tensors (the first ``s`` steps kept, the
+    rest combined), so autograd's version checks pass and the backward is
+    elementwise products and sums: no index accumulates."""
+    h = b
     t, s = a.shape[1], 1
     for _ in range(math.ceil(math.log2(t)) if t > 1 else 0):
-        h[:, s:] = a[:, s:] * h[:, :-s] + h[:, s:]
-        a[:, s:] = a[:, s:] * a[:, :-s]
+        h = torch.cat([h[:, :s], a[:, s:] * h[:, :-s] + h[:, s:]], 1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], 1)
         s *= 2
     return h
 

@@ -14,7 +14,10 @@ real step and the final state as they are; the reference asserts
 are ordered by hand (``torch.einsum`` would expand the reference's
 four-operand einsum into a ``(B, NC, Q, N, H, P)`` intermediate).  No
 hand-written kernel: the reference computes this in XLA, not Pallas (a
-fused scan kernel is a later speed item, ROADMAP).
+fused scan kernel is a later speed item, ROADMAP).  Training
+differentiates the prefill's ops: their backwards are products,
+fixed-shape reductions (a group's heads included) and torch's
+``cumsum`` scans, with no float atomics.
 """
 from __future__ import annotations
 
@@ -117,7 +120,10 @@ def ssd_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     # intra-chunk: the "attention duality" term
     gmat = torch.exp(_segsum(ld_c.movedim(-1, -2)))           # (B,NC,H,Q,Q)
     cb = torch.einsum("bcqgn,bckgn->bcgqk", c_c, b_c)
-    cb = cb.repeat_interleave(hpg, dim=2)                      # (B,NC,H,Q,Q)
+    # to the group's heads by expand: its backward sums a group's heads in
+    # a fixed order (repeat_interleave's would index_add with atomics)
+    cb = cb[:, :, :, None].expand(b, nc, g, hpg, q, q).reshape(
+        b, nc, h, q, q)                                        # (B,NC,H,Q,Q)
     att = cb * gmat * dt_c.movedim(-1, -2)[..., None, :]
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", att.to(xs.dtype), xs)
 

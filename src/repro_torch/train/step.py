@@ -8,7 +8,12 @@ mixed precision and remat.
 * **Gradient accumulation**: the global batch splits into
   ``num_microbatches`` row blocks in the reference's order; their
   gradients accumulate in the float32 masters' ``.grad`` (``g1 + g2 +
-  ...``, the reference's scan sum) and are divided by the count.
+  ...``, the reference's scan sum) and are divided by the count, and so
+  are the metrics (a MoE arch's ``moe_aux_loss`` and ``moe_drop_frac``
+  too, the reference's ``met0``).  Each microbatch routes its own tokens
+  to the experts, at ``capacity_for`` its own token count.
+* **MoE aux loss**: the layers' summed load-balance loss is added to the
+  cross-entropy (``_loss_fn``, the reference's ``step.py:94-108``).
 * **Mixed precision**: ``models.lm.model.cast_params`` casts the float32
   masters to the compute dtype inside the graph; remat is
   ``ArchConfig.remat`` inside ``forward_train``.
@@ -19,8 +24,10 @@ the target logit's gather (``take_along_dim``, whose backward is a
 ``scatter_add``) is ``_TakeTarget``, whose backward writes each row's one
 target with ``scatter_`` (no two writes meet); the embedding's index
 backward (``index_put_`` with accumulate) is ``model._Lookup``, a
-one-hot product.  Every other backward is cuBLAS products, fixed-shape
-reductions and elementwise ops.
+one-hot product.  The MoE dispatch and combine have gathers for
+backwards (``moe._Dispatch``, ``moe._Combine``), the SSD's head
+broadcast is an ``expand``.  Every other backward is cuBLAS products,
+fixed-shape reductions, torch's scans and elementwise ops.
 """
 from __future__ import annotations
 
@@ -110,13 +117,23 @@ def chunked_xent(hidden: torch.Tensor, params, cfg: ArchConfig,
 
 def _loss_fn(params, cfg: ArchConfig, tc: TrainConfig, batch: dict):
     """``(loss, metrics)`` of ``batch`` under ``cfg``: the weights cast
-    once to the compute dtype, ``forward_train``, ``chunked_xent``."""
+    once to the compute dtype, ``forward_train`` (with the batch's
+    ``image_embeds`` for a cross-attending arch), ``chunked_xent``, plus
+    a MoE arch's summed ``moe_aux_loss``; the metrics are ``xent``,
+    ``loss`` and, with MoE layers, ``moe_aux_loss`` and
+    ``moe_drop_frac`` (the reference's ``step.py:94-108``)."""
     view = M.cast_params(params, cfg)
-    hidden, _ = M.forward_train(view, batch["tokens"],
-                                batch.get("image_embeds"))
+    hidden, aux = M.forward_train(view, batch["tokens"],
+                                  batch.get("image_embeds"))
     loss = chunked_xent(hidden, view, cfg, batch["targets"], tc.xent_chunk,
                         tc.z_loss, logits_dtype=tc.xent_logits_dtype)
-    return loss, {"xent": loss, "loss": loss}
+    metrics = {"xent": loss}
+    if "moe_aux_loss" in aux:
+        loss = loss + aux["moe_aux_loss"]
+        metrics["moe_aux_loss"] = aux["moe_aux_loss"]
+        metrics["moe_drop_frac"] = aux["moe_drop_frac"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def make_train_step(cfg: ArchConfig, opt: OptConfig,
@@ -127,9 +144,9 @@ def make_train_step(cfg: ArchConfig, opt: OptConfig,
     ``init_opt_state``, both updated in place and returned; ``batch``
     holds the GLOBAL batch, split here into ``tc.num_microbatches`` row
     blocks.  ``metrics`` are float32 tensors on the device: ``xent``,
-    ``loss`` (averaged over the microbatches), ``grad_norm``, ``lr`` and
+    ``loss`` (and with MoE layers ``moe_aux_loss`` and ``moe_drop_frac``;
+    averaged over the microbatches), ``grad_norm``, ``lr`` and
     ``clip_scale``."""
-    M.check_trainable(cfg)
 
     def train_step(params, opt_state, batch):
         metrics = accumulate_grads(params, cfg, tc, batch)
@@ -149,7 +166,8 @@ def accumulate_grads(params, cfg: ArchConfig, tc: TrainConfig,
                      batch: dict) -> dict:
     """The gradient half of a train step: the batch's microbatch
     gradients summed into the masters' ``.grad`` (cleared first) and
-    divided by their count; returns the averaged ``xent`` and ``loss``."""
+    divided by their count; returns ``_loss_fn``'s metrics averaged over
+    the microbatches (summed in order, then divided)."""
     m = tc.num_microbatches
     rows = batch["tokens"].shape[0]
     if rows % m:

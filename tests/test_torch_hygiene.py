@@ -5,11 +5,11 @@
 * Importing the port builds nothing and loads no CUDA library.
 * Entry points run on the CUDA device by default and raise without one
   (the filters, ``generate``, ``smc_decode``, the session server, the
-  serve and train launchers); ``forward_train`` runs the G and L kinds
-  with a dense FFN and raises ``NotImplementedError`` (ROADMAP A12
-  training part b) for the M, X, R and D kinds, MoE FFNs and codebook
-  heads; the flash-attention kernel refuses inputs that require grad
-  before it plans anything; the serving slice's modules exist and
+  serve and train launchers); ``forward_train`` runs every registered
+  arch's smoke model (every layer kind, MoE FFNs with their aux values,
+  the codebook head); what still raises is ``launch.train --devices 2``
+  (ROADMAP A13) and the flash-attention kernel on inputs that require
+  grad, before it plans anything; the serving slice's modules exist and
   import neither ``jax`` nor the reference; ARNA, butterfly,
   ``domain=``, a bank over a mesh and ``bank_axis`` build and run, and
   an unknown ``bank_axis`` raises ``ValueError``.
@@ -23,8 +23,8 @@
   the session server; importing the launchers starts no process group,
   no process and no CUDA context; neither a ``ProcessMesh`` nor a
   ``ProcessGrid`` is built without an initialized group.
-* The training slice's modules (ROADMAP A12 training part a) are in the
-  scan and import neither ``jax`` nor the reference.
+* The training slice's modules (ROADMAP A12 training, parts a and b)
+  are in the scan and import neither ``jax`` nor the reference.
 """
 import ast
 import dataclasses
@@ -254,13 +254,26 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
     assert generate(model, prompt, steps=2, device="cpu").shape == (1, 2)
 
 
+def _smoke_img(cfg, b=1):
+    """Zero image embeddings for a cross-attending smoke arch, else None."""
+    if not cfg.cross_attn_every:
+        return None
+    return torch.zeros((b, cfg.n_image_tokens, cfg.d_image))
+
+
+def _smoke_tokens(cfg, b=1, t=4):
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    return torch.zeros((b, t) + books, dtype=torch.int64)
+
+
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "moonshot-v1-16b-a3b"])
 def test_unported_layer_kinds_raise(arch):
     """The archs with an M layer or a MoE FFN (refused until the latent
-    attention and MoE slice; the test keeps its name) now build from both
-    ways of building a decoder, with their M/MoE leaves; what still
-    raises, naming the ROADMAP item (A12 training part b), is
-    ``forward_train``, as a trainable decoder too."""
+    attention and MoE slice, then in training until its part b; the test
+    keeps its name) build from both ways of building a decoder, with
+    their M/MoE leaves, and ``forward_train`` runs them, frozen or
+    trainable: finite hidden states and the MoE aux values summed over
+    the layers."""
     import jax
     from repro.configs import get_config as ref_config
     from repro.models.lm import model as ref_model
@@ -269,18 +282,22 @@ def test_unported_layer_kinds_raise(arch):
     cfg = convert.arch_config(dataclasses.asdict(ref_cfg))
     params = jax.tree_util.tree_map(
         np.asarray, ref_model.init_params(jax.random.key(0), ref_cfg))
+    tokens = _smoke_tokens(cfg)
     for model in (lm.init_params(cfg, 0, device="cpu"),
-                  convert.lm_params(params, cfg)):
+                  convert.lm_params(params, cfg),
+                  lm.init_train_params(cfg, 0, device="cpu")):
         assert [(b.kind, b.ffn) for b in model.blocks] == list(
             lm.make_plan(cfg).layers())
         assert all(hasattr(b, "moe") for b in model.blocks[1:])
         assert all(hasattr(b, "mla") == (arch == "deepseek-v2-236b")
                    for b in model.blocks)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            lm.forward_train(model, torch.zeros((1, 4), dtype=torch.int64))
-    trainable = lm.init_train_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 training"):
-        lm.forward_train(trainable, torch.zeros((1, 4), dtype=torch.int64))
+        hidden, aux = lm.forward_train(model, tokens)
+        assert hidden.shape == (1, 4, cfg.d_model)
+        assert torch.isfinite(hidden).all()
+        assert sorted(aux) == ["moe_aux_loss", "moe_drop_frac",
+                               "moe_max_load"]
+        assert all(torch.isfinite(v.float()).all() for v in aux.values())
+        assert hidden.requires_grad == model.embed.requires_grad
 
 
 def test_sliding_window_training_and_sessions_raise():
@@ -288,12 +305,17 @@ def test_sliding_window_training_and_sessions_raise():
     take it: with a one-key window every query sees only its own key, so
     the output is ``v`` (the window's agreement with the reference's
     mask is tests/test_torch_attention_window.py's).  ``forward_train``
-    (refused until the training slice; the test keeps its name) runs the
-    G smoke model, frozen or trainable, and with a one-key window the
-    training attention returns ``v`` too; it raises ``NotImplementedError``
-    naming ROADMAP A12 training part b for the M, X, R and D kinds, MoE
-    FFNs and codebook heads, before any compute."""
+    (refused until the training slices; the test keeps its name) runs
+    every registered arch's smoke model, frozen or trainable, with
+    finite hidden states (and MoE aux values where there are MoE
+    layers), and with a one-key window the training attention returns
+    ``v`` too.  What still raises: ``launch.train --devices 2`` (ROADMAP
+    A13) and the flash kernel on inputs that require grad."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch import train
     from repro_torch.models.lm import decode_ssm, layers
+    from repro_torch.models.lm import model as lm
     from repro_torch.serve.smc_decode import suspended_decode_session
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, 2, 3, 16), generator=g) for _ in range(3))
@@ -302,25 +324,28 @@ def test_sliding_window_training_and_sessions_raise():
                                                window=1), v[:, :, 1:2])
     assert torch.equal(layers.chunked_causal_attention(
         q, k, v, window=1, chunk=3), v)
-    from repro_torch.configs import get_config
-    from repro_torch.models.lm import model as lm
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    for model in (_smoke_lm("stablelm-3b"), lm.init_train_params(
-            get_config("stablelm-3b", smoke=True), 0, device="cpu")):
-        hidden, aux = lm.forward_train(model, tokens)
-        assert hidden.shape == (1, 4, model.cfg.d_model) and aux == {}
-        assert torch.isfinite(hidden).all()
-        assert hidden.requires_grad == model.embed.requires_grad
-    for arch in ("deepseek-v2-236b", "moonshot-v1-16b-a3b",
-                 "llama-3.2-vision-11b", "recurrentgemma-2b", "mamba2-1.3b",
-                 "musicgen-medium"):
+    archs = list_archs()
+    assert {"deepseek-v2-236b", "moonshot-v1-16b-a3b", "llama-3.2-vision-11b",
+            "recurrentgemma-2b", "mamba2-1.3b", "musicgen-medium",
+            "stablelm-3b"} <= set(archs)
+    for arch in archs:
         cfg = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A12 training part b"):
-            lm.check_trainable(cfg)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A12 training part b"):
-            lm.forward_train(_smoke_lm(arch), tokens)
+        tokens = _smoke_tokens(cfg)
+        for model in (_smoke_lm(arch), lm.init_train_params(cfg, 0,
+                                                            device="cpu")):
+            hidden, aux = lm.forward_train(model, tokens, _smoke_img(cfg))
+            assert hidden.shape == (1, 4, cfg.d_model), arch
+            assert torch.isfinite(hidden).all(), arch
+            assert hidden.requires_grad == model.embed.requires_grad
+            moe = any(f == "moe" for _, f in lm.make_plan(cfg).layers())
+            assert bool(aux) == moe, arch
+            assert all(torch.isfinite(v.float()).all() for v in aux.values())
+    assert not hasattr(lm, "check_trainable")
+    with pytest.raises(SystemExit, match="ROADMAP A13"):
+        train.main(["--smoke", "--devices", "2", "--device", "cpu"])
+    qg = q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_kernel(qg, k, v)
     # session-hosted decoding is ported (ROADMAP A11): its module and the
     # other serving modules exist and import neither jax nor the reference
     assert callable(suspended_decode_session)

@@ -133,36 +133,151 @@ def lm_runs(dev) -> dict:
 # its calls are recorded under, so a cell's device time splits by part
 # (a training region holds the forward and the remat recompute; the
 # backward's kernels run outside every region)
-REGIONS = {("models.lm.mla", "mla_attention"): "mla prefill",
+REGIONS = {("models.lm.mla", "mla_attention"): "mla prefill / train",
            ("models.lm.mla", "mla_decode_absorbed"): "mla absorbed decode",
            ("models.lm.moe", "apply_moe"): "moe ffn",
+           ("models.lm.model", "_cross_attention"): "x cross-attention",
+           ("models.lm.rglru", "_linear_scan"): "rg-lru scan",
+           ("models.lm.ssm", "ssd_forward"): "ssd",
            ("models.lm.layers", "chunked_causal_attention"):
                "chunked attention (forward, recompute)",
            ("train.step", "chunked_xent"): "chunked xent (forward)",
            ("train.step", "adamw_update"): "adamw update"}
 
 
-def train_runs(dev) -> dict:
-    """Phase 5l's train step at chip_smoke.py's sizes: stablelm-3b whole,
-    float32 masters, bf16 compute, remat, 8 x 1024 tokens in 2
-    microbatches; the weights and optimizer state drawn when it runs."""
+def train_config(arch: str):
+    """The config chip_smoke.py trains ``arch`` at: 5l's stablelm-3b
+    whole, or 5m's depth of a ``TRAIN_KINDS`` arch."""
+    import dataclasses
     import chip_smoke as cs
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = cs.TRAIN_KINDS.get(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def train_runs(dev, archs) -> dict:
+    """Phase 5l's and 5m's train steps at chip_smoke.py's sizes (each of
+    ``archs`` at its phase's depth), float32 masters, bf16 compute,
+    remat, 8 x 1024 tokens in 2 microbatches; the weights and optimizer
+    state drawn when a run starts."""
+    import chip_smoke as cs
     from repro_torch.data.tokens import make_batch
     from repro_torch.models.lm import model as M
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.train import TrainConfig, make_train_step
 
-    def make():
-        cfg = get_config(cs.TRAIN_ARCH)
-        model = M.init_train_params(cfg, cs.TRAIN_SEED, device=dev)
+    def make(arch):
+        cfg = train_config(arch)
+        seed = cs.TRAIN_SEED if arch == cs.TRAIN_ARCH else \
+            cs.TRAIN_KINDS_SEED
+        model = M.init_train_params(cfg, seed, device=dev)
         state = init_opt_state(model)
         step = make_train_step(cfg, OptConfig(**cs.TRAIN_OPT), TrainConfig(
             num_microbatches=cs.TRAIN_MICRO, xent_chunk=cs.TRAIN_XENT))
-        batch = make_batch(cs.TRAIN_SEED, 0, cfg, cs.TRAIN_BATCH,
-                           cs.TRAIN_SEQ, device=dev)
+        batch = make_batch(seed, 0, cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                           device=dev)
         return lambda: step(model, state, batch)
-    return {"train-stablelm-3b": (make, 1, "step")}
+    return {f"train-{arch}": (lambda arch=arch: make(arch), 1, "step")
+            for arch in archs}
+
+
+def alone_ms(dev, fn, args, grad_of) -> tuple[float, float]:
+    """Device ms of ``fn(*args)`` forward, and forward + backward of
+    ``(out * w).sum()`` into every input that requires grad (``grad_of``
+    picks the output tensor to differentiate)."""
+    import chip_smoke as cs
+    import torch
+    out = grad_of(fn(*args))
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w = torch.randn(out.shape, generator=g, device=dev, dtype=out.dtype)
+    leaves = [a for a in args if torch.is_tensor(a) and a.requires_grad]
+
+    def fwd():
+        with torch.no_grad():
+            fn(*args)
+
+    def fwd_bwd():
+        for a in leaves:
+            a.grad = None
+        (grad_of(fn(*args)).float() * w.float()).sum().backward()
+
+    return cs.cuda_ms(fwd, reps=5), cs.cuda_ms(fwd_bwd, reps=5)
+
+
+def regions_alone(dev, arch) -> dict:
+    """5m's new regions alone at a microbatch's shape (4 x 1024 tokens,
+    bf16 operands from a seed, float32 where the model keeps them): each
+    one's forward and forward + backward device ms, its layers, and what
+    a step's add up to (2 microbatches, each a forward and a backward a
+    layer, and a remat forward in a scanned layer)."""
+    import chip_smoke as cs
+    import torch
+    from repro_torch.models.lm import layers as L
+    from repro_torch.models.lm import mla, moe, rglru, ssm
+    from repro_torch.models.lm.model import make_plan
+    cfg = train_config(arch)
+    plan = make_plan(cfg)
+    remat = set(plan.scanned()) if cfg.remat else set()
+    plan = plan.layers()
+    kinds = [k for k, _ in plan]
+    b, t = cs.TRAIN_BATCH // cs.TRAIN_MICRO, cs.TRAIN_SEQ
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(
+            dtype).requires_grad_()
+
+    def cast(p):
+        return {k: cast(v) if isinstance(v, dict) else
+                v.to(torch.bfloat16).requires_grad_() for k, v in p.items()}
+
+    out = {}
+    if "M" in kinds:
+        p = cast(mla.mla_params(g, cfg.d_model, cfg.n_heads, cfg.mla,
+                                torch.float32))
+        pos = torch.arange(t, device=dev)
+        out["mla attention (train)"] = (alone_ms(
+            dev, lambda x: mla.mla_attention(
+                p, x, cfg.n_heads, cfg.mla, positions=pos,
+                theta=cfg.rope_theta, eps=cfg.norm_eps, chunk=cfg.attn_chunk),
+            (rand(b, t, cfg.d_model),), lambda o: o), "M")
+    if "X" in kinds:
+        hd = cfg.resolved_head_dim
+        kv = [rand(b, cfg.n_kv_heads, cfg.n_image_tokens, hd)
+              for _ in range(2)]
+        out["x attention (chunked, non-causal)"] = (alone_ms(
+            dev, lambda q, k, v: L.chunked_causal_attention(
+                q, k, v, chunk=cfg.attn_chunk, causal=False),
+            (rand(b, cfg.n_heads, t, hd), *kv), lambda o: o), "X")
+    if "R" in kinds:
+        w = cfg.rglru.lru_width
+        a = (0.9 + 0.1 * torch.rand((b, t, w), generator=g, device=dev)
+             ).requires_grad_()
+        out["rg-lru scan"] = (alone_ms(
+            dev, rglru._linear_scan, (a, rand(b, t, w, dtype=torch.float32)),
+            lambda o: o), "R")
+    if "D" in kinds:
+        p = cast(ssm.ssm_params(g, cfg.d_model, cfg.ssm, torch.float32))
+        out["ssd (one layer)"] = (alone_ms(
+            dev, lambda x: ssm.ssd_forward(p, x, cfg.ssm, cfg.d_model,
+                                           cfg.norm_eps),
+            (rand(b, t, cfg.d_model),), lambda o: o), "D")
+    if any(f == "moe" for _, f in plan):
+        p = cast(moe.moe_params(g, cfg.d_model, cfg.moe, torch.float32))
+        out["moe ffn (one layer)"] = (alone_ms(
+            dev, lambda x: moe.apply_moe(p, x, cfg.moe),
+            (rand(b, t, cfg.d_model),), lambda o: o[0]), "moe")
+    rec = {}
+    for name, ((f, fb), part) in out.items():
+        layers = [i for i, (k, ffn) in enumerate(plan) if part in (k, ffn)]
+        n_remat = sum(i in remat for i in layers)
+        rec[name] = {"fwd_ms": f, "fwd_bwd_ms": fb, "layers": len(layers),
+                     "per_step_ms": cs.TRAIN_MICRO * (len(layers) * fb
+                                                      + n_remat * f)}
+    return rec
 
 
 def attention_alone(dev) -> dict:
@@ -319,6 +434,9 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--only", default="", help="path name prefix")
     ap.add_argument("--out", help="also write the record here (JSON)")
+    ap.add_argument("--arch", nargs="+", default=["stablelm-3b"],
+                    help="the train cells' archs: stablelm-3b (5l) and "
+                         "chip_smoke.py's TRAIN_KINDS (5m)")
     args = ap.parse_args()
 
     import torch
@@ -401,7 +519,7 @@ def main() -> int:
     runs["asir"] = (asir, args.frames, "frame")
     runs.update(lm_runs(dev))
     runs.update(moe_runs(dev))
-    runs.update(train_runs(dev))
+    runs.update(train_runs(dev, args.arch))
     runs.update(pass_runs(dev))
     record = {"card": name, "frames": args.frames, "paths": {}}
     for label, (make, per, unit) in runs.items():
@@ -473,15 +591,25 @@ def main() -> int:
                   f"({launches.get(cs, 0)} launches), row sum "
                   f"{groups.get(rs, 0.0):.4f} ms/frame "
                   f"({launches.get(rs, 0)} launches) [{name}]")
-        if unit == "step":
+        del fn
+        torch.cuda.empty_cache()
+        if label == "train-stablelm-3b":
             rec["attention_alone"] = a = attention_alone(dev)
             print(f"    chunked attention alone {tuple(a['shape'])}: "
                   f"forward {a['fwd_ms']:.3f} ms, forward + backward "
                   f"{a['fwd_bwd_ms']:.3f} ms; a step's 64 of each "
                   f"{a['per_step_ms']:.1f} ms of {ms_frame:.1f} "
                   f"({a['per_step_ms'] / ms_frame:.1%}) [{name}]")
-        del fn
-        torch.cuda.empty_cache()
+        elif unit == "step":
+            rec["alone"] = regions_alone(dev, label[len("train-"):])
+            for r, a in rec["alone"].items():
+                print(f"    {r} alone: forward {a['fwd_ms']:.3f} ms, "
+                      f"forward + backward {a['fwd_bwd_ms']:.3f} ms over "
+                      f"{a['layers']} layers; a step's "
+                      f"{a['per_step_ms']:.1f} ms of "
+                      f"{ms_frame:.1f} ({a['per_step_ms'] / ms_frame:.1%})"
+                      f" [{name}]")
+            torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
