@@ -17,8 +17,9 @@
    over 1601 image keys (prefill and decode), at latent attention's q/k
    and v head dims (192, 128) on mma.sync and f32 (ragged, grouped,
    non-causal, a decode offset, one query row); and B6 at every call
-   shape phases 5j and 5k run (``kinds_calls``, from ``KINDS``, ``MOE``
-   and the configs, in the layouts the model hands it: every prefill, and
+   shape phases 5j, 5k and 5n c run (``kinds_calls``, from ``KINDS``,
+   ``MOE``, the configs and a rank's heads on LMGRID_SERVE_SHAPE, in the
+   layouts the model hands it: every prefill, and
    each decode step whose split plan differs from the step before, with
    the first, middle and last), against its plain version in bf16 and
    float32 within ATTN_TOL, repeatable, the windowed decodes again with
@@ -223,6 +224,27 @@
    2-step runs the same bits; f. no kernel launched, B6's count 0
    through the M and X layers, ``mha_ref`` never; step ms, tokens/s,
    6·N·tokens over 989 TFLOP/s (N active) and peak memory printed;
+5n. (right after 5m) the LM over a (data, model) process grid: four
+   ranks spawned on the card over gloo (``launch.mesh.spawn``,
+   ``launch.lm_grid.grid_phase``; contention of ranks on one card, each
+   collective staged through host memory), each one-device baseline run
+   on rank 0 and freed before the grid's work: a. qwen3-32b at full width
+   cut to 2 layers on (2, 2), 5l's batches in one microbatch, precision,
+   remat and AdamW: the step-0 gradient gathered leaf by leaf within
+   TRAIN_GRAD_TOL of the one-device step's and the loss within
+   LMGRID_LOSS_TOL, the loss falling over 10 steps, two 3-step runs the
+   same bits and the step-2 checkpoint restored onto (4,) the same bits
+   (grid-invariant digests of every weight and moment); b. moonshot's
+   dense and one MoE layer at full width on (2, 2) with its config's
+   ep_shardmap + rs_ag: at capacity E / k the same gradient and loss
+   gates (router and experts within TRAIN_MOE_GRAD_TOL), at 1.25 the
+   dropped fraction, aux loss and largest load finite and printed, two
+   runs the same bits; a and b launch no kernel; c. 5d's model served on
+   (1, 4) through ``make_serve_step``, 4 x 1024 prompts and 32 greedy
+   steps fed the one-device run's tokens: every step's logits within
+   LM_LOGIT_TOL, the argmax the same but at recorded ties, B6's launches
+   and variants on every rank the one-device run's, ``mha_ref`` never;
+   step ms, tokens/s, staged bytes and peak memory a rank printed;
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -266,8 +288,9 @@ check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
 that the ``{"kernels": [...]}`` record, where each kernel also lists its
-launches in phases 5f-5m (``launches_new_phases``; for
-the row sum, its launches a frame in each cell; for 5i, each rank's).
+launches in phases 5f-5n (``launches_new_phases``; for
+the row sum, its launches a frame in each cell; for 5i and 5n, each
+rank's).
 """
 from __future__ import annotations
 
@@ -2081,7 +2104,9 @@ def kinds_calls() -> dict:
     transposed projection).  ``timed`` marks the calls phase 6 times:
     each arch's L, X and M kinds (its G where it has no other), the
     prefill at generate's rows and the middle decode at smc_decode's
-    (else generate's).  ``phase`` is "5j" or "5k"."""
+    (else generate's).  ``phase`` is "5j" or "5k"; the calls of a rank
+    of phase 5n c (its 16 query and 2 key/value heads of qwen3-32b,
+    ``generate``'s rows) have phase "5n" and are not timed."""
     import torch
     from repro_torch.kernels.flash_attention import plan
     from repro_torch.models.lm import model as M
@@ -2134,6 +2159,26 @@ def kinds_calls() -> dict:
                         base, q=(rows, hq, 1, hd), k=(rows, hkv, lk, hd),
                         slots=slots, layout="decode",
                         timed=timed and lk == mid)
+    # phase 5n c: a rank's heads of 5d's model on LMGRID_SERVE_SHAPE
+    cfg, tp = lm_config(), LMGRID_SERVE_SHAPE[1]
+    hq, hkv, hd = (cfg.n_heads // tp, cfg.n_kv_heads // tp,
+                   cfg.resolved_head_dim)
+    t0, rows = LM_PROMPT, LM_BATCH
+    slots, mid = t0 + LM_STEPS + 1, t0 + LM_STEPS // 2
+    base = dict(causal=True, window=0, scale=hd ** -0.5,
+                softcap=cfg.logit_softcap, dv=hd, phase="5n")
+    calls[f"{LM_ARCH} G grid-rank prefill"] = dict(
+        base, q=(rows, hq, t0, hd), k=(rows, hkv, t0, hd), slots=None,
+        layout="prefill", timed=False)
+    last = None
+    for lk in range(t0 + 1, t0 + LM_STEPS):
+        p = plan((rows, hq, 1, hd), (rows, hkv, lk, hd), torch.bfloat16)
+        cut = (p.variant, p.splits, p.split_keys)
+        if cut != last or lk in (t0 + 1, mid, t0 + LM_STEPS - 1):
+            calls[f"{LM_ARCH} G grid-rank decode {lk}"] = dict(
+                base, q=(rows, hq, 1, hd), k=(rows, hkv, lk, hd),
+                slots=slots, layout="decode", timed=False)
+        last = cut
     return calls
 
 
@@ -2731,7 +2776,7 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
     check(errs[worst] <= TRAIN_GRAD_TOL,
           f"5l b: {worst} relative L2 {errs[worst]:.4f} > {TRAIN_GRAD_TOL}")
     del model, state
-    torch.cuda.empty_cache()
+    drop_cached()
 
     # -- c: 1 against 2 microbatches, float32 compute, from the seed's
     # weights as the reference's test starts from its init (each run from
@@ -2770,7 +2815,7 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
             if int((excess > 0).sum()):
                 bad[k] = int((excess > 0).sum())
     del runs, want_m, got_m, g1, g2
-    torch.cuda.empty_cache()
+    drop_cached()
     rec["microbatch"] = {"loss_gap": loss_gap, "grad_rel_l2": grad_l2,
                          "excess": worst_c, "violations": bad,
                          "unresolved": unresolved,
@@ -2798,7 +2843,10 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
         b = batch(s)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, met = step(model, state, b)
+        # (``_, _, met = ...`` would keep the optimizer state, the last
+        # ``_``, alive past ``del model, state``: 21.7 GiB into gate d on
+        # an H100 80GB HBM3 at 700 W)
+        met = step(model, state, b)[2]
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(met["loss"].clone())
@@ -2817,7 +2865,7 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
                flop_share=6 * n * tokens / med / PEAK_BF16,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del model, state
-    torch.cuda.empty_cache()
+    drop_cached()
     rec["gate_s"]["a"] = time.perf_counter() - t_gate
     log(f"5l a: loss {losses_f[0]:.4f} -> {losses_f[-1]:.4f} (fall "
         f"{fall:.4f}, needs {TRAIN_FALL}); grad norm {gnorms[0]:.3f} -> "
@@ -2835,14 +2883,14 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
     t_gate = time.perf_counter()
     model, state = fresh()
     for s in range(3):
-        _, _, met = step(model, state, batch(s))
+        met = step(model, state, batch(s))[2]
         check(same_bits(met["loss"], losses[s]),
               f"5l d: step {s + 1} loss differs between two runs")
     check(train_digest(model, state) == want3,
           "5l d: two 3-step runs differ in the bits of a master tensor or "
           "moment")
     del model, state
-    torch.cuda.empty_cache()
+    drop_cached()
     rec["gate_s"]["d"] = time.perf_counter() - t_gate
 
     # -- e: checkpoint at step 2, reload, step 3 (2 layers) --------------
@@ -2851,7 +2899,7 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
     sstep = make_train_step(small, OptConfig(**TRAIN_OPT), tc)
     model, state = fresh(small)
     for s in range(3):
-        _, _, met = sstep(model, state, batch(s, small))
+        met = sstep(model, state, batch(s, small))[2]
     want_loss, want_e = met["loss"], train_digest(model, state)
     model, state = fresh(small)
     for s in range(2):
@@ -2866,7 +2914,7 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
     restore_state(tmp, 2, model, state)
     t_load = time.perf_counter() - t0
     shutil.rmtree(tmp, ignore_errors=True)
-    _, _, met = sstep(model, state, batch(2, small))
+    met = sstep(model, state, batch(2, small))[2]
     check(same_bits(met["loss"], want_loss) and
           train_digest(model, state) == want_e,
           "5l e: step 3 after the checkpoint is not the uninterrupted "
@@ -2874,7 +2922,7 @@ def run_train(dev, all_k, reset, counts, rsum_k, name) -> dict:
     rec["resume"] = {"layers": TRAIN_RESUME_LAYERS, "save_s": t_save,
                      "load_s": t_load}
     del model, state
-    torch.cuda.empty_cache()
+    drop_cached()
     rec["gate_s"]["e"] = time.perf_counter() - t_gate
 
     # -- f: no kernel, no plain attention; B6 refuses grads on the card ---
@@ -3020,12 +3068,23 @@ def grad_gate(model, cfg, cfg32, tc, b0, zero_x, kinds):
     return errs, g16, met
 
 
+def drop_cached() -> None:
+    """Free what a deleted model leaves: collect reference cycles first
+    (torch's first checkpointed call imports in a frame that a cycle keeps,
+    and with it that step's frames and their model, until the collector
+    runs), then empty torch's cache."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def freed(label: str) -> float:
     """Empty torch's cache and return the GiB still allocated (a freed
     arch must leave none), logged under ``label``."""
     import torch
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    drop_cached()
     held = torch.cuda.memory_allocated() / 2 ** 30
     log(f"{label}: {held:.2f} GiB allocated")
     return held
@@ -3231,6 +3290,251 @@ def run_train_kinds(dev, all_k, reset, counts, rsum_k, name) -> dict:
     log(f"5m: gates a-d and f passed for {len(out)} archs in "
         f"{seconds:.1f} s [{name}]")
     return {"archs": out, "launches": got, "seconds": seconds}
+
+
+# phase 5n: the LM over a (data, model) process grid, four ranks spawned
+# on the one card over gloo (as 5i's): contention of ranks on one card,
+# not a multi-card rate.  a: qwen3-32b at full width cut to 2 layers on
+# (2, 2), 5l's batches, precision, remat and AdamW; b: moonshot at full
+# width, its dense layer and one MoE layer, on (2, 2) with its config's
+# ep_shardmap + rs_ag; c: serving qwen3-32b x 16 layers (5d's model) on
+# (1, 4), B6 on each rank's 16 query and 2 key/value heads.  Each
+# one-device baseline runs on rank 0 before the grid's work and is freed
+# first; the checkpoint of a (the whole model's weights and moments,
+# about 30 GB, each rank writing its blocks) goes under
+# .chip_scratch/grid and is removed.  5l's batch of 8 x 1024 runs in one
+# microbatch here: a rank holds 4 x 1024 tokens, a 5l microbatch's
+# count, and every microbatch costs its weights' gathers through host
+# memory again (a first 5n run at 5l's 2 took 24 s a step on an H100
+# 80GB HBM3 at 700 W)
+LMGRID_SHAPE, LMGRID_ELASTIC, LMGRID_SERVE_SHAPE = (2, 2), (4,), (1, 4)
+LMGRID_TRAIN_LAYERS, LMGRID_MOE_LAYERS = 2, 2
+LMGRID_STEPS, LMGRID_REPEAT, LMGRID_CKPT, LMGRID_DROP_STEPS = 10, 3, 2, 1
+# the sharded step-0 loss against one device's: both bf16 compute on the
+# same batch and weights, the sums in other orders (a bf16 rounding is
+# 2^-9 relative, the loss ~12 nat: a few hundredths at worst)
+LMGRID_LOSS_TOL = 0.05
+
+
+def grid_spec(dev) -> dict:
+    """The ranks' spec of phase 5n (``lm_grid.grid_phase``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    qwen = dataclasses.replace(get_config(LM_ARCH),
+                               n_layers=LMGRID_TRAIN_LAYERS)
+    moon = get_config("moonshot-v1-16b-a3b")
+    moon = dataclasses.replace(moon, n_layers=LMGRID_MOE_LAYERS)
+    check(moon.moe.dispatch == "ep_shardmap" and moon.moe.ep_reduce
+          == "rs_ag" and moon.moe.first_dense_layers == 1,
+          f"5n b config {moon.moe}")
+    common = dict(seed=TRAIN_SEED, opt=TRAIN_OPT, tc=dict(
+        num_microbatches=1, xent_chunk=TRAIN_XENT),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, shape=LMGRID_SHAPE,
+        names=("data", "model"))
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       ".chip_scratch", "grid")
+    return {"device": "cuda", "threads": 2, "scratch": tmp,
+            "train": dict(common, cfg=qwen, steps=LMGRID_STEPS,
+                          repeat=LMGRID_REPEAT, ckpt=(tmp, LMGRID_CKPT),
+                          elastic=LMGRID_ELASTIC),
+            "moe": dict(common, cfg=no_drop_config(moon), steps=1, repeat=0,
+                        drops={"cfg": moon, "steps": LMGRID_DROP_STEPS}),
+            "serve": dict(cfg=lm_config(), seed=LM_SEED, steps=LM_STEPS,
+                          prompt=lm_prompts(lm_config(), dev).cpu().numpy(),
+                          shape=LMGRID_SERVE_SHAPE, names=("data", "model"),
+                          tol=LM_LOGIT_TOL)}
+
+
+def run_grid(dev, name) -> dict:
+    """Phase 5n: ``lm_grid.grid_phase`` on four gloo ranks sharing the card
+    (``launch.mesh.spawn``).  Gates: a. the sharded step-0 gradient,
+    gathered leaf by leaf, within TRAIN_GRAD_TOL of the one-device step's
+    on the same batch and weights, the loss within LMGRID_LOSS_TOL; the loss
+    falls over LMGRID_STEPS steps; two LMGRID_REPEAT-step runs the same bits
+    (grid-invariant digests of every weight and moment); the checkpoint
+    at step LMGRID_CKPT restored onto (4,) with the same bits; b. at
+    capacity factor E / k the same gradient gate (the router and expert
+    leaves within TRAIN_MOE_GRAD_TOL) and loss gate, at the config's
+    capacity the dropped fraction, aux loss and largest load finite and
+    two runs the same bits; a and b launch no kernel; c. every step's
+    logits within LM_LOGIT_TOL of one device's, the argmax the same but at
+    recorded ties, B6's launches and variants on every rank one device's,
+    the plain attention never run.  Prints step ms, tokens/s, staged bytes
+    and peak memory a rank."""
+    import torch
+    from repro_torch.launch import lm_grid
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    spec = grid_spec(dev)
+    shutil.rmtree(spec["scratch"], ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    # the ranks' allocators map memory in growable segments: four
+    # processes share the card, and cached blocks of one are lost to the
+    # others (set for the spawned ranks only)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn(lm_grid.grid_phase, 4, (spec,), transport="gloo",
+                      deadline=900.0, timeout=600.0)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        shutil.rmtree(spec["scratch"], ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    r0 = ranks[0]
+    out = {"seconds": seconds, "script_gib": base, "ranks": 4}
+
+    # -- a ----------------------------------------------------------------
+    a = r0["train"]
+    run, rep = a["run"], a["repeat"]
+    errs = run["grad_errors"]
+    worst = max(errs, key=errs.get)
+    gap = abs(run["losses"][0] - a["baseline_loss"])
+    check(bool(errs) and errs[worst] <= TRAIN_GRAD_TOL,
+          f"5n a: {worst} relative L2 {errs[worst]:.4f} > {TRAIN_GRAD_TOL}")
+    check(gap <= LMGRID_LOSS_TOL, f"5n a: step-0 loss {run['losses'][0]} vs "
+                                f"one device {a['baseline_loss']}")
+    check(all(math.isfinite(v) for v in run["losses"]) and
+          run["losses"][-1] < run["losses"][0],
+          f"5n a: losses {run['losses']}")
+    for r in ranks:
+        ra = r["train"]
+        check(ra["run"]["losses"] == run["losses"],
+              "5n a: the ranks report different losses")
+        check(ra["run"]["digests"][LMGRID_REPEAT]
+              == ra["repeat"]["digests"][LMGRID_REPEAT],
+              f"5n a: two {LMGRID_REPEAT}-step runs differ")
+        check(ra["restored"] == ra["run"]["digests"][f"ckpt {LMGRID_CKPT}"]
+              and ra["restored_step"] == LMGRID_CKPT,
+              f"5n a: the checkpoint restored onto {LMGRID_ELASTIC} differs")
+        for part in ("train", "moe"):
+            check(not any(r[part]["kernel_launches"].values()),
+                  f"5n {part}: launched {r[part]['kernel_launches']}")
+    # every kernel's launches in a and b, the most of any rank
+    out["train_launches"] = {
+        k: max(r[part]["kernel_launches"][k] for r in ranks
+               for part in ("train", "moe"))
+        for k in r0["train"]["kernel_launches"]}
+    step_ms = sorted(run["ms"][1:])[len(run["ms"][1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["train"] = {
+        "arch": LM_ARCH, "layers": LMGRID_TRAIN_LAYERS, "grid": LMGRID_SHAPE,
+        "params_per_rank": run["params_local"],
+        "grad_rel_l2": {"max": errs[worst], "leaf": worst},
+        "loss_gap": gap, "losses": run["losses"], "step_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "staged_bytes_per_step": run["staged_bytes"] / LMGRID_STEPS,
+        "peak_gib": {i: r["train"]["run"].get("peak_gib")
+                     for i, r in enumerate(ranks)},
+        "microbatches": 1,
+        "baseline_s": a["baseline_s"], "run_s": a["run_s"],
+        "repeat_s": a["repeat_s"], "ckpt_s": run.get("ckpt_s"),
+        "restore_s": a["restore_s"], "seconds": a["seconds"]}
+    log(f"5n a {LM_ARCH} x {LMGRID_TRAIN_LAYERS} layers on {LMGRID_SHAPE} "
+        f"(data, model), 4 gloo ranks on one card, "
+        f"{run['params_local'] / 1e9:.3f} B parameters a rank: step-0 "
+        f"gradient vs one device max relative L2 {errs[worst]:.4f} ({worst};"
+        f" limit {TRAIN_GRAD_TOL}), loss gap {gap:.5f} (limit "
+        f"{LMGRID_LOSS_TOL}); losses {[round(v, 4) for v in run['losses']]}; "
+        f"two {LMGRID_REPEAT}-step runs same bits; step {LMGRID_CKPT}'s "
+        f"checkpoint on {LMGRID_ELASTIC} same bits (saved in "
+        f"{run.get('ckpt_s', 0):.1f} s, restored in {a['restore_s']:.1f} s);"
+        f" step {step_ms:.0f} ms median, {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s, staged {run['staged_bytes'] / LMGRID_STEPS / 1e9:.2f} GB "
+        f"a step in all, peak "
+        f"{max(v or 0 for v in out['train']['peak_gib'].values()):.1f} "
+        f"GiB a rank; one device's step-0 on rank 0 "
+        f"{a['baseline_s']:.1f} s (peak {a.get('baseline_peak_gib', 0):.1f} "
+        f"GiB) [{name}]")
+
+    # -- b ----------------------------------------------------------------
+    b = r0["moe"]
+    bru = b["run"]
+    berrs = bru["grad_errors"]
+    moe_leaves = tuple(n for n in berrs if ".moe." in n and n.split(".")[-1]
+                       in ("router", "we_gate", "we_up", "we_down"))
+    for n, e in berrs.items():
+        lim = TRAIN_MOE_GRAD_TOL if n in moe_leaves else TRAIN_GRAD_TOL
+        check(e <= lim, f"5n b: {n} relative L2 {e:.4f} > {lim}")
+    bgap = abs(bru["losses"][0] - b["baseline_loss"])
+    check(bgap <= LMGRID_LOSS_TOL, f"5n b: step-0 loss {bru['losses'][0]} vs "
+                                 f"one device {b['baseline_loss']}")
+    d1, d2 = b["drops"]
+    check(d1["digests"] == d2["digests"], "5n b: two runs at the config's "
+                                          "capacity differ")
+    aux = d1["aux"]
+    check(all(math.isfinite(v) for v in aux.values())
+          and all(math.isfinite(v) for m in d1["metrics"]
+                  for v in m.values()), f"5n b: aux {aux}")
+    bworst = max(berrs, key=berrs.get)
+    out["moe"] = {"grid": LMGRID_SHAPE, "params_per_rank": bru["params_local"],
+                  "grad_rel_l2": {"max": berrs[bworst], "leaf": bworst},
+                  "loss_gap": bgap, "drops": aux,
+                  "drop_metrics": d1["metrics"],
+                  "first_step_ms_no_drop": bru["ms"][0],
+                  "first_step_ms": d1["ms"][-1],
+                  "staged_bytes_no_drop": bru["staged_bytes"],
+                  "staged_bytes_per_step": d1["staged_bytes"]
+                  / LMGRID_DROP_STEPS, "seconds": b["seconds"]}
+    log(f"5n b moonshot-v1-16b-a3b x {LMGRID_MOE_LAYERS} layers (1 dense + 1 "
+        f"MoE of 64 x 1408, top 6, ep_shardmap + rs_ag) on {LMGRID_SHAPE}: at "
+        f"capacity E/k step-0 gradient vs one device max relative L2 "
+        f"{berrs[bworst]:.4f} ({bworst}; MoE leaves {TRAIN_MOE_GRAD_TOL}, "
+        f"others {TRAIN_GRAD_TOL}), loss gap {bgap:.5f}; at capacity 1.25: "
+        f"dropped (mean of the shards') {aux['moe_drop_frac']:.4f}, aux loss"
+        f" {aux['moe_aux_loss']:.5f}, largest load {aux['moe_max_load']:.0f}"
+        f", two {LMGRID_DROP_STEPS}-step runs same bits; a single first "
+        f"step {d1['ms'][-1]:.0f} ms ({bru['ms'][0]:.0f} ms at E/k), staged "
+        f"{d1['staged_bytes'] / LMGRID_DROP_STEPS / 1e9:.2f} GB a step "
+        f"({bru['staged_bytes'] / 1e9:.2f} at E/k) [{name}]")
+
+    # -- c ----------------------------------------------------------------
+    c = r0["serve"]
+    check(c["max_gap"] <= LM_LOGIT_TOL and c["flips"] == 0,
+          f"5n c: logits gap {c['max_gap']} (limit {LM_LOGIT_TOL}), "
+          f"{c['flips']} argmax flips outside ties")
+    for i, r in enumerate(ranks):
+        rc = r["serve"]
+        check(rc["launches"] == c["baseline_launches"] > 0 and
+              rc["variants"] == c["baseline_variants"],
+              f"5n c rank {i}: B6 {rc['launches']} {rc['variants']}, one "
+              f"device {c['baseline_launches']} {c['baseline_variants']}")
+        check(rc["plain_calls"] == 0, f"5n c rank {i}: the plain attention "
+                                      f"ran {rc['plain_calls']} times")
+        check(not any(v for k, v in rc["kernel_launches"].items()
+                      if k not in ("flash_attention", "row_sum")),
+              f"5n c rank {i}: launched {rc['kernel_launches']}")
+    pre_tps = LM_BATCH * LM_PROMPT / c["prefill_s"]
+    dec_tps = LM_BATCH * (LM_STEPS - 1) / c["decode_s"]
+    out["serve"] = {
+        "grid": LMGRID_SERVE_SHAPE, "layers": LM_LAYERS,
+        "launches_per_rank": c["launches"], "variants": c["variants"],
+        "max_logit_gap": c["max_gap"], "tie_flips": c["tie_flips"],
+        "prefill_tokens_per_s": pre_tps, "decode_tokens_per_s": dec_tps,
+        "prefill_staged_bytes": c["prefill_staged_bytes"],
+        "decode_staged_bytes_per_step": c["decode_staged_bytes"]
+        / (LM_STEPS - 1), "cache_shape": c["cache_shape"],
+        "peak_gib": {i: r["serve"].get("peak_gib")
+                     for i, r in enumerate(ranks)},
+        "seconds": c["seconds"]}
+    log(f"5n c {LM_ARCH} x {LM_LAYERS} layers served on {LMGRID_SERVE_SHAPE}"
+        f": B6 {c['launches']} launches {c['variants']} on each of 4 ranks "
+        f"(one device {c['baseline_launches']}), a rank's cache "
+        f"{c['cache_shape']}, plain attention never ran; logits vs one "
+        f"device max gap {c['max_gap']:.4f} (limit {LM_LOGIT_TOL}), argmax "
+        f"the same but {c['tie_flips']} ties; prefill {pre_tps:.1f} "
+        f"tokens/s, decode {dec_tps:.2f} tokens/s (4 ranks contending for "
+        f"one card), staged {c['prefill_staged_bytes'] / 1e9:.3f} GB at "
+        f"prefill and {c['decode_staged_bytes'] / (LM_STEPS - 1) / 1e6:.2f}"
+        f" MB a decode step in all [{name}]")
+    log(f"5n: phase {seconds:.1f} s (a {a['seconds']:.1f}, b "
+        f"{b['seconds']:.1f}, c {c['seconds']:.1f}) [{name}]")
+    return out
 
 
 def dist_launches(kind, all_k, stages) -> dict:
@@ -4924,6 +5228,8 @@ def main() -> int:
     train = run_train(dev, all_k, reset, counts, rsum_k, name)
     # -- phase 5m: the other kinds, MoE and the codebook head in training
     train_kinds = run_train_kinds(dev, all_k, reset, counts, rsum_k, name)
+    # -- phase 5n: the LM over a (data, model) process grid ----------------
+    grid = run_grid(dev, name)
 
     # -- phase 3: single filter at the paper's §VII.C frame ------------------
     cfg = TrackingConfig()
@@ -5572,6 +5878,11 @@ def main() -> int:
         k["launches_new_phases"]["5l train"] = train["launches"][k["name"]]
         k["launches_new_phases"]["5m train"] = \
             train_kinds["launches"][k["name"]]
+        k["launches_new_phases"]["5n train (each of 4 ranks)"] = \
+            grid["train_launches"][k["name"]]
+        k["launches_new_phases"]["5n c serve (each of 4 ranks)"] = \
+            grid["serve"]["launches_per_rank"] \
+            if k["name"] == "flash_attention" else 0
     record = {
         "card": name, "kernels": kernels,
         "bank_mesh": bank_mesh, "processes": processes, "asir": asir_run,
@@ -5596,7 +5907,7 @@ def main() -> int:
         "composed": composed, "scan": scan_times, "scan_check": scan_check,
         "distributed": dist_runs, "domain": domain_runs, "lm": lm,
         "kinds": kinds, "moe": moe, "train": train,
-        "train_kinds": train_kinds,
+        "train_kinds": train_kinds, "grid": grid,
         "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
         "attention_kinds": attn_kinds,

@@ -4,10 +4,12 @@ The port's own copy of the reference's pure-data config module: one
 frozen dataclass describes every family (dense / moe / hybrid / ssm /
 vlm / audio), with the same fields and defaults, so
 ``dataclasses.asdict`` of a reference config builds the port's
-(``repro_torch.convert.arch_config``).  Fields that steer the
-reference's XLA/TPU lowering (``remat``, ``attn_chunk``,
-``attn_scores_dtype``, ``seq_parallel``, ``scan_unroll``, the MoE
-``dispatch``/``ep_reduce``) are kept as data and read by nothing here.
+(``repro_torch.convert.arch_config``).  ``remat`` and ``attn_chunk``
+steer training, ``attn_scores_dtype`` its attention scores, and the MoE
+``dispatch``/``ep_reduce`` the MoE FFN on a process grid
+(``models.lm.moe.apply_moe_ep``); ``seq_parallel`` and
+``scan_unroll``, which steer the reference's XLA/TPU lowering, are kept
+as data and read by nothing here.
 ``repro_torch/configs/<id>.py`` hold the archs the port runs, each as
 ``FULL`` and ``SMOKE``.
 """

@@ -199,20 +199,33 @@ def _index(tree, i: int):
 
 
 def lm_params(params_np: dict, cfg: configs.ArchConfig, device="cpu",
-              dtype: torch.dtype | None = None) -> lm.Decoder:
+              dtype: torch.dtype | None = None, grid=None,
+              coords=None) -> lm.Decoder:
     """The port's ``Decoder`` holding the reference's ``init_params``
     weights (a pytree of numpy arrays), cast once to ``dtype`` (default
     ``cfg.compute_dtype``) — what the reference's ``cast_params`` does on
     every call.  Every layer kind and FFN crosses, with its leaves as
     the reference names them (head, scanned groups, tail, in depth
     order; an M layer's ``mla``, a MoE layer's ``moe`` with its router,
-    ``we_gate``/``we_up``/``we_down`` and nested ``shared`` MLP)."""
+    ``we_gate``/``we_up``/``we_down`` and nested ``shared`` MLP).  With
+    ``grid``, the decoder holds the blocks of the rank at ``coords``
+    (default this rank's) of those weights
+    (``launch.sharding.RankBlocks``): each is cut from the numpy array
+    before it crosses, so the whole model is never on the device."""
     lm.check_supported(cfg)
     dtype = dtype or lm.L.dtype_of(cfg.compute_dtype)
+    keep = None
+    if grid is not None:
+        from repro_torch.launch import sharding
+        sharding.check_supported(cfg, grid)
+        keep = sharding.RankBlocks(grid, coords)
 
-    def t(x):
+    def t(x, name):
         if isinstance(x, dict):
-            return {k: t(v) for k, v in x.items()}
+            return {k: t(v, f"{name}.{k}") for k, v in x.items()}
+        x = np.asarray(x)
+        if keep is not None:
+            x = keep(name, x)
         return torch.from_numpy(np.array(x, np.float32)).to(device=device,
                                                              dtype=dtype)
 
@@ -221,14 +234,15 @@ def lm_params(params_np: dict, cfg: configs.ArchConfig, device="cpu",
     if len(leaves) != len(plan):
         raise ValueError(f"{len(leaves)} layers of weights for the "
                          f"{len(plan)} layers of {cfg.name}")
-    blocks = [lm.Block(kind, ffn, t(layer))
-              for (kind, ffn), layer in zip(plan, leaves)]
+    blocks = [lm.Block(kind, ffn, t(layer, f"blocks.{i}"))
+              for i, ((kind, ffn), layer) in enumerate(zip(plan, leaves))]
     head = params_np.get("lm_head")
     img = params_np.get("img_proj")
-    return lm.Decoder(cfg, t(params_np["embed"]), blocks,
-                      t(params_np["final_norm"]),
-                      None if head is None else t(head),
-                      None if img is None else t(img))
+    model = lm.Decoder(cfg, t(params_np["embed"], "embed"), blocks,
+                       t(params_np["final_norm"], "final_norm"),
+                       None if head is None else t(head, "lm_head"),
+                       None if img is None else t(img, "img_proj"))
+    return model if keep is None else keep.attach(model)
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +315,12 @@ def lm_tree(cfg: configs.ArchConfig, named: dict) -> dict:
 
 
 def train_params(params_np: dict, cfg: configs.ArchConfig,
-                 device="cpu") -> lm.Decoder:
+                 device="cpu", grid=None, coords=None) -> lm.Decoder:
     """A trainable decoder (float32 master weights with ``requires_grad``)
-    holding the reference's ``init_params`` weights (numpy pytree)."""
-    return lm.trainable(lm_params(params_np, cfg, device, torch.float32))
+    holding the reference's ``init_params`` weights (numpy pytree), or
+    with ``grid`` a rank's blocks of them (``lm_params``)."""
+    return lm.trainable(lm_params(params_np, cfg, device, torch.float32,
+                                  grid, coords))
 
 
 def opt_state(state_np: dict, cfg: configs.ArchConfig,

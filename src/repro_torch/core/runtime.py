@@ -44,6 +44,14 @@ this rank's line along that axis, whose verbs run on the line's own
 process group, with the line's size as ``P`` and the rank's place on the
 line as its shard.
 
+The sharded LM (``launch.sharding``) adds tiled verbs and differentiable
+forms: ``all_gather_tiled``, ``psum_scatter`` (shard-0-first sums, one
+``all_to_all`` on a process mesh) and ``pmean``; ``fsdp_gather`` (its
+backward reduce-scatters), Megatron's ``tp_copy`` (``f``: identity, the
+gradient summed) and ``tp_reduce`` (``g``: the sum, the gradient as it
+is), ``tp_mean``, the ``tp_scatter``/``tp_gather`` pair, and
+``all_to_all_grad`` (its own inverse backward).
+
 Each collective gives a member the bits it gives the same values without
 the bank.  ``make_mesh`` builds an emulated mesh of named axes (the
 bank's 2-D ``(bank, data)`` layout); ``butterfly_schedule`` gives the
@@ -362,14 +370,22 @@ def _wire_device(x: torch.Tensor, mesh: ProcessMesh) -> torch.device:
     return torch.device("cpu")
 
 
+def _host_buffer(shape, dtype, pinned: bool) -> torch.Tensor:
+    """An empty host tensor, page-locked when it stages a CUDA tensor
+    (its copies to and from the card then run at the DMA engines' rate;
+    torch's host allocator caches the pages)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=pinned)
+
+
 def _wire(x: torch.Tensor, mesh: ProcessMesh,
           copy: bool = False) -> torch.Tensor:
     """``x`` as the transport carries it, contiguous (a copy with
-    ``copy``): a CUDA tensor on gloo is staged to host memory (counted in
-    ``mesh.staged``)."""
+    ``copy``): a CUDA tensor on gloo is staged to page-locked host memory
+    (counted in ``mesh.staged``)."""
     dev = _wire_device(x, mesh)
     if x.device != dev:
         mesh.staged.bytes += x.numel() * x.element_size()
+        return _host_buffer(x.shape, x.dtype, True).copy_(x)
     return x.to(dev, copy=copy).contiguous()
 
 
@@ -383,13 +399,38 @@ def _unwire(y: torch.Tensor, like: torch.Tensor,
     return y
 
 
+def _exchange(sends: dict, recvs: dict, mesh: ProcessMesh) -> None:
+    """One batch of point-to-point messages on the mesh's group: ``sends``
+    and ``recvs`` map a shard to the tensor sent to it or received from
+    it."""
+    ops = [tdist.P2POp(tdist.isend, t, _global_rank(mesh, q), mesh.group)
+           for q, t in sends.items()]
+    ops += [tdist.P2POp(tdist.irecv, t, _global_rank(mesh, q), mesh.group)
+            for q, t in recvs.items()]
+    if ops:
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+
+
 def _gathered(x: torch.Tensor, mesh: ProcessMesh, d: int) -> torch.Tensor:
     """``(lead..., 1, ...)`` -> ``(lead..., P, ...)``: every rank's shard in
-    rank order (one ``all_gather_into_tensor`` of the flat shard)."""
+    rank order: one ``all_gather_into_tensor`` of the flat shard on nccl;
+    on gloo, whose all-gather moves a fraction of the bytes a second that
+    its point-to-point messages do, one batch of messages to and from
+    every other rank."""
     own = x.select(d, 0)
     wire = _wire(own, mesh).reshape(-1)
-    out = wire.new_empty((mesh.shards * wire.numel(),))
-    tdist.all_gather_into_tensor(out, wire, group=mesh.group)
+    out = _host_buffer((mesh.shards, wire.numel()), wire.dtype,
+                       x.device.type == "cuda") \
+        if mesh.transport == "gloo" else wire.new_empty((mesh.shards,
+                                                        wire.numel()))
+    if mesh.transport == "gloo":
+        out[mesh.rank] = wire
+        others = [q for q in range(mesh.shards) if q != mesh.rank]
+        _exchange({q: wire for q in others}, {q: out[q] for q in others},
+                  mesh)
+    else:
+        tdist.all_gather_into_tensor(out.view(-1), wire, group=mesh.group)
     out = _unwire(out, x, mesh).reshape((mesh.shards,) + tuple(own.shape))
     return out.movedim(0, d)
 
@@ -530,7 +571,8 @@ def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     # rank-major blocks: row j goes to rank j, row i of the result came
     # from rank i
     blocks = _wire(x.select(d, 0).movedim(d, 0), mesh)
-    got = torch.empty_like(blocks)
+    got = _host_buffer(blocks.shape, blocks.dtype, x.device.type == "cuda") \
+        if mesh.transport == "gloo" else torch.empty_like(blocks)
     tdist.all_to_all_single(got, blocks, group=mesh.group)
     return _unwire(got, x, mesh).movedim(0, d).unsqueeze(d).contiguous()
 
@@ -546,3 +588,224 @@ def tree_bytes(tree: Any) -> int:
     if isinstance(tree, (tuple, list)):
         return sum(tree_bytes(v) for v in tree)
     raise TypeError(f"tree_bytes of {type(tree).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# Tiled gathers, reduce-scatter and means (the sharded LM's verbs)
+# ---------------------------------------------------------------------------
+
+def _block_dim(x: torch.Tensor, mesh: Mesh, axis: int) -> int:
+    """The dim of the shard-stripped value that ``axis`` of the per-shard
+    ``x`` names (``axis`` counts ``x``'s dims and lies behind the shard
+    dim)."""
+    d = _check(x, mesh)
+    axis = axis % x.dim()
+    if axis <= d:
+        raise ValueError(f"axis {axis} is not behind the shard dim {d}")
+    return axis - 1
+
+
+def _summed(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The shard-0-first sum of every shard's value (``psum``'s order),
+    without the shard dim."""
+    d = len(mesh.lead)
+    every = gather_shards(x, mesh)
+    acc = every.select(d, 0)
+    for i in range(1, mesh.shards):
+        acc = acc + every.select(d, i)
+    return acc
+
+
+def _held_blocks(full: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Block ``i`` (of ``P`` equal blocks along ``dim``) of ``full`` for
+    every shard ``i`` this process holds, stacked on the shard dim."""
+    p = mesh.shards
+    if full.shape[dim] % p:
+        raise ValueError(f"dim {dim} of size {full.shape[dim]} does not "
+                         f"split into {p} blocks")
+    n = full.shape[dim] // p
+    d = len(mesh.lead)
+    return torch.stack([full.narrow(dim, i * n, n)
+                        for i in shard_range(mesh)], d)
+
+
+def all_gather_tiled(x: torch.Tensor, mesh: Mesh, axis: int) -> torch.Tensor:
+    """Every shard's block concatenated along ``axis`` in shard order, on
+    every shard (the reference's ``all_gather(..., tiled=True)``)."""
+    dim = _block_dim(x, mesh, axis)
+    d = len(mesh.lead)
+    every = gather_shards(x, mesh)                # (lead..., P, block...)
+    # the shard dim beside the one it tiles, shard-major: one reshape
+    full = every.movedim(d, dim)
+    shape = full.shape[:dim] + (-1,) + full.shape[dim + 2:]
+    full = full.reshape(shape).unsqueeze(d)
+    if isinstance(mesh, ProcessMesh):
+        return full
+    return full.expand(x.shape[:d + 1] + full.shape[d + 1:]).clone()
+
+
+def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: int) -> torch.Tensor:
+    """Reduce-scatter: the sum over shards (``psum``'s shard-0-first
+    order, so every run gives the same bits) split into ``P`` equal
+    blocks along ``axis``; shard ``i`` keeps block ``i`` (the reference's
+    ``psum_scatter(..., tiled=True)``).  On a process mesh one
+    ``all_to_all`` sends block ``j`` of every shard to shard ``j``, which
+    adds what it receives in shard order: the emulated mesh's bits at a
+    ``P``-th of a gather's traffic."""
+    dim = _block_dim(x, mesh, axis)
+    if not isinstance(mesh, ProcessMesh):
+        return _held_blocks(_summed(x, mesh), mesh, dim)
+    d, p = len(mesh.lead), mesh.shards
+    own = x.select(d, 0)
+    if own.shape[dim] % p:
+        raise ValueError(f"dim {dim} of size {own.shape[dim]} does not "
+                         f"split into {p} blocks")
+    blocks = own.unflatten(dim, (p, own.shape[dim] // p)).movedim(dim, d)
+    got = all_to_all(blocks.unsqueeze(d), mesh)
+    acc = got.select(d + 1, 0)
+    for i in range(1, p):
+        acc = acc + got.select(d + 1, i)
+    return acc
+
+
+def pmean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Mean over shards: ``psum`` (shard 0 first) divided by ``P``."""
+    return psum(x, mesh) / mesh.shards
+
+
+def _own_blocks(x: torch.Tensor, mesh: Mesh, axis: int) -> torch.Tensor:
+    """Shard ``i``'s own block ``i`` (of ``P`` along ``axis``) of its own
+    value: no communication."""
+    dim = _block_dim(x, mesh, axis)
+    d = len(mesh.lead)
+    r = shard_range(mesh)
+    n = x.shape[axis] // mesh.shards
+    return torch.stack([x.select(d, j).narrow(dim, i * n, n)
+                        for j, i in enumerate(r)], d)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives: each verb paired with its backward
+# ---------------------------------------------------------------------------
+#
+# The sharded LM differentiates through its collectives.  Each rank seeds
+# its backward with its own loss; the gradients a rank's blocks receive
+# are then summed over the ranks that saw different tokens (the batch
+# axes) by the FSDP gather's backward, while ranks along ``model`` hold
+# the same tokens and compute one loss between them.  Hence two kinds of
+# pair: the FSDP gather (blocks in, a copy a rank out, used on different
+# tokens) reduce-scatters its gradient, and Megatron's ``f`` (identity,
+# then a sum of the partial gradients) and ``g`` (a sum of partial
+# products, then the gradient as it is) bracket a tensor-parallel region.
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_gather_tiled(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum_scatter(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_gather_tiled(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_blocks(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _TpScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return psum_scatter(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_tiled(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _TpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad, ctx.mesh), None
+
+
+class _TpReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, mean):
+        ctx.mean = mean
+        return pmean(x, mesh) if mean else psum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_to_all(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad.contiguous(), ctx.mesh), None
+
+
+def fsdp_gather(x: torch.Tensor, mesh: Mesh, axis: int) -> torch.Tensor:
+    """``all_gather_tiled`` whose backward reduce-scatters (``psum_scatter``
+    along ``axis``): each shard's block gathered for use on that shard's
+    own tokens, its gradient the sum of every shard's."""
+    return _FsdpGather.apply(x, mesh, axis)
+
+
+def tp_copy(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's ``f``: the identity, whose backward sums the shards'
+    partial gradients (``psum``); a replicated tensor entering a
+    tensor-parallel region."""
+    return _TpCopy.apply(x, mesh)
+
+
+def tp_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's ``g``: ``psum`` of the shards' partial values, whose
+    backward passes the (replicated) gradient on as it is."""
+    return _TpReduce.apply(x, mesh, False)
+
+
+def tp_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``pmean`` whose backward passes the gradient on as it is: a value
+    each shard computed on its own tokens, averaged for a loss that every
+    shard then counts once between the ranks of a batch line."""
+    return _TpReduce.apply(x, mesh, True)
+
+
+def tp_scatter(x: torch.Tensor, mesh: Mesh, axis: int) -> torch.Tensor:
+    """``psum_scatter`` of partial values whose backward all-gathers the
+    blocks' gradients (a reduce-scatter leaving a tensor-parallel
+    region, as ``tp_reduce`` does for a whole tensor)."""
+    return _TpScatter.apply(x, mesh, axis)
+
+
+def tp_gather(x: torch.Tensor, mesh: Mesh, axis: int) -> torch.Tensor:
+    """``all_gather_tiled`` of blocks into a replicated tensor whose
+    backward keeps each shard's own block of the gradient (the pair of
+    ``tp_scatter``)."""
+    return _TpGather.apply(x, mesh, axis)
+
+
+def all_to_all_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``all_to_all`` whose backward is the inverse ``all_to_all`` (itself:
+    block ``(i, j)`` goes to shard ``j`` and its gradient comes back)."""
+    return _AllToAll.apply(x, mesh)

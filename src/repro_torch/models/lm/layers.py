@@ -186,7 +186,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def normal_weight(shape, std: float, generator: torch.Generator,
                   dtype: torch.dtype) -> torch.Tensor:
     """``N(0, std²)`` weights of ``shape`` in ``dtype``, drawn from
-    ``generator`` on its device."""
+    ``generator`` on its device (on the ``meta`` device, shapes alone)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     out = torch.randn(shape, generator=generator, device=generator.device,
                       dtype=dtype)
     return out.mul_(std)

@@ -55,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharding as SH
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import mla as MLA
 from repro_torch.models.lm import moe as MOE
@@ -215,24 +216,44 @@ class Decoder(nn.Module):
         return out
 
 
+class _MetaGenerator:
+    """Stands in for a generator on the ``meta`` device (shapes alone)."""
+
+    device = torch.device("meta")
+
+
+def _kept(leaves: dict, keep, prefix: str) -> dict:
+    """``keep(name, leaf)`` of every leaf of a (nested) dict of weights."""
+    return {k: _kept(v, keep, f"{prefix}{k}.") if isinstance(v, dict)
+            else keep(prefix + k, v) for k, v in leaves.items()}
+
+
 def init_params(cfg: ArchConfig, seed: int, *, device,
-                dtype: torch.dtype | None = None) -> Decoder:
+                dtype: torch.dtype | None = None, keep=None) -> Decoder:
     """A decoder with random weights drawn on ``device`` from a seeded
     ``torch.Generator``, with the reference's shapes and scales
     (``N(0, 1/D)`` embedding and head, zero norm gains, the recurrent
     blocks' fixed decay inits), in ``dtype`` (default
-    ``cfg.compute_dtype``)."""
+    ``cfg.compute_dtype``).  On the ``meta`` device it holds the shapes
+    alone.  ``keep(name, weight)`` (``launch.sharding.RankBlocks``)
+    replaces each full weight as soon as its layer is drawn, by its
+    block: a rank's decoder is drawn one layer at a time with the same
+    draws as the whole one, and never holds more than one full layer."""
     check_supported(cfg)
     dtype = dtype or L.dtype_of(cfg.compute_dtype)
     device = torch.device(device)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
+    if device.type == "meta":
+        g = _MetaGenerator()
+    else:
+        g = torch.Generator(device=device)
+        g.manual_seed(int(seed))
     d, hd, v = cfg.d_model, cfg.resolved_head_dim, cfg.vocab_size
+    keep = keep or (lambda name, x: x)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    def layer(kind: str, ffn: str) -> Block:
+    def layer(i: int, kind: str, ffn: str) -> Block:
         leaves = {"pre_norm": zeros(d)}
         if kind in ("G", "L", "X"):
             leaves[MIXERS[kind]] = L.attn_params(
@@ -251,16 +272,21 @@ def init_params(cfg: ArchConfig, seed: int, *, device,
         elif ffn == "moe":
             leaves["ffn_norm"] = zeros(d)
             leaves["moe"] = MOE.moe_params(g, d, cfg.moe, dtype)
-        return Block(kind, ffn, leaves)
+        return Block(kind, ffn, _kept(leaves, keep, f"blocks.{i}."))
 
     books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
-    embed = L.normal_weight(books + (v, d), d ** -0.5, g, dtype)
-    blocks = [layer(kind, ffn) for kind, ffn in make_plan(cfg).layers()]
+    embed = keep("embed", L.normal_weight(books + (v, d), d ** -0.5, g,
+                                          dtype))
+    blocks = [layer(i, kind, ffn)
+              for i, (kind, ffn) in enumerate(make_plan(cfg).layers())]
     head = (None if cfg.tie_embeddings
-            else L.normal_weight(books + (d, v), d ** -0.5, g, dtype))
-    img = (L.normal_weight((cfg.d_image, d), cfg.d_image ** -0.5, g, dtype)
+            else keep("lm_head", L.normal_weight(books + (d, v), d ** -0.5,
+                                                 g, dtype)))
+    img = (keep("img_proj", L.normal_weight((cfg.d_image, d),
+                                            cfg.d_image ** -0.5, g, dtype))
            if cfg.cross_attn_every else None)
-    return Decoder(cfg, embed, blocks, zeros(d), head, img)
+    return Decoder(cfg, embed, blocks, keep("final_norm", zeros(d)), head,
+                   img)
 
 
 def trainable(model: Decoder) -> Decoder:
@@ -271,23 +297,68 @@ def trainable(model: Decoder) -> Decoder:
     return model.requires_grad_(True)
 
 
-def init_train_params(cfg: ArchConfig, seed: int, *, device) -> Decoder:
+def init_train_params(cfg: ArchConfig, seed: int, *, device,
+                      grid=None) -> Decoder:
     """A trainable decoder: ``init_params``' random weights in float32
     (the reference's ``param_dtype``), drawn on ``device``, with
-    ``requires_grad``."""
-    return trainable(init_params(cfg, seed, device=device,
-                                 dtype=L.dtype_of(cfg.param_dtype)))
+    ``requires_grad``; with ``grid``, this rank's blocks of them (see
+    ``shard_params``)."""
+    return trainable(shard_params(cfg, seed, device=device, grid=grid,
+                                  dtype=L.dtype_of(cfg.param_dtype)))
+
+
+def shard_params(cfg: ArchConfig, seed: int, *, device, grid=None,
+                 dtype: torch.dtype | None = None, coords=None) -> Decoder:
+    """``init_params``, or with ``grid`` the blocks of the rank at
+    ``coords`` (default this rank's) of the same weights, drawn a layer
+    at a time (``launch.sharding.RankBlocks``) and marked with their
+    specs.  Raises ``ValueError`` for what the grid cannot run yet, before
+    it draws anything."""
+    if grid is None:
+        return init_params(cfg, seed, device=device, dtype=dtype)
+    SH.check_supported(cfg, grid)
+    keep = SH.RankBlocks(grid, coords)
+    return keep.attach(init_params(cfg, seed, device=device, dtype=dtype,
+                                   keep=keep))
+
+
+def _block_leaves(blk: Block) -> dict:
+    """A block's weights as the nested dict ``Block`` is built from."""
+    def leaves(mod):
+        out = {n: p.detach() for n, p in mod.named_parameters(recurse=False)}
+        out.update({n: leaves(c) for n, c in mod.named_children()})
+        return out
+    return leaves(blk)
+
+
+def shard_decoder(model: Decoder, grid, coords=None) -> Decoder:
+    """The decoder of the rank at ``coords`` (default this rank's) of
+    ``grid``, cut from the full ``model``'s tensors (each block in
+    storage of its own; a trainable model's blocks are trainable)."""
+    SH.check_supported(model.cfg, grid)
+    keep = SH.RankBlocks(grid, coords)
+    blocks = [Block(b.kind, b.ffn, _kept(_block_leaves(b), keep,
+                                         f"blocks.{i}."))
+              for i, b in enumerate(model.blocks)]
+    out = Decoder(model.cfg, keep("embed", model.embed.detach()), blocks,
+                  keep("final_norm", model.final_norm.detach()),
+                  None if model.lm_head is None
+                  else keep("lm_head", model.lm_head.detach()),
+                  None if model.img_proj is None
+                  else keep("img_proj", model.img_proj.detach()))
+    keep.attach(out)
+    return out.requires_grad_(model.embed.requires_grad)
 
 
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                 device, dtype: torch.dtype) -> dict:
+                 device, dtype: torch.dtype, tp: int = 1) -> dict:
     hd = cfg.resolved_head_dim
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     if kind in ("G", "L"):
-        shape = (batch, cfg.n_kv_heads, max_len, hd)
+        shape = (batch, cfg.n_kv_heads // tp, max_len, hd)
         return {"k": zeros(shape), "v": zeros(shape)}
     if kind == "M":
         return {"c": zeros((batch, max_len, cfg.mla.kv_lora_rank)),
@@ -308,10 +379,12 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device,
-                dtype: torch.dtype) -> list[dict]:
+                dtype: torch.dtype, tp: int = 1) -> list[dict]:
     """Zeroed caches, one dict per layer (the module docstring's layout);
-    the recurrent ``rec`` state is float32, every other leaf ``dtype``."""
-    return [_layer_cache(cfg, kind, batch, max_len, device, dtype)
+    the recurrent ``rec`` state is float32, every other leaf ``dtype``.
+    On a grid, ``batch`` is the rank's rows and ``tp`` the ``model`` axis
+    that splits the key/value heads (``launch.specs``' cache layout)."""
+    return [_layer_cache(cfg, kind, batch, max_len, device, dtype, tp)
             for kind, _ in make_plan(cfg).layers()]
 
 
@@ -329,13 +402,25 @@ def _theta_window(cfg: ArchConfig, kind: str) -> tuple[float, int]:
 
 def _attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
                cache: dict, positions: torch.Tensor,
-               pos: int | None) -> torch.Tensor:
+               pos: int | None, grid=None) -> torch.Tensor:
     """A G or L layer's attention output ``(B, T, Hq·hd)``; fills
     (prefill) or extends (decode) its KV cache in place, or (train) runs
-    the chunked attention with no cache."""
+    the chunked attention with no cache.  On a grid with a ``model`` axis
+    the layer is column-parallel: ``h`` enters through Megatron's ``f``,
+    the rank's weights hold its query and key/value heads, and the
+    output is its heads' ``(B, T, Hq/TP·hd)`` for the row-parallel
+    ``wo``; the replicated qk-norm gains enter through ``f`` too (each
+    ``f`` the identity without one)."""
     hd = cfg.resolved_head_dim
     theta, window = _theta_window(cfg, blk.kind)
-    q, k, v = L.apply_qkv(blk.attn, h, cfg.n_heads, cfg.n_kv_heads, hd,
+    tp = SH.model_size(grid)
+    n_q, n_kv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    h = SH.tp_copy(h, grid)
+    # the qk-norm gains act on the rank's heads alone: their gradients
+    # are partial sums over model
+    p = {k: SH.tp_copy(w, grid) if k.endswith("_norm") else w
+         for k, w in blk.attn.items()}
+    q, k, v = L.apply_qkv(p, h, n_q, n_kv, hd,
                           positions, theta, cfg.qk_norm, cfg.norm_eps)
     if mode == "train":
         o = L.chunked_causal_attention(
@@ -355,7 +440,7 @@ def _attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
         cache["k"][:, :, :t] = k
         cache["v"][:, :, :t] = v
     b, t = h.shape[:2]
-    return o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
+    return o.transpose(1, 2).reshape(b, t, n_q * hd)
 
 
 def _cross_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
@@ -415,12 +500,24 @@ def _latent_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig,
 
 
 def _moe(blk: Block, h: torch.Tensor, cfg: ArchConfig, aux: dict | None,
-         groups: int) -> torch.Tensor:
-    """A MoE FFN's output; its aux values are added into ``aux``.  The
-    reference's ``dispatch="ep_shardmap"`` runs ``apply_moe`` on one
-    device (``repro/models/lm/moe.py:148-149``), and so does every
-    dispatch here."""
-    out, layer_aux = MOE.apply_moe(blk.moe, h, cfg.moe, groups)
+         groups: int, grid=None) -> torch.Tensor:
+    """A MoE FFN's output; its aux values are added into ``aux``.  On one
+    device every dispatch is ``apply_moe`` (the reference's
+    ``dispatch="ep_shardmap"`` falls back to it there,
+    ``repro/models/lm/moe.py:146-154``).  On a grid the config's
+    ``dispatch`` chooses: ``ep_shardmap`` is ``apply_moe_ep`` where
+    ``launch.sharding.moe_expert_parallel`` allows it; anything else (or
+    a fallback) routes the global tokens, as GSPMD runs ``apply_moe``
+    (``apply_moe_global``)."""
+    if grid is not None:
+        if groups != 1:
+            raise ValueError("route groups on a grid are not supported")
+        if SH.moe_expert_parallel(cfg, grid):
+            out, layer_aux = MOE.apply_moe_ep(blk.moe, h, cfg.moe, grid)
+        else:
+            out, layer_aux = MOE.apply_moe_global(blk.moe, h, cfg.moe, grid)
+    else:
+        out, layer_aux = MOE.apply_moe(blk.moe, h, cfg.moe, groups)
     if aux is not None:
         for name, v in layer_aux.items():
             aux[name] = aux[name] + v if name in aux else v
@@ -430,15 +527,19 @@ def _moe(blk: Block, h: torch.Tensor, cfg: ArchConfig, aux: dict | None,
 def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
                    cache: dict, positions: torch.Tensor, pos: int | None,
                    img: torch.Tensor | None, aux: dict | None = None,
-                   groups: int = 1) -> torch.Tensor:
+                   groups: int = 1, grid=None) -> torch.Tensor:
     """One layer; fills (prefill) or extends (decode) ``cache`` (none in
     training) and adds a MoE FFN's aux values into ``aux``.  Returns the
-    new residual stream."""
+    new residual stream.  On a grid, ``blk`` holds the weights gathered
+    over the batch axes (``_gathered_block``) and the attention and MLP
+    are tensor-parallel over ``model``: Megatron's ``f`` in, the
+    row-parallel product's partial sums reduced by ``g`` (both the
+    identity on one device or without a ``model`` axis)."""
     eps = cfg.norm_eps
     h = L.rms_norm(x, blk.pre_norm, eps)
     if blk.kind in ("G", "L"):
-        x = x + _attention(blk, h, cfg, mode, cache, positions, pos) \
-            @ blk.attn["wo"]
+        x = x + SH.tp_reduce(_attention(blk, h, cfg, mode, cache, positions,
+                                        pos, grid) @ blk.attn["wo"], grid)
     elif blk.kind == "M":
         x = x + _latent_attention(blk, h, cfg, mode, cache, positions, pos)
     elif blk.kind == "X":
@@ -474,11 +575,11 @@ def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
             cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
         x = x + o.to(x.dtype)
     if blk.ffn == "dense":
-        hf = L.rms_norm(x, blk.ffn_norm, eps)
-        x = x + L.apply_mlp(blk.mlp, hf)
+        hf = SH.tp_copy(L.rms_norm(x, blk.ffn_norm, eps), grid)
+        x = x + SH.tp_reduce(L.apply_mlp(blk.mlp, hf), grid)
     elif blk.ffn == "moe":
         hf = L.rms_norm(x, blk.ffn_norm, eps)
-        x = x + _moe(blk, hf, cfg, aux, groups)
+        x = x + _moe(blk, hf, cfg, aux, groups, grid)
     return x
 
 
@@ -503,30 +604,77 @@ class _Lookup(torch.autograd.Function):
         return onehot.T @ grad.reshape(flat.shape[0], -1), None
 
 
-def _embed(model: Decoder, tokens: torch.Tensor) -> torch.Tensor:
+def _lookup(weight: torch.Tensor, ids: torch.Tensor, lo: int, split: bool
+            ) -> torch.Tensor:
+    """The rows of ``weight`` for ``ids``; with ``split``, ``weight`` is a
+    vocabulary shard (ids ``lo`` on) and an id another shard owns gives a
+    zero row (its gradient then zero, added to row 0)."""
+    if not split:
+        return _Lookup.apply(weight, ids)
+    local = ids - lo
+    own = (local >= 0) & (local < weight.shape[0])
+    rows = _Lookup.apply(weight, torch.where(own, local, 0))
+    return torch.where(own[..., None], rows, 0.0)
+
+
+def _embed(model: Decoder, tokens: torch.Tensor, grid=None) -> torch.Tensor:
     """Token ids ``(B, T)`` (``(B, T, K)`` with K codebooks, whose
-    embeddings are summed) → ``(B, T, D)``."""
+    embeddings are summed) → ``(B, T, D)``.  On a grid the table is
+    gathered over the batch axes and, with a ``model`` axis, split by
+    vocabulary: each rank looks up the ids in its range and the ranks'
+    rows are summed (``g``: the sum has one nonzero term a token, so it
+    is the row itself)."""
     tokens = tokens.long()
+    weight = _over_batch(model, "embed", grid)
+    split = SH.model_line(grid) is not None
+    lo = SH.model_index(grid) * weight.shape[-2]
     if model.cfg.n_codebooks > 1:
-        x = _Lookup.apply(model.embed[0], tokens[..., 0])
+        x = _lookup(weight[0], tokens[..., 0], lo, split)
         for k in range(1, model.cfg.n_codebooks):
-            x = x + _Lookup.apply(model.embed[k], tokens[..., k])
+            x = x + _lookup(weight[k], tokens[..., k], lo, split)
     else:
-        x = _Lookup.apply(model.embed, tokens)
+        x = _lookup(weight, tokens, lo, split)
+    x = SH.tp_reduce(x, grid)
     if model.cfg.scale_embed:
         x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
-def unembed(model: Decoder, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states ``(B, T, D)`` → logits ``(B, T, V)`` (``(B, T, K,
-    V)`` with K codebooks)."""
-    if model.cfg.n_codebooks > 1:
-        head = model.lm_head if model.lm_head is not None \
-            else model.embed.transpose(-1, -2)
+def _over_batch(model, name: str, grid) -> torch.Tensor:
+    """Weight ``name`` of ``model`` (a decoder or its view) gathered over
+    the batch axes that shard it (FSDP), or itself on one device."""
+    w = getattr(model, name)
+    if grid is None:
+        return w
+    return SH.gather_leaf(w, model.specs[name], grid, SH.batch_axes(grid))
+
+
+def head_of(model, grid=None) -> torch.Tensor:
+    """The unembedding ``(D, V)`` (``(K, D, V)``): the head, or the
+    embedding's transpose when they are tied.  On a grid, gathered over
+    the batch axes: the rank's vocabulary shard with a ``model`` axis."""
+    w = _over_batch(model, "lm_head" if model.lm_head is not None
+                    else "embed", grid)
+    return w if model.lm_head is not None else w.transpose(-1, -2)
+
+
+def logits_of(x: torch.Tensor, head: torch.Tensor,
+              codebooks: int) -> torch.Tensor:
+    """``x`` ``(B, T, D)`` against ``head`` → ``(B, T, V)`` (``(B, T, K,
+    V)``)."""
+    if codebooks > 1:
         return torch.einsum("btd,kdv->btkv", x, head)
-    head = model.lm_head if model.lm_head is not None else model.embed.T
     return x @ head
+
+
+def unembed(model: Decoder, x: torch.Tensor, grid=None) -> torch.Tensor:
+    """Hidden states ``(B, T, D)`` → logits ``(B, T, V)`` (``(B, T, K,
+    V)`` with K codebooks).  On a grid the rank's vocabulary shard's
+    logits are gathered over ``model`` into the whole vocabulary (for
+    serving; the training loss keeps them split)."""
+    logits = logits_of(x, head_of(model, grid), model.cfg.n_codebooks)
+    spec = (None,) * (logits.dim() - 1) + ("model",)
+    return SH.gather_full(logits, spec, grid)
 
 
 class CastDecoder:
@@ -553,7 +701,9 @@ def cast_params(model, cfg: ArchConfig | None = None) -> CastDecoder:
     master weights, so their gradients arrive in the masters' float32.
     ``cfg`` may differ from the model's in its numeric and execution
     fields (compute dtype, remat, chunks), not in its layers.  A
-    ``CastDecoder`` with that config is returned as it is."""
+    ``CastDecoder`` with that config is returned as it is.  A rank's
+    sharded decoder's view carries its blocks' specs (``specs``, by
+    weight name) and each block view its ``index``."""
     cfg = cfg or model.cfg
     if isinstance(model, CastDecoder):
         if model.cfg != cfg:
@@ -564,16 +714,65 @@ def cast_params(model, cfg: ArchConfig | None = None) -> CastDecoder:
                          f"({model.cfg.name})")
     ct = L.dtype_of(cfg.compute_dtype)
     blocks = []
-    for blk in model.blocks:
+    for i, blk in enumerate(model.blocks):
         leaves = {n: _cast(p, ct) for n, p in
                   blk.named_parameters(recurse=False)}
         leaves.update({n: _cast(d, ct) for n, d in blk.named_children()})
-        blocks.append(CastDecoder(kind=blk.kind, ffn=blk.ffn, **leaves))
+        blocks.append(CastDecoder(kind=blk.kind, ffn=blk.ffn, index=i,
+                                  **leaves))
     return CastDecoder(cfg=cfg, embed=_cast(model.embed, ct), blocks=blocks,
                        final_norm=_cast(model.final_norm, ct),
                        lm_head=_cast(model.lm_head, ct),
                        img_proj=_cast(model.img_proj, ct),
-                       device=model.device, dtype=ct)
+                       device=model.device, dtype=ct,
+                       specs=getattr(model, "shard_specs", None),
+                       grid_shape=getattr(model, "grid_shape", None))
+
+
+_BLOCK_FIELDS = ("kind", "ffn", "index")
+
+
+def _gathered_block(blk: CastDecoder, specs: dict, grid, ep: bool
+                    ) -> CastDecoder:
+    """A block view whose weights are gathered over the batch axes that
+    shard them (FSDP, on use: under remat the backward gathers them
+    again, and the gathers' backwards reduce-scatter the gradients), the
+    expert banks left as they are under the expert-parallel dispatch
+    (``ep``).  It takes the specs, not the decoder's view: a checkpointed
+    layer that held the view would keep every layer's weights alive until
+    the last layer's backward.  On one device (``grid`` ``None``) the
+    block itself."""
+    if grid is None:
+        return blk
+    prefix = f"blocks.{blk.index}."
+    leaves = {k: _gathered(v, prefix + k, specs, grid, ep)
+              for k, v in vars(blk).items() if k not in _BLOCK_FIELDS}
+    return CastDecoder(kind=blk.kind, ffn=blk.ffn, index=blk.index, **leaves)
+
+
+def _gathered(x, name: str, specs: dict, grid, ep: bool):
+    """A leaf (or a dict of leaves) gathered over the batch axes that
+    shard it.  (A module function: a recursive closure would hold the
+    step's weights in a reference cycle until the garbage collector ran.)"""
+    if isinstance(x, dict):
+        return {k: _gathered(v, f"{name}.{k}", specs, grid, ep)
+                for k, v in x.items()}
+    axes = SH.gather_axes_of(name, specs[name], grid, ep)
+    return SH.gather_leaf(x, specs[name], grid, axes) if axes else x
+
+
+def _grid_of(model):
+    """The active grid, checked against the blocks ``model`` (a decoder or
+    its view) holds, or ``None`` on one device."""
+    grid = SH.active_mesh()
+    if grid is None:
+        return None
+    held = getattr(model, "grid_shape", None)
+    if held != dict(grid.shape):
+        raise ValueError(f"a grid {dict(grid.shape)} is active but the "
+                         f"decoder holds blocks for {held or 'one device'}")
+    SH.check_supported(model.cfg, grid)
+    return grid
 
 
 def forward_train(model, tokens: torch.Tensor,
@@ -594,7 +793,15 @@ def forward_train(model, tokens: torch.Tensor,
     scanned group runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint`` of its scan body, nothing saved; the layer's aux
     values are outputs of the checkpointed call, so the recompute adds
-    nothing twice), the unrolled head and tail layers do not."""
+    nothing twice), the unrolled head and tail layers do not.
+
+    Under ``launch.sharding.mesh_context(grid)`` ``model`` is a rank's
+    sharded decoder (``init_train_params(..., grid=)``) and ``tokens``
+    its rows: each layer gathers its weights over the batch axes inside
+    the checkpointed call, the G and L layers and MLPs run
+    tensor-parallel over ``model``, the embedding by vocabulary shard,
+    a MoE FFN by the config's dispatch; the hidden states are the rank's
+    rows, replicated over ``model``, and the aux values global."""
     cfg = model.cfg
     if cfg.cross_attn_every and img is None:
         raise ValueError(f"{cfg.name} cross-attends to image tokens: "
@@ -602,16 +809,20 @@ def forward_train(model, tokens: torch.Tensor,
     if img is not None and not cfg.cross_attn_every:
         raise ValueError(f"{cfg.name} does not cross-attend: no img")
     view = cast_params(model)
-    x = _embed(view, tokens)
+    grid = _grid_of(view)
+    x = _embed(view, tokens, grid)
     positions = torch.arange(tokens.shape[1], device=view.device)
     if img is not None:
-        img = img.to(x.dtype) @ view.img_proj
+        img = img.to(x.dtype) @ _over_batch(view, "img_proj", grid)
     scanned = make_plan(cfg).scanned()
+    specs = view.specs
+    ep = SH.moe_expert_parallel(cfg, grid)
 
     def layer(x, blk):
         layer_aux = {}
+        blk = _gathered_block(blk, specs, grid, ep)
         x = _block_forward(blk, x, cfg, "train", None, positions, None,
-                           img, layer_aux)
+                           img, layer_aux, grid=grid)
         return x, layer_aux
 
     aux = {}
@@ -637,18 +848,30 @@ def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,
     layers' aux values, summed over the layers, are added into ``aux``;
     with ``route_groups`` > 1 the B rows form that many equal groups,
     each routed to the experts on its own (the aux values then
-    ``(route_groups,)``)."""
+    ``(route_groups,)``).  Under ``launch.sharding.mesh_context(grid)``
+    ``model`` is a rank's sharded decoder and ``tokens`` its rows: the
+    caches hold those rows and the rank's key/value heads (the layout of
+    ``launch.specs._cache_leaf_spec``), each layer gathers its weights
+    over the batch axes, and the G and L layers run B6 on the rank's
+    heads."""
     cfg = model.cfg
     b, t = tokens.shape[:2]
+    grid = _grid_of(model)
+    if grid is not None:
+        model = cast_params(model)
+    tp = SH.model_size(grid)
     caches = init_caches(cfg, b, max_len, device=model.device,
-                         dtype=model.dtype)
-    x = _embed(model, tokens)
+                         dtype=model.dtype, tp=tp)
+    x = _embed(model, tokens, grid)
     positions = torch.arange(t, device=model.device)
     if img is not None and model.img_proj is not None:
-        img = img.to(x.dtype) @ model.img_proj
+        img = img.to(x.dtype) @ _over_batch(model, "img_proj", grid)
+    ep = SH.moe_expert_parallel(cfg, grid)
+    specs = None if grid is None else model.specs
     for blk, cache in zip(model.blocks, caches):
+        blk = _gathered_block(blk, specs, grid, ep)
         x = _block_forward(blk, x, cfg, "prefill", cache, positions, None,
-                           img, aux, route_groups)
+                           img, aux, route_groups, grid)
     x = L.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
     return x, caches
 
@@ -660,13 +883,20 @@ def forward_decode(model: Decoder, tokens: torch.Tensor, pos: int,
     ``caches`` → logits ``(B, 1, V)`` (``(B, 1, K, V)``); the KV and
     latent caches gain slot ``pos`` in place, the recurrent leaves are
     replaced, and the caches are returned.  ``aux`` and ``route_groups``
-    are ``forward_prefill``'s."""
+    are ``forward_prefill``'s.  Under a grid (``forward_prefill``'s) the
+    logits cover the whole vocabulary."""
     cfg = model.cfg
     pos = int(pos)
-    x = _embed(model, tokens)
+    grid = _grid_of(model)
+    if grid is not None:
+        model = cast_params(model)
+    x = _embed(model, tokens, grid)
     positions = torch.full((1,), pos, dtype=torch.int32, device=model.device)
+    ep = SH.moe_expert_parallel(cfg, grid)
+    specs = None if grid is None else model.specs
     for blk, cache in zip(model.blocks, caches):
+        blk = _gathered_block(blk, specs, grid, ep)
         x = _block_forward(blk, x, cfg, "decode", cache, positions, pos,
-                           None, aux, route_groups)
+                           None, aux, route_groups, grid)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return unembed(model, x), caches
+    return unembed(model, x, grid), caches

@@ -34,10 +34,30 @@ them no gradient either.
 (capacity, ranks, drops and aux per group): the reference's
 ``smc_decode`` vmaps its step over prompts, so each prompt's K rows
 share the experts among themselves alone, and ``decode_ssm`` asks for a
-group a prompt.  The expert-parallel dispatch (``apply_moe_ep``, a
-``shard_map`` over the data axis) is not ported: on one device the
-reference runs ``apply_moe`` (``repro/models/lm/moe.py:148-149``), and
-the port runs one device (ROADMAP A8b's rest).
+group a prompt.
+
+On a process grid (``launch.sharding.mesh_context``) two dispatches
+run, as the config's ``dispatch`` asks:
+
+* ``apply_moe_ep`` (``"ep_shardmap"``, the reference's
+  ``repro/models/lm/moe.py:133-243``): each rank routes its own tokens
+  at ``capacity_for`` its own token count (so its drops are the
+  reference's per-shard ones, not the single device's), packs a
+  ``(P, E/P, C, D)`` buffer, one ``all_to_all`` over ``data`` takes each
+  block to the rank holding its experts, the experts' F split over
+  ``model`` is reduced by ``psum`` (``ep_reduce="psum"``) or by a
+  reduce-scatter over D, the combine on D/TP, then an all-gather
+  (``"rs_ag"``), a second ``all_to_all`` brings the outputs home, and
+  the aux values are means (the loss, the dropped fraction) and a max
+  (the largest load) over every axis;
+* ``apply_moe_global`` (``"xla"``, and the reference's fallbacks: no
+  ``data`` axis, or experts that ``data`` does not divide): the global
+  tokens, gathered over the batch axes, routed as on one device at the
+  capacity of the global count (what GSPMD computes for the
+  reference's ``apply_moe``), every rank keeping its own rows.
+
+Both split the experts' F over ``model`` (Megatron's ``f`` on the
+buffer, ``g`` on the outputs) and keep the gather backwards.
 """
 from __future__ import annotations
 
@@ -45,6 +65,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import runtime
+from repro_torch.launch import sharding as SH
 from repro_torch.models.lm.layers import apply_mlp, mlp_params, normal_weight
 
 
@@ -142,13 +164,21 @@ class _Combine(torch.autograd.Function):
         return pad[ent], None, None, None
 
 
+def _shared(p, xf: torch.Tensor, grid) -> torch.Tensor:
+    """The shared experts' MLP, tensor-parallel on a grid (``f`` and ``g``
+    the identity on one device)."""
+    return SH.tp_reduce(apply_mlp(p["shared"], SH.tp_copy(xf, grid)), grid)
+
+
 def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
-              groups: int = 1) -> tuple[torch.Tensor, dict]:
+              groups: int = 1, grid=None) -> tuple[torch.Tensor, dict]:
     """``x`` ``(B, T, D)`` -> ``(B, T, D)`` and the aux dict
     ``{moe_aux_loss, moe_drop_frac, moe_max_load}``.  The ``B·T`` rows
     form ``groups`` equal groups in row order, each routed on its own at
     ``capacity_for`` its own rows; the aux values are then ``(groups,)``
-    tensors (scalars for one group)."""
+    tensors (scalars for one group).  With ``grid`` (from
+    ``apply_moe_global``) the experts' and the shared MLP's F are the
+    rank's ``model`` shard."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n = b * t
@@ -179,18 +209,20 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
                       n * k).reshape(-1)                         # (E·G·C,)
     tok = torch.where(ent < n * k, ent // k, n)                  # n: zero row
     at = flat_e * (groups * cap) + entry_group * cap + rank
-    buf = _Dispatch.apply(xf, tok, at, keep, k).view(e, groups * cap, d)
+    buf = SH.tp_copy(_Dispatch.apply(xf, tok, at, keep, k)
+                     .view(e, groups * cap, d), grid)
 
     # ---- the experts' gated MLPs, one batched product per weight --------
     h = torch.bmm(buf, p["we_gate"])
     u = torch.bmm(buf, p["we_up"])
-    y = torch.bmm(F.silu(h) * u, p["we_down"]).view(-1, d)     # (E·G·C, D)
+    y = SH.tp_reduce(torch.bmm(F.silu(h) * u, p["we_down"]).view(-1, d),
+                     grid)                                       # (E·G·C, D)
 
     # ---- combine: each token's k slots, weighted, summed in slot order ---
     got = _Combine.apply(y, at, keep, ent)
     out = _sum_slots(got * gate.reshape(-1, 1).to(got.dtype), k)
     if "shared" in p:
-        out = out + apply_mlp(p["shared"], xf)
+        out = out + _shared(p, xf, grid)
 
     # ---- aux: load-balance loss and the DLB-style diagnostics ------------
     me = probs.view(groups, n_g, e).mean(1)                     # (G, E)
@@ -209,3 +241,123 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
     if groups == 1:
         aux = {name: v[0] for name, v in aux.items()}
     return out.reshape(b, t, d), aux
+
+
+def apply_moe_global(p, x: torch.Tensor, cfg: MoEConfig,
+                     grid) -> tuple[torch.Tensor, dict]:
+    """``apply_moe`` of the global tokens on a grid: the rank's rows ``x``
+    ``(B_loc, T, D)`` are gathered over the batch axes (the gather's
+    backward reduce-scatters, so the aux loss's gradient, which every
+    rank computes on every token, counts once between them), routed at
+    the capacity of the global count, and the rank keeps its rows.  The
+    expert banks arrive gathered over ``data``; their F and the shared
+    MLP's are split over ``model``.  Returns the rank's rows and the
+    global aux values (the single device's, every rank)."""
+    axes = SH.batch_axes(grid)
+    b = x.shape[0]
+    xg = SH.gather_leaf(x, (axes,) + (None,) * (x.dim() - 1), grid, axes)
+    out, aux = apply_moe(p, xg, cfg, 1, grid)
+    return out.narrow(0, SH.batch_index(grid) * b, b), aux
+
+
+def _drop_frac(keep: torch.Tensor) -> torch.Tensor:
+    """``1 - mean(keep)`` as XLA compiles it (``apply_moe``'s rounding)."""
+    inv = float(torch.tensor(1.0 / keep.numel(), dtype=torch.float32))
+    return (1.0 - keep.sum().double() * inv).float()
+
+
+def apply_moe_ep(p, x: torch.Tensor, cfg: MoEConfig, grid,
+                 record: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """The expert-parallel MoE (the reference's ``apply_moe_ep``) on a
+    grid with a ``data`` axis that divides the experts: ``x`` is the
+    rank's rows ``(B_loc, T, D)``, replicated over ``model``; ``p``
+    holds the full router (gathered) and the rank's expert banks
+    ``(E/P, D, F/TP)``, ``(E/P, F/TP, D)``.  The layout and collectives
+    are the module docstring's.  Returns the rank's rows and the aux
+    values, replicated: ``moe_aux_loss`` a mean over every axis whose
+    backward passes the gradient on as it is (each rank's objective
+    counts it once between the batch shards), ``moe_drop_frac`` a mean
+    and ``moe_max_load`` a max.  ``record``, if given, receives the
+    rank's routing: each (token, k) entry's ``slot`` (``cap`` when
+    dropped), ``keep``, the per-expert ``load`` and ``capacity``."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    data = grid.axis("data")
+    p_data = data.shards
+    e_loc = e // p_data
+    n = b * t
+    cap = capacity_for(n, cfg)                   # per (source, expert)
+    dev = x.device
+    xf = x.reshape(n, d)
+
+    probs = torch.softmax((xf @ p["router"]).float(), -1)       # (N, E)
+    gate, eid = probs.topk(k, -1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = eid.reshape(-1)
+    rank, order, start, end = _rank_within_expert(flat_e, e)
+    keep = rank < cap
+
+    # ---- pack: slot (expert, c) reads its entry's token; (P, E/P, C, D) -
+    src = start[:, None] + torch.arange(cap, device=dev)        # (E, C)
+    filled = src < end[:, None]
+    ent = torch.where(filled, order[src.clamp(max=n * k - 1)],
+                      n * k).reshape(-1)
+    tok = torch.where(ent < n * k, ent // k, n)
+    at = flat_e * cap + rank
+    send = _Dispatch.apply(xf, tok, at, keep, k).view(p_data, e_loc, cap, d)
+
+    # ---- one all_to_all over data: (P_src, E/P, C, D) on the owner ------
+    recv = SH.on_line(runtime.all_to_all_grad, send, data)
+    hbuf = recv.transpose(0, 1).reshape(e_loc, p_data * cap, d)
+    hbuf = SH.tp_copy(hbuf, grid)
+
+    # ---- the rank's experts, F split over model -------------------------
+    h = torch.bmm(hbuf, p["we_gate"])
+    u = torch.bmm(hbuf, p["we_up"])
+    y = torch.bmm(F.silu(h) * u, p["we_down"])              # (E/P, S, D)
+    line = SH.model_line(grid)
+    use_rs = (line is not None and cfg.ep_reduce == "rs_ag"
+              and d % line.shards == 0)
+    if use_rs:
+        # the partial sums reduce-scattered along D: the return route
+        # and the combine carry D/TP a rank
+        y = SH.on_line(runtime.tp_scatter, y, line, 3)
+    else:
+        y = SH.tp_reduce(y, grid)
+    d_eff = y.shape[-1]
+
+    # ---- the second all_to_all brings each block home -------------------
+    yb = y.reshape(e_loc, p_data, cap, d_eff).transpose(0, 1).contiguous()
+    back = SH.on_line(runtime.all_to_all_grad, yb, data)
+    got = _Combine.apply(back.reshape(e * cap, d_eff), at, keep, ent)
+    if use_rs:
+        # the combine sees a rank's D/TP columns: the gates' gradients
+        # are partial sums over model
+        gate = SH.on_line(runtime.tp_copy, gate, line)
+    out = _sum_slots(got * gate.reshape(-1, 1).to(got.dtype), k)
+    if use_rs:
+        out = SH.on_line(runtime.tp_gather, out, line, 2)
+    if "shared" in p:
+        out = out + _shared(p, xf, grid)
+
+    # ---- aux, over every axis ------------------------------------------
+    me = probs.mean(0)
+    ce = torch.bincount(eid[:, 0], minlength=e).float() / n
+    aux_l = cfg.router_aux_loss * e * (me * ce).sum()
+    load = torch.bincount(flat_e, minlength=e)
+    drop = _drop_frac(keep)
+    axes = tuple(grid.axis_names)
+    for a in reversed(axes):
+        if grid.shape[a] > 1:
+            aux_l = SH.on_line(runtime.tp_mean, aux_l, grid.axis(a))
+    with torch.no_grad():
+        for a in reversed(axes):
+            if grid.shape[a] > 1:
+                drop = SH.on_line(runtime.pmean, drop, grid.axis(a))
+    maxl = SH.pmax_over(load.amax().to(torch.int32), grid, axes)
+    if record is not None:
+        record.update(slot=torch.where(keep, rank, cap), keep=keep,
+                      load=load, capacity=cap)
+    return out.reshape(b, t, d), {"moe_aux_loss": aux_l,
+                                  "moe_drop_frac": drop,
+                                  "moe_max_load": maxl}

@@ -17,6 +17,12 @@ stacks every scanned group's leaves on a leading group axis, so a norm
 gain inside a group is decayed while the unrolled layers' gains and the
 final norm are not.  The rank is read from ``model.reference_ndims()``,
 not from the port's tensor.
+
+A rank's sharded decoder (``launch.sharding``) is updated on its local
+blocks, elementwise as on one device; only the global norm needs the
+grid: ``sharding.sharded_sq_norm`` sums each block's squares over the
+axes that shard it and counts a replicated weight once, so every rank
+gets the same clip scale.
 """
 from __future__ import annotations
 
@@ -93,7 +99,15 @@ def adamw_update(grads: dict, state: dict, params,
     named = dict(params.named_parameters())
     ndims = params.reference_ndims()
     step = state["step"].add_(1)
-    gnorm = global_norm(grads[n] for n in named)
+    specs = getattr(params, "shard_specs", None)
+    if specs is None:
+        gnorm = global_norm(grads[n] for n in named)
+    else:
+        from repro_torch.launch import sharding
+        grid = sharding.active_mesh()
+        sharding.check_model_grid(params, grid)
+        gnorm = torch.sqrt(sharding.sharded_sq_norm(
+            {n: grads[n] for n in named}, specs, grid))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = learning_rate(cfg, step)

@@ -7,9 +7,11 @@
   (the filters, ``generate``, ``smc_decode``, the session server, the
   serve and train launchers); ``forward_train`` runs every registered
   arch's smoke model (every layer kind, MoE FFNs with their aux values,
-  the codebook head); what still raises is ``launch.train --devices 2``
-  (ROADMAP A13) and the flash-attention kernel on inputs that require
-  grad, before it plans anything; the serving slice's modules exist and
+  the codebook head); what still raises is ``launch.train --devices N``
+  for what the grid cannot run yet (ROADMAP A13 part b: the M, X, R and
+  D kinds over a ``model`` axis, key/value heads the axis does not
+  divide) and the flash-attention kernel on inputs that require grad,
+  before it plans anything; the serving slice's modules exist and
   import neither ``jax`` nor the reference; ARNA, butterfly,
   ``domain=``, a bank over a mesh and ``bank_axis`` build and run, and
   an unknown ``bank_axis`` raises ``ValueError``.
@@ -25,6 +27,9 @@
   ``ProcessGrid`` is built without an initialized group.
 * The training slice's modules (ROADMAP A12 training, parts a and b)
   are in the scan and import neither ``jax`` nor the reference.
+* The grid slice's modules (ROADMAP A13 part a: ``launch.sharding``,
+  ``launch.specs``, ``launch.lm_grid``) are in the scan, import neither,
+  and importing them starts no process group and touches no CUDA.
 """
 import ast
 import dataclasses
@@ -67,6 +72,9 @@ PROCESS_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.track",
 TRAINING_MODULES = ("repro_torch.optim.adamw", "repro_torch.data.tokens",
                     "repro_torch.train.step", "repro_torch.launch.train",
                     "repro_torch.models.lm.model", "repro_torch.convert")
+# the grid slice's modules (ROADMAP A13 part a)
+GRID_MODULES = ("repro_torch.launch.sharding", "repro_torch.launch.specs",
+                "repro_torch.launch.lm_grid", "repro_torch.models.lm.moe")
 
 
 def _port_files():
@@ -309,8 +317,9 @@ def test_sliding_window_training_and_sessions_raise():
     every registered arch's smoke model, frozen or trainable, with
     finite hidden states (and MoE aux values where there are MoE
     layers), and with a one-key window the training attention returns
-    ``v`` too.  What still raises: ``launch.train --devices 2`` (ROADMAP
-    A13) and the flash kernel on inputs that require grad."""
+    ``v`` too.  What still raises: ``launch.train --devices N`` for what
+    the grid cannot run yet (ROADMAP A13 part b: here the M kind over a
+    ``model`` axis) and the flash kernel on inputs that require grad."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.launch import train
@@ -341,8 +350,9 @@ def test_sliding_window_training_and_sessions_raise():
             assert bool(aux) == moe, arch
             assert all(torch.isfinite(v.float()).all() for v in aux.values())
     assert not hasattr(lm, "check_trainable")
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        train.main(["--smoke", "--devices", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP A13 part b"):
+        train.main(["--smoke", "--arch", "deepseek-v2-236b", "--devices",
+                    "4", "--device", "cpu"])
     qg = q.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_kernel(qg, k, v)
@@ -420,13 +430,18 @@ def test_attention_kernel_refuses_grad_before_planning(which):
 
 def test_train_launcher_defaults_to_cuda(monkeypatch):
     """The train launcher runs on the card unless told ``cpu``, and fails
-    without one; a mesh of devices waits for ROADMAP A13."""
+    without one, with ``--devices N`` too; a grid it cannot run yet exits
+    before any rank starts (ROADMAP A13 part b: granite-34b's one
+    key/value head over a ``model`` axis of 2)."""
     from repro_torch.launch import train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         train.main(["--smoke", "--steps", "1"])
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        train.main(["--smoke", "--devices", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="CUDA"):
+        train.main(["--smoke", "--steps", "1", "--devices", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP A13 part b"):
+        train.main(["--smoke", "--arch", "granite-34b", "--devices", "4",
+                    "--device", "cpu"])
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
@@ -501,6 +516,32 @@ def test_process_modules_are_scanned(module):
     assert path in _port_files()
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{module} imports {bad}"
+
+
+@pytest.mark.parametrize("module", GRID_MODULES)
+def test_grid_modules_are_scanned(module):
+    """The AST scan covers the grid slice's modules, and they import
+    neither ``jax`` nor the reference."""
+    path = PORT.parent.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in _port_files()
+    importlib.import_module(module)
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_importing_the_grid_modules_starts_nothing():
+    """A fresh interpreter that imports the sharding rules, the specs and
+    the grid workers has no process group, no child process and no CUDA
+    context, and no active grid."""
+    code = ("import multiprocessing, torch, torch.distributed as d\n"
+            "import repro_torch.launch.sharding as s\n"
+            "import repro_torch.launch.specs, repro_torch.launch.lm_grid\n"
+            "print(d.is_initialized(), torch.cuda.is_initialized(), "
+            "len(multiprocessing.active_children()), s.active_mesh())")
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0", "None"]
 
 
 def test_importing_the_launchers_starts_nothing():
