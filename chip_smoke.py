@@ -232,9 +232,9 @@
    cut to 2 layers on (2, 2), 5l's batches in one microbatch, precision,
    remat and AdamW: the step-0 gradient gathered leaf by leaf within
    TRAIN_GRAD_TOL of the one-device step's and the loss within
-   LMGRID_LOSS_TOL, the loss falling over 10 steps, two 3-step runs the
-   same bits and the step-2 checkpoint restored onto (4,) the same bits
-   (grid-invariant digests of every weight and moment); b. moonshot's
+   LMGRID_LOSS_TOL, the loss falling over 8 steps, a second 1-step run
+   the bits of the first's step 1 (grid-invariant digests of every
+   weight and moment); b. moonshot's
    dense and one MoE layer at full width on (2, 2) with its config's
    ep_shardmap + rs_ag: at capacity E / k the same gradient and loss
    gates (router and experts within TRAIN_MOE_GRAD_TOL), at 1.25 the
@@ -244,7 +244,19 @@
    steps fed the one-device run's tokens: every step's logits within
    LM_LOGIT_TOL, the argmax the same but at recorded ties, B6's launches
    and variants on every rank the one-device run's, ``mha_ref`` never;
-   step ms, tokens/s, staged bytes and peak memory a rank printed;
+   d. the M, X, R and D kinds trained on (2, 2) at full width, cut in
+   depth (deepseek-v2-236b x 1, llama-3.2-vision-11b x 5 with its X
+   gate at 0.5, recurrentgemma-2b x 3 with 5 query heads a rank and one
+   key/value head, mamba2-1.3b x 2): a's gradient (D leaves
+   TRAIN_D_GRAD_TOL) and loss gates, two 2-step runs the same bits,
+   mamba2's step-2 checkpoint restored onto (4,) the same bits; e. those
+   kinds and granite-34b x 2 (one key/value head) served on (1, 4): c's
+   logits gate, two runs the same bits, B6's partials launched on each
+   rank once a decode step and sequence-parallel layer whose cache
+   shard holds a visible key (recurrentgemma's prompt of 3072 leaves
+   rank 0's shard before its window), the plain versions never; step
+   ms, tokens/s, staged bytes, peak memory a rank and each part's
+   seconds printed;
 6. holds B3 against its plain version on its timing inputs — (i) the
    single filter's final particles in ancestor order, (ii) the same under
    a fixed permutation, (iii) RNA's final 8 x 2^22 ensemble, and the bank
@@ -280,10 +292,15 @@
    phase 5j's and 5k's new attention shapes (the timed calls of
    ``kinds_calls``) beside its bound (the bytes of the keys some query
    sees, 2·(D + Dv) FLOP a visible pair), its plain version and SDPA
-   with an explicit band mask.
+   with an explicit band mask; and B6's partials at 5n e's fullest rank
+   shards beside their bound, their plain version and PyTorch's
+   memory-efficient attention with its log-sum-exp.
 
 The launch counters are set to 0 just before each main-path run and read
-just after; a kernel the run did not launch fails the script.  Any failed
+just after; in phase 5n c and e, whose ranks run several cases on one
+spawn, each case's launches are the difference of its counters read just
+before and just after it.  A kernel the run did not launch fails the
+script.  Any failed
 check raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits non-zero at once.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it the card; before
@@ -1639,6 +1656,152 @@ def attention_bound(q, k, causal=True, window=0,
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+# B6's partials (the split variant writing each row's log-sum-exp) at the
+# rank shards of phase 5n e on (1, 4): a rank's length shard of the
+# serve's cache (ceil(L / 4) slots) against every query head at the
+# run's last decode position; label: arch, (query heads, key/value
+# heads, head dim), prompt, window
+PARTIALS_CASES = {"granite-34b": ((48, 1, 128), "prompt", 0),
+                  "recurrentgemma-2b": ((10, 1, 256), "long", 2048)}
+PARTIALS_LSE_TOL = 1e-4
+
+
+def partials_shards(arch, dev, seed):
+    """The query, whole cache and shards of a PARTIALS_CASES entry: q
+    ``(B, Hq, 1, hd)`` at the last decode position ``pos``, k/v ``(B, Hkv,
+    L, hd)`` bf16, and each rank's ``(first, slots, lo, hi)``: its shard's
+    first position and slots and the visible positions ``lo ≤ j < hi``
+    (empty where the shard lies past ``pos`` or before the window)."""
+    import torch
+    (hq, hkv, hd), prompt, window = PARTIALS_CASES[arch]
+    t = LMGRID_SP_PROMPT if prompt == "prompt" else LMGRID_SP_LONG
+    max_len = t + LMGRID_SP_STEPS
+    pos = t + LMGRID_SP_STEPS - 2
+    q, k, v = attn_inputs((LMGRID_SP_BATCH, hq, 1, hd),
+                          (LMGRID_SP_BATCH, hkv, max_len, hd),
+                          torch.bfloat16, seed, dev)
+    slots = -(-max_len // 4)
+    shards = []
+    for r in range(4):
+        first = r * slots
+        lo = max(first, pos - window + 1 if window else 0)
+        hi = min(first + slots, pos + 1)
+        shards.append((first, slots, lo, hi))
+    return q, k, v, pos, window, shards
+
+
+def check_attention_partials(dev) -> dict:
+    """B6's partials (``flash_partials_kernel`` through
+    ``ops.attention_partials``) at PARTIALS_CASES' rank shards: each
+    shard's normalized output within ATTN_TOL of its plain version
+    (``ref.attention_lse_ref``) and its log-sum-exp within
+    PARTIALS_LSE_TOL, bit for bit on a second launch, an empty shard 0 and
+    -inf; the shards combined in rank order (``ops.combine_partials``)
+    within ATTN_TOL of whole-cache B6 (the causal decode with its window
+    on the cache view ``[:pos + 1]``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_partials_kernel)
+    out = {}
+    tol = ATTN_TOL["torch.bfloat16"]
+    for i, arch in enumerate(PARTIALS_CASES):
+        q, k, v, pos, window, shards = partials_shards(arch, dev, 90 + i)
+        scale = q.shape[-1] ** -0.5
+        os_, lses, errs, lse_errs, empty = [], [], [], [], 0
+        for first, slots, lo, hi in shards:
+            ks = k[:, :, first:first + slots].contiguous()
+            vs = v[:, :, first:first + slots].contiguous()
+            before = flash_partials_kernel.launches
+            o, lse = ops.attention_partials(q, ks, vs, key_lo=lo - first,
+                                            key_hi=hi - first, scale=scale)
+            if hi <= lo:
+                empty += 1
+                check(flash_partials_kernel.launches == before
+                      and not bool(o.any()) and bool(torch.isneginf(lse)
+                                                     .all()),
+                      f"B6 partials {arch}: an empty shard")
+            else:
+                check(flash_partials_kernel.launches == before + 1,
+                      f"B6 partials {arch}: no launch")
+                o2, lse2 = ops.attention_partials(
+                    q, ks, vs, key_lo=lo - first, key_hi=hi - first,
+                    scale=scale)
+                check(torch.equal(o, o2) and same_bits(lse, lse2),
+                      f"B6 partials {arch}: not repeatable")
+                wo, wl = ref.attention_lse_ref(
+                    q, ks[:, :, lo - first:hi - first],
+                    vs[:, :, lo - first:hi - first], scale=scale)
+                errs.append(max_err(o.float(), wo.float(), tol))
+                lse_errs.append(max_err(lse, wl, PARTIALS_LSE_TOL))
+            os_.append(o)
+            lses.append(lse)
+        got = ops.combine_partials(torch.stack(os_), torch.stack(lses))
+        whole = flash_attention_kernel(q, k[:, :, :pos + 1],
+                                       v[:, :, :pos + 1], causal=True,
+                                       scale=scale, window=window)
+        comb = max_err(got.float(), whole.float(), tol)
+        out[arch] = {"max_abs_err": max(errs), "lse_max_abs_err":
+                     max(lse_errs), "combined_max_abs_err": comb,
+                     "empty_shards": empty, "q": list(q.shape),
+                     "shard": list(k[:, :, :shards[0][1]].shape),
+                     "pos": pos, "window": window}
+        log(f"B6 partials {arch}: q{tuple(q.shape)} over 4 shards of "
+            f"{shards[0][1]} slots of kv{tuple(k.shape)} at position {pos}"
+            f"{f' window {window}' if window else ''} ({empty} empty): "
+            f"o max_abs_err={max(errs):.3g} (rtol=atol={tol}), lse "
+            f"{max(lse_errs):.3g} (rtol=atol={PARTIALS_LSE_TOL}), "
+            f"repeatable; combined vs whole-cache B6 {comb:.3g}")
+        del q, k, v
+    return {"max_abs_err": max(max(r["max_abs_err"], r["combined_max_abs_err"])
+                               for r in out.values()), "cases": out}
+
+
+def time_attention_partials(dev) -> dict:
+    """B6's partials at each PARTIALS_CASES arch's fullest rank shard
+    beside its plain version, its bound (the shard's visible keys read
+    once, q read and o and lse written) and the library yardstick, never
+    on the port's path: PyTorch's memory-efficient attention with its
+    log-sum-exp (``torch.ops.aten._scaled_dot_product_efficient_attention
+    (..., compute_log_sumexp=True)``, K/V repeated to the query heads
+    outside the timing; None where it does not take the head dim)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_partials_kernel,
+                                                     plan)
+    out = {}
+    for i, arch in enumerate(PARTIALS_CASES):
+        q, k, v, pos, window, shards = partials_shards(arch, dev, 95 + i)
+        first, slots, lo, hi = max(shards, key=lambda s: s[3] - s[2])
+        ks = k[:, :, lo:hi].contiguous()
+        vs = v[:, :, lo:hi].contiguous()
+        scale = q.shape[-1] ** -0.5
+        p = plan(tuple(q.shape), tuple(ks.shape), q.dtype)
+        ms = cuda_ms(lambda: flash_partials_kernel(q, ks, vs, scale=scale))
+        plain = cuda_ms(lambda: ref.attention_lse_ref(q, ks, vs,
+                                                      scale=scale), reps=5)
+        lib = None
+        if q.shape[-1] <= 128:
+            g = q.shape[1] // k.shape[1]
+            kr = ks.repeat_interleave(g, 1)
+            vr = vs.repeat_interleave(g, 1)
+            lib = cuda_ms(lambda: torch.ops.aten.
+                          _scaled_dot_product_efficient_attention(
+                              q, kr, vr, None, True, scale=scale))
+            del kr, vr
+        bound, by = attention_bound(q, ks, causal=False)
+        bound += q.shape[0] * q.shape[1] * 4 / PEAK_BYTES * 1e3
+        # the split blocks, and the combine where there are splits
+        out[arch] = {"q": list(q.shape), "k": list(ks.shape), "ms": ms,
+                     "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "bound_by": by,
+                     "launches_a_call": 1 + (p.splits > 1),
+                     "splits": p.splits}
+        del q, k, v, ks, vs
+        torch.cuda.empty_cache()
+    return out
+
+
 def lm_config():
     """The LM phase's config: LM_ARCH at full width, LM_LAYERS deep."""
     import dataclasses
@@ -2179,6 +2342,39 @@ def kinds_calls() -> dict:
                 base, q=(rows, hq, 1, hd), k=(rows, hkv, lk, hd),
                 slots=slots, layout="decode", timed=False)
         last = cut
+    # phase 5n e: a rank's B6 calls (its heads of the prefill, the X
+    # layers' image keys; the decode of a cache laid by length is B6's
+    # partials, held in check_attention_partials) on LMGRID_SERVE_SHAPE
+    rows, tp = LMGRID_SP_BATCH, LMGRID_SERVE_SHAPE[1]
+    for arch, layers in LMGRID_KINDS_SERVE.items():
+        cfg = grid_spec_cfg(arch, layers)
+        hd, t0 = cfg.resolved_head_dim, sp_prompt(arch)
+        divided = cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+        counts = {cfg.n_heads * (r + 1) // tp - cfg.n_heads * r // tp
+                  for r in range(tp)}
+        for kind in sorted({k for k, _ in M.make_plan(cfg).layers()}
+                           & {"G", "L", "X"}):
+            window = M._theta_window(cfg, kind)[1]
+            x = kind == "X"
+            n = cfg.n_image_tokens if x else t0
+            base = dict(causal=not x, window=window, scale=hd ** -0.5,
+                        softcap=0.0 if x else cfg.logit_softcap, dv=hd,
+                        phase="5n", slots=None, timed=False,
+                        layout="image" if x else "prefill")
+            for hq in sorted(counts):
+                hkv = cfg.n_kv_heads // tp if divided else \
+                    -(-hq // (cfg.n_heads // cfg.n_kv_heads))
+                calls[f"{arch} {kind} grid-rank {hq} heads prefill"] = dict(
+                    base, q=(rows, hq, t0, hd), k=(rows, hkv, n, hd))
+                if x:
+                    calls[f"{arch} {kind} grid-rank {hq} heads decode"] = \
+                        dict(base, q=(rows, hq, 1, hd), k=(rows, hkv, n, hd))
+                elif divided:
+                    for lk in (t0 + 1, t0 + LMGRID_SP_STEPS - 1):
+                        calls[f"{arch} {kind} grid-rank {hq} heads decode "
+                              f"{lk}"] = dict(
+                            base, q=(rows, hq, 1, hd), k=(rows, hkv, lk, hd),
+                            slots=t0 + LMGRID_SP_STEPS, layout="decode")
     return calls
 
 
@@ -2374,7 +2570,7 @@ def moe_witnesses(model, prompt, tokens, want, routes, tol, arch) -> dict:
     must read beyond ``tol``; and for an arch with M layers the absorbed
     decode computed in float32 (recorded)."""
     import torch
-    from repro_torch.models.lm import mla as MLA
+    from repro_torch.models.lm import model as TM
     n_moe = sum(b.ffn == "moe" for b in model.blocks)
     calls = routes.calls
     pre = calls[:n_moe * len(LM_CHECK_STEPS)]
@@ -2405,18 +2601,17 @@ def moe_witnesses(model, prompt, tokens, want, routes, tol, arch) -> dict:
                                     f"{out['caches_late']:.4g} is within the "
                                     f"limit {tol:.3g}")
     if any(b.kind == "M" for b in model.blocks):
-        real = MLA.mla_decode_absorbed
+        real = TM._latent_sp_decode
 
-        def f32(p, x, n_heads, cfg, *, c_cache, pe_cache, pos, theta, eps):
-            return real({k: v.float() for k, v in p.items()}, x.float(),
-                        n_heads, cfg, c_cache=c_cache.float(),
-                        pe_cache=pe_cache.float(), pos=pos, theta=theta,
-                        eps=eps).to(x.dtype)
-        MLA.mla_decode_absorbed = f32
+        def f32(p, h, n_heads, cfg, cache, first, pos, grid):
+            c32 = {k: v.float() for k, v in cache.items()}
+            return real({k: v.float() for k, v in p.items()}, h.float(),
+                        n_heads, cfg, c32, first, pos, grid).to(h.dtype)
+        TM._latent_sp_decode = f32
         try:
             kept, _ = decode_logits(model, prompt, tokens)
         finally:
-            MLA.mla_decode_absorbed = real
+            TM._latent_sp_decode = real
         out["absorbed_f32"] = logit_gap(kept, want)
     return out
 
@@ -3299,26 +3494,61 @@ def run_train_kinds(dev, all_k, reset, counts, rsum_k, name) -> dict:
 # width, its dense layer and one MoE layer, on (2, 2) with its config's
 # ep_shardmap + rs_ag; c: serving qwen3-32b x 16 layers (5d's model) on
 # (1, 4), B6 on each rank's 16 query and 2 key/value heads.  Each
-# one-device baseline runs on rank 0 before the grid's work and is freed
-# first; the checkpoint of a (the whole model's weights and moments,
-# about 30 GB, each rank writing its blocks) goes under
-# .chip_scratch/grid and is removed.  5l's batch of 8 x 1024 runs in one
+# one-device baseline runs on rank 0 before the grid's work, which keeps
+# only its gradients on the card for the step-0 comparison; d's
+# checkpoint (each rank writing its blocks) goes under .chip_scratch/grid
+# and is removed.  5l's batch of 8 x 1024 runs in one
 # microbatch here: a rank holds 4 x 1024 tokens, a 5l microbatch's
 # count, and every microbatch costs its weights' gathers through host
 # memory again (a first 5n run at 5l's 2 took 24 s a step on an H100
 # 80GB HBM3 at 700 W)
 LMGRID_SHAPE, LMGRID_ELASTIC, LMGRID_SERVE_SHAPE = (2, 2), (4,), (1, 4)
 LMGRID_TRAIN_LAYERS, LMGRID_MOE_LAYERS = 2, 2
-LMGRID_STEPS, LMGRID_REPEAT, LMGRID_CKPT, LMGRID_DROP_STEPS = 10, 3, 2, 1
+# a: the loss over 8 steps (it rises first: 12.49, 16.47, 21.93, 19.44,
+# 13.32, 20.80, 17.13, 11.28, 7.12, 6.23 over 10 on an H100 80GB HBM3 at
+# 700 W, the same bits every run), a second 1-step run against the
+# first's step 1 (10 steps, a 3-step repeat and a's 30 GB checkpoint took
+# 205-223 s; 10 steps and a 2-step repeat 130 s; the checkpoint gate is
+# d's mamba2 cell's now)
+LMGRID_STEPS, LMGRID_REPEAT, LMGRID_CKPT, LMGRID_DROP_STEPS = 8, 1, 2, 1
 # the sharded step-0 loss against one device's: both bf16 compute on the
 # same batch and weights, the sums in other orders (a bf16 rounding is
 # 2^-9 relative, the loss ~12 nat: a few hundredths at worst)
 LMGRID_LOSS_TOL = 0.05
+# d (ROADMAP A13 part b): the M, X, R and D kinds trained on (2, 2) at
+# full width, cut in depth (deepseek its M layer, llama-vision 4 G + X,
+# recurrentgemma R, R, L with 5 query heads a rank and its one key/value
+# head, mamba2 two D layers); LMGRID_KINDS_STEPS steps twice, the X
+# layers' gate set to LMGRID_KINDS_GATE so their leaves reach the loss;
+# mamba2's checkpoint at step LMGRID_CKPT restored onto LMGRID_ELASTIC
+LMGRID_KINDS_TRAIN = {"deepseek-v2-236b": 1, "llama-3.2-vision-11b": 5,
+                      "recurrentgemma-2b": 3, "mamba2-1.3b": 2}
+LMGRID_KINDS_STEPS, LMGRID_KINDS_GATE = 2, 0.5
+LMGRID_KINDS_BATCH = 4
+LMGRID_CKPT_ARCH = "mamba2-1.3b"
+# e: the same kinds and granite-34b's one key/value head served on
+# (1, 4): LMGRID_SP_BATCH prompts of LMGRID_SP_PROMPT tokens
+# (recurrentgemma's LMGRID_SP_LONG, so that rank 0's cache shard lies
+# wholly before its 2048-key window at every decode), LMGRID_SP_STEPS
+# greedy positions, a cache of prompt + steps slots (4 divides it)
+LMGRID_KINDS_SERVE = {"deepseek-v2-236b": 1, "llama-3.2-vision-11b": 5,
+                      "recurrentgemma-2b": 3, "mamba2-1.3b": 2,
+                      "granite-34b": 2}
+LMGRID_SP_BATCH, LMGRID_SP_PROMPT, LMGRID_SP_LONG, LMGRID_SP_STEPS = \
+    2, 1024, 3072, 8
+
+
+def sp_prompt(arch) -> int:
+    """Phase 5n e's prompt length of ``arch``."""
+    return LMGRID_SP_LONG if arch == "recurrentgemma-2b" else \
+        LMGRID_SP_PROMPT
 
 
 def grid_spec(dev) -> dict:
     """The ranks' spec of phase 5n (``lm_grid.grid_phase``)."""
     import dataclasses
+
+    import numpy as np
     from repro_torch.configs import get_config
     qwen = dataclasses.replace(get_config(LM_ARCH),
                                n_layers=LMGRID_TRAIN_LAYERS)
@@ -3333,16 +3563,40 @@ def grid_spec(dev) -> dict:
         names=("data", "model"))
     tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        ".chip_scratch", "grid")
+    kinds_train = []
+    for arch, layers in LMGRID_KINDS_TRAIN.items():
+        cfg = grid_spec_cfg(arch, layers)
+        cell = dict(common, cfg=cfg, steps=LMGRID_KINDS_STEPS,
+                    repeat=LMGRID_KINDS_STEPS, batch=LMGRID_KINDS_BATCH,
+                    gate=LMGRID_KINDS_GATE)
+        if arch == LMGRID_CKPT_ARCH:
+            cell.update(ckpt=(tmp, LMGRID_CKPT), elastic=LMGRID_ELASTIC)
+        kinds_train.append(cell)
+    rng = np.random.default_rng(LM_SEED)
+    kinds_serve = []
+    for arch, layers in LMGRID_KINDS_SERVE.items():
+        cfg = grid_spec_cfg(arch, layers)
+        t = sp_prompt(arch)
+        img = None
+        if cfg.cross_attn_every:
+            img = rng.standard_normal((LMGRID_SP_BATCH, cfg.n_image_tokens,
+                                       cfg.d_image)).astype(np.float32)
+        kinds_serve.append(dict(
+            cfg=cfg, seed=LM_SEED, steps=LMGRID_SP_STEPS,
+            prompt=rng.integers(0, cfg.vocab_size, (LMGRID_SP_BATCH, t)),
+            img=img, max_len=t + LMGRID_SP_STEPS, repeat=True,
+            shape=LMGRID_SERVE_SHAPE, names=("data", "model"),
+            tol=LM_LOGIT_TOL))
     return {"device": "cuda", "threads": 2, "scratch": tmp,
             "train": dict(common, cfg=qwen, steps=LMGRID_STEPS,
-                          repeat=LMGRID_REPEAT, ckpt=(tmp, LMGRID_CKPT),
-                          elastic=LMGRID_ELASTIC),
+                          repeat=LMGRID_REPEAT),
             "moe": dict(common, cfg=no_drop_config(moon), steps=1, repeat=0,
                         drops={"cfg": moon, "steps": LMGRID_DROP_STEPS}),
             "serve": dict(cfg=lm_config(), seed=LM_SEED, steps=LM_STEPS,
                           prompt=lm_prompts(lm_config(), dev).cpu().numpy(),
                           shape=LMGRID_SERVE_SHAPE, names=("data", "model"),
-                          tol=LM_LOGIT_TOL)}
+                          tol=LM_LOGIT_TOL),
+            "train_kinds": kinds_train, "serve_kinds": kinds_serve}
 
 
 def run_grid(dev, name) -> dict:
@@ -3350,17 +3604,23 @@ def run_grid(dev, name) -> dict:
     (``launch.mesh.spawn``).  Gates: a. the sharded step-0 gradient,
     gathered leaf by leaf, within TRAIN_GRAD_TOL of the one-device step's
     on the same batch and weights, the loss within LMGRID_LOSS_TOL; the loss
-    falls over LMGRID_STEPS steps; two LMGRID_REPEAT-step runs the same bits
-    (grid-invariant digests of every weight and moment); the checkpoint
-    at step LMGRID_CKPT restored onto (4,) with the same bits; b. at
+    falls over LMGRID_STEPS steps; a second LMGRID_REPEAT-step run the
+    bits of the first's step LMGRID_REPEAT (grid-invariant digests of
+    every weight and moment); b. at
     capacity factor E / k the same gradient gate (the router and expert
     leaves within TRAIN_MOE_GRAD_TOL) and loss gate, at the config's
     capacity the dropped fraction, aux loss and largest load finite and
     two runs the same bits; a and b launch no kernel; c. every step's
     logits within LM_LOGIT_TOL of one device's, the argmax the same but at
     recorded ties, B6's launches and variants on every rank one device's,
-    the plain attention never run.  Prints step ms, tokens/s, staged bytes
-    and peak memory a rank."""
+    the plain attention never run; d. the M, X, R and D kinds trained
+    on (2, 2) (``grid_train_kinds``: a's gradient and loss gates, two
+    runs the same bits, mamba2's checkpoint at step LMGRID_CKPT restored
+    onto (4,) with the same bits); e. those kinds and granite-34b's one
+    key/value head served on (1, 4) (``grid_serve_kinds``: c's logits
+    gate, two runs the same bits, B6's partials on each rank as its
+    cache shard needs).  Prints step ms, tokens/s, staged bytes and peak
+    memory a rank, and each part's seconds."""
     import torch
     from repro_torch.launch import lm_grid
     from repro_torch.launch.mesh import spawn
@@ -3408,18 +3668,24 @@ def run_grid(dev, name) -> dict:
               "5n a: the ranks report different losses")
         check(ra["run"]["digests"][LMGRID_REPEAT]
               == ra["repeat"]["digests"][LMGRID_REPEAT],
-              f"5n a: two {LMGRID_REPEAT}-step runs differ")
-        check(ra["restored"] == ra["run"]["digests"][f"ckpt {LMGRID_CKPT}"]
-              and ra["restored_step"] == LMGRID_CKPT,
-              f"5n a: the checkpoint restored onto {LMGRID_ELASTIC} differs")
+              f"5n a: a {LMGRID_REPEAT}-step run differs from the "
+              f"{LMGRID_STEPS}-step run's first {LMGRID_REPEAT}")
         for part in ("train", "moe"):
             check(not any(r[part]["kernel_launches"].values()),
                   f"5n {part}: launched {r[part]['kernel_launches']}")
-    # every kernel's launches in a and b, the most of any rank
+        for rd in r["train_kinds"]:
+            check(not any(rd["kernel_launches"].values()),
+                  f"5n d: launched {rd['kernel_launches']}")
+    # every kernel's launches in a and b, the most of any rank; d's and
+    # e's, each rank's
     out["train_launches"] = {
         k: max(r[part]["kernel_launches"][k] for r in ranks
                for part in ("train", "moe"))
         for k in r0["train"]["kernel_launches"]}
+    for part in ("train_kinds", "serve_kinds"):
+        out[f"{part}_launches"] = {
+            k: [sum(rd["kernel_launches"][k] for rd in r[part])
+                for r in ranks] for k in r0["train"]["kernel_launches"]}
     step_ms = sorted(run["ms"][1:])[len(run["ms"][1:]) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     out["train"] = {
@@ -3433,18 +3699,15 @@ def run_grid(dev, name) -> dict:
                      for i, r in enumerate(ranks)},
         "microbatches": 1,
         "baseline_s": a["baseline_s"], "run_s": a["run_s"],
-        "repeat_s": a["repeat_s"], "ckpt_s": run.get("ckpt_s"),
-        "restore_s": a["restore_s"], "seconds": a["seconds"]}
+        "repeat_s": a["repeat_s"], "seconds": a["seconds"]}
     log(f"5n a {LM_ARCH} x {LMGRID_TRAIN_LAYERS} layers on {LMGRID_SHAPE} "
         f"(data, model), 4 gloo ranks on one card, "
         f"{run['params_local'] / 1e9:.3f} B parameters a rank: step-0 "
         f"gradient vs one device max relative L2 {errs[worst]:.4f} ({worst};"
         f" limit {TRAIN_GRAD_TOL}), loss gap {gap:.5f} (limit "
         f"{LMGRID_LOSS_TOL}); losses {[round(v, 4) for v in run['losses']]}; "
-        f"two {LMGRID_REPEAT}-step runs same bits; step {LMGRID_CKPT}'s "
-        f"checkpoint on {LMGRID_ELASTIC} same bits (saved in "
-        f"{run.get('ckpt_s', 0):.1f} s, restored in {a['restore_s']:.1f} s);"
-        f" step {step_ms:.0f} ms median, {tokens / step_ms * 1e3:.0f} "
+        f"a {LMGRID_REPEAT}-step run the same bits at step "
+        f"{LMGRID_REPEAT}; step {step_ms:.0f} ms median, {tokens / step_ms * 1e3:.0f} "
         f"tokens/s, staged {run['staged_bytes'] / LMGRID_STEPS / 1e9:.2f} GB "
         f"a step in all, peak "
         f"{max(v or 0 for v in out['train']['peak_gib'].values()):.1f} "
@@ -3532,8 +3795,189 @@ def run_grid(dev, name) -> dict:
         f"one card), staged {c['prefill_staged_bytes'] / 1e9:.3f} GB at "
         f"prefill and {c['decode_staged_bytes'] / (LM_STEPS - 1) / 1e6:.2f}"
         f" MB a decode step in all [{name}]")
+    out["train_kinds"] = grid_train_kinds(ranks, name)
+    out["serve_kinds"] = grid_serve_kinds(ranks, name)
+    # B6's and its partials' launches in e's main runs, each rank's (the
+    # repeat runs launch as many again, rank 0's one-device baselines B6)
+    out["serve_kinds_main_launches"] = {
+        name: [sum(e[key][j] for e in out["serve_kinds"].values())
+               for j in range(4)]
+        for name, key in (("flash_attention", "b6_launches_per_rank"),
+                          ("flash_partials", "partials_launches_per_rank"))}
+    out["partials_launches"] = \
+        out["serve_kinds_main_launches"]["flash_partials"]
+    d_s = sum(r["seconds"] for r in r0["train_kinds"])
+    e_s = sum(r["seconds"] for r in r0["serve_kinds"])
+    out["sub_seconds"] = {"a": a["seconds"], "b": b["seconds"],
+                          "c": c["seconds"], "d": d_s, "e": e_s}
     log(f"5n: phase {seconds:.1f} s (a {a['seconds']:.1f}, b "
-        f"{b['seconds']:.1f}, c {c['seconds']:.1f}) [{name}]")
+        f"{b['seconds']:.1f}, c {c['seconds']:.1f}, d {d_s:.1f}, e "
+        f"{e_s:.1f}; d by arch "
+        f"{[round(r['seconds'], 1) for r in r0['train_kinds']]}, e by arch "
+        f"{[round(r['seconds'], 1) for r in r0['serve_kinds']]}) [{name}]")
+    return out
+
+
+def grid_train_kinds(ranks, name) -> dict:
+    """Phase 5n d's gates: for each arch of LMGRID_KINDS_TRAIN the sharded
+    step-0 gradient, leaf by leaf, within ``grad_limit``'s limit of one
+    device's (TRAIN_GRAD_TOL; a D arch's leaves TRAIN_D_GRAD_TOL), the
+    loss within LMGRID_LOSS_TOL, every X leaf's gradient nonzero (the
+    gate is LMGRID_KINDS_GATE), the ranks' losses equal, two
+    LMGRID_KINDS_STEPS-step runs the same bits, LMGRID_CKPT_ARCH's
+    checkpoint restored onto LMGRID_ELASTIC the same bits."""
+    from repro_torch.models.lm import model as M
+    out = {}
+    for i, arch in enumerate(LMGRID_KINDS_TRAIN):
+        d = ranks[0]["train_kinds"][i]
+        run = d["run"]
+        cfg = grid_spec_cfg(arch, LMGRID_KINDS_TRAIN[arch])
+        kinds = [k for k, _ in M.make_plan(cfg).layers()]
+        errs = run["grad_errors"]
+        worst, excess = None, -1.0
+        for n, e in errs.items():
+            _, lim = grad_limit(n, kinds, ())
+            check(e <= lim, f"5n d {arch}: {n} relative L2 {e:.4f} > {lim}")
+            if e / lim > excess:
+                worst, excess = n, e / lim
+        if "X" in kinds:
+            check(all(errs[n] < 1.0 for n in errs if x_leaf(n, kinds)),
+                  f"5n d {arch}: an X leaf without its gradient")
+        gap = abs(run["losses"][0] - d["baseline_loss"])
+        check(gap <= LMGRID_LOSS_TOL, f"5n d {arch}: step-0 loss "
+              f"{run['losses'][0]} vs one device {d['baseline_loss']}")
+        for r in ranks:
+            rd = r["train_kinds"][i]
+            check(rd["run"]["losses"] == run["losses"],
+                  f"5n d {arch}: the ranks report different losses")
+            check(rd["run"]["digests"][LMGRID_KINDS_STEPS]
+                  == rd["repeat"]["digests"][LMGRID_KINDS_STEPS],
+                  f"5n d {arch}: two {LMGRID_KINDS_STEPS}-step runs differ")
+            if arch == LMGRID_CKPT_ARCH:
+                check(rd["restored"] == rd["run"]["digests"][
+                    f"ckpt {LMGRID_CKPT}"] and rd["restored_step"]
+                      == LMGRID_CKPT, f"5n d {arch}: the checkpoint restored "
+                                      f"onto {LMGRID_ELASTIC} differs")
+        step_ms = run["ms"][-1]
+        out[arch] = {"layers": LMGRID_KINDS_TRAIN[arch],
+                     "grad_rel_l2": {"max": errs[worst], "leaf": worst},
+                     "loss_gap": gap, "losses": run["losses"],
+                     "step_ms": run["ms"], "params_per_rank":
+                     run["params_local"],
+                     "staged_bytes_per_step": run["staged_bytes"]
+                     / LMGRID_KINDS_STEPS,
+                     "peak_gib": {j: r["train_kinds"][i]["run"].get(
+                         "peak_gib") for j, r in enumerate(ranks)},
+                     "baseline_s": d["baseline_s"],
+                     "ckpt_s": run.get("ckpt_s"),
+                     "restore_s": d.get("restore_s"),
+                     "seconds": d["seconds"]}
+        log(f"5n d {arch} x {LMGRID_KINDS_TRAIN[arch]} on {LMGRID_SHAPE}: "
+            f"step-0 gradient vs one device: worst against its limit "
+            f"{worst} {errs[worst]:.4f}; loss gap {gap:.5f} (limit "
+            f"{LMGRID_LOSS_TOL}); two {LMGRID_KINDS_STEPS}-step runs same "
+            f"bits{'; checkpoint at step ' + str(LMGRID_CKPT) + ' on ' + str(LMGRID_ELASTIC) + ' same bits (saved in ' + format(run.get('ckpt_s', 0), '.1f') + ' s)' if arch == LMGRID_CKPT_ARCH else ''}"
+            f"; steps {[round(v) for v in run['ms']]} ms, staged "
+            f"{run['staged_bytes'] / LMGRID_KINDS_STEPS / 1e9:.2f} GB a "
+            f"step, {run['params_local'] / 1e9:.3f} B parameters a rank, "
+            f"peak {max(v or 0 for v in out[arch]['peak_gib'].values()):.1f}"
+            f" GiB a rank; {d['seconds']:.1f} s [{name}]")
+    return out
+
+
+def grid_spec_cfg(arch, layers):
+    """``arch``'s full config cut to ``layers``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def sp_partial_launches(arch, layers) -> list:
+    """Each rank's expected B6 partials launches in phase 5n e: one a
+    decode step and attention layer whose query heads ``model`` does not
+    group (a cache laid by length), where the rank's shard holds a key the
+    query sees."""
+    from repro_torch.models.lm import model as M
+    cfg = grid_spec_cfg(arch, layers)
+    plan = [k for k, _ in M.make_plan(cfg).layers()]
+    if cfg.n_kv_heads % 4 == 0 and cfg.n_heads % 4 == 0:
+        return [0] * 4
+    t = sp_prompt(arch)
+    max_len = t + LMGRID_SP_STEPS
+    slots = -(-max_len // 4)
+    out = [0] * 4
+    for kind in plan:
+        if kind not in ("G", "L"):
+            continue
+        window = M._theta_window(cfg, kind)[1]
+        for j in range(1, LMGRID_SP_STEPS):
+            pos = t + j - 1
+            for r in range(4):
+                lo = max(r * slots, pos - window + 1 if window else 0)
+                out[r] += min((r + 1) * slots, pos + 1) > lo
+    return out
+
+
+def grid_serve_kinds(ranks, name) -> dict:
+    """Phase 5n e's gates: for each arch of LMGRID_KINDS_SERVE every
+    step's logits within LM_LOGIT_TOL of one device's, the argmax the same
+    but at recorded ties, a second run on the grid the same bits, the
+    plain attention never run on a rank, B6's partials launched on each
+    rank as often as its shard holds visible keys (``sp_partial_launches``),
+    no kernel but B6, its partials and the row sum."""
+    out = {}
+    for i, arch in enumerate(LMGRID_KINDS_SERVE):
+        e = ranks[0]["serve_kinds"][i]
+        check(e["max_gap"] <= LM_LOGIT_TOL and e["flips"] == 0,
+              f"5n e {arch}: logits gap {e['max_gap']} (limit "
+              f"{LM_LOGIT_TOL}), {e['flips']} argmax flips outside ties")
+        want = sp_partial_launches(arch, LMGRID_KINDS_SERVE[arch])
+        got = []
+        for j, r in enumerate(ranks):
+            re = r["serve_kinds"][i]
+            got.append(re["partial_launches"])
+            check(re["repeat_same"], f"5n e {arch} rank {j}: two runs "
+                                     f"differ")
+            check(re["plain_calls"] == 0, f"5n e {arch} rank {j}: the plain "
+                                          f"attention ran "
+                                          f"{re['plain_calls']} times")
+            # the main run's, and the repeat run's as many again
+            check(re["partial_launches"] == want[j] and
+                  re["kernel_launches"]["flash_partials"] == 2 * want[j],
+                  f"5n e {arch} rank {j}: B6 partials launched "
+                  f"{re['partial_launches']} ({re['kernel_launches']['flash_partials']}"
+                  f" with the repeat run), expected {want[j]}")
+            check(not any(v for k, v in re["kernel_launches"].items()
+                          if k not in ("flash_attention", "flash_partials",
+                                       "row_sum")),
+                  f"5n e {arch} rank {j}: launched {re['kernel_launches']}")
+        t = sp_prompt(arch)
+        out[arch] = {"layers": LMGRID_KINDS_SERVE[arch], "prompt": t,
+                     "max_logit_gap": e["max_gap"],
+                     "tie_flips": e["tie_flips"],
+                     "b6_launches_per_rank": [r["serve_kinds"][i]["launches"]
+                                              for r in ranks],
+                     "partials_launches_per_rank": got,
+                     "cache_shapes": e["cache_shapes"][:3],
+                     "prefill_s": e["prefill_s"], "decode_s": e["decode_s"],
+                     "prefill_tokens_per_s": LMGRID_SP_BATCH * t
+                     / e["prefill_s"],
+                     "decode_tokens_per_s": LMGRID_SP_BATCH
+                     * (LMGRID_SP_STEPS - 1) / e["decode_s"],
+                     "decode_staged_bytes_per_step": e["decode_staged_bytes"]
+                     / (LMGRID_SP_STEPS - 1),
+                     "peak_gib": {j: r["serve_kinds"][i].get("peak_gib")
+                                  for j, r in enumerate(ranks)},
+                     "seconds": e["seconds"]}
+        log(f"5n e {arch} x {LMGRID_KINDS_SERVE[arch]} served on "
+            f"{LMGRID_SERVE_SHAPE}, {LMGRID_SP_BATCH} x {t} + "
+            f"{LMGRID_SP_STEPS}: logits vs one device max gap "
+            f"{e['max_gap']:.4f} (limit {LM_LOGIT_TOL}), {e['tie_flips']} "
+            f"ties; two runs same bits; B6 {out[arch]['b6_launches_per_rank']}"
+            f", partials {got} launches a rank (expected {want}); plain "
+            f"attention never ran; caches {e['cache_shapes'][:3]}; prefill "
+            f"{e['prefill_s']:.2f} s, decode {out[arch]['decode_tokens_per_s']:.2f}"
+            f" tokens/s; {e['seconds']:.1f} s [{name}]")
     return out
 
 
@@ -5167,6 +5611,8 @@ def main() -> int:
         fused_weight_step_kernel as fused_k, fused_weight_step_ref
     from repro_torch.kernels.flash_attention import \
         flash_attention_kernel as attn_k
+    from repro_torch.kernels.flash_attention import \
+        flash_partials_kernel as partials_k
     from repro_torch.kernels.scan import prefix_sum_kernel as scan_k
     from repro_torch.kernels.row_sum import row_sum_kernel as rsum_k
     from repro_torch.core.distributed import DRAConfig
@@ -5201,12 +5647,13 @@ def main() -> int:
     chain_check = check_chains(dev)
     attn_check = check_attention(dev)
     attn_check["kinds"] = check_attention_kinds(dev)
+    attn_check["partials"] = check_attention_partials(dev)
     attn_check["wgmma_sass"] = check_wgmma()
     ref.mha_ref.calls = 0        # from here on no path may run it
     all_k = {"patch_log_likelihood": patch_k, "fused_weight_step": fused_k,
              "systematic_ancestors": sys_k, "metropolis_ancestors": metro_k,
              "rejection_ancestors": rej_k, "flash_attention": attn_k,
-             "prefix_sum": scan_k}
+             "flash_partials": partials_k, "prefix_sum": scan_k}
 
     # the row-sum kernel serves every float sum of core, so each phase's
     # count of it is recorded (row_sum_seen, one entry a counted run),
@@ -5727,6 +6174,14 @@ def main() -> int:
             f"{t['mma_ms']:.4f}, plain {t['plain_ms']:.4f}, sdpa "
             f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
             f"{t['bound_by']})")
+    partial_times = time_attention_partials(dev)
+    for label, t in partial_times.items():
+        log(f"times [{name}]: B6 partials {label} [split x{t['splits']}, "
+            f"{t['launches_a_call']} launches a call] q{tuple(t['q'])} "
+            f"kv{tuple(t['k'])}: {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f}, efficient attention with its "
+            f"log-sum-exp {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}, bound "
+            f"{t['bound_ms']:.4f} {t['bound_by']})")
     attn_kinds = time_attention_kinds(dev)
     for label, t in attn_kinds.items():
         log(f"times [{name}]: B6 {t['phase']} {label} [{t['variant']}"
@@ -5808,6 +6263,20 @@ def main() -> int:
          "bound_ms": attn_times["smc_decode"]["bound_ms"],
          "bound_by": attn_times["smc_decode"]["bound_by"],
          "library_ms": attn_times["smc_decode"]["library_ms"]},
+        # B6's partials at granite-34b's fullest rank shard of phase 5n e
+        # (recurrentgemma-2b's in the record's "attention_partials"); its
+        # launches are rank 0's in 5n e's main runs, every rank's in
+        # launches_new_phases
+        {"name": "flash_partials", "variant": "split", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:84",
+         "launches": grid["partials_launches"][0],
+         "max_abs_err": attn_check["partials"]["max_abs_err"],
+         "ms": partial_times["granite-34b"]["ms"],
+         "plain_ms": partial_times["granite-34b"]["plain_ms"],
+         "bound_ms": partial_times["granite-34b"]["bound_ms"],
+         "bound_by": partial_times["granite-34b"]["bound_by"],
+         "library_ms": partial_times["granite-34b"]["library_ms"]},
         # the composed step's float sums at its 1 x 2^22 rows; 8 and 32 x
         # 2^22 are in the record's "row_sum_times"
         {"name": "row_sum", "variant": "runs", "route": "cuda",
@@ -5883,6 +6352,10 @@ def main() -> int:
         k["launches_new_phases"]["5n c serve (each of 4 ranks)"] = \
             grid["serve"]["launches_per_rank"] \
             if k["name"] == "flash_attention" else 0
+        k["launches_new_phases"]["5n d train (ranks 0-3)"] = \
+            grid["train_kinds_launches"][k["name"]]
+        k["launches_new_phases"]["5n e serve (ranks 0-3)"] = \
+            grid["serve_kinds_main_launches"].get(k["name"], [0] * 4)
     record = {
         "card": name, "kernels": kernels,
         "bank_mesh": bank_mesh, "processes": processes, "asir": asir_run,
@@ -5910,6 +6383,7 @@ def main() -> int:
         "train_kinds": train_kinds, "grid": grid,
         "patch_domain_check": patch_domain_check,
         "attention": attn_times, "attention_check": attn_check,
+        "attention_partials": partial_times,
         "attention_kinds": attn_kinds,
         "patch_inputs": patch_times, "patch_domain_times": patch_domain,
         "bank_ms": {"patch_log_likelihood": patch_bank_ms,

@@ -76,6 +76,7 @@ struct FlashCall {
   const void* v;
   void* o;
   void* part;        // the split variant's scratch, or null
+  float* lse;        // the split variant's (B, Hq, Lq) log-sum-exp, or null
   void* stream;
   long long strides[9];   // q, k, v: batch, head, row (elements)
   int b, hq, hkv, lq, lk, d, causal, split_keys, n_split;
@@ -613,12 +614,22 @@ constexpr int split_smem() {
   return ring > red ? ring : red;
 }
 
+// a row's log-sum-exp in natural-log units from its max mu (log2 units of
+// the scaled logits, 0 for a row that saw no key) and its sum l of
+// 2^(s - mu): -inf for a row that saw no key
+__device__ __forceinline__ float log_sum_exp(float mu, float l) {
+  return l > 0.f ? (mu + log2f(l)) * 0.69314718055994531f : -INFINITY;
+}
+
 // Fragment layouts as in flash_attention.cu (mma.m16n8k16, lane = 4 gr +
-// tq).  Scratch `part` holds, per (batch row, KV head, split, row), the
+// tq).  With `lse` the kernel (or the combine) also writes each row's
+// log-sum-exp (B6's partials, for a sequence-parallel decode).  Scratch
+// `part` holds, per (batch row, KV head, split, row), the
 // record {m, l, acc[D]}: m in log2 units, acc unnormalized against m.
 template <int D>
 __global__ void __launch_bounds__(SP_WARPS * 32)
-    flash_split(Args a, int key0, int split_keys, int n_split, float* part) {
+    flash_split(Args a, int key0, int split_keys, int n_split, float* part,
+                float* lse) {
   constexpr int LD = D + 8;       // padded smem row (elements)
   constexpr bool QS = split_q_smem<D>();
   constexpr int KC = D / 16, DN = D / 8, VEC = D / 8;
@@ -832,8 +843,10 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
     }
     if (n_split == 1) {
       const int head = hk * a.group + r % a.group;
-      og[(((long long)b * a.hq + head) * a.lq + r / a.group) * D + c] =
+      const long long row = ((long long)b * a.hq + head) * a.lq + r / a.group;
+      og[row * D + c] =
           __float2bfloat16_rn(acc * rcp_approx(fmaxf(l, 1e-30f)));
+      if (lse != nullptr && c == 0) lse[row] = log_sum_exp(mu, l);
     } else {
       rec[(long long)r * (D + 2) + 2 + c] = acc;
       if (c == 0) {
@@ -847,7 +860,7 @@ __global__ void __launch_bounds__(SP_WARPS * 32)
 // o of each (batch row, KV head, row) from its splits' records, in split
 // order: one warp per row, lane t taking columns t, t + 32, ...
 __global__ void __launch_bounds__(128)
-    flash_combine(Args a, int d, int n_split, const float* part) {
+    flash_combine(Args a, int d, int n_split, const float* part, float* lse) {
   constexpr int C = 256 / 32;               // d <= 256
   const int n_rows = a.group * a.lq;
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
@@ -879,8 +892,9 @@ __global__ void __launch_bounds__(128)
   }
   const float den = rcp_approx(fmaxf(l, 1e-30f));
   const int head = hk * a.group + r % a.group;
-  bf16* orow = static_cast<bf16*>(a.o) +
-               (((long long)b * a.hq + head) * a.lq + r / a.group) * d;
+  const long long orow_i = ((long long)b * a.hq + head) * a.lq + r / a.group;
+  if (lse != nullptr && lane == 0) lse[orow_i] = log_sum_exp(mu, l);
+  bf16* orow = static_cast<bf16*>(a.o) + orow_i * d;
 #pragma unroll
   for (int c = 0; c < C; ++c)
     if (lane + 32 * c < d)
@@ -957,19 +971,19 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
 
 template <int D>
 int launch_split(const Args& a, int key0, int split_keys, int n_split,
-                 float* part, cudaStream_t stream) {
+                 float* part, float* lse, cudaStream_t stream) {
   constexpr int smem = split_smem<D>();
   static bool done[64];
   const cudaError_t attr = allow_smem(flash_split<D>, smem, done);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_split, a.hkv, a.b);
   flash_split<D><<<grid, SP_WARPS * 32, smem, stream>>>(a, key0, split_keys,
-                                                        n_split, part);
+                                                        n_split, part, lse);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const long long rows = (long long)a.b * a.hkv * a.group * a.lq;
   flash_combine<<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
-      a, D, n_split, part);
+      a, D, n_split, part, lse);
   return cudaGetLastError();
 }
 
@@ -1005,7 +1019,7 @@ int ppf_flash_wgmma(const FlashCall* c) {
 // the decode variant: G·Lq <= 64 rows per KV head, D = 16, 32, ..., 128
 // or 256; n_split splits of split_keys keys (a multiple of 16) from key0,
 // each holding a key; `part` holds B·Hkv·n_split·G·Lq·(D + 2) floats when
-// n_split > 1
+// n_split > 1; with `lse` set, each row's float32 log-sum-exp too
 int ppf_flash_split(const FlashCall* c) {
   const Args a = args_of(*c);
   const int sk = c->split_keys, ns = c->n_split, k0 = c->key0;
@@ -1017,15 +1031,15 @@ int ppf_flash_split(const FlashCall* c) {
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
   float* p = static_cast<float*>(c->part);
   switch (c->d) {
-    case 16: return launch_split<16>(a, k0, sk, ns, p, st);
-    case 32: return launch_split<32>(a, k0, sk, ns, p, st);
-    case 48: return launch_split<48>(a, k0, sk, ns, p, st);
-    case 64: return launch_split<64>(a, k0, sk, ns, p, st);
-    case 80: return launch_split<80>(a, k0, sk, ns, p, st);
-    case 96: return launch_split<96>(a, k0, sk, ns, p, st);
-    case 112: return launch_split<112>(a, k0, sk, ns, p, st);
-    case 128: return launch_split<128>(a, k0, sk, ns, p, st);
-    case 256: return launch_split<256>(a, k0, sk, ns, p, st);
+    case 16: return launch_split<16>(a, k0, sk, ns, p, c->lse, st);
+    case 32: return launch_split<32>(a, k0, sk, ns, p, c->lse, st);
+    case 48: return launch_split<48>(a, k0, sk, ns, p, c->lse, st);
+    case 64: return launch_split<64>(a, k0, sk, ns, p, c->lse, st);
+    case 80: return launch_split<80>(a, k0, sk, ns, p, c->lse, st);
+    case 96: return launch_split<96>(a, k0, sk, ns, p, c->lse, st);
+    case 112: return launch_split<112>(a, k0, sk, ns, p, c->lse, st);
+    case 128: return launch_split<128>(a, k0, sk, ns, p, c->lse, st);
+    case 256: return launch_split<256>(a, k0, sk, ns, p, c->lse, st);
     default: return -1;
   }
 }

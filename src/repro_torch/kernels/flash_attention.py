@@ -9,7 +9,9 @@ sees the keys ``p - window < j <= p``) and an optional tanh soft-cap.
 * ``"split"`` (``csrc/flash_attention_sm90.cu``): bfloat16 with at most
   ``SPLIT_ROWS`` query rows (``G·Lq``) per KV head, every decode step.
   The keys are cut into splits, one block each, and a combine pass
-  reduces them in split order;
+  reduces them in split order.  ``flash_partials_kernel`` runs it
+  non-causally and also writes each row's log-sum-exp (B6's partials:
+  a key shard's ``(o, lse)`` for a sequence-parallel decode);
 * ``"wgmma"`` (the same source): bfloat16 prefill at head dims 64 and
   128, wgmma products on TMA-loaded K/V tiles;
 * ``"mma"`` (``csrc/flash_attention.cu``): every other bfloat16 call,
@@ -83,12 +85,12 @@ def _lib_sm90():
     return lib
 
 
-# csrc/flash_attention_sm90.cu's `FlashCall`: q, k, v, o, scratch and stream
-# pointers; q, k, v strides; b, hq, hkv, lq, lk, d, causal, split_keys,
+# csrc/flash_attention_sm90.cu's `FlashCall`: q, k, v, o, scratch, lse and
+# stream pointers; q, k, v strides; b, hq, hkv, lq, lk, d, causal, split_keys,
 # n_split, window, key0; scale, softcap.  One packed pointer costs a
 # fraction of the host time of 28 ctypes arguments, and a decode step is
 # host-bound.
-_CALL = struct.Struct("@6Q9q11i2f")
+_CALL = struct.Struct("@7Q9q11i2f")
 
 
 class Plan(NamedTuple):
@@ -194,8 +196,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: float, softcap: float,
-            window: int = 0) -> torch.Tensor:
-    """Run plan ``p``'s kernel on checked inputs; count nothing."""
+            window: int = 0, lse: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """Run plan ``p``'s kernel on checked inputs; count nothing.  With
+    ``lse`` (``(B, Hq, Lq)`` float32, the split variant only) the kernel
+    writes each row's log-sum-exp there too."""
     b, hq, lq, d = q.shape
     hkv, lk, dv = k.shape[1], k.shape[2], v.shape[-1]
     if dv != d and p.variant not in ("mma", "f32"):
@@ -213,7 +218,8 @@ def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                * (d + 2), dtype=torch.float32)
         call = _CALL.pack(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if part is None else part.data_ptr(), stream,
+            0 if part is None else part.data_ptr(),
+            0 if lse is None else lse.data_ptr(), stream,
             qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
             b, hq, hkv, lq, lk, d, int(causal), p.split_keys, p.splits,
             window, p.key0, scale, softcap)
@@ -221,6 +227,8 @@ def _launch(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = lib.ppf_flash_split if p.variant == "split" \
             else lib.ppf_flash_wgmma
         err = fn(call)
+    elif lse is not None:
+        raise ValueError(f"the {p.variant} variant writes no log-sum-exp")
     else:
         err = _lib().ppf_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -284,3 +292,37 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 flash_attention_kernel.launches = 0
 flash_attention_kernel.variants = dict.fromkeys(
     ("wgmma", "split", "mma", "f32"), 0)
+
+
+def flash_partials_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float | None = None,
+                          logit_softcap: float = 0.0
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B6's partials on the card: ``(o, lse)`` of every query of CUDA
+    ``q`` ``(B, Hq, Lq, D)`` over every key of the views ``k``/``v``
+    ``(B, Hkv, Lk, D)`` (non-causal: the caller cuts the key range a query
+    may see, ``ops.attention_partials``), ``o`` normalized in bfloat16 and
+    ``lse`` ``(B, Hq, Lq)`` float32 in natural-log units, through the
+    split variant (bfloat16, ``G·Lq <= SPLIT_ROWS``, equal head dims),
+    whose blocks and combine write each row's log-sum-exp beside its
+    output.  A sequence-parallel decode combines the shards' pairs in
+    rank order (``ops.combine_partials``).  Anything else raises; it has
+    no backward.  Adds one to ``flash_partials_kernel.launches`` a
+    call."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention (B6) has no backward")
+    _check(q, k, v, False)
+    p = plan(q.shape, k.shape, q.dtype, True, 0, v.shape[-1])
+    if p.variant != "split":
+        raise ValueError(f"B6's partials run the split variant (bfloat16, "
+                         f"at most {SPLIT_ROWS} rows a KV head); q "
+                         f"{tuple(q.shape)} {q.dtype} plans {p.variant}")
+    scale = float(scale) if scale is not None else float(q.shape[-1] ** -0.5)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _launch(p, q, k, v, False, scale, float(logit_softcap), 0, lse)
+    flash_partials_kernel.launches += 1
+    return out, lse
+
+
+flash_partials_kernel.launches = 0

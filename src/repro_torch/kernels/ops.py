@@ -138,3 +138,50 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             window=window)
     return ref.mha_ref(q, k, v, causal=causal, scale=scale,
                        logit_softcap=logit_softcap, window=window)
+
+
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, key_lo: int, key_hi: int,
+                       scale: float | None = None,
+                       logit_softcap: float = 0.0
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B6's partials: every query of ``q`` ``(B, Hq, Lq, D)`` over the
+    keys ``key_lo <= j < key_hi`` of ``k``/``v`` ``(B, Hkv, Lk, D)`` (a
+    cache shard, as it lies in memory), non-causal: ``(o, lse)``, the
+    normalized output in q's dtype and the float32 log-sum-exp ``(B, Hq,
+    Lq)`` that ``combine_partials`` weighs shards by.  An empty range
+    gives ``o = 0`` and ``lse = -inf`` with no launch.  The kernel on the
+    card (``flash_attention.flash_partials_kernel``), its plain version
+    (``ref.attention_lse_ref``) on the CPU."""
+    lo, hi = max(int(key_lo), 0), min(int(key_hi), k.shape[2])
+    if scale is None:
+        scale = float(q.shape[-1] ** -0.5)
+    if hi <= lo:
+        b, hq, lq, _ = q.shape
+        return (q.new_zeros((b, hq, lq, v.shape[-1])),
+                torch.full((b, hq, lq), -torch.inf, device=q.device))
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if on_cuda(q):
+        return flash_attention.flash_partials_kernel(
+            q, k, v, scale=scale, logit_softcap=logit_softcap)
+    return ref.attention_lse_ref(q, k, v, scale=scale,
+                                 logit_softcap=logit_softcap)
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Attention over the union of key shards from each shard's
+    normalized output ``o`` ``(S, ..., Dv)`` and log-sum-exp ``lse``
+    ``(S, ...)`` (shard first; B6's partials, or an MLA decode's latent
+    partials): ``Σ_s w_s o_s / Σ_s w_s`` with ``w_s = exp(lse_s - max_s
+    lse_s)``, summed in float32 in shard order (the same bits on every
+    rank and every run, no atomics), cast to ``o``'s dtype.  A shard with
+    no key (``lse = -inf``, ``o = 0``) weighs 0."""
+    top = lse.amax(0)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    w = torch.exp(lse - top)
+    num = w[0, ..., None] * o[0].float()
+    den = w[0]
+    for s in range(1, o.shape[0]):
+        num = num + w[s, ..., None] * o[s].float()
+        den = den + w[s]
+    return (num / den.clamp_min(1e-30)[..., None]).to(o.dtype)

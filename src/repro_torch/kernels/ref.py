@@ -157,3 +157,41 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 mha_ref.calls = 0
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      scale: float | None = None,
+                      logit_softcap: float = 0.0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full (non-causal) GQA attention of every query over every key of
+    ``k``/``v`` and each row's log-sum-exp: ``(o, lse)`` with ``o``
+    ``(B, Hq, Lq, Dv)`` normalized, in q's dtype, and ``lse`` ``(B, Hq,
+    Lq)`` float32 in natural-log units of the scaled (soft-capped)
+    logits — the plain version of B6's partials (``flash_attention.
+    flash_partials_kernel``), which a sequence-parallel decode combines
+    over key shards.  With no key, ``o`` is 0 and ``lse`` ``-inf``.  The
+    logits are the float32 product of the inputs' values (the kernel's
+    float32 accumulation; ``mha_ref`` rounds a bf16 product to bf16 first,
+    an error of ~1e-3 in a bf16 row's log-sum-exp), times ``scale``; the
+    probabilities are cast to ``v``'s dtype before the second product.
+    Every call adds one to ``attention_lse_ref.calls``."""
+    attention_lse_ref.calls += 1
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    if lk == 0:
+        return (q.new_zeros((b, hq, lq, v.shape[-1])),
+                torch.full((b, hq, lq), -torch.inf, device=q.device))
+    group = hq // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    if scale is None:
+        scale = float(d ** -0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    lse = torch.logsumexp(logits, -1)
+    p = torch.exp(logits - lse[..., None])
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), vv), lse
+
+
+attention_lse_ref.calls = 0

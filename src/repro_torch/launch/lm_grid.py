@@ -20,9 +20,12 @@ hold against one device or the reference.
 * ``grid_phase`` — the card's checks at full width (``chip_smoke.py``
   phase 5n): a train step held leaf by leaf to one device's, the loss
   over steps, repeat runs and an elastic resume compared by grid-invariant
-  digests, the expert-parallel MoE step, and serving with the flash
-  kernel on each rank's heads; the one-device baselines run on rank 0
-  before the grid's work starts and are freed first.
+  digests, the expert-parallel MoE step, serving with the flash kernel on
+  each rank's heads, and the same train and serve checks for the M, X, R
+  and D kinds and heads ``model`` does not divide (B6's partials on each
+  rank's key shard); the one-device baselines run on rank 0 before the
+  grid's work starts, and only their gradients stay on the card, for the
+  step-0 comparison.
 
 Nothing here imports ``jax``, starts a process group or touches CUDA at
 import.
@@ -181,20 +184,24 @@ def restore_case(mesh, case: dict) -> dict:
 
 
 def greedy(prefill, decode, prompt, steps: int, device, forced=None,
-           staged=None) -> dict:
+           staged=None, img=None) -> dict:
     """``steps`` greedy positions after ``prompt``'s prefill through the
     serve steps (``make_serve_step``'s): the last position's logits of the
     prefill and of each of ``steps - 1`` decode steps (float32, host),
     each one's argmax ``(B, 1)``, the caches, the prefill's and the
     decodes' seconds and, with ``staged`` (a ``runtime.Staged``), the
     bytes the prefill staged.  With ``forced`` decode step ``j`` is fed
-    ``forced[j - 1]`` instead of the argmax before it."""
+    ``forced[j - 1]`` instead of the argmax before it.  ``img`` (global
+    image embeddings) goes to the prefill of a cross-attending arch."""
     t = prompt.shape[1]
     out = {"logits": [], "tokens": []}
     before = staged.bytes if staged is not None else 0
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill({"tokens": prompt})
+    batch = {"tokens": prompt}
+    if img is not None:
+        batch["image_embeds"] = img
+    logits, caches = prefill(batch)
     _sync(device)
     t1 = time.perf_counter()
     out["prefill_staged"] = staged.bytes - before if staged is not None \
@@ -214,34 +221,46 @@ def greedy(prefill, decode, prompt, steps: int, device, forced=None,
 
 def serve_case(mesh, case: dict) -> dict:
     """``case``: ``cfg``, ``shape``/``names``, ``params`` or ``seed``,
-    ``tokens`` (global ``(B, T)`` prompts), ``steps`` (greedy positions),
-    ``max_len``, ``device``.  Returns ``greedy``'s logits and tokens
-    (global), the flash kernel's launches (by variant) and the plain
-    version's calls on this rank, the staged bytes, the times and a
-    layer's cache shape."""
+    ``tokens`` (global ``(B, T)`` prompts), optionally ``img`` (global
+    image embeddings), ``steps`` (greedy positions), ``max_len``,
+    ``device``.  Returns ``greedy``'s logits and tokens (global), the
+    flash kernel's launches (by variant), its partials' launches and the
+    plain versions' calls on this rank, the staged bytes, the times, the
+    first layer's ``k`` cache shape and every layer's cache shapes."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.train import make_serve_step
     torch.set_num_threads(int(case.get("threads", 1)))
     grid = grid_of(mesh, case)
     device = _device(case)
     kernel = flash_attention.flash_attention_kernel
+    parts = flash_attention.flash_partials_kernel
     with SH.mesh_context(grid), torch.no_grad():
         model = _decoder(case, grid, device, train=False)
         tokens = torch.as_tensor(np.asarray(case["tokens"])).to(device)
+        img = case.get("img")
+        if img is not None:
+            img = torch.as_tensor(np.asarray(img)).to(device)
         max_len = case.get("max_len") or tokens.shape[1] + case["steps"]
         launches, variants = kernel.launches, dict(kernel.variants)
-        plain, staged = ref.mha_ref.calls, mesh.staged.bytes
+        part_launches = parts.launches
+        plain = ref.mha_ref.calls + ref.attention_lse_ref.calls
+        lse_plain, staged = ref.attention_lse_ref.calls, mesh.staged.bytes
         run = greedy(make_serve_step(model, "prefill", max_len),
                      make_serve_step(model, "decode"), tokens,
-                     case["steps"], device)
+                     case["steps"], device, img=img)
     caches = run.pop("caches")
     return dict(run, launches=kernel.launches - launches,
                 variants={k: v - variants.get(k, 0)
                           for k, v in kernel.variants.items()},
-                plain_calls=ref.mha_ref.calls - plain,
+                partial_launches=parts.launches - part_launches,
+                plain_calls=ref.mha_ref.calls + ref.attention_lse_ref.calls
+                - plain,
+                plain_partials=ref.attention_lse_ref.calls - lse_plain,
                 staged_bytes=mesh.staged.bytes - staged,
                 cache_shape=tuple(caches[0]["k"].shape)
-                if "k" in caches[0] else None)
+                if "k" in caches[0] else None,
+                cache_shapes=[{k: tuple(v.shape) for k, v in layer.items()}
+                              for layer in caches])
 
 
 def moe_ep_case(mesh, case: dict) -> dict:
@@ -408,26 +427,38 @@ def _state_digest(params, state, grid) -> dict:
     return SH.grid_digest(tensors, specs, grid)
 
 
-def _one_device_grads(cfg, seed, tc, batch, device) -> dict:
-    """Rank 0's baseline: the one-device step-0 loss and gradients (on the
-    host) of the same weights, drawn whole from the seed."""
+def _set_gates(model, value) -> None:
+    """Every X layer's ``xattn_gate`` set to ``value`` (``None``: left as
+    drawn, 0), so the X leaves reach the loss."""
+    if value is None:
+        return
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("xattn_gate"):
+                p.fill_(value)
+
+
+def _one_device_grads(cfg, seed, tc, batch, device, gate=None) -> dict:
+    """Rank 0's baseline: the one-device step-0 loss and gradients (left on
+    ``device``, where ``_grad_errors`` compares them) of the same weights,
+    drawn whole from the seed (the X gates set to ``gate``)."""
     from repro_torch.models.lm import model as M
     from repro_torch.train.step import accumulate_grads
     model = M.init_train_params(cfg, seed, device=device)
+    _set_gates(model, gate)
     met = accumulate_grads(model, cfg, tc, batch)
     out = {"loss": float(met["loss"]),
-           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+           "grads": {n: p.grad for n, p in model.named_parameters()}}
     del model, met
     return out
 
 
 def _grad_errors(grads: dict, specs: dict, grid, base: dict | None) -> dict:
-    """Each leaf's gradient gathered to rank 0's host memory and its
-    relative L2 error against the baseline's there (``{}`` on the other
-    ranks)."""
+    """Each leaf's gradient gathered to rank 0's device and its relative L2
+    error against the baseline's there (``{}`` on the other ranks)."""
     errs = {}
     for name, g in grads.items():
-        full = SH.gather_to_root(g, specs[name], grid, "cpu")
+        full = SH.gather_to_root(g, specs[name], grid)
         if full is None:
             continue
         want = base["grads"][name]
@@ -455,6 +486,7 @@ def _train_run(cfg, s, grid, device, steps, *, compare=False, base=None,
     with SH.mesh_context(grid):
         params = M.init_train_params(cfg, s["seed"], device=device,
                                      grid=grid)
+        _set_gates(params, s.get("gate"))
         _free(device)            # the full layers drawn before each cut
         state = init_opt_state(params)
         step = make_train_step(cfg, OptConfig(**s["opt"]),
@@ -477,6 +509,11 @@ def _train_run(cfg, s, grid, device, steps, *, compare=False, base=None,
                 out["grad_errors"] = _grad_errors(grads, params.shard_specs,
                                                   grid, base)
                 del grads
+                if base is not None:
+                    # the baseline's gradients leave the card for the
+                    # steps that follow
+                    base["grads"].clear()
+                    _free(device)
             if ckpt is not None and i + 1 == ckpt[1]:
                 t0 = time.perf_counter()
                 save_state(ckpt[0], i + 1, params, state, grid)
@@ -523,7 +560,7 @@ def _train_checks(mesh, s: dict, device) -> dict:
         base = _one_device_grads(
             cfg, s["seed"], TrainConfig(**s["tc"]),
             make_batch(s["seed"], 0, cfg, s["batch"], s["seq"],
-                       device=device), device)
+                       device=device), device, s.get("gate"))
         rec["baseline_loss"] = base["loss"]
         rec["baseline_s"] = time.perf_counter() - t0
         _say(f"{cfg.name}: one device's step-0 in {rec['baseline_s']:.1f} "
@@ -575,35 +612,54 @@ def _train_checks(mesh, s: dict, device) -> dict:
 
 
 def _serve_checks(mesh, s: dict, device) -> dict:
-    """Phase 5n c on the ranks: rank 0's one-device greedy run of the
-    seed's model, then on ``s["shape"]`` the same positions through
-    ``make_serve_step``, fed the baseline's tokens: every step's logits
-    (rank 0's gap to the baseline), the argmax, the flash kernel's
-    launches and variants and the plain version's calls on each rank,
-    times and staged bytes."""
+    """Phase 5n c and e on the ranks: rank 0's one-device greedy run of
+    the seed's model, then on ``s["shape"]`` the same positions through
+    ``make_serve_step``, fed the baseline's tokens (and ``s["img"]``'s
+    image embeddings, a cache of ``s["max_len"]`` slots): every step's
+    logits (rank 0's gap to the baseline), the argmax, the flash kernel's
+    launches and variants, its partials' launches and the plain versions'
+    calls on each rank, every layer's cache shapes, times and staged
+    bytes; with ``s["repeat"]`` the grid's run once more and whether its
+    logits are the same bits."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.models.lm import model as M
     from repro_torch.train import make_serve_step
     cfg, steps = s["cfg"], s["steps"]
     kernel = flash_attention.flash_attention_kernel
+    parts = flash_attention.flash_partials_kernel
     prompt = torch.as_tensor(np.asarray(s["prompt"])).to(device)
-    max_len = prompt.shape[1] + steps + 1
+    img = s.get("img")
+    if img is not None:
+        img = torch.as_tensor(np.asarray(img)).to(device)
+    max_len = s.get("max_len") or prompt.shape[1] + steps + 1
 
-    def reset():
-        kernel.launches = 0
-        kernel.variants.update(dict.fromkeys(kernel.variants, 0))
+    def counts():
+        return kernel.launches, dict(kernel.variants), parts.launches
+
+    def since(before):
+        """The flash kernel's launches and variants and its partials'
+        launches since ``counts()`` returned ``before`` (no counter is
+        reset: ``grid_phase`` reads every kernel's launches around the
+        whole part)."""
+        return (kernel.launches - before[0],
+                {k: v - before[1].get(k, 0)
+                 for k, v in kernel.variants.items()},
+                parts.launches - before[2])
+
+    def plain_calls():
+        return ref.mha_ref.calls + ref.attention_lse_ref.calls
 
     rec = {}
     base = None
     with torch.no_grad():
         if mesh.rank == 0:
             model = M.init_params(cfg, s["seed"], device=device)
-            reset()
+            before = counts()
             base = greedy(make_serve_step(model, "prefill", max_len),
                           make_serve_step(model, "decode"), prompt, steps,
-                          device)
-            rec["baseline_launches"] = kernel.launches
-            rec["baseline_variants"] = dict(kernel.variants)
+                          device, img=img)
+            rec["baseline_launches"], rec["baseline_variants"], _ = \
+                since(before)
             del model, base["caches"]
             _say(f"serving {cfg.name}: one device's run done")
         _free(device)
@@ -618,21 +674,36 @@ def _serve_checks(mesh, s: dict, device) -> dict:
             _free(device)
             _say(f"serving {cfg.name} on {dict(grid.shape)}: drawn"
                  f"{_memory(device)}")
-            reset()
-            plain, staged = ref.mha_ref.calls, grid.staged.bytes
+            before = counts()
+            plain, staged = plain_calls(), grid.staged.bytes
             run = greedy(make_serve_step(model, "prefill", max_len),
                          make_serve_step(model, "decode"), prompt, steps,
-                         device, forced=objs[0], staged=grid.staged)
-            rec.update(launches=kernel.launches,
-                       variants=dict(kernel.variants),
-                       plain_calls=ref.mha_ref.calls - plain,
+                         device, forced=objs[0], staged=grid.staged,
+                         img=img)
+            launches, variants, partials = since(before)
+            rec.update(launches=launches, variants=variants,
+                       partial_launches=partials,
+                       plain_calls=plain_calls() - plain,
                        prefill_s=run["prefill_s"], decode_s=run["decode_s"],
                        prefill_staged_bytes=run["prefill_staged"],
                        decode_staged_bytes=grid.staged.bytes - staged
                        - run["prefill_staged"],
-                       cache_shape=tuple(run["caches"][0]["k"].shape),
+                       cache_shape=tuple(run["caches"][0]["k"].shape)
+                       if "k" in run["caches"][0] else None,
+                       cache_shapes=[{k: tuple(v.shape) for k, v in
+                                      layer.items()}
+                                     for layer in run["caches"]],
                        params_local=sum(p.numel()
                                         for p in model.parameters()))
+            if s.get("repeat"):
+                del run["caches"]
+                again = greedy(make_serve_step(model, "prefill", max_len),
+                               make_serve_step(model, "decode"), prompt,
+                               steps, device, forced=objs[0], img=img)
+                rec["repeat_same"] = all(
+                    torch.equal(a, b) for a, b in
+                    zip(run["logits"], again["logits"], strict=True))
+                run["caches"] = again.pop("caches")
             if device.type == "cuda":
                 rec["peak_gib"] = \
                     torch.cuda.max_memory_allocated(device) / 2**30
@@ -664,6 +735,7 @@ def kernel_launches() -> dict:
         "metropolis_ancestors": resample.metropolis_ancestors_kernel,
         "rejection_ancestors": resample.rejection_ancestors_kernel,
         "flash_attention": flash_attention.flash_attention_kernel,
+        "flash_partials": flash_attention.flash_partials_kernel,
         "prefix_sum": scan.prefix_sum_kernel,
         "row_sum": row_sum.row_sum_kernel}
     return {n: k.launches for n, k in kernels.items()}
@@ -671,21 +743,31 @@ def kernel_launches() -> dict:
 
 def grid_phase(mesh, spec: dict) -> dict:
     """The card's grid checks (``chip_smoke.py`` phase 5n) on this rank:
-    ``spec["train"]`` (a), ``spec["moe"]`` (b) and ``spec["serve"]`` (c),
-    each optional, on the spawned world's ranks, which share the card
-    (gloo).  Returns the rank's record."""
+    ``spec["train"]`` (a), ``spec["moe"]`` (b), ``spec["serve"]`` (c),
+    ``spec["train_kinds"]`` (d: a list of train specs, one an arch) and
+    ``spec["serve_kinds"]`` (e: a list of serve specs), each optional, on
+    the spawned world's ranks, which share the card (gloo).  Returns the
+    rank's record (a list of records for d and e)."""
     torch.set_num_threads(int(spec.get("threads", 1)))
     device = _device(spec)
     out = {}
     for part, fn in (("train", _train_checks), ("moe", _train_checks),
-                     ("serve", _serve_checks)):
-        if part in spec:
+                     ("serve", _serve_checks),
+                     ("train_kinds", _train_checks),
+                     ("serve_kinds", _serve_checks)):
+        if part not in spec:
+            continue
+        many = part.endswith("_kinds")
+        recs = []
+        for sub in (spec[part] if many else [spec[part]]):
             t0 = time.perf_counter()
             before = kernel_launches()
-            out[part] = fn(mesh, spec[part], device)
-            out[part]["seconds"] = time.perf_counter() - t0
-            out[part]["kernel_launches"] = {
+            rec = fn(mesh, sub, device)
+            rec["seconds"] = time.perf_counter() - t0
+            rec["kernel_launches"] = {
                 n: v - before[n] for n, v in kernel_launches().items()}
+            recs.append(rec)
+        out[part] = recs if many else recs[0]
     return out
 
 

@@ -454,26 +454,23 @@ def check_model_grid(model, grid) -> None:
                          f"active grid is {dict(grid.shape)}")
 
 
-def check_supported(cfg, grid) -> None:
-    """Raise ``ValueError`` before any work for what the grid cannot run
-    yet (ROADMAP A13 part b): the M, X, R and D kinds over a ``model``
-    axis of more than one rank, heads that ``model`` does not divide, and
-    a weight whose ``model`` split ``fit_spec`` would drop (it would run
-    replicated under tensor-parallel collectives)."""
+def _unsupported(cfg, grid) -> str | None:
+    """Why ``cfg`` cannot run on ``grid`` yet, or ``None``."""
     from repro_torch.models.lm import model as M
     m = model_size(grid)
     if m == 1:
-        return
-    kinds = sorted({k for k, _ in M.make_plan(cfg).layers()
-                    if k in ("M", "X", "R", "D")})
-    if kinds:
-        raise ValueError(f"{cfg.name}: the {kinds} kinds over a model axis "
-                         f"of {m} wait for ROADMAP A13 part b")
-    if cfg.n_heads % m or cfg.n_kv_heads % m:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} query and "
-                         f"{cfg.n_kv_heads} key/value heads over a model "
-                         f"axis of {m} would split a head; that layout "
-                         f"waits for ROADMAP A13 part b")
+        return None
+    kinds = {k for k, _ in M.make_plan(cfg).layers()}
+    if "M" in kinds and cfg.n_heads % m:
+        return (f"{cfg.name}: {cfg.n_heads} latent-attention heads over a "
+                f"model axis of {m}")
+    if "D" in kinds:
+        s = cfg.ssm
+        heads = s.expand * cfg.d_model // s.head_dim
+        per, hpg = heads // m, heads // s.n_groups
+        if heads % m or (per % hpg and hpg % per):
+            return (f"{cfg.name}: {heads} SSD heads in {s.n_groups} groups "
+                    f"over a model axis of {m}")
     full = M.init_params(cfg, 0, device="meta", dtype=torch.float32)
     for name, shape in _shapes(full).items():
         want = param_spec(name, shape, grid)
@@ -481,9 +478,81 @@ def check_supported(cfg, grid) -> None:
         lost = [i for i, (w, g) in enumerate(zip(want, got))
                 if "model" in axes_of(w) and "model" not in axes_of(g)]
         if lost:
-            raise ValueError(f"{cfg.name}: {name} {shape} does not split "
-                             f"over a model axis of {m}; replicating it "
-                             f"waits for ROADMAP A13 part b")
+            return (f"{cfg.name}: {name} {shape} does not split over a "
+                    f"model axis of {m}; replicating it")
+    return None
+
+
+_SUPPORTED: dict = {}
+
+
+def check_supported(cfg, grid) -> None:
+    """Raise ``ValueError`` before any work for what the grid cannot run
+    yet (ROADMAP A13 part b item c): a weight whose ``model`` split
+    ``fit_spec`` would drop (it would run replicated under
+    tensor-parallel collectives: mamba2's vocabulary of 50280 over a
+    ``model`` axis of 16), latent-attention heads or SSD heads that
+    ``model`` does not divide.  Every kind runs over ``model``, and so do
+    query and key/value heads that it does not divide (the rank's whole
+    heads, ``head_range``).  The answer is kept by config and grid
+    shape."""
+    key = (cfg, tuple(sorted(grid.shape.items())))
+    if key not in _SUPPORTED:
+        _SUPPORTED[key] = _unsupported(cfg, grid)
+    why = _SUPPORTED[key]
+    if why is not None:
+        raise ValueError(f"{why} waits for ROADMAP A13 part b item c")
+
+
+# ---------------------------------------------------------------------------
+# The kinds over model: whole heads, re-cut weights, cache length shards
+# ---------------------------------------------------------------------------
+
+def head_range(n: int, grid) -> tuple[int, int]:
+    """The rank's whole heads of ``n`` over ``model``: ``⌊n·r/m⌋ …
+    ⌊n·(r+1)/m⌋ - 1`` (every head on one device); where ``m`` divides
+    ``n`` exactly the heads of the rank's column block."""
+    m, r = model_size(grid), model_index(grid)
+    return n * r // m, n * (r + 1) // m
+
+
+def model_gather(x: torch.Tensor, grid, dim: int,
+                 full: int | None = None) -> torch.Tensor:
+    """``x``'s blocks along ``dim`` gathered over ``model`` (a weight's
+    column or row block whole, an activation's channels all); the
+    backward reduce-scatters, so each rank's block gets the sum of every
+    rank's partial gradient (each rank used its own part).  ``x`` itself
+    without a ``model`` axis, or when it is ``full`` long already."""
+    line = model_line(grid)
+    if line is None or x.shape[dim] == full:
+        return x
+    return on_line(runtime.fsdp_gather, x, line, dim % x.dim() + 1)
+
+
+def model_all(x: torch.Tensor, grid, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order over
+    ``model`` (not differentiable: the decode's partials and queries)."""
+    line = model_line(grid)
+    if line is None:
+        return x
+    return on_line(runtime.all_gather_tiled, x, line, dim % x.dim() + 1)
+
+
+def length_slots(max_len: int, grid) -> int:
+    """The slots of a rank's cache length shard over ``model``:
+    ``ceil(max_len / m)``, the rank at ``model`` coordinate r holding
+    positions from ``r·slots`` on.  Where ``m`` divides ``max_len`` it is
+    the reference's block; where it does not, the reference replicates
+    the cache and a rank holds less."""
+    return -(-max_len // model_size(grid))
+
+
+def tp_sum(x: torch.Tensor, grid) -> torch.Tensor:
+    """The sum over ``model`` of per-rank partials whose result every rank
+    uses on its own part (``tp_copy`` of ``tp_reduce``: the forward sums
+    in the facade's fixed order, the backward sums the ranks' partial
+    gradients): a norm's sum of squares over channels split by rank."""
+    return tp_copy(tp_reduce(x, grid), grid)
 
 
 def moe_expert_parallel(cfg, grid) -> bool:

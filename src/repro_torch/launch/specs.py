@@ -18,6 +18,15 @@ its weights are named and not stacked on a group axis: every rule
 addresses a leaf's trailing dims and pads the leading ones, so a spec
 here is the reference's without the stacked axis.  Layouts are tuples
 of per-dimension axis names (``launch.sharding.Spec``).
+
+The grid's serving caches (``model.init_caches(grid=)``) follow
+``_cache_leaf_spec``'s blocks, with three differences where a rank holds
+less than the reference's block: a cache length that ``model`` does not
+divide is still cut, ``ceil(L / m)`` slots a rank
+(``launch.sharding.length_slots``; the reference replicates it); the R
+and D conv caches hold the rank's channels (replicated there); the X
+image caches of key/value heads ``model`` does not divide hold the heads
+the rank's query heads read (replicated there).
 """
 from __future__ import annotations
 
@@ -117,7 +126,9 @@ def _cache_leaf_spec(name: str, shape, cfg: ArchConfig, mesh) -> Spec:
     addressing the trailing dims): a KV cache's heads over ``model`` when
     they divide, else its length (flash-decode sequence parallelism); the
     batch over the batch axes when it divides, else the length over
-    ``data``; the latent, SSM, recurrent and conv states alike."""
+    ``data``; the latent, SSM, recurrent and conv states alike.  Where the
+    grid's caches hold less than this block, the module docstring says
+    so."""
     bsh = _n_batch_shards(mesh)
     ba = _batch_axes(mesh)
     model_n = mesh.shape["model"]

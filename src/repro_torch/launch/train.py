@@ -19,10 +19,11 @@ reference's grid: ``(N // 2, 2)`` as ``(data, model)`` when N >= 4, else
 optimizer state (``launch.sharding``) and runs the sharded step
 (``repro_torch.train``).  ``--transport gloo`` (the default) carries the
 collectives through host memory and lets every rank share one card;
-``nccl`` needs a card a rank.  The M, X, R and D kinds over a ``model``
-axis wait for ROADMAP A13 part b, and so do heads the axis does not
-divide: both exit before any rank starts.  Checkpoints hold full tensors
-by name whatever the grid: each rank writes its own blocks into them
+``nccl`` needs a card a rank.  Every kind runs over the ``model``
+axis, and so do heads it does not divide; what the grid cannot run yet
+(ROADMAP A13 part b item c: a weight whose ``model`` split ``fit_spec``
+drops) exits before any rank starts.  Checkpoints hold full tensors by
+name whatever the grid: each rank writes its own blocks into them
 (``checkpoint.store.save_blocks``; nothing is gathered), and each rank
 restores its blocks of them: a run resumes on another grid, or on one
 device, with the same full tensors (elastic resume).  Every
@@ -160,7 +161,7 @@ def grid_of(n: int) -> tuple[tuple[int, ...], tuple[str, ...]]:
 
 def check_grid(arch: str, smoke: bool, shape, names) -> None:
     """Exit before any rank starts for what the grid cannot run yet
-    (``launch.sharding.check_supported``: ROADMAP A13 part b)."""
+    (``launch.sharding.check_supported``: ROADMAP A13 part b item c)."""
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import make_mesh
     from repro_torch.launch import sharding

@@ -14,12 +14,18 @@ K and V are compressed to a ``kv_lora_rank`` latent plus one shared
   backward);
 * ``mla_decode_absorbed`` (decode): the absorbed form, W^UK folded into
   the query and W^UV applied after the latent sum, so decode never
-  builds per-head K/V.  It stays torch products and a float32 softmax,
-  as the reference computes it in XLA einsums outside any Pallas
-  kernel.
+  builds per-head K/V.  It stays torch products and a float32 softmax
+  (the latent sum accumulated in float32), as the reference computes it
+  in XLA einsums outside any Pallas kernel.
 
-The reference's mesh-sharding constraints have no counterpart on one
-card.
+Over a process grid's ``model`` axis (``model._latent_attention``) a
+rank holds its heads' columns of ``wq_b``, ``wk_b``, ``wv_b`` and rows
+of ``wo``; the low-rank in-projections and their norms (``REPLICATED``)
+are whole on every rank.  The decode is then sequence-parallel over the
+latent cache's length shards: ``absorbed_query`` on the rank's heads,
+``latent_partials`` of every head over the rank's positions,
+``ops.combine_partials`` of the ranks' partials in rank order and
+``absorbed_output`` on the rank's heads again.
 """
 from __future__ import annotations
 
@@ -29,6 +35,10 @@ from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels import ops
 from repro_torch.models.lm.layers import (chunked_causal_attention,
                                           normal_weight, rms_norm, rope)
+
+
+# the leaves every rank of a model axis holds whole
+REPLICATED = ("wq_a", "q_norm", "wkv_a", "kv_norm")
 
 
 def mla_params(generator: torch.Generator, d_model: int, n_heads: int,
@@ -81,8 +91,8 @@ def _queries(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig,
 def mla_attention(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig, *,
                   positions: torch.Tensor, theta: float, eps: float,
                   cache: dict | None = None, chunk: int | None = None,
-                  scores_dtype: torch.dtype = torch.float32
-                  ) -> torch.Tensor:
+                  scores_dtype: torch.dtype = torch.float32,
+                  cache_first: int = 0) -> torch.Tensor:
     """Prefill or training: ``x`` ``(B, T, D)`` -> ``(B, T, D)``.  K and
     V are decompressed per head, q and k are the nope and rope parts side
     by side (``cat``: contiguous, 16-byte aligned rows), and one causal
@@ -90,14 +100,19 @@ def mla_attention(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig, *,
     ``ops.attention``, or with ``chunk`` (training, the reference's
     ``mla.py:76-102``) ``chunked_causal_attention`` at that query chunk
     and ``scores_dtype``.  With ``cache`` (``{"c", "pe"}`` of ``max_len``
-    slots) the latent and rotary key fill its first T slots in place."""
+    slots) the latent and rotary key fill its first T slots in place; with
+    ``cache_first`` the cache is a length shard whose slots hold the
+    positions from that one on, and the positions of x that fall there
+    fill it."""
     b, t, _ = x.shape
     dqk, drope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_pe = _queries(p, x, n_heads, cfg, positions, theta, eps)
     c_kv, k_pe = mla_compress(p, x, positions, theta, eps)
     if cache is not None:
-        cache["c"][:, :t] = c_kv
-        cache["pe"][:, :t] = k_pe
+        n = min(t - cache_first, cache["c"].shape[1])
+        if n > 0:
+            cache["c"][:, :n] = c_kv[:, cache_first:cache_first + n]
+            cache["pe"][:, :n] = k_pe[:, cache_first:cache_first + n]
     k_nope = (c_kv @ p["wk_b"]).reshape(b, t, n_heads, dqk)
     v = (c_kv @ p["wv_b"]).reshape(b, t, n_heads, dv)
     q = torch.cat([q_nope, q_pe], -1).transpose(1, 2)
@@ -124,21 +139,56 @@ def mla_decode_absorbed(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig, *,
 
     It reads the caches' ``[:, :pos + 1]`` views; the reference masks the
     later slots to ``-inf``, which add exact zeros, so the result is the
-    same."""
-    b = x.shape[0]
-    r = c_cache.shape[-1]
-    dqk, drope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    same.  It is ``absorbed_query``, ``latent_partials`` over the one
+    shard (the float32 latent sum, normalized) and ``absorbed_output``:
+    the model's decode (``model._latent_sp_decode``) composes the same
+    pieces over a cache's length shards, and on one device gives these
+    bits."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_lat, q_pe = absorbed_query(p, x, n_heads, cfg, positions, theta, eps)
+    o_lat, _ = latent_partials(q_lat, q_pe, c_cache[:, :pos + 1],
+                               pe_cache[:, :pos + 1],
+                               (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+    return absorbed_output(p, o_lat.to(x.dtype), n_heads, cfg)
+
+
+def absorbed_query(p, x: torch.Tensor, n_heads: int, cfg: MLAConfig,
+                   positions: torch.Tensor, theta: float, eps: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A decode token's ``(q_lat, q_pe)``: ``W^UK`` absorbed into each
+    head's nope query, ``(B, H, r)``, and the rotated rope query ``(B, H,
+    drope)``, for the ``n_heads`` heads of ``p``'s columns."""
+    r, dqk = p["kv_norm"].shape[0], cfg.qk_nope_dim
     q_nope, q_pe = _queries(p, x, n_heads, cfg, positions, theta, eps)
-    c, pe = c_cache[:, :pos + 1], pe_cache[:, :pos + 1]
-    # absorb W^UK into the query: (B, H, dqk) -> (B, H, r)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
                          p["wk_b"].reshape(r, n_heads, dqk))
+    return q_lat, q_pe[:, 0]
+
+
+def latent_partials(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                    c: torch.Tensor, pe: torch.Tensor,
+                    scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every head's partial over the positions of ``c`` ``(B, n, r)`` /
+    ``pe`` ``(B, n, drope)`` (a length shard's visible slots), float32:
+    ``(o, lse)``, the normalized latent sum ``(B, H, r)`` and the
+    log-sum-exp ``(B, H)`` of the scores ``s_t = (q_lat · c_t + q_pe ·
+    pe_t)·scale``, which ``ops.combine_partials`` weighs shards by.  No
+    position gives ``o = 0`` and ``lse = -inf``."""
+    b, h, r = q_lat.shape
+    if c.shape[1] == 0:
+        return (q_lat.new_zeros((b, h, r), dtype=torch.float32),
+                torch.full((b, h), -torch.inf, device=q_lat.device))
     s = (torch.einsum("bhr,blr->bhl", q_lat, c)
-         + torch.einsum("bhd,bld->bhl", q_pe[:, 0], pe)
-         ).float() * (dqk + drope) ** -0.5
-    a = torch.softmax(s, -1).to(c.dtype)
-    o_lat = torch.einsum("bhl,blr->bhr", a, c)
-    o = torch.einsum("bhr,rhd->bhd", o_lat,
-                     p["wv_b"].reshape(r, n_heads, dv))
-    return o.reshape(b, 1, n_heads * dv) @ p["wo"]
+         + torch.einsum("bhd,bld->bhl", q_pe, pe)).float() * scale
+    lse = torch.logsumexp(s, -1)
+    a = torch.exp(s - lse[..., None])
+    return torch.einsum("bhl,blr->bhr", a, c.float()), lse
+
+
+def absorbed_output(p, o_lat: torch.Tensor, n_heads: int,
+                    cfg: MLAConfig) -> torch.Tensor:
+    """``W^UV`` of each head applied to its latent sum ``(B, H, r)``, then
+    ``wo``: ``(B, 1, D)``."""
+    r, dv = o_lat.shape[-1], cfg.v_head_dim
+    o = torch.einsum("bhr,rhd->bhd", o_lat, p["wv_b"].reshape(r, n_heads, dv))
+    return o.reshape(o.shape[0], 1, n_heads * dv) @ p["wo"]

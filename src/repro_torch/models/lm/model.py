@@ -39,6 +39,16 @@ key) into the attention caches in place (the reference's
 copies a KV cache; the recurrent leaves are replaced by the step's new
 tensors.
 
+Over a process grid's ``model`` axis (``launch.sharding``) every kind is
+tensor-parallel: a rank computes whole heads (``_Heads``; where
+``model`` does not divide them, from weights gathered over ``model``)
+or its channels (the R kind's RG-LRU width, the D kind's SSD heads with
+``w_in`` re-cut by head), and each mixer's output is a partial sum that
+``_block_forward`` reduces.  Caches hold the rank's part
+(``init_caches``); an attention cache laid by length (the M kind's
+always, a G or L kind's where ``model`` does not divide its key/value
+heads) makes the decode sequence-parallel over the shards.
+
 A MoE layer's aux diagnostics (load-balance loss, dropped fraction,
 largest expert load) are summed over the layers, as the reference's
 ``_run_blocks`` sums them, into an ``aux`` dict the caller may pass to
@@ -55,6 +65,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import runtime
+from repro_torch.kernels import ops
 from repro_torch.launch import sharding as SH
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import mla as MLA
@@ -351,40 +363,55 @@ def shard_decoder(model: Decoder, grid, coords=None) -> Decoder:
 
 
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                 device, dtype: torch.dtype, tp: int = 1) -> dict:
+                 device, dtype: torch.dtype, grid=None) -> dict:
+    """A layer's zeroed cache; on a grid the rank's part of it
+    (``launch.specs._cache_leaf_spec``'s layout, ``init_caches``)."""
     hd = cfg.resolved_head_dim
+    m = SH.model_size(grid)
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     if kind in ("G", "L"):
-        shape = (batch, cfg.n_kv_heads // tp, max_len, hd)
+        if _Heads(cfg, grid).divided:
+            shape = (batch, cfg.n_kv_heads // m, max_len, hd)
+        else:                       # the length over model (SP decode)
+            shape = (batch, cfg.n_kv_heads, SH.length_slots(max_len, grid),
+                     hd)
         return {"k": zeros(shape), "v": zeros(shape)}
     if kind == "M":
-        return {"c": zeros((batch, max_len, cfg.mla.kv_lora_rank)),
-                "pe": zeros((batch, max_len, cfg.mla.qk_rope_dim))}
+        slots = SH.length_slots(max_len, grid)
+        return {"c": zeros((batch, slots, cfg.mla.kv_lora_rank)),
+                "pe": zeros((batch, slots, cfg.mla.qk_rope_dim))}
     if kind == "X":
-        shape = (batch, cfg.n_kv_heads, cfg.n_image_tokens, hd)
+        heads = _Heads(cfg, grid)
+        shape = (batch, heads.k1 - heads.k0, cfg.n_image_tokens, hd)
         return {"xk": zeros(shape), "xv": zeros(shape)}
     if kind == "R":
-        w = cfg.rglru.lru_width
+        w = cfg.rglru.lru_width // m
         return {"rec": zeros((batch, w), torch.float32),
                 "conv": zeros((batch, cfg.rglru.conv_width - 1, w))}
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
-    channels = d_inner + 2 * s.n_groups * s.state_dim
-    return {"ssm": zeros((batch, d_inner // s.head_dim, s.head_dim,
-                          s.state_dim)),
+    heads, _, _, groups = _ssd_heads(cfg, grid)
+    channels = heads * s.head_dim + 2 * groups * s.state_dim
+    return {"ssm": zeros((batch, heads, s.head_dim, s.state_dim)),
             "conv": zeros((batch, s.conv_width - 1, channels))}
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device,
-                dtype: torch.dtype, tp: int = 1) -> list[dict]:
+                dtype: torch.dtype, grid=None) -> list[dict]:
     """Zeroed caches, one dict per layer (the module docstring's layout);
     the recurrent ``rec`` state is float32, every other leaf ``dtype``.
-    On a grid, ``batch`` is the rank's rows and ``tp`` the ``model`` axis
-    that splits the key/value heads (``launch.specs``' cache layout)."""
-    return [_layer_cache(cfg, kind, batch, max_len, device, dtype, tp)
+    On a grid, ``batch`` is the rank's rows and each leaf the rank's part
+    (``launch.specs._cache_leaf_spec``'s layout): a G or L layer's
+    key/value heads over ``model`` where it divides them, else the cache
+    length (``launch.sharding.length_slots``: the decode is then
+    sequence-parallel), the M layer's latent cache by length, the X
+    layer's image keys and values of the key/value heads the rank's query
+    heads read, the R and D layers' states of the rank's channels and
+    heads (their conv caches hold the rank's channels, where the
+    reference replicates them)."""
+    return [_layer_cache(cfg, kind, batch, max_len, device, dtype, grid)
             for kind, _ in make_plan(cfg).layers()]
 
 
@@ -400,103 +427,305 @@ def _theta_window(cfg: ArchConfig, kind: str) -> tuple[float, int]:
     return cfg.rope_theta_global or cfg.rope_theta, 0
 
 
+class _Heads:
+    """The rank's query heads ``q0 … q1-1`` over ``model``
+    (``launch.sharding.head_range``: whole heads, every head on one
+    device) and the key/value heads ``k0 … k1-1`` they read.  ``divided``:
+    ``model`` divides both counts, so the rank's column blocks of ``wq``,
+    ``wk``, ``wv`` and row block of ``wo`` are exactly those heads;
+    otherwise the layer takes them from the weights gathered over
+    ``model`` (``weights``).  ``kv_of`` maps the rank's query heads to its
+    key/value heads, by GQA's grouping where they group evenly, else one
+    key/value head a query head."""
+
+    def __init__(self, cfg: ArchConfig, grid):
+        self.hq, self.hkv = cfg.n_heads, cfg.n_kv_heads
+        self.hd = cfg.resolved_head_dim
+        m = SH.model_size(grid)
+        self.divided = self.hq % m == 0 and self.hkv % m == 0
+        self.q0, self.q1 = SH.head_range(self.hq, grid)
+        g = self.hq // self.hkv
+        self.nq = self.q1 - self.q0
+        self.k0 = self.q0 // g
+        self.k1 = (self.q1 - 1) // g + 1 if self.nq else self.k0
+        # each query head's key/value head among the rank's
+        self.index = [(self.q0 + j) // g - self.k0 for j in range(self.nq)]
+        per = self.nq // max(self.k1 - self.k0, 1)
+        self.even = self.index == [j // per for j in range(self.nq)] \
+            if per else True
+
+    def weights(self, p: dict, grid) -> dict:
+        """``wq`` of the rank's query heads, ``wk``/``wv`` of every
+        key/value head, ``wo``'s rows of the rank's heads (and the norm
+        gains as they are)."""
+        hd, q0, q1 = self.hd, self.q0, self.q1
+        out = dict(p)
+        if self.hq % SH.model_size(grid):
+            out["wq"] = SH.model_gather(p["wq"], grid, 1,
+                                       self.hq * hd)[:, q0 * hd:q1 * hd]
+            out["wo"] = SH.model_gather(p["wo"], grid, 0,
+                                       self.hq * hd)[q0 * hd:q1 * hd]
+        for name in ("wk", "wv"):
+            out[name] = SH.model_gather(p[name], grid, 1, self.hkv * hd)
+        return out
+
+    def kv_of(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` ``(B, Hkv, T, hd)`` of every key/value head → those the
+        rank's query heads read, grouped for GQA."""
+        if self.even:
+            return x[:, self.k0:self.k1]
+        return torch.stack([x[:, self.k0 + i] for i in self.index], 1)
+
+    def all_queries(self, q: torch.Tensor, grid) -> torch.Tensor:
+        """The rank's query heads ``(B, nq, Lq, hd)`` → every rank's, in
+        head order (a gather over ``model`` padded to the largest count)."""
+        m = SH.model_size(grid)
+        if m == 1:
+            return q
+        most = -(-self.hq // m)
+        pad = q.new_zeros((q.shape[0], most) + tuple(q.shape[2:]))
+        pad[:, :self.nq] = q
+        every = SH.model_all(pad, grid, 1)
+        keep = [r * most + j for r in range(m)
+                for j in range(self.hq * (r + 1) // m - self.hq * r // m)]
+        return every[:, keep]
+
+
+def _sp_decode(q: torch.Tensor, cache: dict, pos: int, window: int,
+               softcap: float, grid, heads: _Heads) -> torch.Tensor:
+    """A sequence-parallel decode (flash-decode over the cache's length
+    shards): every query head ``q`` ``(B, Hq, 1, hd)`` attends the rank's
+    shard over the keys it may see (``pos`` and the window's, an explicit
+    range: a shard wholly past ``pos`` or before the window gives ``o =
+    0``, ``lse = -inf``), B6's partials (``ops.attention_partials``),
+    combined over the ranks (``_combine_over_model``).  Returns the rank's
+    heads' output ``(B, nq, 1, hd)``."""
+    slots = cache["k"].shape[2]
+    first = SH.model_index(grid) * slots
+    lo = max(first, pos - window + 1 if window > 0 else 0)
+    hi = min(first + slots, pos + 1)
+    o, lse = ops.attention_partials(q, cache["k"], cache["v"],
+                                    key_lo=lo - first, key_hi=hi - first,
+                                    scale=q.shape[-1] ** -0.5,
+                                    logit_softcap=softcap)
+    return _combine_over_model(o, lse, grid)[:, heads.q0:heads.q1]
+
+
+def _combine_over_model(o: torch.Tensor, lse: torch.Tensor,
+                        grid) -> torch.Tensor:
+    """Every rank's length-shard partial ``(o, lse)`` gathered over
+    ``model`` and combined in rank order (``ops.combine_partials``): the
+    attention over the whole cache, the same bits on every rank."""
+    m = SH.model_size(grid)
+    o_all = SH.model_all(o[None], grid, 0)
+    lse_all = SH.model_all(lse[None], grid, 0)
+    return ops.combine_partials(o_all.reshape((m,) + tuple(o.shape)),
+                                lse_all.reshape((m,) + tuple(lse.shape)))
+
+
+def _write_shard(leaf: torch.Tensor, x: torch.Tensor, first: int,
+                 dim: int) -> None:
+    """Write the positions of ``x`` (from 0, along ``dim``) that fall in
+    the shard of ``leaf`` (its slots hold positions ``first`` on) in
+    place."""
+    n = min(x.shape[dim] - first, leaf.shape[dim])
+    if n > 0:
+        leaf.narrow(dim, 0, n).copy_(x.narrow(dim, first, n))
+
+
 def _attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
                cache: dict, positions: torch.Tensor,
                pos: int | None, grid=None) -> torch.Tensor:
-    """A G or L layer's attention output ``(B, T, Hq·hd)``; fills
+    """A G or L layer's attention output after ``wo`` ``(B, T, D)``; fills
     (prefill) or extends (decode) its KV cache in place, or (train) runs
     the chunked attention with no cache.  On a grid with a ``model`` axis
-    the layer is column-parallel: ``h`` enters through Megatron's ``f``,
-    the rank's weights hold its query and key/value heads, and the
-    output is its heads' ``(B, T, Hq/TP·hd)`` for the row-parallel
-    ``wo``; the replicated qk-norm gains enter through ``f`` too (each
-    ``f`` the identity without one)."""
+    the output is the rank's partial sum (``_block_forward`` reduces it):
+    ``h`` enters through Megatron's ``f``, the rank computes its query
+    heads (``_Heads``) and the key/value heads they read, and ``wo``'s
+    rows of its heads; the replicated qk-norm gains enter through ``f``
+    too (each ``f`` the identity without one).  Where ``model`` divides
+    the heads, the rank's weights hold them and the cache its key/value
+    heads.  Where it does not, the weights are gathered over ``model``
+    (their gradients reduce-scattered back), the cache holds every
+    key/value head over the rank's length shard, which prefill fills,
+    and the decode is sequence-parallel (``_sp_decode``)."""
     hd = cfg.resolved_head_dim
     theta, window = _theta_window(cfg, blk.kind)
-    tp = SH.model_size(grid)
-    n_q, n_kv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    heads = _Heads(cfg, grid)
     h = SH.tp_copy(h, grid)
     # the qk-norm gains act on the rank's heads alone: their gradients
     # are partial sums over model
     p = {k: SH.tp_copy(w, grid) if k.endswith("_norm") else w
          for k, w in blk.attn.items()}
-    q, k, v = L.apply_qkv(p, h, n_q, n_kv, hd,
-                          positions, theta, cfg.qk_norm, cfg.norm_eps)
+    b, t = h.shape[:2]
+    if heads.divided:
+        m = SH.model_size(grid)
+        q, k, v = L.apply_qkv(p, h, cfg.n_heads // m, cfg.n_kv_heads // m,
+                              hd, positions, theta, cfg.qk_norm,
+                              cfg.norm_eps)
+        kv = (k, v)
+    else:
+        p = heads.weights(p, grid)
+        q, k_all, v_all = L.apply_qkv(p, h, heads.nq, heads.hkv, hd,
+                                      positions, theta, cfg.qk_norm,
+                                      cfg.norm_eps)
+        kv = (heads.kv_of(k_all), heads.kv_of(v_all))
     if mode == "train":
         o = L.chunked_causal_attention(
-            q, k, v, window=window, chunk=cfg.attn_chunk,
+            q, *kv, window=window, chunk=cfg.attn_chunk,
             softcap=cfg.logit_softcap,
-            scores_dtype=L.dtype_of(cfg.attn_scores_dtype))
-    elif mode == "decode":
+            scores_dtype=L.dtype_of(cfg.attn_scores_dtype)) \
+            if heads.nq else None
+    elif mode == "decode" and heads.divided:
         # in place: the reference's dynamic_update_slice at pos
-        cache["k"][:, :, pos] = k[:, :, 0]
-        cache["v"][:, :, pos] = v[:, :, 0]
+        cache["k"][:, :, pos] = kv[0][:, :, 0]
+        cache["v"][:, :, pos] = kv[1][:, :, 0]
         o = L.decode_attention(q, cache["k"], cache["v"], pos, window=window,
                                softcap=cfg.logit_softcap)
+    elif mode == "decode":
+        slots = cache["k"].shape[2]
+        first = SH.model_index(grid) * slots
+        if first <= pos < first + slots:
+            cache["k"][:, :, pos - first] = k_all[:, :, 0]
+            cache["v"][:, :, pos - first] = v_all[:, :, 0]
+        o = _sp_decode(heads.all_queries(q, grid), cache, pos, window,
+                       cfg.logit_softcap, grid, heads)
     else:
-        o = L.causal_attention(q, k, v, window=window,
-                               softcap=cfg.logit_softcap)
-        t = k.shape[2]
-        cache["k"][:, :, :t] = k
-        cache["v"][:, :, :t] = v
-    b, t = h.shape[:2]
-    return o.transpose(1, 2).reshape(b, t, n_q * hd)
+        o = L.causal_attention(q, *kv, window=window,
+                               softcap=cfg.logit_softcap) \
+            if heads.nq else None
+        if heads.divided:
+            cache["k"][:, :, :t] = kv[0]
+            cache["v"][:, :, :t] = kv[1]
+        else:
+            first = SH.model_index(grid) * cache["k"].shape[2]
+            _write_shard(cache["k"], k_all, first, 2)
+            _write_shard(cache["v"], v_all, first, 2)
+    return _heads_out(o, q, kv, p["wo"], heads.nq * hd)
+
+
+def _heads_out(o: torch.Tensor | None, q: torch.Tensor, kv: tuple,
+               wo: torch.Tensor, width: int) -> torch.Tensor:
+    """The rank's heads' output ``o`` ``(B, nq, T, hd)`` through its rows
+    of ``wo``.  ``o`` is ``None`` on a rank with no query head (more ranks
+    than heads): a zero partial that keeps the gathered weights in the
+    graph, so that each collective's backward runs on every rank."""
+    b, t = q.shape[0], q.shape[2]
+    if o is None:
+        zero = q.transpose(1, 2).reshape(b, t, 0) @ wo
+        return zero + 0.0 * (kv[0].sum() + kv[1].sum()).to(zero.dtype)
+    return o.transpose(1, 2).reshape(b, t, width) @ wo
 
 
 def _cross_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig, mode: str,
-                     cache: dict, img: torch.Tensor | None) -> torch.Tensor:
+                     cache: dict, img: torch.Tensor | None,
+                     grid=None) -> torch.Tensor:
     """An X layer's gated cross-attention update: no RoPE and no qk-norm,
     full attention over the image tokens' K/V (projected at prefill and
     kept in the cache; in training projected with no cache and attended
     by ``chunked_causal_attention(causal=False)``, the reference's
     ``model.py:276-292``), gated by ``tanh(xattn_gate)`` (float32,
-    cast)."""
-    hd, p = cfg.resolved_head_dim, blk.xattn
+    cast).  On a grid with a ``model`` axis it is the rank's partial sum
+    (``_block_forward`` reduces it): ``h``, the whole image tokens and
+    the gate enter through ``f``, the rank's query heads and the
+    key/value heads they read (``_Heads``; the cache holds those) attend
+    by B6, and ``wo``'s rows of its heads make the partial."""
+    hd = cfg.resolved_head_dim
+    heads = _Heads(cfg, grid)
+    p = dict(blk.xattn) if heads.divided else heads.weights(blk.xattn, grid)
     b, t = h.shape[:2]
-    q = (h @ p["wq"]).reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
+    h = SH.tp_copy(h, grid)
+    q = (h @ p["wq"]).reshape(b, t, heads.nq, hd).transpose(1, 2)
     if mode != "decode":
         if img is None:
             raise ValueError(f"{cfg.name} cross-attends to image tokens: "
                              f"{mode} needs img (B, n_image, d_image)")
+        img = SH.tp_copy(img, grid)
         n = img.shape[1]
-        xk, xv = ((img @ w).reshape(b, n, cfg.n_kv_heads, hd).transpose(1, 2)
-                  for w in (p["wk"], p["wv"]))
+        if heads.divided:
+            xk, xv = ((img @ w).reshape(b, n, -1, hd).transpose(1, 2)
+                      for w in (p["wk"], p["wv"]))
+        else:
+            xk, xv = (heads.kv_of((img @ w).reshape(b, n, heads.hkv, hd)
+                                  .transpose(1, 2))
+                      for w in (p["wk"], p["wv"]))
         if mode == "train":
             o = L.chunked_causal_attention(q, xk, xv, chunk=cfg.attn_chunk,
-                                           causal=False)
+                                           causal=False) \
+                if heads.nq else None
         else:
             cache["xk"], cache["xv"] = xk.contiguous(), xv.contiguous()
     if mode != "train":
-        o = L.cross_attention(q, cache["xk"], cache["xv"])
-    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
-    gate = torch.tanh(blk.xattn_gate.float()).to(h.dtype)
-    return gate * (o @ p["wo"])
+        o = L.cross_attention(q, cache["xk"], cache["xv"]) \
+            if heads.nq else None
+    gate = torch.tanh(SH.tp_copy(blk.xattn_gate, grid).float()).to(h.dtype)
+    kv = (xk, xv) if mode != "decode" else (cache["xk"], cache["xv"])
+    return gate * _heads_out(o, q, kv, p["wo"], heads.nq * hd)
 
 
 def _latent_attention(blk: Block, h: torch.Tensor, cfg: ArchConfig,
                       mode: str, cache: dict, positions: torch.Tensor,
-                      pos: int | None) -> torch.Tensor:
+                      pos: int | None, grid=None) -> torch.Tensor:
     """An M layer's update: at prefill the decompressed attention (B6),
     filling the latent cache; in training the same heads through the
     chunked attention, with no cache; at decode the token's latent and
     rotary key written at slot ``pos`` in place, then the absorbed
-    decode."""
-    theta, eps = cfg.rope_theta, cfg.norm_eps
+    decode.  On a grid with a ``model`` axis it is the rank's partial sum
+    (``_block_forward`` reduces it): the rank's heads' ``wq_b``, ``wk_b``,
+    ``wv_b`` columns and ``wo`` rows, ``h`` and the replicated ``wq_a``,
+    ``wkv_a`` and norm gains through ``f``, the shared rotary key on
+    every rank; the latent cache holds the rank's length shard
+    (``launch.sharding.length_slots``), which prefill fills, and the
+    decode is sequence-parallel (``_latent_sp_decode``; on one device
+    the one shard, ``mla.mla_decode_absorbed``'s bits)."""
+    theta, eps, mc = cfg.rope_theta, cfg.norm_eps, cfg.mla
+    p = {k: SH.tp_copy(w, grid) if k in MLA.REPLICATED else w
+         for k, w in blk.mla.items()}
+    h = SH.tp_copy(h, grid)
+    n_heads = p["wq_b"].shape[1] // (mc.qk_nope_dim + mc.qk_rope_dim)
+    first = 0 if cache is None else SH.model_index(grid) * cache["c"].shape[1]
     if mode == "train":
         return MLA.mla_attention(
-            blk.mla, h, cfg.n_heads, cfg.mla, positions=positions,
+            p, h, n_heads, mc, positions=positions,
             theta=theta, eps=eps, chunk=cfg.attn_chunk,
             scores_dtype=L.dtype_of(cfg.attn_scores_dtype))
     if mode == "prefill":
-        return MLA.mla_attention(blk.mla, h, cfg.n_heads, cfg.mla,
-                                 positions=positions, theta=theta, eps=eps,
-                                 cache=cache)
-    c_new, pe_new = MLA.mla_compress(blk.mla, h, positions, theta, eps)
-    cache["c"][:, pos] = c_new[:, 0]
-    cache["pe"][:, pos] = pe_new[:, 0]
-    return MLA.mla_decode_absorbed(blk.mla, h, cfg.n_heads, cfg.mla,
-                                   c_cache=cache["c"], pe_cache=cache["pe"],
-                                   pos=pos, theta=theta, eps=eps)
+        return MLA.mla_attention(p, h, n_heads, mc, positions=positions,
+                                 theta=theta, eps=eps, cache=cache,
+                                 cache_first=first)
+    c_new, pe_new = MLA.mla_compress(p, h, positions, theta, eps)
+    if first <= pos < first + cache["c"].shape[1]:
+        cache["c"][:, pos - first] = c_new[:, 0]
+        cache["pe"][:, pos - first] = pe_new[:, 0]
+    return _latent_sp_decode(p, h, n_heads, cfg, cache, first, pos, grid)
+
+
+def _latent_sp_decode(p: dict, h: torch.Tensor, n_heads: int,
+                      cfg: ArchConfig, cache: dict, first: int, pos: int,
+                      grid) -> torch.Tensor:
+    """The M layer's absorbed decode over the latent cache's length
+    shards: each rank absorbs ``W^UK`` into its heads' queries, the
+    ``(B, H, r + drope)`` absorbed queries are gathered over ``model``
+    (every rank scores every head; an all-to-all of each rank's heads'
+    partials would be the other layout), each rank scores its shard's
+    visible positions and keeps the float32 partials (the normalized
+    latent sum ``(B, H, r)`` and its log-sum-exp), which are combined over
+    the ranks as B6's are (``_combine_over_model``); each rank then
+    applies its heads' ``W^UV`` and ``wo`` rows: the partial sum."""
+    mc = cfg.mla
+    r = mc.kv_lora_rank
+    positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+    q_lat, q_pe = MLA.absorbed_query(p, h, n_heads, mc, positions,
+                                     cfg.rope_theta, cfg.norm_eps)
+    qa = SH.model_all(torch.cat([q_lat, q_pe], -1), grid, 1)
+    n = max(0, min(cache["c"].shape[1], pos + 1 - first))
+    o, lse = MLA.latent_partials(qa[..., :r], qa[..., r:],
+                                 cache["c"][:, :n], cache["pe"][:, :n],
+                                 (mc.qk_nope_dim + mc.qk_rope_dim) ** -0.5)
+    o_lat = _combine_over_model(o, lse, grid)
+    q0 = SH.head_range(cfg.n_heads, grid)[0]
+    return MLA.absorbed_output(p, o_lat[:, q0:q0 + n_heads].to(h.dtype),
+                               n_heads, mc)
 
 
 def _moe(blk: Block, h: torch.Tensor, cfg: ArchConfig, aux: dict | None,
@@ -524,6 +753,76 @@ def _moe(blk: Block, h: torch.Tensor, cfg: ArchConfig, aux: dict | None,
     return out
 
 
+def _rglru_local(p, cfg: ArchConfig, grid):
+    """The R layer's leaves on the rank and the gather of the conv output
+    its gate products take: on a grid with a ``model`` axis the rank's
+    channels (column blocks of ``w_x``, ``w_gate_in``, ``w_rec_gate``,
+    ``w_in_gate``, row block of ``w_out``; the replicated ``conv_w``,
+    ``conv_b`` and ``lam`` enter through ``f`` and are sliced to them, so
+    their gradients sum over ``model``), the gate products fed the conv
+    output of every channel (``launch.sharding.model_gather``: its
+    backward reduce-scatters).  On one device the leaves and ``None``."""
+    if SH.model_size(grid) == 1:
+        return p, None
+    c0, c1 = SH.head_range(cfg.rglru.lru_width, grid)
+    out = dict(p)
+    for k in ("conv_w", "conv_b", "lam"):
+        out[k] = SH.tp_copy(p[k], grid)[..., c0:c1]
+    return out, lambda xw: SH.model_gather(xw, grid, -1)
+
+
+def _ssd_heads(cfg: ArchConfig, grid) -> tuple[int, int, int, int]:
+    """``(heads, first head, first group, groups)`` of the rank's SSD heads
+    over ``model`` and the B/C groups they read."""
+    s = cfg.ssm
+    total = s.expand * cfg.d_model // s.head_dim
+    h0, h1 = SH.head_range(total, grid)
+    hpg = total // s.n_groups
+    g0 = h0 // hpg
+    return h1 - h0, h0, g0, (h1 - 1) // hpg + 1 - g0
+
+
+def _ssd_local(p, cfg: ArchConfig, grid):
+    """The D layer's leaves on the rank and its gated norm's reduction: on
+    a grid with a ``model`` axis the rank's heads.  The fused ``w_in``
+    ``[z | x | B | C | dt]`` is gathered over ``model`` (its column block
+    does not fall on head boundaries) and re-cut to the heads' ``z``,
+    ``x`` and ``dt`` columns and their groups' ``B`` and ``C``; the
+    replicated ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``
+    and ``out_norm`` enter through ``f`` and are sliced to the rank's
+    channels and heads; ``w_out``'s row block holds the heads' channels.
+    The norm over the whole ``d_inner`` sums its squares over ``model``
+    (``launch.sharding.tp_sum``).  On one device the leaves and
+    ``None``."""
+    if SH.model_size(grid) == 1:
+        return p, None
+    s = cfg.ssm
+    hd, n = s.head_dim, s.state_dim
+    d = s.expand * cfg.d_model
+    total, gn = d // hd, s.n_groups * s.state_dim
+    nh, h0, g0, ng = _ssd_heads(cfg, grid)
+    heads = (h0 * hd, (h0 + nh) * hd)      # the heads' channels of d_inner
+    groups = (g0 * n, (g0 + ng) * n)       # their groups' of B and of C
+
+    def cols(w, *parts):
+        """The columns ``base + lo … base + hi - 1`` of each ``(base, (lo,
+        hi))``, side by side."""
+        return torch.cat([w[..., b + lo:b + hi] for b, (lo, hi) in parts],
+                         -1)
+
+    w_in = SH.model_gather(p["w_in"], grid, 1, 2 * d + 2 * gn + total)
+    out = dict(p)
+    out["w_in"] = cols(w_in, (0, heads), (d, heads), (2 * d, groups),
+                       (2 * d + gn, groups), (2 * d + 2 * gn, (h0, h0 + nh)))
+    for k in ("conv_w", "conv_b"):
+        out[k] = cols(SH.tp_copy(p[k], grid), (0, heads), (d, groups),
+                      (d + gn, groups))
+    for k in ("a_log", "dt_bias", "d_skip"):
+        out[k] = SH.tp_copy(p[k], grid)[h0:h0 + nh]
+    out["out_norm"] = SH.tp_copy(p["out_norm"], grid)[heads[0]:heads[1]]
+    return out, (lambda ss: SH.tp_sum(ss, grid), d)
+
+
 def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
                    cache: dict, positions: torch.Tensor, pos: int | None,
                    img: torch.Tensor | None, aux: dict | None = None,
@@ -531,49 +830,59 @@ def _block_forward(blk: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
     """One layer; fills (prefill) or extends (decode) ``cache`` (none in
     training) and adds a MoE FFN's aux values into ``aux``.  Returns the
     new residual stream.  On a grid, ``blk`` holds the weights gathered
-    over the batch axes (``_gathered_block``) and the attention and MLP
-    are tensor-parallel over ``model``: Megatron's ``f`` in, the
-    row-parallel product's partial sums reduced by ``g`` (both the
-    identity on one device or without a ``model`` axis)."""
+    over the batch axes (``_gathered_block``) and every mixer and the MLP
+    are tensor-parallel over ``model``: Megatron's ``f`` in, the rank's
+    heads or channels, the row-parallel product's partial sums reduced by
+    ``g`` (both the identity on one device or without a ``model``
+    axis)."""
     eps = cfg.norm_eps
     h = L.rms_norm(x, blk.pre_norm, eps)
     if blk.kind in ("G", "L"):
         x = x + SH.tp_reduce(_attention(blk, h, cfg, mode, cache, positions,
-                                        pos, grid) @ blk.attn["wo"], grid)
+                                        pos, grid), grid)
     elif blk.kind == "M":
-        x = x + _latent_attention(blk, h, cfg, mode, cache, positions, pos)
+        x = x + SH.tp_reduce(_latent_attention(blk, h, cfg, mode, cache,
+                                               positions, pos, grid), grid)
     elif blk.kind == "X":
-        x = x + _cross_attention(blk, h, cfg, mode, cache, img)
+        x = x + SH.tp_reduce(_cross_attention(blk, h, cfg, mode, cache, img,
+                                              grid), grid)
     elif blk.kind == "R":
+        p, gather = _rglru_local(blk.rglru, cfg, grid)
+        hr = SH.tp_copy(h, grid)
         if mode == "train":
-            o = RG.rglru_forward(blk.rglru, h, cfg.rglru)
+            o = RG.rglru_forward(p, hr, cfg.rglru, gather=gather)
         else:
             if mode == "decode":
                 o, rec, conv = RG.rglru_decode_step(
-                    blk.rglru, h, cfg.rglru, rec_state=cache["rec"],
-                    conv_state=cache["conv"])
+                    p, hr, cfg.rglru, rec_state=cache["rec"],
+                    conv_state=cache["conv"], gather=gather)
             else:
-                o, rec, conv = RG.rglru_forward(blk.rglru, h, cfg.rglru,
-                                                return_state=True)
+                o, rec, conv = RG.rglru_forward(p, hr, cfg.rglru,
+                                                return_state=True,
+                                                gather=gather)
             # own storage: a prefill's are slices of (B, T, W) activations
             cache["rec"] = rec.contiguous()
             cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
-        x = x + o.to(x.dtype)
+        x = x + SH.tp_reduce(o, grid).to(x.dtype)
     else:
+        p, norm = _ssd_local(blk.ssm, cfg, grid)
+        hs = SH.tp_copy(h, grid)
         if mode == "train":
-            o = SSM.ssd_forward(blk.ssm, h, cfg.ssm, cfg.d_model, eps)
+            o = SSM.ssd_forward(p, hs, cfg.ssm, cfg.d_model, eps, norm=norm)
         else:
             if mode == "decode":
                 o, state, conv = SSM.ssd_decode_step(
-                    blk.ssm, h, cfg.ssm, cfg.d_model, eps,
-                    ssm_state=cache["ssm"], conv_state=cache["conv"])
+                    p, hs, cfg.ssm, cfg.d_model, eps,
+                    ssm_state=cache["ssm"], conv_state=cache["conv"],
+                    norm=norm)
             else:
-                o, state, conv = SSM.ssd_forward(blk.ssm, h, cfg.ssm,
+                o, state, conv = SSM.ssd_forward(p, hs, cfg.ssm,
                                                  cfg.d_model, eps,
-                                                 return_state=True)
+                                                 return_state=True,
+                                                 norm=norm)
             cache["ssm"] = state.to(cache["ssm"].dtype)
             cache["conv"] = conv.to(cache["conv"].dtype).contiguous()
-        x = x + o.to(x.dtype)
+        x = x + SH.tp_reduce(o, grid).to(x.dtype)
     if blk.ffn == "dense":
         hf = SH.tp_copy(L.rms_norm(x, blk.ffn_norm, eps), grid)
         x = x + SH.tp_reduce(L.apply_mlp(blk.mlp, hf), grid)
@@ -647,6 +956,19 @@ def _over_batch(model, name: str, grid) -> torch.Tensor:
     if grid is None:
         return w
     return SH.gather_leaf(w, model.specs[name], grid, SH.batch_axes(grid))
+
+
+def _image_tokens(model, img: torch.Tensor, grid) -> torch.Tensor:
+    """Image embeddings ``(B, n, d_image)`` projected to ``(B, n, D)``:
+    ``img_proj``'s column block gives the rank ``D / m`` channels, which
+    are gathered over ``model`` (``tp_gather``: each X layer takes them
+    through ``f``, so the gradient reaching the gather is whole and it
+    keeps the rank's block)."""
+    out = img @ _over_batch(model, "img_proj", grid)
+    line = SH.model_line(grid)
+    if line is None or out.shape[-1] == model.cfg.d_model:
+        return out
+    return SH.on_line(runtime.tp_gather, out, line, out.dim())
 
 
 def head_of(model, grid=None) -> torch.Tensor:
@@ -798,10 +1120,11 @@ def forward_train(model, tokens: torch.Tensor,
     Under ``launch.sharding.mesh_context(grid)`` ``model`` is a rank's
     sharded decoder (``init_train_params(..., grid=)``) and ``tokens``
     its rows: each layer gathers its weights over the batch axes inside
-    the checkpointed call, the G and L layers and MLPs run
-    tensor-parallel over ``model``, the embedding by vocabulary shard,
-    a MoE FFN by the config's dispatch; the hidden states are the rank's
-    rows, replicated over ``model``, and the aux values global."""
+    the checkpointed call, every mixer and MLP runs tensor-parallel over
+    ``model`` (the rank's heads or channels, ``_block_forward``), the
+    embedding by vocabulary shard, a MoE FFN by the config's dispatch;
+    the hidden states are the rank's rows, replicated over ``model``, and
+    the aux values global."""
     cfg = model.cfg
     if cfg.cross_attn_every and img is None:
         raise ValueError(f"{cfg.name} cross-attends to image tokens: "
@@ -813,7 +1136,7 @@ def forward_train(model, tokens: torch.Tensor,
     x = _embed(view, tokens, grid)
     positions = torch.arange(tokens.shape[1], device=view.device)
     if img is not None:
-        img = img.to(x.dtype) @ _over_batch(view, "img_proj", grid)
+        img = _image_tokens(view, img.to(x.dtype), grid)
     scanned = make_plan(cfg).scanned()
     specs = view.specs
     ep = SH.moe_expert_parallel(cfg, grid)
@@ -850,22 +1173,20 @@ def forward_prefill(model: Decoder, tokens: torch.Tensor, max_len: int,
     each routed to the experts on its own (the aux values then
     ``(route_groups,)``).  Under ``launch.sharding.mesh_context(grid)``
     ``model`` is a rank's sharded decoder and ``tokens`` its rows: the
-    caches hold those rows and the rank's key/value heads (the layout of
-    ``launch.specs._cache_leaf_spec``), each layer gathers its weights
-    over the batch axes, and the G and L layers run B6 on the rank's
-    heads."""
+    caches hold those rows and the rank's part of each leaf
+    (``init_caches``), each layer gathers its weights over the batch
+    axes, and the attention kinds run B6 on the rank's heads."""
     cfg = model.cfg
     b, t = tokens.shape[:2]
     grid = _grid_of(model)
     if grid is not None:
         model = cast_params(model)
-    tp = SH.model_size(grid)
     caches = init_caches(cfg, b, max_len, device=model.device,
-                         dtype=model.dtype, tp=tp)
+                         dtype=model.dtype, grid=grid)
     x = _embed(model, tokens, grid)
     positions = torch.arange(t, device=model.device)
     if img is not None and model.img_proj is not None:
-        img = img.to(x.dtype) @ _over_batch(model, "img_proj", grid)
+        img = _image_tokens(model, img.to(x.dtype), grid)
     ep = SH.moe_expert_parallel(cfg, grid)
     specs = None if grid is None else model.specs
     for blk, cache in zip(model.blocks, caches):
@@ -884,7 +1205,9 @@ def forward_decode(model: Decoder, tokens: torch.Tensor, pos: int,
     latent caches gain slot ``pos`` in place, the recurrent leaves are
     replaced, and the caches are returned.  ``aux`` and ``route_groups``
     are ``forward_prefill``'s.  Under a grid (``forward_prefill``'s) the
-    logits cover the whole vocabulary."""
+    logits cover the whole vocabulary; a cache laid by length makes the
+    attention's decode sequence-parallel (B6's partials on the rank's
+    shard, combined over ``model``)."""
     cfg = model.cfg
     pos = int(pos)
     grid = _grid_of(model)

@@ -47,10 +47,13 @@ def rglru_params(generator: torch.Generator, d_model: int, cfg: RGLRUConfig,
     }
 
 
-def _gates(p, xw: torch.Tensor):
-    """The decay ``a`` and gated input of ``xw`` ``(..., W)``, float32."""
-    r = torch.sigmoid((xw @ p["w_rec_gate"]).float())
-    i = torch.sigmoid((xw @ p["w_in_gate"]).float())
+def _gates(p, xw: torch.Tensor, xw_in: torch.Tensor | None = None):
+    """The decay ``a`` and gated input of ``xw`` ``(..., W)``, float32;
+    the gate products take ``xw_in`` (every channel of a rank's ``xw``
+    over a model axis, whose gate columns the rank holds), else ``xw``."""
+    xin = xw if xw_in is None else xw_in
+    r = torch.sigmoid((xin @ p["w_rec_gate"]).float())
+    i = torch.sigmoid((xin @ p["w_in_gate"]).float())
     log_a = r * (-_C * F.softplus(p["lam"]))          # log σ(Λ)^c · r (< 0)
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -94,15 +97,17 @@ def conv_tail(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def rglru_forward(p, x: torch.Tensor, cfg: RGLRUConfig,
-                  return_state: bool = False):
+                  return_state: bool = False, gather=None):
     """The recurrent block over a sequence: ``x`` ``(B, T, D)`` →
     ``(B, T, D)``; with ``return_state`` also the final recurrent state
     ``(B, W)`` float32 and the conv cache ``(B, K - 1, W)`` (the last
-    pre-conv inputs)."""
+    pre-conv inputs).  Over a model axis ``p`` holds the rank's channels,
+    ``gather`` makes the gate products' input whole and the output is
+    the rank's partial sum."""
     xw_lin = x @ p["w_x"]
     gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")
     xw = _causal_conv(xw_lin, p["conv_w"], p["conv_b"])
-    a, gi = _gates(p, xw)
+    a, gi = _gates(p, xw, None if gather is None else gather(xw))
     h = _linear_scan(a, gi)
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     if return_state:
@@ -111,15 +116,16 @@ def rglru_forward(p, x: torch.Tensor, cfg: RGLRUConfig,
 
 
 def rglru_decode_step(p, x: torch.Tensor, cfg: RGLRUConfig, *,
-                      rec_state: torch.Tensor, conv_state: torch.Tensor):
+                      rec_state: torch.Tensor, conv_state: torch.Tensor,
+                      gather=None):
     """One step: ``x`` ``(B, 1, D)``, ``rec_state`` ``(B, W)`` float32,
     ``conv_state`` ``(B, K - 1, W)`` → ``(out (B, 1, D), rec_state,
-    conv_state)``, new tensors."""
+    conv_state)``, new tensors (``gather`` as ``rglru_forward``'s)."""
     gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")[:, 0]
     xw_lin = (x @ p["w_x"])[:, 0]
     window = torch.cat([conv_state, xw_lin[:, None, :]], dim=1)
     xw = torch.einsum("bkw,kw->bw", window, p["conv_w"]) + p["conv_b"]
-    a, gi = _gates(p, xw)
+    a, gi = _gates(p, xw, None if gather is None else gather(xw))
     rec_state = a * rec_state + gi
     h = rec_state.to(x.dtype) * gate
     return (h @ p["w_out"])[:, None, :], rec_state, window[:, 1:]

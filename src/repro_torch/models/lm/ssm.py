@@ -58,9 +58,13 @@ def ssm_params(generator: torch.Generator, d_model: int, cfg: SSMConfig,
 
 
 def _split_proj(p, x: torch.Tensor, cfg: SSMConfig, d_model: int):
-    d_inner = cfg.expand * d_model
-    h = d_inner // cfg.head_dim
-    g, n = cfg.n_groups, cfg.state_dim
+    """``z``, the conv input ``[x | B | C]`` and ``dt`` of ``x``'s fused
+    projection, with the sizes of the heads ``p`` holds (all of them, or
+    a rank's over a model axis): ``d_inner``, heads, groups, state."""
+    n = cfg.state_dim
+    h = p["a_log"].shape[0]
+    d_inner = h * cfg.head_dim
+    g = (p["conv_w"].shape[1] - d_inner) // (2 * n)
     proj = x @ p["w_in"]
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:2 * d_inner + 2 * g * n]
@@ -90,12 +94,29 @@ def _segsum(log_a: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, -torch.inf)
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
+               eps: float, norm=None) -> torch.Tensor:
+    """``rms_norm(y · silu(z))``; with ``norm`` ``(reduce, d_total)`` the
+    channels are a rank's share of ``d_total``: the sum of squares is
+    ``reduce``d over the ranks before the mean (the same float32 steps
+    otherwise)."""
+    if norm is None:
+        return rms_norm(y * F.silu(z), gamma, eps)
+    reduce, total = norm
+    x = y * F.silu(z)
+    x32 = x.float()
+    var = reduce(x32.square().sum(-1, keepdim=True)) / total
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
+
+
 def ssd_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
-                eps: float, return_state: bool = False):
+                eps: float, return_state: bool = False, norm=None):
     """Chunked SSD over a sequence: ``x`` ``(B, T, D)`` → ``(B, T, D)``
     (float32 in a bfloat16 model, as the reference's promotions give);
     with ``return_state`` also the final state ``(B, H, P, N)`` float32
-    and the conv cache ``(B, K - 1, C)`` (the last pre-conv inputs)."""
+    and the conv cache ``(B, K - 1, C)`` (the last pre-conv inputs).  Over
+    a model axis ``p`` holds the rank's heads (``model._ssd_local``),
+    ``norm`` is ``gated_norm``'s and the output the rank's partial sum."""
     b, t, _ = x.shape
     z, xbc, dt, d_inner, h, g, n = _split_proj(p, x, cfg, d_model)
     hd = cfg.head_dim
@@ -153,7 +174,7 @@ def ssd_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     y = y + xs.reshape(b, nc * q, h, hd)[:, :t] * p["d_skip"][
         None, None, :, None].to(xs.dtype)
     y = y.reshape(b, t, d_inner)
-    y = rms_norm(y * F.silu(z), p["out_norm"], eps)
+    y = gated_norm(y, z, p["out_norm"], eps, norm)
     out = y @ p["w_out"].to(y.dtype)
     if return_state:
         return out, state, tail
@@ -162,7 +183,7 @@ def ssd_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
 
 def ssd_decode_step(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
                     eps: float, *, ssm_state: torch.Tensor,
-                    conv_state: torch.Tensor):
+                    conv_state: torch.Tensor, norm=None):
     """One step: ``x`` ``(B, 1, D)``, ``ssm_state`` ``(B, H, P, N)``,
     ``conv_state`` ``(B, K - 1, C)`` → ``(out (B, 1, D), ssm_state,
     conv_state)``, new tensors in the compute dtype.  A float32 state in
@@ -190,5 +211,5 @@ def ssd_decode_step(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     y = torch.einsum("bhpn,bhn->bhp", ssm_state, c_h.to(st))
     y = y + xs * p["d_skip"][None, :, None].to(xs.dtype)
     y = y.reshape(b, 1, d_inner)
-    y = rms_norm(y * F.silu(z), p["out_norm"], eps)
+    y = gated_norm(y, z, p["out_norm"], eps, norm)
     return y @ p["w_out"].to(y.dtype), ssm_state, window[:, 1:]

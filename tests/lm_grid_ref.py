@@ -18,12 +18,16 @@ JAX starts):
 * ``{"kind": "moe_global", "moe", "x", "weights", "cotangent"}`` — the
   same of the one-device ``apply_moe`` (GSPMD's global routing).
 
-``OUT.pkl`` receives one result a cell, numpy.
+``OUT.pkl`` receives one result a cell, numpy.  With ``LM_GRID_CPUS``
+(a comma-separated list) set, the process runs on those CPUs alone.
 """
 import os
 import pickle
 import sys
 
+if os.environ.get("LM_GRID_CPUS"):
+    os.sched_setaffinity(0, [int(c) for c in
+                             os.environ["LM_GRID_CPUS"].split(",")])
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=4")
 

@@ -7,10 +7,11 @@
   (the filters, ``generate``, ``smc_decode``, the session server, the
   serve and train launchers); ``forward_train`` runs every registered
   arch's smoke model (every layer kind, MoE FFNs with their aux values,
-  the codebook head); what still raises is ``launch.train --devices N``
-  for what the grid cannot run yet (ROADMAP A13 part b: the M, X, R and
-  D kinds over a ``model`` axis, key/value heads the axis does not
-  divide) and the flash-attention kernel on inputs that require grad,
+  the codebook head); what still raises is ``launch.train``'s grid check
+  (``check_grid``, run before any rank starts) for what the grid cannot
+  run yet (ROADMAP A13 part b item c: a weight whose ``model`` split
+  ``fit_spec`` drops) and the flash-attention kernel on inputs that
+  require grad,
   before it plans anything; the serving slice's modules exist and
   import neither ``jax`` nor the reference; ARNA, butterfly,
   ``domain=``, a bank over a mesh and ``bank_axis`` build and run, and
@@ -317,9 +318,11 @@ def test_sliding_window_training_and_sessions_raise():
     every registered arch's smoke model, frozen or trainable, with
     finite hidden states (and MoE aux values where there are MoE
     layers), and with a one-key window the training attention returns
-    ``v`` too.  What still raises: ``launch.train --devices N`` for what
-    the grid cannot run yet (ROADMAP A13 part b: here the M kind over a
-    ``model`` axis) and the flash kernel on inputs that require grad."""
+    ``v`` too.  What still raises: ``launch.train.check_grid`` (which
+    ``launch.train --devices N`` runs before any rank starts) for what
+    the grid cannot run yet (ROADMAP A13 part b item c: here the M
+    kind's arch, whose smoke vocabulary of 256 a ``model`` axis of 3 does
+    not divide) and the flash kernel on inputs that require grad."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.launch import train
@@ -350,9 +353,9 @@ def test_sliding_window_training_and_sessions_raise():
             assert bool(aux) == moe, arch
             assert all(torch.isfinite(v.float()).all() for v in aux.values())
     assert not hasattr(lm, "check_trainable")
-    with pytest.raises(SystemExit, match="ROADMAP A13 part b"):
-        train.main(["--smoke", "--arch", "deepseek-v2-236b", "--devices",
-                    "4", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP A13 part b item c"):
+        train.check_grid("deepseek-v2-236b", True, (1, 3),
+                         ("data", "model"))
     qg = q.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_kernel(qg, k, v)
@@ -431,17 +434,16 @@ def test_attention_kernel_refuses_grad_before_planning(which):
 def test_train_launcher_defaults_to_cuda(monkeypatch):
     """The train launcher runs on the card unless told ``cpu``, and fails
     without one, with ``--devices N`` too; a grid it cannot run yet exits
-    before any rank starts (ROADMAP A13 part b: granite-34b's one
-    key/value head over a ``model`` axis of 2)."""
+    in ``check_grid``, before any rank starts (ROADMAP A13 part b item c:
+    granite-34b's smoke vocabulary of 256 over a ``model`` axis of 3)."""
     from repro_torch.launch import train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         train.main(["--smoke", "--steps", "1"])
     with pytest.raises(SystemExit, match="CUDA"):
         train.main(["--smoke", "--steps", "1", "--devices", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP A13 part b"):
-        train.main(["--smoke", "--arch", "granite-34b", "--devices", "4",
-                    "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP A13 part b item c"):
+        train.check_grid("granite-34b", True, (1, 3), ("data", "model"))
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)

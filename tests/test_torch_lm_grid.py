@@ -27,9 +27,9 @@ the reference computed live.
 * Elastic resume: a checkpoint written on ``(2, 2)`` restores onto a
   ``(4,)`` grid and onto one device with every full tensor the same
   bits.
-* The raises: the M, X, R and D kinds over a ``model`` axis, key/value
-  heads that ``model`` does not divide (qwen3's smoke config at 4), a
-  decoder's blocks for another grid.
+* The raises: what the grid cannot run yet (ROADMAP A13 part b item c:
+  a weight whose ``model`` split ``fit_spec`` drops), a decoder's
+  blocks for another grid.
 """
 import dataclasses
 import math
@@ -257,20 +257,22 @@ def test_elastic_resume_onto_a_line_and_one_device(grid_runs):
             assert torch.equal(state[k][n], got[k][n]), (k, n)
 
 
-@pytest.mark.parametrize("arch,shape,match", [
-    ("deepseek-v2-236b", (2, 2), "A13 part b"),
-    ("recurrentgemma-2b", (1, 2), "A13 part b"),
-    ("mamba2-1.3b", (2, 2), "A13 part b"),
-    ("llama-3.2-vision-11b", (1, 2), "A13 part b"),
-    ("qwen3-32b", (1, 4), "A13 part b"),
+@pytest.mark.parametrize("arch,smoke,shape,match", [
+    ("deepseek-v2-236b", True, (2, 3), "A13 part b item c"),
+    ("recurrentgemma-2b", True, (1, 3), "A13 part b item c"),
+    ("mamba2-1.3b", False, (2, 16), "A13 part b item c"),
+    ("llama-3.2-vision-11b", True, (1, 3), "A13 part b item c"),
+    ("qwen3-32b", True, (1, 6), "A13 part b item c"),
 ])
-def test_unsupported_layouts_raise_before_any_work(arch, shape, match):
-    """A kind other than G and L over a ``model`` axis, or key/value heads
-    the axis does not divide (qwen3's 2 over 4: its 32 columns would
-    split 8 a rank), raise ``ValueError`` before a weight is drawn; over a
-    data axis alone every arch builds."""
+def test_unsupported_layouts_raise_before_any_work(arch, smoke, shape,
+                                                   match):
+    """A weight whose ``model`` split ``fit_spec`` drops (ROADMAP A13 part
+    b item c: the smoke configs' vocabulary of 256 and width of 64 over a
+    ``model`` axis of 3 or 6, mamba2's vocabulary of 50280 over 16)
+    raises ``ValueError`` before a weight is drawn; over a data axis
+    alone every arch builds."""
     from repro_torch.configs import get_config as tget
-    cfg = tget(arch, smoke=True)
+    cfg = tget(arch, smoke=smoke)
     grid = make_mesh(shape, ("data", "model"))
     with pytest.raises(ValueError, match=match):
         sharding.check_supported(cfg, grid)
